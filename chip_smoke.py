@@ -1,0 +1,455 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py    # full llama3.2-3b, all 28 layers
+
+Phases, each printed on lines of its own; any failure raises and the exit
+code is non-zero:
+
+1. card      the ``nvidia-smi`` name and power limit line;
+2. build     nvcc builds every kernel from ``src/repro_torch/csrc`` (timed);
+3. kernels   each kernel against its plain PyTorch version at the main
+             path's leaf shapes (B = 1, 4 and the prefill row count) and the
+             reference's kernel sweep, with bf16 and f32 inputs: max error
+             against the tolerance (2e-4 for both: kernel and plain version
+             widen the same inputs to f32 and differ only in summation
+             order), kernel time, plain time, the byte /
+             operation bound and ``library_ms`` (``torch.matmul`` of bf16 x
+             against the pre-dequantized bf16 weight, the paper's cuBLAS
+             baseline, timed here only);
+4. main path full-width llama3.2-3b with random weights from a seed:
+             ``quantize_params`` (q=4, g=128, bcq) on the card, ``Engine``
+             with fused QKV / gate-up, ``generate`` for 4 prompts batched,
+             once per request as ``--sequential`` serves them, and batched
+             again with every quantized linear on the paper's LUT kernel;
+             launch counts are read around exactly that run. Then its logits
+             are held against the same engine under ``impl_mode("ref")``;
+5. one JSON line listing every kernel, its launches and its numbers;
+6. last line ``{"ok": true, "device": {...}}``.
+
+Timing: repeated calls after warm-up are captured in a CUDA graph and timed
+with CUDA events around its replay (median of 7), so a time is the device's
+and not the host's per-call cost. Weight copies
+are rotated so that repeated launches read weights from device memory, not
+from the 50 MB L2, as a decode step does. Phase 4 also traces one batched
+``generate`` with ``torch.profiler`` for the device's busy time by kernel.
+
+It needs a CUDA GPU and the repository's ``src/`` beside it; without either
+it exits non-zero before printing any result. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM data-sheet peaks (dense): HBM rate, f32 CUDA-core and bf16
+# tensor-core rates
+MEM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# kernel vs its plain version, rtol = atol, for f32 and bf16 inputs alike: both
+# sides widen the same x and scales to f32 and accumulate in f32
+KERNEL_TOL = 2e-4
+LOGITS_REL_TOL = 3e-2  # engine vs ref oracle, bf16 model: max|Δ| / max|ref|
+
+Q, G = 4, 128
+PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 16, 16
+# (leaf, k, o, fused out_dims or None) of llama3.2-3b
+LEAVES = {
+    "wqkv": (3072, 5120, (3072, 1024, 1024)),
+    "wo": (3072, 3072, None),
+    "w_gate_up": (3072, 16384, (8192, 8192)),
+    "w_down": (8192, 3072, None),
+    "lm_head": (3072, 128256, None),
+}
+SWEEP = [  # (B, k, o, q, g): the reference's kernel sweep
+    (1, 512, 256, 2, 64),
+    (8, 512, 128, 4, 512),
+    (8, 1024, 256, 3, 128),
+    (16, 512, 384, 1, 8),
+    (4, 1024, 128, 5, 1024),
+    (2, 2048, 256, 2, 2048),
+]
+KERNELS = {
+    "bcq_mm": ("csrc/bcq_mm.cu", "src/repro/kernels/bcq_mm.py:138", ("wo", "w_down", "lm_head")),
+    "bcq_mm_fused": ("csrc/bcq_mm.cu", "src/repro/kernels/bcq_mm_fused.py:63", ("wqkv", "w_gate_up")),
+    "lutgemm": ("csrc/lutgemm.cu", "src/repro/kernels/lutgemm.py:149", tuple(LEAVES)),
+}
+L2_BYTES = 50 * 2**20
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def _calls(fn, args_list, inner):
+    """Run ``inner`` calls of ``fn``, cycling through ``args_list``."""
+    for i in range(inner):
+        fn(*args_list[i % len(args_list)])
+
+
+def _median_event_ms(run, inner, reps):
+    """Median over ``reps`` of CUDA-event time around ``run()``, over ``inner``."""
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        run()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e) / inner)
+    return statistics.median(times)
+
+
+def time_ms(fn, args_list, *, reps=7, inner=None):
+    """Time of one call of ``fn`` after warm-up, cycling through ``args_list``
+    (rotated weight copies). ``inner`` calls are captured once in a CUDA graph
+    and its replays are timed: the device's time, without the host's per-call
+    cost (Python, ctypes, allocator), which at decode shapes can exceed the
+    kernel's."""
+    inner = inner or max(len(args_list), 5)
+    _calls(fn, args_list[:3], min(3, len(args_list)))  # lazy attributes, library handles
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        _calls(fn, args_list, inner)
+    g.replay()
+    torch.cuda.synchronize()
+    return _median_event_ms(g.replay, inner, reps)
+
+
+def n_copies(nbytes):
+    return max(1, min(32, math.ceil(2.5 * L2_BYTES / max(nbytes, 1))))
+
+
+def check_kernel(name, fn, plain, B, k, o, q, g, dtype, gen, out_dims=None):
+    """One kernel vs its plain version at one shape → record dict."""
+    from repro_torch.kernels import bcq_mm_plain
+
+    dev = torch.device("cuda")
+    x = torch.randn((B, k), generator=gen, device=dev).to(dtype)
+    wbytes = q * (k // 8) * o + q * (k // g) * o * x.element_size()
+    weights = []
+    for _ in range(n_copies(wbytes)):
+        packed = torch.randint(0, 256, (q, k // 8, o), generator=gen, device=dev, dtype=torch.uint8)
+        scales = (torch.rand((q, k // g, o), generator=gen, device=dev) + 0.5) / math.sqrt(k * q)
+        weights.append((packed, scales.to(dtype)))
+    packed, scales = weights[0]
+    call = (lambda p, s: fn(x, p, s, g=g, out_dims=out_dims)) if out_dims else (lambda p, s: fn(x, p, s, g=g))
+    y = call(packed, scales)
+    y = torch.cat(y, dim=-1) if out_dims else y
+    torch.cuda.synchronize()
+    ref = plain(x, packed, scales, g=g)
+    err = (y - ref).abs().max().item()
+    tol = KERNEL_TOL
+    ok = bool(torch.allclose(y, ref, rtol=tol, atol=tol)) and bool(torch.isfinite(y).all())
+    ms = time_ms(call, weights)
+    plain_ms = time_ms(lambda p, s: plain(x, p, s, g=g), [(packed, scales)], reps=3, inner=2)
+    # library yardstick: bf16 x @ pre-dequantized bf16 weight
+    w16 = bcq_mm_plain(torch.eye(k, device=dev), packed, scales, g=g).to(torch.bfloat16)
+    x16 = x.to(torch.bfloat16)
+    lib_ws = [(w16,)] + [(w16.clone(),) for _ in range(n_copies(w16.numel() * 2) - 1)]
+    library_ms = time_ms(lambda w: torch.matmul(x16, w), lib_ws)
+    del lib_ws, w16
+    nbytes = x.numel() * x.element_size() + wbytes + B * o * 4
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * B * k * o / PEAK_OPS[dtype] * 1e3
+    rec = dict(
+        kernel=name, B=B, k=k, o=o, q=q, g=g, dtype=str(dtype).replace("torch.", ""),
+        max_abs_err=err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+    log(
+        f"  {name:13s} B={B:<3d} k={k:<5d} o={o:<6d} q={q} g={g:<4d} {rec['dtype']:8s} "
+        f"err {err:.2e} (tol {tol:g}) {'ok' if ok else 'FAIL'}  ms {ms:.4f}  "
+        f"plain {plain_ms:.4f}  bound {rec['bound_ms']:.4f} ({rec['bound_by']})  library {library_ms:.4f}"
+    )
+    return rec
+
+
+def phase_kernels(gen):
+    from repro_torch.kernels import bcq_mm, bcq_mm_fused, bcq_mm_plain, lutgemm, lutgemm_plain
+
+    fns = {"bcq_mm": (bcq_mm, bcq_mm_plain), "bcq_mm_fused": (bcq_mm_fused, bcq_mm_plain),
+           "lutgemm": (lutgemm, lutgemm_plain)}
+    records = []
+    prefill_rows = PROMPTS * PROMPT_LEN
+    for name, (_, _, leaves) in KERNELS.items():
+        fn, plain = fns[name]
+        for leaf in leaves:
+            k, o, dims = LEAVES[leaf]
+            for B in (1, PROMPTS, prefill_rows):
+                for dtype in (torch.bfloat16, torch.float32):
+                    out_dims = dims if name == "bcq_mm_fused" else None
+                    rec = check_kernel(name, fn, plain, B, k, o, Q, G, dtype, gen, out_dims)
+                    rec["leaf"] = leaf
+                    records.append(rec)
+        for B, k, o, q, g in SWEEP:
+            for dtype in (torch.bfloat16, torch.float32):
+                out_dims = (o // 2, o - o // 2) if name == "bcq_mm_fused" else None
+                rec = check_kernel(name, fn, plain, B, k, o, q, g, dtype, gen, out_dims)
+                rec["leaf"] = "sweep"
+                records.append(rec)
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: {len(bad)} kernel checks disagree with their plain versions: {bad[:3]}")
+    return records
+
+
+def phase_main_path():
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.infer import Engine
+    from repro_torch.kernels import impl_mode, launch_counts, qmatmul, reset_launch_counts
+    from repro_torch.launch.serve import build_requests, drive_sequential
+    from repro_torch.models import init_params
+    from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
+
+    cfg = get_config("llama3.2-3b")
+    log(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, layers {cfg.n_layers}, {cfg.param_dtype}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dense_bytes = quantized_bytes(params)
+    t1 = time.perf_counter()
+    qparams = quantize_params(params, QuantPolicy(q=Q, g=G, iters=4), device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del params
+    log(f"  init {t1 - t0:.1f}s ({dense_bytes / 1e9:.3f} GB dense), quantize_params "
+        f"{t2 - t1:.1f}s ({quantized_bytes(qparams) / 1e9:.3f} GB packed)")
+    engine = Engine(cfg, qparams, max_seq=PROMPT_LEN + NEW_TOKENS + 8, device="cuda")
+    del qparams
+    reqs = build_requests(cfg, PROMPTS, PROMPT_LEN, NEW_TOKENS, mixed_temperature=False)
+    prompts = np.stack([r.prompt for r in reqs])
+    engine.generate(prompts, 2)  # warm-up: library handles, allocator
+
+    reset_launch_counts()
+    ref0 = qmatmul.ref_calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = engine.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    seq_outs, t_seq = drive_sequential(engine, reqs, np.zeros(len(reqs)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with impl_mode("lutgemm"):
+        lut = engine.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    t_lut = time.perf_counter() - t0
+    counts = launch_counts()
+    ref_calls = qmatmul.ref_calls - ref0
+
+    n_tok = PROMPTS * NEW_TOKENS
+    log(f"  generate batched ({PROMPTS}x{PROMPT_LEN} + {NEW_TOKENS}): {t_batched:.3f}s, "
+        f"{n_tok / t_batched:.1f} tok/s")
+    log(f"  generate sequential ({PROMPTS} requests): {t_seq:.3f}s, {n_tok / t_seq:.1f} tok/s")
+    log(f"  generate batched on lutgemm: {t_lut:.3f}s, {n_tok / t_lut:.1f} tok/s")
+    log(f"  launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
+
+    L = cfg.n_layers
+    forwards = 1 + NEW_TOKENS  # prefill + one forward per sampled token
+    expect = {
+        "bcq_mm": (1 + PROMPTS) * forwards * (2 * L + 1),
+        "bcq_mm_fused": (1 + PROMPTS) * forwards * 2 * L,
+        "lutgemm": forwards * (4 * L + 1),
+    }
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: launch counts {counts} != expected {expect}")
+    if ref_calls:
+        raise SystemExit(f"chip_smoke: the main path took the ref oracle {ref_calls} times")
+
+    for res in [batched, lut, *seq_outs]:
+        if res.tokens.shape[1] != PROMPT_LEN + NEW_TOKENS or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab)
+        ).all():
+            raise SystemExit(f"chip_smoke: bad generated tokens {res.tokens.shape}")
+    seq_tokens = np.concatenate([o.tokens for o in seq_outs])
+    log(f"  greedy rows identical, batched vs sequential: "
+        f"{int((seq_tokens == batched.tokens).all(axis=1).sum())}/{PROMPTS}; "
+        f"bcq_mm vs lutgemm: {int((lut.tokens == batched.tokens).all(axis=1).sum())}/{PROMPTS}")
+
+    # logits: kernel engine vs the same engine on the ref oracle (prefill + one step)
+    ref_logits = step_logits(engine, prompts, "ref")
+    scale = ref_logits.abs().max().item()
+    worst = 0.0
+    for mode in (None, "lutgemm"):
+        got = step_logits(engine, prompts, mode)
+        if not torch.isfinite(got).all():
+            raise SystemExit(f"chip_smoke: non-finite logits ({mode or 'auto'})")
+        err = (got - ref_logits).abs().max().item()
+        agree = (got.argmax(-1) == ref_logits.argmax(-1)).float().mean().item()
+        log(f"  logits {mode or 'auto (bcq_mm)'} vs ref: max|d| {err:.4e} of max|ref| {scale:.3f} "
+            f"(tol {LOGITS_REL_TOL:g} relative), top-1 agreement {agree:.3f}")
+        worst = max(worst, err / scale)
+    if not worst <= LOGITS_REL_TOL:
+        raise SystemExit(f"chip_smoke: engine logits differ from the ref oracle by {worst:.3e} relative")
+    small_model_check()
+    profile = profile_generate(engine, prompts, t_batched)
+    return counts, cfg, profile
+
+
+def step_logits(engine, prompts, mode):
+    """Prefill and one decode step's logits ``(2, B, V)`` under ``impl_mode(mode)``."""
+    from repro_torch.kernels import impl_mode
+
+    with impl_mode(mode):
+        toks = torch.as_tensor(prompts, device="cuda", dtype=torch.long)
+        l0, cache = engine.prefill(toks, engine._make_cache(len(prompts)))
+        l1, _ = engine.decode(toks[:, -1:], cache, toks.shape[1])
+    return torch.stack([l0, l1])
+
+
+def small_model_check():
+    """The engine's kernel paths against its ref-oracle path on the serve
+    launcher's reduced f32 llama3.2-3b, within the kernels' f32 tolerance:
+    in f32 nothing but summation order separates them, while the full-width
+    bf16 model above also rounds activations differently at every layer."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.infer import Engine
+    from repro_torch.models import init_params, reduced
+    from repro_torch.quant import QuantPolicy, quantize_params
+
+    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512)
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), QuantPolicy(q=Q, g=G, iters=2),
+                             device="cuda")
+    engine = Engine(cfg, params, max_seq=32, device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(3, 8))
+    ref = step_logits(engine, prompts, "ref")
+    tol = KERNEL_TOL
+    for mode in (None, "lutgemm"):
+        got = step_logits(engine, prompts, mode)
+        err = (got - ref).abs().max().item()
+        ok = bool(torch.allclose(got, ref, rtol=tol, atol=tol))
+        log(f"  reduced f32 model ({cfg.n_layers} layers, d_model {cfg.d_model}): logits "
+            f"{mode or 'auto (bcq_mm)'} vs ref max|d| {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: reduced-model logits ({mode or 'auto'}) differ from the ref oracle")
+
+
+def profile_generate(engine, prompts, untraced_s):
+    """Device busy time by kernel over one batched ``generate``, traced with
+    ``torch.profiler`` (CUDA activity only, which slows the host least)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+    device_ms = sum(by_name.values()) / 1e3
+    if not device_ms:
+        log("  profile: torch.profiler recorded no device time; busy share not measured")
+        return None
+    ours_ms = sum(us for name, us in by_name.items() if "bcq_mm_kernel" in name) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"  profile of one batched generate: device busy {device_ms:.2f} ms of {traced_s * 1e3:.2f} ms "
+        f"traced wall ({device_ms / (traced_s * 1e3):.1%}; untraced wall {untraced_s * 1e3:.2f} ms), "
+        f"bcq_mm kernels {ours_ms:.2f} ms")
+    for name, us in top:
+        log(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+    return dict(device_ms=device_ms, traced_wall_ms=traced_s * 1e3, untraced_wall_ms=untraced_s * 1e3,
+                bcq_mm_kernels_ms=ours_ms, top=[[name, us / 1e3] for name, us in top])
+
+
+def kernels_line(records, counts, n_layers):
+    """Per kernel: its launches in the main-path run and, in bf16 at the
+    batched decode width, its time summed over one decode step's launches."""
+    out = []
+    per_step = {"bcq_mm": {"wo": n_layers, "w_down": n_layers, "lm_head": 1},
+                "bcq_mm_fused": {"wqkv": n_layers, "w_gate_up": n_layers},
+                "lutgemm": {"wqkv": n_layers, "wo": n_layers, "w_gate_up": n_layers,
+                            "w_down": n_layers, "lm_head": 1}}
+    for name, (src, replaces, _) in KERNELS.items():
+        rs = [r for r in records if r["kernel"] == name]
+        step = [(r, per_step[name][r["leaf"]]) for r in rs
+                if r["leaf"] in per_step[name] and r["B"] == PROMPTS and r["dtype"] == "bfloat16"]
+        total = lambda key: sum(r[key] * n for r, n in step)  # noqa: E731
+        out.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/{src}", replaces=replaces,
+            launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in rs),
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
+            library_ms=total("library_ms"),
+        ))
+    return {"kernels": out}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    log("[1/5] card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(card)
+    log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
+
+    log("[2/5] build")
+    t0 = time.perf_counter()
+    paths = _build.build()
+    log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
+    for name in paths:
+        for line in _build.build_log(name).splitlines():
+            quiet = line.strip().startswith("0 bytes stack frame, 0 bytes spill stores")
+            if "registers" in line or ("spill" in line and not quiet):
+                log(f"  {name}: {line.strip()}")
+
+    log("[3/5] kernels against their plain versions")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    records = phase_kernels(gen)
+
+    log("[4/5] main path")
+    counts, cfg, profile = phase_main_path()
+
+    log("[5/5] kernels")
+    line = kernels_line(records, counts, cfg.n_layers)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "layers": cfg.n_layers, "records": records, "profile": profile, **line},
+        indent=1))
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

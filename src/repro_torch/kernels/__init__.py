@@ -1,0 +1,58 @@
+"""Hand-written CUDA kernels for LUT-GEMM on Hopper, their plain PyTorch
+versions, and the quantized-matmul dispatch.
+
+- ``bcq_mm.py``       packed BCQ matmul, sign bits expanded in registers
+- ``bcq_mm_fused.py`` the same kernel over fused QKV / gate-up projections
+- ``lutgemm.py``      the paper's LUT kernel (shared-memory tables)
+- ``_build.py``       nvcc build of ``csrc/*.cu`` at first use, ctypes loading
+- ``ops.py``          ``qmatmul`` format dispatch, ``linear``, ``impl_mode``
+- ``ref.py``          oracles
+
+Importing this package needs neither ``nvcc`` nor a GPU.
+"""
+
+from repro_torch.kernels.bcq_mm import bcq_mm, bcq_mm_plain
+from repro_torch.kernels.bcq_mm_fused import bcq_mm_fused
+from repro_torch.kernels.lutgemm import lutgemm, lutgemm_plain
+from repro_torch.kernels.ops import (
+    impl_mode,
+    linear,
+    linear_fused,
+    qmatmul,
+    quantized_matmul,
+    quantized_matmul_fused,
+)
+from repro_torch.kernels.ref import bcq_mm_ref, lutgemm_tablewise_ref
+
+KERNEL_WRAPPERS = (bcq_mm, bcq_mm_fused, lutgemm)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Kernel wrapper name → launches since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+__all__ = [
+    "KERNEL_WRAPPERS",
+    "bcq_mm",
+    "bcq_mm_fused",
+    "bcq_mm_plain",
+    "bcq_mm_ref",
+    "impl_mode",
+    "launch_counts",
+    "linear",
+    "linear_fused",
+    "lutgemm",
+    "lutgemm_plain",
+    "lutgemm_tablewise_ref",
+    "qmatmul",
+    "quantized_matmul",
+    "quantized_matmul_fused",
+    "reset_launch_counts",
+]

@@ -1,0 +1,117 @@
+"""The port's hand-written CUDA kernels on the GPU, against their plain
+PyTorch versions, and the engine's kernel path against its ref-oracle path.
+
+Every test here needs a CUDA GPU and skips without one. The file imports
+nothing of JAX, so it also runs where JAX is not installed; there, run it
+without the suite's conftest (which imports JAX):
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerance: rtol = atol = 2e-4 for f32 and bf16 inputs alike. A kernel and
+its plain version widen the same x and scales to f32 and accumulate in f32,
+so only the order of summation separates them.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.infer import Engine
+from repro_torch.kernels import (
+    bcq_mm,
+    bcq_mm_fused,
+    bcq_mm_plain,
+    impl_mode,
+    launch_counts,
+    lutgemm,
+    lutgemm_plain,
+    reset_launch_counts,
+)
+from repro_torch.models import init_params, reduced
+from repro_torch.quant import QuantPolicy, quantize_params
+
+pytestmark = pytest.mark.needs_cuda
+
+SHAPES = [  # (B, k, o, q, g): the reference's sweep, a ragged case, a prefill case,
+    # and a wide-k, narrow-o case that splits k across the most blocks
+    (1, 512, 256, 2, 64),
+    (8, 512, 128, 4, 512),
+    (8, 1024, 256, 3, 128),
+    (16, 512, 384, 1, 8),
+    (4, 1024, 128, 5, 1024),
+    (2, 2048, 256, 2, 2048),
+    (3, 768, 200, 3, 96),
+    (64, 3072, 5120, 4, 128),
+    (1, 16384, 256, 4, 128),
+]
+TOL = 2e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the hand-written kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,k,o,q,g", SHAPES)
+def test_kernels_match_plain(cuda, B, k, o, q, g, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B * 7 + k + o)
+    x = torch.randn((B, k), generator=gen, device=cuda).to(dtype)
+    packed = torch.randint(0, 256, (q, k // 8, o), generator=gen, device=cuda, dtype=torch.uint8)
+    scales = ((torch.rand((q, k // g, o), generator=gen, device=cuda) + 0.5) / np.sqrt(k * q)).to(dtype)
+    want = bcq_mm_plain(x, packed, scales, g=g)
+    torch.testing.assert_close(lutgemm_plain(x, packed, scales, g=g), want, rtol=TOL, atol=TOL)
+    reset_launch_counts()
+    for fn in (bcq_mm, lutgemm):
+        got = fn(x, packed, scales, g=g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    half = o // 2
+    parts = bcq_mm_fused(x, packed, scales, g=g, out_dims=(half, o - half))
+    torch.testing.assert_close(torch.cat(parts, -1), want, rtol=TOL, atol=TOL)
+    assert launch_counts() == {"bcq_mm": 1, "bcq_mm_fused": 1, "lutgemm": 1}
+    # deterministic: no atomics, fixed reduction order
+    torch.testing.assert_close(bcq_mm(x, packed, scales, g=g), bcq_mm(x, packed, scales, g=g), rtol=0, atol=0)
+    torch.testing.assert_close(lutgemm(x, packed, scales, g=g), lutgemm(x, packed, scales, g=g), rtol=0, atol=0)
+
+
+def test_kernels_raise_on_mixed_devices(cuda):
+    x = torch.randn((2, 256), device=cuda)
+    packed = torch.zeros((2, 32, 128), dtype=torch.uint8)
+    scales = torch.ones((2, 4, 128))
+    for fn in (bcq_mm, lutgemm):
+        with pytest.raises(ValueError, match="devices"):
+            fn(x, packed, scales, g=64)
+
+
+def test_engine_kernel_path_matches_ref_path(cuda):
+    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512)
+    params = quantize_params(
+        init_params(cfg, seed=0, device=cuda), QuantPolicy(q=4, g=128, iters=2), device=cuda
+    )
+    eng = Engine(cfg, params, max_seq=32, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(3, 8))
+    toks = torch.as_tensor(prompts, device=cuda)
+
+    def logits(mode):
+        with impl_mode(mode):
+            cache = eng._make_cache(3)
+            l0, cache = eng.prefill(toks, cache)
+            l1, _ = eng.decode(toks[:, -1:], cache, 8)
+        return torch.stack([l0, l1])
+
+    reset_launch_counts()
+    got = logits(None)
+    assert launch_counts()["bcq_mm"] == 2 * (2 * cfg.n_layers + 1)
+    assert launch_counts()["bcq_mm_fused"] == 2 * 2 * cfg.n_layers
+    want = logits("ref")
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(logits("lutgemm"), want, rtol=2e-4, atol=2e-4)
+
+    a = eng.generate(prompts, 6, temperature=0.7, seed=3, scan=True)
+    b = eng.generate(prompts, 6, temperature=0.7, seed=3, scan=False)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
