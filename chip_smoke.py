@@ -1,29 +1,40 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py    # full llama3.2-3b, all 28 layers
+    python3 chip_smoke.py    # full llama3.2-3b, all 28 layers, every format
 
 Phases, each printed on lines of its own; any failure raises and the exit
 code is non-zero:
 
 1. card      the ``nvidia-smi`` name and power limit line;
-2. build     nvcc builds every kernel from ``src/repro_torch/csrc`` (timed);
-3. kernels   each kernel against its plain PyTorch version at the main
-             path's leaf shapes (B = 1, 4 and the prefill row count) and the
-             reference's kernel sweep, with bf16 and f32 inputs: max error
-             against the tolerance (2e-4 for both: kernel and plain version
-             widen the same inputs to f32 and differ only in summation
-             order), kernel time, plain time, the byte /
-             operation bound and ``library_ms`` (``torch.matmul`` of bf16 x
-             against the pre-dequantized bf16 weight, the paper's cuBLAS
-             baseline, timed here only);
-4. main path full-width llama3.2-3b with random weights from a seed:
-             ``quantize_params`` (q=4, g=128, bcq) on the card, ``Engine``
-             with fused QKV / gate-up, ``generate`` for 4 prompts batched,
-             once per request as ``--sequential`` serves them, and batched
-             again with every quantized linear on the paper's LUT kernel;
-             launch counts are read around exactly that run. Then its logits
-             are held against the same engine under ``impl_mode("ref")``;
+2. build     nvcc builds every kernel from ``src/repro_torch/csrc``, all
+             sources at once (timed);
+3. kernels   each of the seven kernels against its plain PyTorch version at
+             the main path's leaf shapes (B = 1, 4 and the prefill row count)
+             and the reference's kernel sweep, with bf16 and f32 inputs: max
+             error against the tolerance (2e-4 for both: kernel and plain
+             version widen the same inputs to f32 and differ only in
+             summation order), kernel time, plain time, the byte / operation
+             bound (the format's own planes, scales, x and output) and
+             ``library_ms`` (``torch.matmul`` of bf16 x against the
+             pre-dequantized bf16 weight, the paper's cuBLAS baseline, timed
+             here only). ``dequant_materialize`` is held to its plain version
+             bit for bit, and its pipeline ``dequant_mm`` (materialise, then
+             an f32 GEMM) is checked and timed beside it, GEMM alone too;
+4. main path full-width llama3.2-3b with random weights from a seed, once
+             per format, each quantized on the card (q=4, g=128, iters=4)
+             and served by an ``Engine`` with fused QKV / gate-up:
+             - ``bcq``: ``generate`` for 4 prompts batched, once per request
+               as ``--sequential`` serves them, and batched again with every
+               quantized linear on the paper's LUT kernel;
+             - ``uniform``, ``dequant``, ``ternary``, ``codebook``:
+               ``generate`` batched.
+             Launch counts are set to 0 just before each path's run and read
+             just after; each path must launch its kernels the expected
+             number of times and take the ref oracle never. Each path's
+             logits are then held against the same engine under
+             ``impl_mode("ref")``, and a reduced f32 model per format
+             against its oracle within the kernels' tolerance;
 5. one JSON line listing every kernel, its launches and its numbers;
 6. last line ``{"ok": true, "device": {...}}``.
 
@@ -32,7 +43,8 @@ with CUDA events around its replay (median of 7), so a time is the device's
 and not the host's per-call cost. Weight copies
 are rotated so that repeated launches read weights from device memory, not
 from the 50 MB L2, as a decode step does. Phase 4 also traces one batched
-``generate`` with ``torch.profiler`` for the device's busy time by kernel.
+``generate`` per format with ``torch.profiler`` for the device's busy time
+by kernel, and reads each path's peak device memory.
 
 It needs a CUDA GPU and the repository's ``src/`` beside it; without either
 it exits non-zero before printing any result. It imports nothing of JAX.
@@ -52,6 +64,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+DEVICE = torch.device("cuda")
 
 # H100 SXM data-sheet peaks (dense): HBM rate, f32 CUDA-core and bf16
 # tensor-core rates
@@ -80,11 +93,23 @@ SWEEP = [  # (B, k, o, q, g): the reference's kernel sweep
     (4, 1024, 128, 5, 1024),
     (2, 2048, 256, 2, 2048),
 ]
+# kernel: (CUDA source, replaced TPU kernel, leaves it serves, format)
 KERNELS = {
-    "bcq_mm": ("csrc/bcq_mm.cu", "src/repro/kernels/bcq_mm.py:138", ("wo", "w_down", "lm_head")),
-    "bcq_mm_fused": ("csrc/bcq_mm.cu", "src/repro/kernels/bcq_mm_fused.py:63", ("wqkv", "w_gate_up")),
-    "lutgemm": ("csrc/lutgemm.cu", "src/repro/kernels/lutgemm.py:149", tuple(LEAVES)),
+    "bcq_mm": ("csrc/bcq_mm.cu", "src/repro/kernels/bcq_mm.py:138", ("wo", "w_down", "lm_head"), "bcq"),
+    "bcq_mm_fused": ("csrc/bcq_mm.cu", "src/repro/kernels/bcq_mm_fused.py:63", ("wqkv", "w_gate_up"), "bcq"),
+    "lutgemm": ("csrc/lutgemm.cu", "src/repro/kernels/lutgemm.py:149", tuple(LEAVES), "bcq"),
+    "uniform_mm": ("csrc/uniform_mm.cu", "src/repro/kernels/uniform_mm.py:130", tuple(LEAVES), "uniform"),
+    "dequant_materialize": ("csrc/dequant_mm.cu", "src/repro/kernels/dequant_mm.py:106", tuple(LEAVES),
+                            "dequant"),
+    "ternary_mm": ("csrc/ternary_mm.cu", "src/repro/kernels/ternary_mm.py:140", tuple(LEAVES), "ternary"),
+    "codebook_mm": ("csrc/codebook_mm.cu", "src/repro/kernels/codebook_mm.py:145", tuple(LEAVES), "codebook"),
 }
+# the formats served after bcq, with the kernel each one's path launches
+FORMAT_KERNEL = {"uniform": "uniform_mm", "dequant": "dequant_materialize", "ternary": "ternary_mm",
+                 "codebook": "codebook_mm"}
+# part of the device kernel names of each format's path (bcq: K1 and K2)
+PROFILE_TAG = {"bcq": "BCQDec", "uniform": "UniformDec", "dequant": "dequant_kernel",
+               "ternary": "TernaryDec", "codebook": "CodebookDec"}
 L2_BYTES = 50 * 2**20
 
 
@@ -132,17 +157,58 @@ def n_copies(nbytes):
     return max(1, min(32, math.ceil(2.5 * L2_BYTES / max(nbytes, 1))))
 
 
-def check_kernel(name, fn, plain, B, k, o, q, g, dtype, gen, out_dims=None):
-    """One kernel vs its plain version at one shape → record dict."""
-    from repro_torch.kernels import bcq_mm_plain
+def kernel_fns():
+    """kernel name → (wrapper checked, plain version). ``dequant_materialize``
+    is checked through its pipeline ``dequant_mm`` here and on its own in
+    :func:`check_kernel`."""
+    from repro_torch import kernels as K
 
-    dev = torch.device("cuda")
-    x = torch.randn((B, k), generator=gen, device=dev).to(dtype)
-    wbytes = q * (k // 8) * o + q * (k // g) * o * x.element_size()
+    return {
+        "bcq_mm": (K.bcq_mm, K.bcq_mm_plain),
+        "bcq_mm_fused": (K.bcq_mm_fused, K.bcq_mm_plain),
+        "lutgemm": (K.lutgemm, K.lutgemm_plain),
+        "uniform_mm": (K.uniform_mm, K.uniform_mm_plain),
+        "dequant_materialize": (K.dequant_mm, K.dequant_mm_plain),
+        "ternary_mm": (K.ternary_mm, K.ternary_mm_plain),
+        "codebook_mm": (K.codebook_mm, K.codebook_mm_plain),
+    }
+
+
+def format_planes(fmt, k, o, q, g, gen):
+    """Random packed planes and f32 scales of ``fmt`` on the card, with
+    weights of about 1/sqrt(k) (BCQ: its q planes sum to that)."""
+    from repro_torch.core.formats import get_format
+
+    f = get_format(fmt)
+    dev = DEVICE
+    packed = torch.randint(0, 256, (f.planes(q), k // 8, o), generator=gen, device=dev, dtype=torch.uint8)
+    shape = f.scales_shape(q, k // g, o)
+    u = (torch.rand(shape, generator=gen, device=dev) + 0.5) / math.sqrt(k)
+    if fmt == "bcq":
+        u = u / math.sqrt(q)
+    elif fmt in ("uniform", "dequant"):  # (s, z): codes centred on 0
+        s = u[0] / 2**q
+        u = torch.stack([s, -s * (2**q - 1) / 2])
+    elif fmt == "codebook":
+        u = torch.randn(shape, generator=gen, device=dev) / math.sqrt(k)
+    return packed, u
+
+
+def check_kernel(name, B, k, o, q, g, dtype, gen, out_dims=None):
+    """One kernel vs its plain version at one shape → record dict."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.kernels import dequant_materialize, dequant_materialize_plain
+
+    fn, plain = kernel_fns()[name]
+    fmt = KERNELS[name][3]
+    f = get_format(fmt)
+    x = torch.randn((B, k), generator=gen, device=DEVICE).to(dtype)
+    planes, scale_elems = f.planes(q), math.prod(f.scales_shape(q, k // g, o))
+    wbytes = planes * (k // 8) * o + scale_elems * x.element_size()
     weights = []
     for _ in range(n_copies(wbytes)):
-        packed = torch.randint(0, 256, (q, k // 8, o), generator=gen, device=dev, dtype=torch.uint8)
-        scales = (torch.rand((q, k // g, o), generator=gen, device=dev) + 0.5) / math.sqrt(k * q)
+        packed, scales = format_planes(fmt, k, o, q, g, gen)
         weights.append((packed, scales.to(dtype)))
     packed, scales = weights[0]
     call = (lambda p, s: fn(x, p, s, g=g, out_dims=out_dims)) if out_dims else (lambda p, s: fn(x, p, s, g=g))
@@ -153,52 +219,66 @@ def check_kernel(name, fn, plain, B, k, o, q, g, dtype, gen, out_dims=None):
     err = (y - ref).abs().max().item()
     tol = KERNEL_TOL
     ok = bool(torch.allclose(y, ref, rtol=tol, atol=tol)) and bool(torch.isfinite(y).all())
-    ms = time_ms(call, weights)
-    plain_ms = time_ms(lambda p, s: plain(x, p, s, g=g), [(packed, scales)], reps=3, inner=2)
+    extra = {}
+    if name == "dequant_materialize":
+        # the kernel: materialise (k, o) f32, held to its plain version bit for bit
+        w = dequant_materialize(packed, scales, g=g)
+        exact = bool(torch.equal(w, dequant_materialize_plain(packed, scales, g=g)))
+        ok = ok and exact
+        xf = x.float()
+        extra = dict(materialize_exact=exact, dequant_mm_ms=time_ms(call, weights),
+                     gemm_ms=time_ms(lambda w: torch.matmul(xf, w), [(w,)]))
+        del w
+        ms = time_ms(lambda p, s: dequant_materialize(p, s, g=g), weights)
+        plain_ms = time_ms(lambda p, s: dequant_materialize_plain(p, s, g=g), [(packed, scales)], reps=3, inner=2)
+        nbytes = wbytes + k * o * 4  # planes and scales read, the dense f32 weight written
+        ops = 2.0 * k * o  # a product and a sum per weight, f32
+        ops_ms = ops / PEAK_OPS[torch.float32] * 1e3
+    else:
+        ms = time_ms(call, weights)
+        plain_ms = time_ms(lambda p, s: plain(x, p, s, g=g), [(packed, scales)], reps=3, inner=2)
+        nbytes = x.numel() * x.element_size() + wbytes + B * o * 4
+        ops_ms = 2.0 * B * k * o / PEAK_OPS[dtype] * 1e3
     # library yardstick: bf16 x @ pre-dequantized bf16 weight
-    w16 = bcq_mm_plain(torch.eye(k, device=dev), packed, scales, g=g).to(torch.bfloat16)
+    w16 = f.dequantize(QuantizedTensor(packed=packed, scales=scales, g=g, k=k, o=o, fmt=fmt),
+                       dtype=torch.bfloat16)
     x16 = x.to(torch.bfloat16)
     lib_ws = [(w16,)] + [(w16.clone(),) for _ in range(n_copies(w16.numel() * 2) - 1)]
     library_ms = time_ms(lambda w: torch.matmul(x16, w), lib_ws)
     del lib_ws, w16
-    nbytes = x.numel() * x.element_size() + wbytes + B * o * 4
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * B * k * o / PEAK_OPS[dtype] * 1e3
     rec = dict(
-        kernel=name, B=B, k=k, o=o, q=q, g=g, dtype=str(dtype).replace("torch.", ""),
+        kernel=name, format=fmt, B=B, k=k, o=o, q=planes, g=g, dtype=str(dtype).replace("torch.", ""),
         max_abs_err=err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations", **extra,
     )
+    more = "".join(f"  {key} {val:.4f}" for key, val in extra.items() if key.endswith("_ms"))
     log(
-        f"  {name:13s} B={B:<3d} k={k:<5d} o={o:<6d} q={q} g={g:<4d} {rec['dtype']:8s} "
+        f"  {name:19s} B={B:<3d} k={k:<5d} o={o:<6d} q={planes} g={g:<4d} {rec['dtype']:8s} "
         f"err {err:.2e} (tol {tol:g}) {'ok' if ok else 'FAIL'}  ms {ms:.4f}  "
         f"plain {plain_ms:.4f}  bound {rec['bound_ms']:.4f} ({rec['bound_by']})  library {library_ms:.4f}"
+        f"{more}"
     )
     return rec
 
 
 def phase_kernels(gen):
-    from repro_torch.kernels import bcq_mm, bcq_mm_fused, bcq_mm_plain, lutgemm, lutgemm_plain
-
-    fns = {"bcq_mm": (bcq_mm, bcq_mm_plain), "bcq_mm_fused": (bcq_mm_fused, bcq_mm_plain),
-           "lutgemm": (lutgemm, lutgemm_plain)}
     records = []
     prefill_rows = PROMPTS * PROMPT_LEN
-    for name, (_, _, leaves) in KERNELS.items():
-        fn, plain = fns[name]
+    for name, (_, _, leaves, _) in KERNELS.items():
         for leaf in leaves:
             k, o, dims = LEAVES[leaf]
             for B in (1, PROMPTS, prefill_rows):
                 for dtype in (torch.bfloat16, torch.float32):
                     out_dims = dims if name == "bcq_mm_fused" else None
-                    rec = check_kernel(name, fn, plain, B, k, o, Q, G, dtype, gen, out_dims)
+                    rec = check_kernel(name, B, k, o, Q, G, dtype, gen, out_dims)
                     rec["leaf"] = leaf
                     records.append(rec)
         for B, k, o, q, g in SWEEP:
             for dtype in (torch.bfloat16, torch.float32):
                 out_dims = (o // 2, o - o // 2) if name == "bcq_mm_fused" else None
-                rec = check_kernel(name, fn, plain, B, k, o, q, g, dtype, gen, out_dims)
+                rec = check_kernel(name, B, k, o, q, g, dtype, gen, out_dims)
                 rec["leaf"] = "sweep"
                 records.append(rec)
     bad = [r for r in records if not r["ok"]]
@@ -207,15 +287,159 @@ def phase_kernels(gen):
     return records
 
 
+def run_counted(fn):
+    """``fn()`` with every launch count set to 0 just before it and read just
+    after → (result, wall seconds, launch counts, ref-oracle dispatches)."""
+    from repro_torch.kernels import launch_counts, qmatmul, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ref0 = qmatmul.ref_calls
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, dt, launch_counts(), qmatmul.ref_calls - ref0
+
+
+def quantized_engine(cfg, params, fmt):
+    """Quantize the dense ``params`` on the card in ``fmt`` and build the
+    serving engine (fused QKV / gate-up)."""
+    from repro_torch.infer import Engine
+    from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = quantize_params(params, QuantPolicy(q=Q, g=G, iters=4, fmt=fmt), device="cuda")
+    torch.cuda.synchronize()
+    log(f"  [{fmt}] quantize_params {time.perf_counter() - t0:.1f}s "
+        f"({quantized_bytes(qparams) / 1e9:.3f} GB packed; solver peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB above the dense model)")
+    return Engine(cfg, qparams, max_seq=PROMPT_LEN + NEW_TOKENS + 8, device="cuda")
+
+
+def check_tokens(cfg, results):
+    for res in results:
+        if res.tokens.shape[1] != PROMPT_LEN + NEW_TOKENS or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab)
+        ).all():
+            raise SystemExit(f"chip_smoke: bad generated tokens {res.tokens.shape}")
+
+
+def check_logits(engine, prompts, fmt, modes):
+    """Each mode's prefill + one step logits vs the ref oracle's, within
+    ``LOGITS_REL_TOL`` of max|ref| → worst relative error."""
+    ref_logits = step_logits(engine, prompts, "ref")
+    scale = ref_logits.abs().max().item()
+    worst = 0.0
+    for mode in modes:
+        got = step_logits(engine, prompts, mode)
+        if not torch.isfinite(got).all():
+            raise SystemExit(f"chip_smoke: non-finite logits ({fmt}, {mode or 'auto'})")
+        err = (got - ref_logits).abs().max().item()
+        agree = (got.argmax(-1) == ref_logits.argmax(-1)).float().mean().item()
+        log(f"  [{fmt}] logits {mode or 'auto'} vs ref: max|d| {err:.4e} of max|ref| {scale:.3f} "
+            f"(tol {LOGITS_REL_TOL:g} relative), top-1 agreement {agree:.3f}")
+        worst = max(worst, err / scale)
+    if not worst <= LOGITS_REL_TOL:
+        raise SystemExit(f"chip_smoke: [{fmt}] engine logits differ from the ref oracle by {worst:.3e} relative")
+    return worst
+
+
+def serve_bcq(cfg, params, prompts, reqs):
+    """The bcq path: batched, sequential and LUT-kernel ``generate`` in one
+    counted window."""
+    import numpy as np
+
+    from repro_torch.kernels import impl_mode
+    from repro_torch.launch.serve import drive_sequential
+
+    engine = quantized_engine(cfg, params, "bcq")
+    engine.generate(prompts, 2)  # warm-up: library handles, allocator
+
+    def run():
+        t0 = time.perf_counter()
+        batched = engine.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        t_batched = time.perf_counter() - t0
+        seq_outs, t_seq = drive_sequential(engine, reqs, np.zeros(len(reqs)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with impl_mode("lutgemm"):
+            lut = engine.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        return batched, t_batched, seq_outs, t_seq, lut, time.perf_counter() - t0
+
+    (batched, t_batched, seq_outs, t_seq, lut, t_lut), _, counts, ref_calls = run_counted(run)
+    n_tok = PROMPTS * NEW_TOKENS
+    log(f"  [bcq] generate batched ({PROMPTS}x{PROMPT_LEN} + {NEW_TOKENS}): {t_batched:.3f}s, "
+        f"{n_tok / t_batched:.1f} tok/s")
+    log(f"  [bcq] generate sequential ({PROMPTS} requests): {t_seq:.3f}s, {n_tok / t_seq:.1f} tok/s")
+    log(f"  [bcq] generate batched on lutgemm: {t_lut:.3f}s, {n_tok / t_lut:.1f} tok/s")
+    log(f"  [bcq] launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
+
+    L = cfg.n_layers
+    forwards = 1 + NEW_TOKENS  # prefill + one forward per sampled token
+    expect = dict.fromkeys(counts, 0)
+    expect.update({
+        "bcq_mm": (1 + PROMPTS) * forwards * (2 * L + 1),
+        "bcq_mm_fused": (1 + PROMPTS) * forwards * 2 * L,
+        "lutgemm": forwards * (4 * L + 1),
+    })
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: [bcq] launch counts {counts} != expected {expect}")
+    if ref_calls:
+        raise SystemExit(f"chip_smoke: the bcq path took the ref oracle {ref_calls} times")
+    check_tokens(cfg, [batched, lut, *seq_outs])
+    seq_tokens = np.concatenate([o.tokens for o in seq_outs])
+    log(f"  [bcq] greedy rows identical, batched vs sequential: "
+        f"{int((seq_tokens == batched.tokens).all(axis=1).sum())}/{PROMPTS}; "
+        f"bcq_mm vs lutgemm: {int((lut.tokens == batched.tokens).all(axis=1).sum())}/{PROMPTS}")
+    check_logits(engine, prompts, "bcq", (None, "lutgemm"))
+    small_model_check("bcq")
+    summary = dict(tok_s=n_tok / t_batched, wall_s=t_batched, seq_tok_s=n_tok / t_seq,
+                   lutgemm_tok_s=n_tok / t_lut, profile=profile_generate(engine, prompts, t_batched, "bcq"))
+    return {k: counts[k] for k in ("bcq_mm", "bcq_mm_fused", "lutgemm")}, summary
+
+
+def serve_format(cfg, params, prompts, fmt):
+    """One of the other formats' paths: batched ``generate`` in a counted
+    window → (its kernel's launches, tokens, summary)."""
+    engine = quantized_engine(cfg, params, fmt)
+    engine.generate(prompts, 2)  # warm-up
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, dt, counts, ref_calls = run_counted(lambda: engine.generate(prompts, NEW_TOKENS))
+    peak = torch.cuda.max_memory_allocated()
+    kernel = FORMAT_KERNEL[fmt]
+    n_tok = PROMPTS * NEW_TOKENS
+    log(f"  [{fmt}] generate batched ({PROMPTS}x{PROMPT_LEN} + {NEW_TOKENS}): {dt:.3f}s, "
+        f"{n_tok / dt:.1f} tok/s; peak device memory {peak / 1e9:.3f} GB, "
+        f"{(peak - base) / 1e9:.3f} GB above the resident {base / 1e9:.3f} GB")
+    log(f"  [{fmt}] launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
+    expect = dict.fromkeys(counts, 0)
+    expect[kernel] = (1 + NEW_TOKENS) * (4 * cfg.n_layers + 1)
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: [{fmt}] launch counts {counts} != expected {expect}")
+    if ref_calls:
+        raise SystemExit(f"chip_smoke: the {fmt} path took the ref oracle {ref_calls} times")
+    check_tokens(cfg, [res])
+    check_logits(engine, prompts, fmt, (None,))
+    small_model_check(fmt)
+    summary = dict(tok_s=n_tok / dt, wall_s=dt, peak_gb=peak / 1e9, transient_gb=(peak - base) / 1e9,
+                   profile=profile_generate(engine, prompts, dt, fmt))
+    return counts[kernel], res.tokens, summary
+
+
 def phase_main_path():
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.infer import Engine
-    from repro_torch.kernels import impl_mode, launch_counts, qmatmul, reset_launch_counts
-    from repro_torch.launch.serve import build_requests, drive_sequential
+    from repro_torch.launch.serve import build_requests
     from repro_torch.models import init_params
-    from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
+    from repro_torch.quant import quantized_bytes
 
     cfg = get_config("llama3.2-3b")
     log(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
@@ -223,84 +447,19 @@ def phase_main_path():
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    dense_bytes = quantized_bytes(params)
-    t1 = time.perf_counter()
-    qparams = quantize_params(params, QuantPolicy(q=Q, g=G, iters=4), device="cuda")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    del params
-    log(f"  init {t1 - t0:.1f}s ({dense_bytes / 1e9:.3f} GB dense), quantize_params "
-        f"{t2 - t1:.1f}s ({quantized_bytes(qparams) / 1e9:.3f} GB packed)")
-    engine = Engine(cfg, qparams, max_seq=PROMPT_LEN + NEW_TOKENS + 8, device="cuda")
-    del qparams
+    log(f"  init {time.perf_counter() - t0:.1f}s ({quantized_bytes(params) / 1e9:.3f} GB dense)")
     reqs = build_requests(cfg, PROMPTS, PROMPT_LEN, NEW_TOKENS, mixed_temperature=False)
     prompts = np.stack([r.prompt for r in reqs])
-    engine.generate(prompts, 2)  # warm-up: library handles, allocator
 
-    reset_launch_counts()
-    ref0 = qmatmul.ref_calls
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    batched = engine.generate(prompts, NEW_TOKENS)
-    torch.cuda.synchronize()
-    t_batched = time.perf_counter() - t0
-    seq_outs, t_seq = drive_sequential(engine, reqs, np.zeros(len(reqs)))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with impl_mode("lutgemm"):
-        lut = engine.generate(prompts, NEW_TOKENS)
-    torch.cuda.synchronize()
-    t_lut = time.perf_counter() - t0
-    counts = launch_counts()
-    ref_calls = qmatmul.ref_calls - ref0
-
-    n_tok = PROMPTS * NEW_TOKENS
-    log(f"  generate batched ({PROMPTS}x{PROMPT_LEN} + {NEW_TOKENS}): {t_batched:.3f}s, "
-        f"{n_tok / t_batched:.1f} tok/s")
-    log(f"  generate sequential ({PROMPTS} requests): {t_seq:.3f}s, {n_tok / t_seq:.1f} tok/s")
-    log(f"  generate batched on lutgemm: {t_lut:.3f}s, {n_tok / t_lut:.1f} tok/s")
-    log(f"  launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
-
-    L = cfg.n_layers
-    forwards = 1 + NEW_TOKENS  # prefill + one forward per sampled token
-    expect = {
-        "bcq_mm": (1 + PROMPTS) * forwards * (2 * L + 1),
-        "bcq_mm_fused": (1 + PROMPTS) * forwards * 2 * L,
-        "lutgemm": forwards * (4 * L + 1),
-    }
-    if counts != expect:
-        raise SystemExit(f"chip_smoke: launch counts {counts} != expected {expect}")
-    if ref_calls:
-        raise SystemExit(f"chip_smoke: the main path took the ref oracle {ref_calls} times")
-
-    for res in [batched, lut, *seq_outs]:
-        if res.tokens.shape[1] != PROMPT_LEN + NEW_TOKENS or not (
-            (res.tokens >= 0) & (res.tokens < cfg.vocab)
-        ).all():
-            raise SystemExit(f"chip_smoke: bad generated tokens {res.tokens.shape}")
-    seq_tokens = np.concatenate([o.tokens for o in seq_outs])
-    log(f"  greedy rows identical, batched vs sequential: "
-        f"{int((seq_tokens == batched.tokens).all(axis=1).sum())}/{PROMPTS}; "
-        f"bcq_mm vs lutgemm: {int((lut.tokens == batched.tokens).all(axis=1).sum())}/{PROMPTS}")
-
-    # logits: kernel engine vs the same engine on the ref oracle (prefill + one step)
-    ref_logits = step_logits(engine, prompts, "ref")
-    scale = ref_logits.abs().max().item()
-    worst = 0.0
-    for mode in (None, "lutgemm"):
-        got = step_logits(engine, prompts, mode)
-        if not torch.isfinite(got).all():
-            raise SystemExit(f"chip_smoke: non-finite logits ({mode or 'auto'})")
-        err = (got - ref_logits).abs().max().item()
-        agree = (got.argmax(-1) == ref_logits.argmax(-1)).float().mean().item()
-        log(f"  logits {mode or 'auto (bcq_mm)'} vs ref: max|d| {err:.4e} of max|ref| {scale:.3f} "
-            f"(tol {LOGITS_REL_TOL:g} relative), top-1 agreement {agree:.3f}")
-        worst = max(worst, err / scale)
-    if not worst <= LOGITS_REL_TOL:
-        raise SystemExit(f"chip_smoke: engine logits differ from the ref oracle by {worst:.3e} relative")
-    small_model_check()
-    profile = profile_generate(engine, prompts, t_batched)
-    return counts, cfg, profile
+    counts, summary = serve_bcq(cfg, params, prompts, reqs)
+    summaries = {"bcq": summary}
+    tokens = {}
+    for fmt, kernel in FORMAT_KERNEL.items():
+        counts[kernel], tokens[fmt], summaries[fmt] = serve_format(cfg, params, prompts, fmt)
+    same = int((tokens["uniform"] == tokens["dequant"]).all(axis=1).sum())
+    log(f"  greedy rows identical, uniform vs dequant: {same}/{PROMPTS} (reported, not asserted: "
+        f"the two kernels sum k in different orders)")
+    return counts, cfg, summaries
 
 
 def step_logits(engine, prompts, mode):
@@ -308,17 +467,18 @@ def step_logits(engine, prompts, mode):
     from repro_torch.kernels import impl_mode
 
     with impl_mode(mode):
-        toks = torch.as_tensor(prompts, device="cuda", dtype=torch.long)
+        toks = torch.as_tensor(prompts, device=engine.device, dtype=torch.long)
         l0, cache = engine.prefill(toks, engine._make_cache(len(prompts)))
         l1, _ = engine.decode(toks[:, -1:], cache, toks.shape[1])
     return torch.stack([l0, l1])
 
 
-def small_model_check():
+def small_model_check(fmt):
     """The engine's kernel paths against its ref-oracle path on the serve
-    launcher's reduced f32 llama3.2-3b, within the kernels' f32 tolerance:
-    in f32 nothing but summation order separates them, while the full-width
-    bf16 model above also rounds activations differently at every layer."""
+    launcher's reduced f32 llama3.2-3b in ``fmt``, within the kernels' f32
+    tolerance: in f32 nothing but summation order separates them, while the
+    full-width bf16 model above also rounds activations differently at
+    every layer."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -327,23 +487,23 @@ def small_model_check():
     from repro_torch.quant import QuantPolicy, quantize_params
 
     cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512)
-    params = quantize_params(init_params(cfg, seed=0, device="cuda"), QuantPolicy(q=Q, g=G, iters=2),
-                             device="cuda")
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"),
+                             QuantPolicy(q=Q, g=G, iters=2, fmt=fmt), device="cuda")
     engine = Engine(cfg, params, max_seq=32, device="cuda")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(3, 8))
     ref = step_logits(engine, prompts, "ref")
     tol = KERNEL_TOL
-    for mode in (None, "lutgemm"):
+    for mode in (None, "lutgemm") if fmt == "bcq" else (None,):
         got = step_logits(engine, prompts, mode)
         err = (got - ref).abs().max().item()
         ok = bool(torch.allclose(got, ref, rtol=tol, atol=tol))
-        log(f"  reduced f32 model ({cfg.n_layers} layers, d_model {cfg.d_model}): logits "
-            f"{mode or 'auto (bcq_mm)'} vs ref max|d| {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        log(f"  [{fmt}] reduced f32 model ({cfg.n_layers} layers, d_model {cfg.d_model}): logits "
+            f"{mode or 'auto'} vs ref max|d| {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"chip_smoke: reduced-model logits ({mode or 'auto'}) differ from the ref oracle")
+            raise SystemExit(f"chip_smoke: [{fmt}] reduced-model logits ({mode or 'auto'}) differ from the ref oracle")
 
 
-def profile_generate(engine, prompts, untraced_s):
+def profile_generate(engine, prompts, untraced_s, fmt):
     """Device busy time by kernel over one batched ``generate``, traced with
     ``torch.profiler`` (CUDA activity only, which slows the host least)."""
     from torch.profiler import ProfilerActivity, profile
@@ -361,31 +521,32 @@ def profile_generate(engine, prompts, untraced_s):
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us
     device_ms = sum(by_name.values()) / 1e3
     if not device_ms:
-        log("  profile: torch.profiler recorded no device time; busy share not measured")
+        log(f"  [{fmt}] profile: torch.profiler recorded no device time; busy share not measured")
         return None
-    ours_ms = sum(us for name, us in by_name.items() if "bcq_mm_kernel" in name) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    log(f"  profile of one batched generate: device busy {device_ms:.2f} ms of {traced_s * 1e3:.2f} ms "
-        f"traced wall ({device_ms / (traced_s * 1e3):.1%}; untraced wall {untraced_s * 1e3:.2f} ms), "
-        f"bcq_mm kernels {ours_ms:.2f} ms")
+    ours_ms = sum(us for name, us in by_name.items() if PROFILE_TAG[fmt] in name) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  [{fmt}] profile of one batched generate: device busy {device_ms:.2f} ms of "
+        f"{traced_s * 1e3:.2f} ms traced wall ({device_ms / (traced_s * 1e3):.1%}; untraced wall "
+        f"{untraced_s * 1e3:.2f} ms, busy {device_ms / (untraced_s * 1e3):.1%} of it), the format's "
+        f"kernels {ours_ms:.2f} ms")
     for name, us in top:
         log(f"    {us / 1e3:9.3f} ms  {name[:100]}")
     return dict(device_ms=device_ms, traced_wall_ms=traced_s * 1e3, untraced_wall_ms=untraced_s * 1e3,
-                bcq_mm_kernels_ms=ours_ms, top=[[name, us / 1e3] for name, us in top])
+                format_kernels_ms=ours_ms, top=[[name, us / 1e3] for name, us in top])
 
 
 def kernels_line(records, counts, n_layers):
-    """Per kernel: its launches in the main-path run and, in bf16 at the
+    """Per kernel: its launches in its path's counted run and, in bf16 at the
     batched decode width, its time summed over one decode step's launches."""
     out = []
+    every_leaf = {"wqkv": n_layers, "wo": n_layers, "w_gate_up": n_layers, "w_down": n_layers, "lm_head": 1}
     per_step = {"bcq_mm": {"wo": n_layers, "w_down": n_layers, "lm_head": 1},
-                "bcq_mm_fused": {"wqkv": n_layers, "w_gate_up": n_layers},
-                "lutgemm": {"wqkv": n_layers, "wo": n_layers, "w_gate_up": n_layers,
-                            "w_down": n_layers, "lm_head": 1}}
-    for name, (src, replaces, _) in KERNELS.items():
+                "bcq_mm_fused": {"wqkv": n_layers, "w_gate_up": n_layers}}
+    for name, (src, replaces, _, _) in KERNELS.items():
+        leaves = per_step.get(name, every_leaf)
         rs = [r for r in records if r["kernel"] == name]
-        step = [(r, per_step[name][r["leaf"]]) for r in rs
-                if r["leaf"] in per_step[name] and r["B"] == PROMPTS and r["dtype"] == "bfloat16"]
+        step = [(r, leaves[r["leaf"]]) for r in rs
+                if r["leaf"] in leaves and r["B"] == PROMPTS and r["dtype"] == "bfloat16"]
         total = lambda key: sum(r[key] * n for r, n in step)  # noqa: E731
         out.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/{src}", replaces=replaces,
@@ -424,26 +585,33 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
-    for name in paths:
+    for name in paths:  # ptxas -v: registers of every instantiation, and any spills
+        regs, spills = [], []
         for line in _build.build_log(name).splitlines():
-            quiet = line.strip().startswith("0 bytes stack frame, 0 bytes spill stores")
-            if "registers" in line or ("spill" in line and not quiet):
-                log(f"  {name}: {line.strip()}")
+            line = line.strip()
+            if "registers" in line:
+                regs.append(int(line.split("Used ")[1].split(" registers")[0]))
+            if "spill" in line and not line.startswith("0 bytes stack frame, 0 bytes spill stores"):
+                spills.append(line)
+        log(f"  {name}: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers, "
+            f"{len(spills)} with stack or spills")
+        for line in spills:
+            log(f"    {line}")
 
     log("[3/5] kernels against their plain versions")
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
 
-    log("[4/5] main path")
-    counts, cfg, profile = phase_main_path()
+    log("[4/5] main path, one run per format")
+    counts, cfg, summaries = phase_main_path()
 
     log("[5/5] kernels")
     line = kernels_line(records, counts, cfg.n_layers)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "layers": cfg.n_layers, "records": records, "profile": profile, **line},
+        {"card": card, "layers": cfg.n_layers, "records": records, "paths": summaries, **line},
         indent=1))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,9 @@
 // given, allocates nothing and returns cudaGetLastError() after its launches,
 // so a refused launch (too many threads, too much shared memory) reaches the
 // wrapper, which raises.
+//
+// Packed layout (core/packing.py): plane i of a (P, k/8, o) uint8 tensor
+// holds bit i of every code; bit j of byte (c, col) is row 8c + j, LSB first.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,8 +16,11 @@
 
 namespace repro {
 
-// dtype codes shared with the Python wrappers (kernels/bcq_mm.py::DTYPE_CODES)
+// dtype codes shared with the Python wrappers (kernels/_common.py::DTYPE_CODES)
 enum DTypeCode : int { kF32 = 0, kBF16 = 1 };
+
+constexpr int kMaxQ = 8;  // code planes the kernels take
+constexpr int kCols = 4;  // adjacent output columns a thread owns
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -25,6 +31,70 @@ inline int row_tile(int B) {
   if (B >= 3) return 4;
   if (B >= 2) return 2;
   return 1;
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// Calls f(Tag<A>{}, Tag<B>{}) for the element types named by two dtype
+// codes; false if either code is unknown.
+template <typename F>
+bool dispatch_dtypes(int a, int b, F&& f) {
+  if (a == kF32 && b == kF32) f(Tag<float>{}, Tag<float>{});
+  else if (a == kF32 && b == kBF16) f(Tag<float>{}, Tag<__nv_bfloat16>{});
+  else if (a == kBF16 && b == kF32) f(Tag<__nv_bfloat16>{}, Tag<float>{});
+  else if (a == kBF16 && b == kBF16) f(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{});
+  else return false;
+  return true;
+}
+
+// The kCols packed bytes of one byte row at p (columns col0..col0+3), byte
+// cc in bits 8cc..8cc+7: one 32-bit load when vec and all columns are valid.
+__device__ __forceinline__ uint32_t load_bytes4(const uint8_t* p, int valid, bool vec) {
+  if (vec && valid == kCols) return *reinterpret_cast<const uint32_t*>(p);
+  uint32_t v = 0;
+  for (int c = 0; c < valid; ++c) v |= static_cast<uint32_t>(p[c]) << (8 * c);
+  return v;
+}
+
+// kCols group parameters at p as f32 (0 past the ragged edge).
+__device__ __forceinline__ void load_scales4(const float* p, int valid, bool vec, float* s) {
+  if (vec && valid == kCols) {
+    float4 v = *reinterpret_cast<const float4*>(p);
+    s[0] = v.x; s[1] = v.y; s[2] = v.z; s[3] = v.w;
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) s[c] = c < valid ? p[c] : 0.f;
+}
+
+__device__ __forceinline__ void load_scales4(const __nv_bfloat16* p, int valid, bool vec, float* s) {
+  if (vec && valid == kCols) {
+    uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) s[c] = __bfloat162float(h[c]);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) s[c] = c < valid ? __bfloat162float(p[c]) : 0.f;
+}
+
+// The q-bit code at bit position `shift` of q plane words: sum_i 2^i bit_i.
+__device__ __forceinline__ uint32_t plane_code(const uint32_t* bits, int q, int shift) {
+  uint32_t code = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxQ; ++i)
+    if (i < q) code |= ((bits[i] >> shift) & 1u) << i;
+  return code;
+}
+
+// The uniform format's weight code * s + z in f32, rounded as the reference
+// and the plain version round it: a product, then a sum (no fused FMA).
+__device__ __forceinline__ float affine(uint32_t code, float s, float z) {
+  return __fadd_rn(__fmul_rn(static_cast<float>(code), s), z);
 }
 
 }  // namespace repro

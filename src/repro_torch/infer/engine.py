@@ -3,8 +3,8 @@
 
 Weights live once, packed. Prefill runs the prompt through :func:`forward`
 with a fresh KV cache; decode then feeds one sampled token per step. Every
-quantized linear reaches the hand-written kernels through ``ops.qmatmul``
-(``bcq_mm`` / ``bcq_mm_fused`` on the GPU).
+quantized linear reaches its format's hand-written kernel through
+``ops.qmatmul`` on the GPU.
 
 The reference runs decode as one ``lax.scan`` (``scan=True``) or a host step
 loop (``scan=False``). Here both are a Python step loop over the same

@@ -4,7 +4,12 @@ versions, and the quantized-matmul dispatch.
 - ``bcq_mm.py``       packed BCQ matmul, sign bits expanded in registers
 - ``bcq_mm_fused.py`` the same kernel over fused QKV / gate-up projections
 - ``lutgemm.py``      the paper's LUT kernel (shared-memory tables)
+- ``uniform_mm.py``   uniform int-q matmul, codes reassembled in registers
+- ``dequant_mm.py``   the paper's baseline: materialise the weight, then GEMM
+- ``ternary_mm.py``   ternary matmul from sign + mask planes
+- ``codebook_mm.py``  codebook matmul, centroid tables in shared memory
 - ``_build.py``       nvcc build of ``csrc/*.cu`` at first use, ctypes loading
+- ``_common.py``      wrapper checks and the shared launch plumbing
 - ``ops.py``          ``qmatmul`` format dispatch, ``linear``, ``impl_mode``
 - ``ref.py``          oracles
 
@@ -13,6 +18,13 @@ Importing this package needs neither ``nvcc`` nor a GPU.
 
 from repro_torch.kernels.bcq_mm import bcq_mm, bcq_mm_plain
 from repro_torch.kernels.bcq_mm_fused import bcq_mm_fused
+from repro_torch.kernels.codebook_mm import codebook_mm, codebook_mm_plain
+from repro_torch.kernels.dequant_mm import (
+    dequant_materialize,
+    dequant_materialize_plain,
+    dequant_mm,
+    dequant_mm_plain,
+)
 from repro_torch.kernels.lutgemm import lutgemm, lutgemm_plain
 from repro_torch.kernels.ops import (
     impl_mode,
@@ -23,8 +35,12 @@ from repro_torch.kernels.ops import (
     quantized_matmul_fused,
 )
 from repro_torch.kernels.ref import bcq_mm_ref, lutgemm_tablewise_ref
+from repro_torch.kernels.ternary_mm import ternary_mm, ternary_mm_plain
+from repro_torch.kernels.uniform_mm import uniform_mm, uniform_mm_plain
 
-KERNEL_WRAPPERS = (bcq_mm, bcq_mm_fused, lutgemm)
+KERNEL_WRAPPERS = (
+    bcq_mm, bcq_mm_fused, lutgemm, uniform_mm, dequant_materialize, ternary_mm, codebook_mm,
+)
 
 
 def reset_launch_counts() -> None:
@@ -44,6 +60,12 @@ __all__ = [
     "bcq_mm_fused",
     "bcq_mm_plain",
     "bcq_mm_ref",
+    "codebook_mm",
+    "codebook_mm_plain",
+    "dequant_materialize",
+    "dequant_materialize_plain",
+    "dequant_mm",
+    "dequant_mm_plain",
     "impl_mode",
     "launch_counts",
     "linear",
@@ -55,4 +77,8 @@ __all__ = [
     "quantized_matmul",
     "quantized_matmul_fused",
     "reset_launch_counts",
+    "ternary_mm",
+    "ternary_mm_plain",
+    "uniform_mm",
+    "uniform_mm_plain",
 ]

@@ -1,0 +1,112 @@
+"""Checks and launch plumbing shared by the kernel wrappers.
+
+Every packed-weight kernel takes ``x (B, k)`` f32/bf16, ``packed (P, k/8, o)``
+uint8 planes and ``scales (S, k/g, o)`` f32/bf16, and writes ``(B, o)`` f32;
+what P and S are is the format's business. The wrappers check here what the
+reference's ``_validate_tiling`` checks (``g % 8 == 0``, ``k % g == 0``),
+plus shapes, dtypes and devices, before a kernel ever sees the tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.kernels import _build
+
+# dtype codes understood by the C entry points (csrc/common.cuh::DTypeCode)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_dtype(name: str, t: torch.Tensor) -> None:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+
+
+def validate_planes(
+    packed: torch.Tensor, scales: torch.Tensor, g: int, *, scale_planes: Optional[int] = None
+) -> None:
+    """``packed (q, k/8, o)`` uint8 with 1 <= q <= 8, ``scales (S, k/g, o)``
+    (S = ``scale_planes``, default q) on one device, ``g % 8 == 0`` and
+    ``k % g == 0``."""
+    if packed.dim() != 3 or scales.dim() != 3:
+        raise ValueError(
+            f"expected packed (q, k/8, o) and scales (S, k/g, o); got "
+            f"{tuple(packed.shape)}, {tuple(scales.shape)}"
+        )
+    q, kc, o = packed.shape
+    k = kc * packing.MU
+    if g <= 0 or g % packing.MU or k % g:
+        raise ValueError(f"g={g} must be a multiple of {packing.MU} that divides k={k}")
+    s = q if scale_planes is None else scale_planes
+    if tuple(scales.shape) != (s, k // g, o):
+        raise ValueError(f"scales shape {tuple(scales.shape)} != {(s, k // g, o)}")
+    if not 1 <= q <= 8:
+        raise ValueError(f"q={q} planes; the kernels take 1..8")
+    if packed.dtype != torch.uint8:
+        raise TypeError(f"packed must be uint8, got {packed.dtype}")
+    _check_dtype("scales", scales)
+    if packed.device != scales.device:
+        raise ValueError(
+            f"packed and scales lie on different devices: {packed.device}, {scales.device}"
+        )
+
+
+def validate(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scales: torch.Tensor,
+    g: int,
+    *,
+    scale_planes: Optional[int] = None,
+) -> None:
+    """:func:`validate_planes`, plus ``x (B, k)`` f32/bf16 on the same device."""
+    if x.dim() != 2:
+        raise ValueError(f"expected x (B, k); got {tuple(x.shape)}")
+    validate_planes(packed, scales, g, scale_planes=scale_planes)
+    if packed.shape[1] * packing.MU != x.shape[1]:
+        raise ValueError(f"packed k dim {packed.shape[1]}*{packing.MU} != x k dim {x.shape[1]}")
+    _check_dtype("x", x)
+    if x.device != packed.device:
+        raise ValueError(
+            f"x, packed and scales lie on different devices: "
+            f"{x.device}, {packed.device}, {scales.device}"
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def _matvec_entry(name: str):
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, p, p, i, p, i, i, i, i, i, p]
+    fn.restype = i
+    return lib, fn
+
+
+def launch_matvec(
+    name: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, g: int
+) -> torch.Tensor:
+    """One launch of ``csrc/<name>.cu``'s ``<name>_launch`` entry on PyTorch's
+    current stream (validated CUDA inputs) → ``(B, o)`` f32. Counts nothing;
+    the public wrappers do. The entry's C signature is
+    ``(x, x_dtype, packed, scales, s_dtype, out, B, k, o, q, g, stream)``."""
+    x, packed, scales = x.contiguous(), packed.contiguous(), scales.contiguous()
+    B, k = x.shape
+    q, _, o = packed.shape
+    out = torch.empty((B, o), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    lib, fn = _matvec_entry(name)
+    with torch.cuda.device(x.device):
+        rc = fn(
+            x.data_ptr(), DTYPE_CODES[x.dtype], packed.data_ptr(), scales.data_ptr(),
+            DTYPE_CODES[scales.dtype], out.data_ptr(), B, k, o, q, g,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, rc, f"{name} launch")
+    return out

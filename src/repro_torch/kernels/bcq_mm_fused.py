@@ -17,7 +17,8 @@ from typing import Sequence, Tuple
 import torch
 
 from repro_torch.core.formats import split_outputs
-from repro_torch.kernels.bcq_mm import bcq_mm_plain, launch_bcq_mm, validate
+from repro_torch.kernels._common import launch_matvec, validate
+from repro_torch.kernels.bcq_mm import bcq_mm_plain
 
 
 def bcq_mm_fused(
@@ -35,7 +36,7 @@ def bcq_mm_fused(
     validate(x, packed, scales, g)
     if not x.is_cuda:
         return split_outputs(bcq_mm_plain(x, packed, scales, g=g), out_dims)
-    y = launch_bcq_mm(x, packed, scales, g)
+    y = launch_matvec("bcq_mm", x, packed, scales, g)
     bcq_mm_fused.launches += 1
     return split_outputs(y, out_dims)
 

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import _build
-from repro_torch.kernels.bcq_mm import DTYPE_CODES, validate
+from repro_torch.kernels._common import DTYPE_CODES, validate
 
 MU = packing.MU
 _PLAIN_MAX_ELEMS = 1 << 27  # bounds the plain version's gathered (rows, k/8, o) block

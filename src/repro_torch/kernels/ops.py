@@ -7,15 +7,17 @@ registered format and routes to that format's kernels.
 
 - ``impl="ref"``   the format's dequantize + dense-product oracle.
 - ``impl="auto"``  the format's preferred kernel for a CUDA tensor (``bcq``:
-                   ``bcq_mm``, or ``bcq_mm_fused`` for a fused leaf), ``ref``
-                   for a CPU tensor; :func:`impl_mode` may override it.
+                   ``bcq_mm``, or ``bcq_mm_fused`` for a fused leaf;
+                   ``uniform_mm``, ``dequant_mm``, ``ternary_mm``,
+                   ``codebook_mm`` for the other formats), ``ref`` for a CPU
+                   tensor; :func:`impl_mode` may override it.
 - explicit impls   any of the format's kernels (``bcq``: ``bcq_mm``,
                    ``lutgemm``). On a CPU tensor a kernel wrapper runs its
                    plain PyTorch version.
 
 Passing ``out_dims`` runs the fused multi-projection path: N projections of
 one activation whose packed weights were concatenated along the output dim
-run as one kernel launch and return N outputs.
+run as one kernel launch over the concatenated o, split into N outputs.
 
 Leading batch dims are flattened into the kernel's row dim and restored.
 Every path returns values computed in f32, cast to ``out_dtype`` (default:

@@ -7,8 +7,11 @@ PYTHONPATH=src python -m repro_torch.launch.serve --sequential --device cpu
 The model is the reference launcher's reduced config of ``--arch`` (d_model
 256, 4 kv heads, d_ff 512, 2 layers, vocab 256, f32), with random weights
 from seed 0, quantized with ``--q``/``--g`` in ``--format`` (``--q 0``
-serves it dense). Requests come from the same Markov corpus and seeds as the
-reference's, with temperatures cycling 0, 1.0, 0.7.
+serves it dense). ``--format`` takes every registered format: ``bcq``,
+``uniform``, ``dequant``, ``ternary`` (always 2 planes, whatever ``--q``
+says) and ``codebook``; on the GPU each serves through its own kernel.
+Requests come from the same Markov corpus and seeds as the reference's,
+with temperatures cycling 0, 1.0, 0.7.
 
 Only ``--sequential`` serving is ported. The continuous-batching scheduler
 (``--slots``, ``--chunk``), ``--speculate``, ``--tp``, the prefix cache

@@ -34,7 +34,7 @@ def test_pack_unpack_signs_bit_identical(rng, shape):
     )
 
 
-@pytest.mark.parametrize("q", [1, 3, 4])
+@pytest.mark.parametrize("q", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_pack_unpack_codes_bit_identical(rng, q):
     codes = rng.integers(0, 1 << q, size=(2, 64, 24)).astype(np.uint8)
     jp = np.asarray(jpacking.pack_codes(jnp.asarray(codes), q))

@@ -9,7 +9,9 @@ without the suite's conftest (which imports JAX):
 
 Tolerance: rtol = atol = 2e-4 for f32 and bf16 inputs alike. A kernel and
 its plain version widen the same x and scales to f32 and accumulate in f32,
-so only the order of summation separates them.
+so only the order of summation separates them. ``dequant_materialize``
+computes every weight as its plain version does (a product, then a sum),
+so it is held to its plain version bit for bit.
 """
 
 import numpy as np
@@ -18,15 +20,27 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.infer import Engine
+from repro_torch.core.formats import get_format
 from repro_torch.kernels import (
+    KERNEL_WRAPPERS,
     bcq_mm,
     bcq_mm_fused,
     bcq_mm_plain,
+    codebook_mm,
+    codebook_mm_plain,
+    dequant_materialize,
+    dequant_materialize_plain,
+    dequant_mm,
+    dequant_mm_plain,
     impl_mode,
     launch_counts,
     lutgemm,
     lutgemm_plain,
     reset_launch_counts,
+    ternary_mm,
+    ternary_mm_plain,
+    uniform_mm,
+    uniform_mm_plain,
 )
 from repro_torch.models import init_params, reduced
 from repro_torch.quant import QuantPolicy, quantize_params
@@ -46,6 +60,26 @@ SHAPES = [  # (B, k, o, q, g): the reference's sweep, a ragged case, a prefill c
     (1, 16384, 256, 4, 128),
 ]
 TOL = 2e-4
+FORMAT_KERNELS = {  # format: (kernel wrapper, plain version)
+    "uniform": (uniform_mm, uniform_mm_plain),
+    "ternary": (ternary_mm, ternary_mm_plain),
+    "codebook": (codebook_mm, codebook_mm_plain),
+    "dequant": (dequant_mm, dequant_mm_plain),
+}
+
+
+def format_planes(fmt, k, o, q, g, dtype, gen, device):
+    """Random packed planes and scales of ``fmt`` whose weights are ~1/sqrt(k)."""
+    f = get_format(fmt)
+    packed = torch.randint(0, 256, (f.planes(q), k // 8, o), generator=gen, device=device, dtype=torch.uint8)
+    shape = f.scales_shape(q, k // g, o)
+    u = (torch.rand(shape, generator=gen, device=device) + 0.5) / np.sqrt(k)
+    if fmt in ("uniform", "dequant"):  # (s, z): codes centred on 0
+        s = u[0] / 2**q
+        u = torch.stack([s, -s * (2**q - 1) / 2])
+    elif fmt == "codebook":
+        u = torch.randn(shape, generator=gen, device=device) / np.sqrt(k)
+    return packed, u.to(dtype)
 
 
 @pytest.fixture
@@ -73,8 +107,22 @@ def test_kernels_match_plain(cuda, B, k, o, q, g, dtype):
     half = o // 2
     parts = bcq_mm_fused(x, packed, scales, g=g, out_dims=(half, o - half))
     torch.testing.assert_close(torch.cat(parts, -1), want, rtol=TOL, atol=TOL)
-    assert launch_counts() == {"bcq_mm": 1, "bcq_mm_fused": 1, "lutgemm": 1}
-    # deterministic: no atomics, fixed reduction order
+    # the other formats' kernels on their own planes at the same shape
+    for fmt, (fn, plain) in FORMAT_KERNELS.items():
+        fp, fs = format_planes(fmt, k, o, q, g, dtype, gen, cuda)
+        got = fn(x, fp, fs, g=g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plain(x, fp, fs, g=g), rtol=TOL, atol=TOL, msg=fmt)
+        if fmt == "dequant":
+            for od in (torch.float32, torch.bfloat16):
+                w = dequant_materialize(fp, fs, g=g, out_dtype=od)
+                torch.testing.assert_close(w, dequant_materialize_plain(fp, fs, g=g, out_dtype=od), rtol=0, atol=0)
+        # deterministic: no atomics, fixed reduction order
+        torch.testing.assert_close(fn(x, fp, fs, g=g), got, rtol=0, atol=0, msg=fmt)
+    assert launch_counts() == {
+        "bcq_mm": 1, "bcq_mm_fused": 1, "lutgemm": 1, "uniform_mm": 2,
+        "dequant_materialize": 4, "ternary_mm": 2, "codebook_mm": 2,
+    }
     torch.testing.assert_close(bcq_mm(x, packed, scales, g=g), bcq_mm(x, packed, scales, g=g), rtol=0, atol=0)
     torch.testing.assert_close(lutgemm(x, packed, scales, g=g), lutgemm(x, packed, scales, g=g), rtol=0, atol=0)
 
@@ -82,10 +130,40 @@ def test_kernels_match_plain(cuda, B, k, o, q, g, dtype):
 def test_kernels_raise_on_mixed_devices(cuda):
     x = torch.randn((2, 256), device=cuda)
     packed = torch.zeros((2, 32, 128), dtype=torch.uint8)
-    scales = torch.ones((2, 4, 128))
-    for fn in (bcq_mm, lutgemm):
+    for fn, s in ((bcq_mm, 2), (lutgemm, 2), (uniform_mm, 2), (ternary_mm, 1), (codebook_mm, 4)):
         with pytest.raises(ValueError, match="devices"):
-            fn(x, packed, scales, g=64)
+            fn(x, packed, torch.ones((s, 4, 128)), g=64)
+    with pytest.raises(ValueError, match="devices"):
+        dequant_materialize(packed.to(cuda), torch.ones((2, 4, 128)), g=64)
+    assert len(KERNEL_WRAPPERS) == 7
+
+
+@pytest.mark.parametrize("fmt", ["uniform", "dequant", "ternary", "codebook"])
+def test_engine_format_kernel_path_matches_ref_path(cuda, fmt):
+    """Each format's model: 4L+1 launches of its kernel per forward (fused
+    leaves are one launch each), no oracle dispatch, logits within 2e-4 of
+    the same engine on the ref oracle (reduced f32 model)."""
+    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512)
+    params = quantize_params(
+        init_params(cfg, seed=0, device=cuda), QuantPolicy(q=4, g=128, iters=2, fmt=fmt), device=cuda
+    )
+    eng = Engine(cfg, params, max_seq=32, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=(3, 8)), device=cuda)
+
+    def logits(mode):
+        with impl_mode(mode):
+            l0, cache = eng.prefill(toks, eng._make_cache(3))
+            l1, _ = eng.decode(toks[:, -1:], cache, 8)
+        return torch.stack([l0, l1])
+
+    kernel = {"uniform": "uniform_mm", "dequant": "dequant_materialize", "ternary": "ternary_mm",
+              "codebook": "codebook_mm"}[fmt]
+    reset_launch_counts()
+    got = logits(None)
+    counts = launch_counts()
+    assert counts[kernel] == 2 * (4 * cfg.n_layers + 1)
+    assert sum(counts.values()) == counts[kernel]
+    torch.testing.assert_close(got, logits("ref"), rtol=2e-4, atol=2e-4)
 
 
 def test_engine_kernel_path_matches_ref_path(cuda):

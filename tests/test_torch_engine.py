@@ -25,9 +25,12 @@ from repro.models import reduced as jreduced
 from repro.quant import QuantPolicy as JPolicy
 from repro.quant import quantize_params as jquantize_params
 from repro_torch.configs import get_config
+from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.infer import Engine
 from repro_torch.launch import serve
-from repro_torch.models import params_from_numpy, reduced
+from repro_torch.models import init_params, params_from_numpy, reduced
+from repro_torch.quant import QuantPolicy, quantize_params
+from repro_torch.utils import tree_leaves
 from torch_helpers import jax_tree_to_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -134,6 +137,43 @@ def test_serve_cli_sequential_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[sequential] 2 requests, 6 tokens" in out
     assert "bcq q=2 g=64" in out and "sample:" in out
+
+
+@pytest.mark.parametrize("fmt", ["bcq", "uniform", "dequant", "ternary", "codebook"])
+def test_serve_cli_sequential_each_format_on_cpu(capsys, fmt):
+    serve.main(["--sequential", "--device", "cpu", "--requests", "2", "--gen", "3",
+                "--prompt-len", "6", "--q", "2", "--g", "64", "--format", fmt])
+    out = capsys.readouterr().out
+    assert f"{fmt} q=2 g=64" in out and "[sequential] 2 requests, 6 tokens" in out
+
+
+def _format_engine(fmt, *, fuse=True, **policy):
+    tcfg = reduced(get_config("llama3.2-3b"), **SIZES)
+    params = init_params(tcfg, seed=1, device="cpu")
+    qp = quantize_params(params, QuantPolicy(q=4, g=64, iters=2, fmt=fmt, **policy), device="cpu")
+    return Engine(tcfg, qp, max_seq=32, fuse=fuse, device="cpu")
+
+
+def test_uniform_and_dequant_greedy_tokens_identical():
+    """The port's mirror of tests/test_formats.py::test_cross_format_greedy_tokens_identical."""
+    toks = {fmt: _format_engine(fmt).generate(_prompts(), N).tokens for fmt in ("uniform", "dequant")}
+    np.testing.assert_array_equal(toks["uniform"], toks["dequant"])
+
+
+def test_uniform_fused_decode_matches_unfused():
+    """The port's mirror of tests/test_formats.py::test_uniform_fused_decode_matches_unfused."""
+    fused = _format_engine("uniform", fuse=True).generate(_prompts(), N)
+    unfused = _format_engine("uniform", fuse=False).generate(_prompts(), N)
+    np.testing.assert_array_equal(fused.tokens, unfused.tokens)
+
+
+def test_mixed_format_model_decodes():
+    """The port's mirror of tests/test_formats.py::test_mixed_format_model_decodes."""
+    eng = _format_engine("bcq", attn=(4, 64, "uniform"), ffn=(3, 64, "bcq"))
+    fmts = {leaf.fmt for leaf in tree_leaves(eng.params) if isinstance(leaf, QuantizedTensor)}
+    assert fmts == {"uniform", "bcq"}
+    res = eng.generate(_prompts()[:1, :6], 6)
+    assert res.tokens.shape == (1, 12)
 
 
 @pytest.mark.parametrize("argv,missing", [

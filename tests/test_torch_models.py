@@ -22,6 +22,7 @@ from repro.quant import QuantPolicy as JPolicy
 from repro.quant import quantize_params as jquantize_params
 from repro.quant import quantized_bytes as jquantized_bytes
 from repro_torch.configs import get_config
+from repro_torch.core.formats import get_format
 from repro_torch.kernels import impl_mode
 from repro_torch.models import (
     forward,
@@ -127,6 +128,49 @@ def test_forward_logits_match_jax(cfgs, jparams, jqparams, quantized):
                 np.testing.assert_allclose(
                     _port_logits(tcfg, tp, toks), want, rtol=LOGIT_TOL, atol=LOGIT_TOL
                 )
+
+
+@pytest.mark.parametrize("fmt", ["uniform", "dequant", "ternary", "codebook"])
+def test_format_forward_logits_match_jax(cfgs, jparams, fmt):
+    """A reduced llama3.2-3b quantized by JAX in each format: the port's
+    logits over a prefill and decode steps, on the ref oracle and through
+    the format's kernel (its plain version on the CPU), fused and unfused."""
+    jcfg, tcfg = cfgs
+    jq = jquantize_params(jparams, JPolicy(q=4, g=128, iters=2, fmt=fmt))
+    toks = _tokens()
+    want = _jax_logits(jcfg, jq, toks)
+    tp = params_from_numpy(jax_tree_to_numpy(jq), device="cpu")
+    assert {leaf.fmt for leaf in _qleaves(tp)} == {fmt}
+    np.testing.assert_allclose(_port_logits(tcfg, tp, toks), want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    kernel = get_format(fmt).impls[0]
+    with impl_mode(kernel):
+        for tree in (tp, fuse_decode_projections(tcfg, tp)):
+            np.testing.assert_allclose(_port_logits(tcfg, tree, toks), want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+def _qleaves(tree):
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.utils import tree_leaves
+
+    return [leaf for leaf in tree_leaves(tree) if isinstance(leaf, QuantizedTensor)]
+
+
+@pytest.mark.parametrize("fmt,planes,s_lead", [
+    ("bcq", 4, 4), ("uniform", 4, 2), ("dequant", 4, 2), ("codebook", 4, 16), ("ternary", 2, 1),
+])
+def test_quantize_params_per_format_matches_jax_layout(cfgs, jparams, fmt, planes, s_lead):
+    """Same leaves, planes (ternary stores 2 whatever q says) and scale
+    planes as the JAX package; quantized_bytes agree."""
+    _, tcfg = cfgs
+    pol = dict(q=4, g=128, iters=1, method="greedy", fmt=fmt)
+    jq = jquantize_params(jparams, JPolicy(**pol))
+    tq = quantize_params(params_from_numpy(jax_tree_to_numpy(jparams), device="cpu"), QuantPolicy(**pol),
+                         device="cpu")
+    for leaf in _qleaves(tq):
+        assert leaf.fmt == fmt and leaf.q == planes and leaf.scales.shape[-3] == s_lead
+    assert quantized_bytes(tq) == jquantized_bytes(jq)
+    fused = fuse_decode_projections(tcfg, tq)
+    assert "wqkv" in fused["stages"][0]["b0"]["attn"] and quantized_bytes(fused) == quantized_bytes(tq)
 
 
 def test_fused_params_give_same_logits(cfgs, jqparams):
