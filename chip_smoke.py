@@ -9,19 +9,31 @@ code is non-zero:
 1. card      the ``nvidia-smi`` name and power limit line;
 2. build     nvcc builds every kernel from ``src/repro_torch/csrc``, all
              sources at once (timed);
-3. kernels   each of the seven kernels against its plain PyTorch version at
-             the main path's leaf shapes (B = 1, 4 and the prefill row count)
-             and the reference's kernel sweep, with bf16 and f32 inputs: max
-             error against the tolerance (2e-4 for both: kernel and plain
-             version widen the same inputs to f32 and differ only in
-             summation order), kernel time, plain time, the byte / operation
-             bound (the format's own planes, scales, x and output) and
-             ``library_ms`` (``torch.matmul`` of bf16 x against the
+3. kernels   each of the seven quantized-matmul kernels against its plain
+             PyTorch version at the main path's leaf shapes (B = 1, 4 and the
+             prefill row count) and the reference's kernel sweep, with bf16
+             and f32 inputs: max error against the tolerance (2e-4 for both:
+             kernel and plain version widen the same inputs to f32 and differ
+             only in summation order), kernel time, plain time, the byte /
+             operation bound (the format's own planes, scales, x and output)
+             and ``library_ms`` (``torch.matmul`` of bf16 x against the
              pre-dequantized bf16 weight, the paper's cuBLAS baseline, timed
              here only). ``dequant_materialize`` is held to its plain version
              bit for bit, and its pipeline ``dequant_mm`` (materialise, then
              an f32 GEMM) is checked and timed beside it, GEMM alone too;
-4. main path full-width llama3.2-3b with random weights from a seed, once
+4. flash     ``flash_attention`` (K8) against its plain version (``_sdpa``
+             under a causal mask, run one batch row at a time) at
+             llama3.2-3b's heads (24 / 8, Dh 128) for B in {1, 4} and S in
+             {1, 16, 17, 100, 512, 2048, 8192}, at the reference test's four
+             shapes and at Dh 16 and 64, in bf16 (tolerance 3e-2) and f32
+             (2e-4), the reference test's own tolerances, and in bf16 also
+             per query row: max|Δ| over the row's Dh values within 2^-6 of
+             the row's max|plain| (``BF16_ROW_TOL``: twice one bf16 ulp of
+             the output; the long rows' values fall as 1/sqrt(S), below the
+             absolute limit); a rerun must give the same bits. Timed like the other kernels, beside
+             ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+             on the same bf16 inputs (the library yardstick, never on a path);
+5. main path full-width llama3.2-3b with random weights from a seed, once
              per format, each quantized on the card (q=4, g=128, iters=4)
              and served by an ``Engine`` with fused QKV / gate-up:
              - ``bcq``: ``generate`` for 4 prompts batched, once per request
@@ -29,20 +41,34 @@ code is non-zero:
                quantized linear on the paper's LUT kernel;
              - ``uniform``, ``dequant``, ``ternary``, ``codebook``:
                ``generate`` batched.
-             Launch counts are set to 0 just before each path's run and read
-             just after; each path must launch its kernels the expected
-             number of times and take the ref oracle never. Each path's
-             logits are then held against the same engine under
-             ``impl_mode("ref")``, and a reduced f32 model per format
-             against its oracle within the kernels' tolerance;
-5. one JSON line listing every kernel, its launches and its numbers;
-6. last line ``{"ok": true, "device": {...}}``.
+             Every prefill's attention runs on K8. Launch counts are set to
+             0 just before each path's run and read just after; each path
+             must launch its kernels the expected number of times and take
+             the ref oracle never. Each path's logits are then held against
+             the same engine under ``impl_mode("ref")``, and a reduced f32
+             model per format against its oracle within the kernels'
+             tolerance;
+6. serving   the continuous-batching path on the bcq model: 12 requests of
+             16 new tokens, prompts of 16 to 512 tokens (so K8 sees ragged
+             S), greedy and sampled, through 4 slots with chunk 8. Every
+             admission prefills through K8; greedy completions must equal a
+             solo ``generate`` of each request, with the largest logit
+             difference between a slot batch and solo forwards reported;
+             tok/s, TTFT p50/p95 and the device's busy share are reported.
+             Then one request of ``LONG_SEQ_THRESHOLD`` = 8192 prompt tokens
+             and 8 new tokens through the scheduler: its prefill time and
+             peak device memory above the resident weights and cache, against
+             the ~6.4 GB of f32 logits per layer that ``_sdpa`` would need,
+             and its greedy tokens against the same request under
+             ``impl_mode("ref")`` (``_sdpa_qchunked`` at this length);
+7. one JSON line listing every kernel, its launches and its numbers;
+8. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
 and not the host's per-call cost. Weight copies
 are rotated so that repeated launches read weights from device memory, not
-from the 50 MB L2, as a decode step does. Phase 4 also traces one batched
+from the 50 MB L2, as a decode step does. Phase 5 also traces one batched
 ``generate`` per format with ``torch.profiler`` for the device's busy time
 by kernel, and reads each path's peak device memory.
 
@@ -52,6 +78,7 @@ it exits non-zero before printing any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -104,6 +131,18 @@ KERNELS = {
     "ternary_mm": ("csrc/ternary_mm.cu", "src/repro/kernels/ternary_mm.py:140", tuple(LEAVES), "ternary"),
     "codebook_mm": ("csrc/codebook_mm.cu", "src/repro/kernels/codebook_mm.py:145", tuple(LEAVES), "codebook"),
 }
+FLASH = ("flash_attention", "csrc/flash_attn.cu", "src/repro/kernels/flash_attn.py:109")
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}  # the reference test's tolerances
+LLAMA_HEADS = (24, 8, 128)  # llama3.2-3b: H, Hkv, Dh
+FLASH_S = (1, 16, 17, 100, 512, 2048, 8192)
+FLASH_EXTRA = [  # (B, S, H, Hkv, Dh): the reference test's shapes, then Dh 16 and 64
+    (2, 512, 4, 4, 64), (1, 1024, 8, 2, 32), (2, 512, 6, 1, 64), (1, 512, 2, 2, 128),
+    (2, 300, 4, 2, 16), (1, 777, 8, 4, 64),
+]
+# the continuous-batching phase: prompt lengths over 16..512 (ragged for K8)
+SERVE_PROMPT_LENS = (16, 512, 37, 200, 100, 17, 300, 64, 450, 129, 24, 256)
+SERVE_SLOTS, SERVE_CHUNK = 4, 8
+LONG_NEW = 8
 # the formats served after bcq, with the kernel each one's path launches
 FORMAT_KERNEL = {"uniform": "uniform_mm", "dequant": "dequant_materialize", "ternary": "ternary_mm",
                  "codebook": "codebook_mm"}
@@ -287,6 +326,78 @@ def phase_kernels(gen):
     return records
 
 
+def flash_plain_rows(q, k, v):
+    """K8's plain version one batch row at a time: the same function (rows
+    are independent), with one row's ``(H, S, S)`` f32 logits live at once."""
+    from repro_torch.kernels import flash_attention_plain
+
+    return torch.cat([flash_attention_plain(q[b : b + 1], k[b : b + 1], v[b : b + 1])
+                      for b in range(q.shape[0])])
+
+
+def sdpa_library(q, k, v):
+    """The library yardstick: one fused PyTorch attention call on the same
+    (B, S, H, Dh) inputs. Timed only; the port never calls it."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True
+    ).transpose(1, 2)
+
+
+def check_flash(B, S, H, Hkv, Dh, dtype, gen):
+    """K8 vs its plain version at one shape → record dict."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attn import BF16_ROW_TOL, row_rel_err
+
+    def rand(heads):
+        return torch.randn((B, S, heads, Dh), generator=gen, device=DEVICE).to(dtype)
+
+    nbytes = (2 * B * S * H * Dh + 2 * B * S * Hkv * Dh) * (4 if dtype == torch.float32 else 2)
+    inputs = [(rand(H), rand(Hkv), rand(Hkv)) for _ in range(n_copies(nbytes))]
+    q, k, v = inputs[0]
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_plain_rows(q, k, v)
+    err = (out.float() - ref.float()).abs().max().item()
+    row_err = row_rel_err(out, ref)
+    del ref
+    same_bits = bool(torch.equal(flash_attention(q, k, v), out))
+    tol = FLASH_TOL[dtype]
+    row_tol = BF16_ROW_TOL if dtype == torch.bfloat16 else None
+    ok = (err <= tol and (row_tol is None or row_err <= row_tol) and same_bits
+          and bool(torch.isfinite(out).all()) and out.dtype == dtype)
+    ms = time_ms(flash_attention, inputs)
+    plain_ms = time_ms(flash_plain_rows, [(q, k, v)], reps=3, inner=1)
+    library_ms = time_ms(sdpa_library, inputs) if dtype == torch.bfloat16 else None
+    # the work this data needs: q k^T and p v over the S(S+1)/2 causal pairs
+    ops = 4.0 * B * H * Dh * (S * (S + 1) / 2)
+    ops_ms = ops / PEAK_OPS[dtype] * 1e3
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    rec = dict(
+        kernel=FLASH[0], B=B, S=S, H=H, Hkv=Hkv, Dh=Dh, dtype=str(dtype).replace("torch.", ""),
+        max_abs_err=err, tol=tol, row_rel_err=row_err, row_tol=row_tol, same_bits=same_bits, ok=ok,
+        ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+    lib = "-" if library_ms is None else f"{library_ms:.4f}"
+    log(f"  flash_attention B={B} S={S:<5d} H={H:<2d}/{Hkv:<2d} Dh={Dh:<3d} {rec['dtype']:8s} "
+        f"err {err:.2e} (tol {tol:g}) row {row_err:.2e}{'' if row_tol is None else f' (tol {row_tol:g})'} "
+        f"bits {'same' if same_bits else 'DIFFER'} {'ok' if ok else 'FAIL'}  "
+        f"ms {ms:.4f}  plain {plain_ms:.4f}  bound {rec['bound_ms']:.4f} ({rec['bound_by']})  library {lib}")
+    return rec
+
+
+def phase_flash(gen):
+    H, Hkv, Dh = LLAMA_HEADS
+    shapes = [(B, S, H, Hkv, Dh) for B in (1, PROMPTS) for S in FLASH_S] + FLASH_EXTRA
+    records = [check_flash(*shape, dtype, gen) for shape in shapes
+               for dtype in (torch.bfloat16, torch.float32)]
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: {len(bad)} flash_attention checks disagree with the plain version: {bad[:3]}")
+    return records
+
+
 def run_counted(fn):
     """``fn()`` with every launch count set to 0 just before it and read just
     after → (result, wall seconds, launch counts, ref-oracle dispatches)."""
@@ -348,6 +459,46 @@ def check_logits(engine, prompts, fmt, modes):
     return worst
 
 
+def f32_oracle_engine(engine):
+    """The same quantized weights, dequantized to f32, in an f32 model (the
+    watch item's oracle, ROADMAP Queue 3)."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.infer import Engine
+    from repro_torch.utils import tree_map
+
+    def to_f32(leaf):
+        if not isinstance(leaf, QuantizedTensor):
+            return leaf.to(torch.float32)
+        f = get_format(leaf.fmt)
+        if leaf.packed.dim() == 3:
+            return f.dequantize(leaf, dtype=torch.float32)
+        return torch.stack([f.dequantize(leaf.replace(packed=leaf.packed[i], scales=leaf.scales[i]),
+                                         dtype=torch.float32) for i in range(leaf.packed.shape[0])])
+
+    cfg32 = dataclasses.replace(engine.cfg, param_dtype="float32", compute_dtype="float32")
+    return Engine(cfg32, tree_map(to_f32, engine.params), max_seq=engine.max_seq, fuse=False, device="cuda")
+
+
+def f32_oracle_check(engine, prompts, fmt, modes):
+    """Each bf16 path's logits (the ref path's included) against the f32
+    oracle under ``impl_mode("ref")``, max|d| / max|f32|. A kernel path no
+    farther from it than the ref path is not at fault, whatever their
+    distance from each other."""
+    oracle = f32_oracle_engine(engine)
+    want = step_logits(oracle, prompts, "ref")
+    del oracle
+    scale = want.abs().max().item()
+    out = {}
+    for mode in ("ref", *modes):
+        got = step_logits(engine, prompts, mode)
+        out[mode or "auto"] = (got - want).abs().max().item() / scale
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"  [{fmt}] logits {mode or 'auto'} vs the f32-weight oracle: max|d| / max|f32| "
+            f"{out[mode or 'auto']:.3e}, top-1 agreement {agree:.3f}")
+    return out
+
+
 def serve_bcq(cfg, params, prompts, reqs):
     """The bcq path: batched, sequential and LUT-kernel ``generate`` in one
     counted window."""
@@ -387,6 +538,7 @@ def serve_bcq(cfg, params, prompts, reqs):
         "bcq_mm": (1 + PROMPTS) * forwards * (2 * L + 1),
         "bcq_mm_fused": (1 + PROMPTS) * forwards * 2 * L,
         "lutgemm": forwards * (4 * L + 1),
+        "flash_attention": (2 + PROMPTS) * L,  # every prefill's attention, one launch a layer
     })
     if counts != expect:
         raise SystemExit(f"chip_smoke: [bcq] launch counts {counts} != expected {expect}")
@@ -398,10 +550,12 @@ def serve_bcq(cfg, params, prompts, reqs):
         f"{int((seq_tokens == batched.tokens).all(axis=1).sum())}/{PROMPTS}; "
         f"bcq_mm vs lutgemm: {int((lut.tokens == batched.tokens).all(axis=1).sum())}/{PROMPTS}")
     check_logits(engine, prompts, "bcq", (None, "lutgemm"))
+    f32_rel = f32_oracle_check(engine, prompts, "bcq", (None, "lutgemm"))
     small_model_check("bcq")
     summary = dict(tok_s=n_tok / t_batched, wall_s=t_batched, seq_tok_s=n_tok / t_seq,
-                   lutgemm_tok_s=n_tok / t_lut, profile=profile_generate(engine, prompts, t_batched, "bcq"))
-    return {k: counts[k] for k in ("bcq_mm", "bcq_mm_fused", "lutgemm")}, summary
+                   lutgemm_tok_s=n_tok / t_lut, f32_oracle_rel=f32_rel,
+                   profile=profile_generate(engine, prompts, t_batched, "bcq"))
+    return {k: counts[k] for k in ("bcq_mm", "bcq_mm_fused", "lutgemm")}, summary, engine
 
 
 def serve_format(cfg, params, prompts, fmt):
@@ -421,6 +575,7 @@ def serve_format(cfg, params, prompts, fmt):
     log(f"  [{fmt}] launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
     expect = dict.fromkeys(counts, 0)
     expect[kernel] = (1 + NEW_TOKENS) * (4 * cfg.n_layers + 1)
+    expect["flash_attention"] = cfg.n_layers  # the prefill's attention
     if counts != expect:
         raise SystemExit(f"chip_smoke: [{fmt}] launch counts {counts} != expected {expect}")
     if ref_calls:
@@ -451,7 +606,7 @@ def phase_main_path():
     reqs = build_requests(cfg, PROMPTS, PROMPT_LEN, NEW_TOKENS, mixed_temperature=False)
     prompts = np.stack([r.prompt for r in reqs])
 
-    counts, summary = serve_bcq(cfg, params, prompts, reqs)
+    counts, summary, bcq_engine = serve_bcq(cfg, params, prompts, reqs)
     summaries = {"bcq": summary}
     tokens = {}
     for fmt, kernel in FORMAT_KERNEL.items():
@@ -459,7 +614,253 @@ def phase_main_path():
     same = int((tokens["uniform"] == tokens["dequant"]).all(axis=1).sum())
     log(f"  greedy rows identical, uniform vs dequant: {same}/{PROMPTS} (reported, not asserted: "
         f"the two kernels sum k in different orders)")
-    return counts, cfg, summaries
+    return counts, cfg, summaries, bcq_engine
+
+
+def serving_engine(engine, max_seq):
+    """The bcq engine's fused weights behind another cache length (no copy)."""
+    from repro_torch.infer import Engine
+
+    return Engine(engine.cfg, engine.params, max_seq=max_seq, fuse=False, device="cuda")
+
+
+def serve_requests(cfg, lens, new_tokens, seed0):
+    """One request per prompt length, prompts from the serve launcher's
+    Markov corpus; temperatures cycle 0 (greedy), 1.0, 0.7."""
+    import numpy as np
+
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.infer import Request
+
+    corpus = MarkovCorpus(cfg.vocab, seed=3)
+    return [
+        Request(prompt=corpus.sample(1, n, seed=seed0 + i)[0, :n].astype(np.int32),
+                max_new_tokens=new_tokens, temperature=[0.0, 1.0, 0.7][i % 3], seed=10 + i)
+        for i, n in enumerate(lens)
+    ]
+
+
+def expect_forward_counts(counts, forwards, prefills, n_layers):
+    """Launch counts of the bcq path over ``forwards`` forwards, ``prefills``
+    of them prefills (each launching K8 once a layer)."""
+    expect = dict.fromkeys(counts, 0)
+    expect.update(bcq_mm=forwards * (2 * n_layers + 1), bcq_mm_fused=forwards * 2 * n_layers,
+                  flash_attention=prefills * n_layers)
+    return expect
+
+
+def slot_vs_solo_logits(engine, reqs):
+    """Largest |logit difference| between a slot batch and solo batch-1
+    forwards of the same requests: their prefill logits and one decode
+    step's."""
+    slots = engine.init_slots(len(reqs))
+    for i, r in enumerate(reqs):
+        engine.admit_slot(slots, i, r.prompt, max_new_tokens=2)
+    prefill = slots["logits"].clone()
+    toks, _, slots = engine.decode_slots(slots, 1)
+    worst = 0.0
+    for i, r in enumerate(reqs):
+        l0, cache = engine.prefill(torch.as_tensor(r.prompt[None], device=DEVICE).long(), engine._make_cache(1))
+        l1, _ = engine.decode(torch.tensor([[int(toks[i, 0])]], device=DEVICE), cache, r.prompt.size)
+        worst = max(worst, (l0[0] - prefill[i]).abs().max().item(), (l1[0] - slots["logits"][i]).abs().max().item())
+    return worst
+
+
+def device_profile(run):
+    """Device busy time by kernel over ``run()``, traced with
+    ``torch.profiler`` (CUDA activity only, which slows the host least) →
+    (device ms, traced wall ms, {kernel: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    return sum(by_name.values()), traced_ms, by_name
+
+
+def phase_serving(bcq_engine):
+    """Continuous batching of 12 requests (ragged prompts, greedy and
+    sampled) through 4 slots on the bcq model → (K8 launches, summary)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import drive_continuous
+
+    cfg = bcq_engine.cfg
+    L, n = cfg.n_layers, len(SERVE_PROMPT_LENS)
+    engine = serving_engine(bcq_engine, max(SERVE_PROMPT_LENS) + NEW_TOKENS + 8)
+
+    def serve(seed0):
+        reqs = serve_requests(cfg, SERVE_PROMPT_LENS, NEW_TOKENS, seed0)
+        sched, done, wall = drive_continuous(engine, reqs, np.zeros(n), n_slots=SERVE_SLOTS,
+                                             chunk=SERVE_CHUNK)
+        return reqs, sched, done, wall
+
+    drive_continuous(engine, serve_requests(cfg, (16, 40), 2, 900), np.zeros(2), n_slots=SERVE_SLOTS,
+                     chunk=SERVE_CHUNK)  # warm-up
+    (reqs, sched, done, wall), _, counts, ref_calls = run_counted(lambda: serve(200))
+    summ = sched.summary()
+    tok_s = n * NEW_TOKENS / wall
+    util = sched.steps_active / max(1, sched.decode_steps * SERVE_SLOTS)
+    ttft = summ["ttft_s"]
+    log(f"  [continuous] {n} requests (prompts {min(SERVE_PROMPT_LENS)}-{max(SERVE_PROMPT_LENS)} tokens, "
+        f"{NEW_TOKENS} new each), {SERVE_SLOTS} slots, chunk {SERVE_CHUNK}: {wall:.3f}s, {tok_s:.1f} tok/s, "
+        f"slot utilisation {util:.1%}, TTFT p50 {ttft['p50']:.3f}s p95 {ttft['p95']:.3f}s, "
+        f"{sched.decode_steps} decode steps")
+    log(f"  [continuous] launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
+    expect = expect_forward_counts(counts, n + sched.decode_steps, n, L)
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: [continuous] launch counts {counts} != expected {expect}")
+    if ref_calls:
+        raise SystemExit(f"chip_smoke: the continuous path took the ref oracle {ref_calls} times")
+    if len(done) != n or summ["by_state"] != {"finished": n}:
+        raise SystemExit(f"chip_smoke: [continuous] not every request finished: {summ['by_state']}")
+
+    by_rid = {c.rid: c.new_tokens for c in done}
+    t0 = time.perf_counter()
+    solos, _, solo_counts, _ = run_counted(lambda: [
+        engine.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
+        for r in reqs])
+    solo_s = time.perf_counter() - t0
+    if solo_counts["flash_attention"] != n * L:
+        raise SystemExit(f"chip_smoke: solo generates launched K8 {solo_counts['flash_attention']} times, "
+                         f"not {n * L}")
+    same = [bool(np.array_equal(by_rid[r.rid], o.tokens[0, r.prompt.size:])) for r, o in zip(reqs, solos)]
+    greedy = [r.temperature == 0 for r in reqs]
+    worst = slot_vs_solo_logits(engine, [r for r in reqs if r.temperature == 0][:SERVE_SLOTS])
+    log(f"  [continuous] slot == solo generate: greedy {sum(a for a, g in zip(same, greedy) if g)}/{sum(greedy)}, "
+        f"sampled {sum(a for a, g in zip(same, greedy) if not g)}/{n - sum(greedy)} (sampled reported, "
+        f"not asserted); largest logit difference slot batch vs solo forwards {worst:.3e}; "
+        f"{n} solo generates {solo_s:.3f}s ({n * NEW_TOKENS / solo_s:.1f} tok/s one at a time)")
+    if not all(a for a, g in zip(same, greedy) if g):
+        raise SystemExit("chip_smoke: a greedy request served in a slot differs from its solo generate")
+
+    device_ms, traced_ms, by_name = device_profile(lambda: serve(300))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    flash_ms = sum(ms for name, ms in by_name.items() if "flash_kernel" in name)
+    log(f"  [continuous] profile of a second run: device busy {device_ms:.2f} ms of {traced_ms:.2f} ms traced "
+        f"wall ({device_ms / traced_ms:.1%}; {device_ms / (wall * 1e3):.1%} of the untraced run's wall), "
+        f"K8 {flash_ms:.2f} ms")
+    for name, ms in top:
+        log(f"    {ms:9.3f} ms  {name[:100]}")
+    summary = dict(requests=n, wall_s=wall, tok_s=tok_s, slot_utilisation=util, ttft_s=ttft,
+                   tpot_s=summ["tpot_s"], decode_steps=sched.decode_steps, greedy_same=same,
+                   max_logit_diff_slot_vs_solo=worst, solo_s=solo_s, device_ms=device_ms,
+                   traced_wall_ms=traced_ms, busy_share=device_ms / (wall * 1e3), flash_ms=flash_ms,
+                   top=[[k, v] for k, v in top])
+    return counts["flash_attention"], summary
+
+
+def forced_logits(engine, prompt, tokens, mode):
+    """Under ``impl_mode(mode)``: the prompt's prefill, then ``tokens`` fed
+    one decode step at a time → the ``(len(tokens), V)`` logits that chose
+    each of them (teacher forcing: every path sees the same inputs)."""
+    from repro_torch.kernels import impl_mode
+
+    out = []
+    with impl_mode(mode):
+        logits, cache = engine.prefill(torch.as_tensor(prompt[None], device=DEVICE).long(), engine._make_cache(1))
+        for t, tok in enumerate(tokens):
+            out.append(logits[0])
+            if t + 1 < len(tokens):
+                logits, cache = engine.decode(torch.tensor([[int(tok)]], device=DEVICE), cache, prompt.size + t)
+    return torch.stack(out)
+
+
+def phase_long(bcq_engine):
+    """One request of LONG_SEQ_THRESHOLD prompt tokens through the
+    scheduler on the kernels, and again under impl_mode("ref"); then the
+    kernel path's tokens teacher-forced through both paths and an f32-weight
+    oracle, so the logits are compared on the same inputs."""
+    import numpy as np
+
+    from repro_torch.infer import RequestState, Scheduler
+    from repro_torch.kernels import impl_mode
+    from repro_torch.models.layers import LONG_SEQ_THRESHOLD
+
+    cfg = bcq_engine.cfg
+    L, S = cfg.n_layers, LONG_SEQ_THRESHOLD
+    engine = serving_engine(bcq_engine, S + LONG_NEW)
+    (req,) = serve_requests(cfg, (S,), LONG_NEW, 500)  # greedy
+
+    def synced_clock():  # lifecycle stamps that include the device's work
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def run(mode):
+        with impl_mode(mode):
+            sched = Scheduler(engine, n_slots=1, chunk=SERVE_CHUNK, clock=synced_clock)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rid = sched.submit(dataclasses.replace(req, rid=None))
+            (c,) = sched.run()
+            peak = torch.cuda.max_memory_allocated() - base
+        stamps = dict(sched.outcomes[rid].history)
+        prefill_s = stamps[RequestState.DECODING] - stamps[RequestState.PREFILLING]
+        return c.new_tokens, prefill_s, peak, base, sched.decode_steps
+
+    (toks, prefill_s, peak, base, steps), wall, counts, ref_calls = run_counted(lambda: run(None))
+    logits_gb = LLAMA_HEADS[0] * S * S * 4 / 1e9  # _sdpa's f32 (H, S, S) logits for one layer, computed
+    log(f"  [long] {S}-token prompt + {LONG_NEW} new tokens through the scheduler: {wall:.3f}s, prefill "
+        f"{prefill_s:.3f}s; peak device memory {peak / 1e9:.3f} GB above the resident {base / 1e9:.3f} GB "
+        f"(weights and cache); _sdpa would need {logits_gb:.2f} GB of f32 logits per layer (computed, not run)")
+    log(f"  [long] launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
+    expect = expect_forward_counts(counts, 1 + steps, 1, L)
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: [long] launch counts {counts} != expected {expect}")
+    if ref_calls:
+        raise SystemExit(f"chip_smoke: the long request took the ref oracle {ref_calls} times")
+    rtoks, rprefill_s, rpeak, _, _ = run("ref")
+    same = bool(np.array_equal(toks, rtoks))
+    log(f"  [long] under impl_mode('ref') (_sdpa_qchunked, dequantized weights): prefill {rprefill_s:.3f}s, "
+        f"peak {rpeak / 1e9:.3f} GB above the same base; free-running greedy tokens "
+        f"{'identical' if same else 'differ'}: {toks.tolist()} vs {rtoks.tolist()}")
+
+    kl = forced_logits(engine, req.prompt, toks, None)
+    if not torch.equal(kl.argmax(-1).cpu(), torch.as_tensor(toks).long()):
+        raise SystemExit("chip_smoke: [long] teacher-forced kernel logits do not reproduce the served tokens")
+    rl = forced_logits(engine, req.prompt, toks, "ref")
+    oracle = f32_oracle_engine(engine)
+    fl = forced_logits(oracle, req.prompt, toks, "ref")
+    del oracle
+
+    def rel(a, b):
+        return ((a - b).abs().amax(-1) / b.abs().amax(-1)).max().item()
+
+    def agree(a, b):
+        return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+    top2 = rl.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    diff = (kl - rl).abs().amax(-1).tolist()
+    rel_kr, rel_kf, rel_rf = rel(kl, rl), rel(kl, fl), rel(rl, fl)
+    log(f"  [long] teacher-forced on the kernel path's tokens, max|d| / max|logit| per step, worst of {LONG_NEW}: "
+        f"kernel vs ref {rel_kr:.3e} (tol {LOGITS_REL_TOL:g}); against the f32-weight oracle kernel "
+        f"{rel_kf:.3e}, ref {rel_rf:.3e}; top-1 agreement kernel/ref {agree(kl, rl):.3f}, kernel/f32 "
+        f"{agree(kl, fl):.3f}, ref/f32 {agree(rl, fl):.3f}")
+    log(f"  [long] per step, the ref path's top-1/top-2 margin vs max|kernel - ref|: "
+        + ", ".join(f"{m:.3f}/{d:.3f}" for m, d in zip(margin, diff)))
+    if not rel_kr <= LOGITS_REL_TOL:
+        raise SystemExit(f"chip_smoke: the long request's logits differ from the ref path by {rel_kr:.3e} relative")
+    decisive = [m > 2 * d for m, d in zip(margin, diff)]
+    flips = [t for t, dec in enumerate(decisive)
+             if dec and int(kl[t].argmax()) != int(rl[t].argmax())]
+    if flips:
+        raise SystemExit(f"chip_smoke: [long] the kernel and ref paths pick different tokens at decisive steps {flips}")
+    return dict(prompt_len=S, new_tokens=LONG_NEW, wall_s=wall, prefill_s=prefill_s, peak_gb=peak / 1e9,
+                base_gb=base / 1e9, sdpa_logits_gb_per_layer=logits_gb, ref_prefill_s=rprefill_s,
+                ref_peak_gb=rpeak / 1e9, tokens_identical=same, tokens=toks.tolist(), ref_tokens=rtoks.tolist(),
+                rel_kernel_ref=rel_kr, rel_kernel_f32=rel_kf, rel_ref_f32=rel_rf, margins=margin,
+                max_abs_diff=diff, top1_kernel_ref=agree(kl, rl), top1_kernel_f32=agree(kl, fl),
+                top1_ref_f32=agree(rl, fl))
 
 
 def step_logits(engine, prompts, mode):
@@ -504,40 +905,28 @@ def small_model_check(fmt):
 
 
 def profile_generate(engine, prompts, untraced_s, fmt):
-    """Device busy time by kernel over one batched ``generate``, traced with
-    ``torch.profiler`` (CUDA activity only, which slows the host least)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.generate(prompts, NEW_TOKENS)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    by_name = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us
-    device_ms = sum(by_name.values()) / 1e3
+    """Device busy time by kernel over one batched ``generate``."""
+    device_ms, traced_ms, by_name = device_profile(lambda: engine.generate(prompts, NEW_TOKENS))
     if not device_ms:
         log(f"  [{fmt}] profile: torch.profiler recorded no device time; busy share not measured")
         return None
-    ours_ms = sum(us for name, us in by_name.items() if PROFILE_TAG[fmt] in name) / 1e3
+    ours_ms = sum(ms for name, ms in by_name.items() if PROFILE_TAG[fmt] in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"  [{fmt}] profile of one batched generate: device busy {device_ms:.2f} ms of "
-        f"{traced_s * 1e3:.2f} ms traced wall ({device_ms / (traced_s * 1e3):.1%}; untraced wall "
+        f"{traced_ms:.2f} ms traced wall ({device_ms / traced_ms:.1%}; untraced wall "
         f"{untraced_s * 1e3:.2f} ms, busy {device_ms / (untraced_s * 1e3):.1%} of it), the format's "
         f"kernels {ours_ms:.2f} ms")
-    for name, us in top:
-        log(f"    {us / 1e3:9.3f} ms  {name[:100]}")
-    return dict(device_ms=device_ms, traced_wall_ms=traced_s * 1e3, untraced_wall_ms=untraced_s * 1e3,
-                format_kernels_ms=ours_ms, top=[[name, us / 1e3] for name, us in top])
+    for name, ms in top:
+        log(f"    {ms:9.3f} ms  {name[:100]}")
+    return dict(device_ms=device_ms, traced_wall_ms=traced_ms, untraced_wall_ms=untraced_s * 1e3,
+                format_kernels_ms=ours_ms, top=[[name, ms] for name, ms in top])
 
 
-def kernels_line(records, counts, n_layers):
+def kernels_line(records, counts, n_layers, flash_records):
     """Per kernel: its launches in its path's counted run and, in bf16 at the
-    batched decode width, its time summed over one decode step's launches."""
+    batched decode width, its time summed over one decode step's launches;
+    for K8, in bf16, its time summed over the L launches of one
+    8192-token prefill (one launch a layer at B = 1, S = 8192)."""
     out = []
     every_leaf = {"wqkv": n_layers, "wo": n_layers, "w_gate_up": n_layers, "w_down": n_layers, "lm_head": 1}
     per_step = {"bcq_mm": {"wo": n_layers, "w_down": n_layers, "lm_head": 1},
@@ -555,6 +944,16 @@ def kernels_line(records, counts, n_layers):
             bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
             library_ms=total("library_ms"),
         ))
+    H, Hkv, Dh = LLAMA_HEADS
+    (r,) = [r for r in flash_records
+            if (r["B"], r["S"], r["H"], r["Dh"], r["dtype"]) == (1, FLASH_S[-1], H, Dh, "bfloat16")]
+    name, src, replaces = FLASH
+    out.append(dict(
+        name=name, route="cuda", source=f"src/repro_torch/{src}", replaces=replaces,
+        launches=counts[name], max_abs_err=max(x["max_abs_err"] for x in flash_records),
+        ms=r["ms"] * n_layers, plain_ms=r["plain_ms"] * n_layers, bound_ms=r["bound_ms"] * n_layers,
+        bound_by=r["bound_by"], library_ms=r["library_ms"] * n_layers,
+    ))
     return {"kernels": out}
 
 
@@ -573,7 +972,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/5] card")
+    log("[1/7] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -581,7 +980,7 @@ def main() -> int:
     log(card)
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
-    log("[2/5] build")
+    log("[2/7] build")
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
@@ -598,20 +997,29 @@ def main() -> int:
         for line in spills:
             log(f"    {line}")
 
-    log("[3/5] kernels against their plain versions")
+    log("[3/7] kernels against their plain versions")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
 
-    log("[4/5] main path, one run per format")
-    counts, cfg, summaries = phase_main_path()
+    log("[4/7] flash_attention against its plain version")
+    flash_records = phase_flash(gen)
 
-    log("[5/5] kernels")
-    line = kernels_line(records, counts, cfg.n_layers)
+    log("[5/7] main path, one run per format")
+    counts, cfg, summaries, bcq_engine = phase_main_path()
+
+    log("[6/7] continuous serving and one long request")
+    counts["flash_attention"], summaries["continuous"] = phase_serving(bcq_engine)
+    summaries["long"] = phase_long(bcq_engine)
+    del bcq_engine
+
+    log("[7/7] kernels")
+    line = kernels_line(records, counts, cfg.n_layers, flash_records)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "layers": cfg.n_layers, "records": records, "paths": summaries, **line},
+        {"card": card, "layers": cfg.n_layers, "records": records, "flash_records": flash_records,
+         "paths": summaries, **line},
         indent=1))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core import bcq as bcq_lib
 from repro_torch.core import packing
 from repro_torch.core.qtensor import QuantizedTensor
+from repro_torch.utils import matmul_rows
 
 
 def split_outputs(y: torch.Tensor, out_dims: Sequence[int]) -> Tuple[torch.Tensor, ...]:
@@ -77,9 +78,10 @@ class QuantFormat(abc.ABC):
 
     def matmul(self, xb: torch.Tensor, qt: QuantizedTensor, *, dtype) -> torch.Tensor:
         """Oracle entry: dequantize into ``dtype`` and run one dense product
-        accumulated in f32 → ``(B, o)`` f32."""
+        accumulated in f32: ``(B, ..., k)`` → ``(B, ..., o)`` f32 (one batch
+        row at a time on the CPU: :func:`~repro_torch.utils.matmul_rows`)."""
         w = self.dequantize(qt, dtype=dtype)
-        return torch.matmul(xb.to(dtype).to(torch.float32), w.to(torch.float32))
+        return matmul_rows(xb.to(dtype).to(torch.float32), w.to(torch.float32))
 
     def resolve_impl(self, impl: str, x: torch.Tensor) -> str:
         """``auto`` → this format's preferred kernel for a tensor on the

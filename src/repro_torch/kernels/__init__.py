@@ -8,6 +8,7 @@ versions, and the quantized-matmul dispatch.
 - ``dequant_mm.py``   the paper's baseline: materialise the weight, then GEMM
 - ``ternary_mm.py``   ternary matmul from sign + mask planes
 - ``codebook_mm.py``  codebook matmul, centroid tables in shared memory
+- ``flash_attn.py``   causal GQA attention with an online softmax (prefill)
 - ``_build.py``       nvcc build of ``csrc/*.cu`` at first use, ctypes loading
 - ``_common.py``      wrapper checks and the shared launch plumbing
 - ``ops.py``          ``qmatmul`` format dispatch, ``linear``, ``impl_mode``
@@ -25,8 +26,10 @@ from repro_torch.kernels.dequant_mm import (
     dequant_mm,
     dequant_mm_plain,
 )
+from repro_torch.kernels.flash_attn import flash_attention, flash_attention_plain
 from repro_torch.kernels.lutgemm import lutgemm, lutgemm_plain
 from repro_torch.kernels.ops import (
+    current_impl_mode,
     impl_mode,
     linear,
     linear_fused,
@@ -40,6 +43,7 @@ from repro_torch.kernels.uniform_mm import uniform_mm, uniform_mm_plain
 
 KERNEL_WRAPPERS = (
     bcq_mm, bcq_mm_fused, lutgemm, uniform_mm, dequant_materialize, ternary_mm, codebook_mm,
+    flash_attention,
 )
 
 
@@ -62,10 +66,13 @@ __all__ = [
     "bcq_mm_ref",
     "codebook_mm",
     "codebook_mm_plain",
+    "current_impl_mode",
     "dequant_materialize",
     "dequant_materialize_plain",
     "dequant_mm",
     "dequant_mm_plain",
+    "flash_attention",
+    "flash_attention_plain",
     "impl_mode",
     "launch_counts",
     "linear",

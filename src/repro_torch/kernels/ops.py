@@ -33,10 +33,12 @@ import torch
 
 from repro_torch.core.formats import get_format, split_outputs
 from repro_torch.core.qtensor import QuantizedTensor
+from repro_torch.utils import matmul_rows
 
 # How ``impl="auto"`` resolves, overridable per scope via :func:`impl_mode`:
 #   None       the format's own policy (kernel on the GPU, ref on the CPU);
-#   "ref"      the dequantize + product oracle everywhere (numerics A/B);
+#   "ref"      the dequantize + product oracle everywhere (numerics A/B),
+#              and the plain causal attention (``models/layers._causal``);
 #   a kernel   that kernel of the format everywhere (e.g. "lutgemm", to serve
 #              a model through the paper's LUT kernel).
 _IMPL_MODE: Optional[str] = None
@@ -55,6 +57,11 @@ def impl_mode(mode: Optional[str]):
         yield
     finally:
         _IMPL_MODE = prev
+
+
+def current_impl_mode() -> Optional[str]:
+    """The :func:`impl_mode` in force (None outside any scope)."""
+    return _IMPL_MODE
 
 
 def qmatmul(
@@ -89,7 +96,8 @@ def qmatmul(
 
     if impl == "ref":
         qmatmul.ref_calls += 1
-        parts = split_outputs(f.matmul(xb, qt, dtype=x.dtype), out_dims)
+        xr = x.reshape(x.shape[0], -1, k) if x.dim() > 2 else xb  # batch rows kept apart
+        parts = split_outputs(f.matmul(xr, qt, dtype=x.dtype), out_dims)
     else:
         parts = f.matvec(xb, qt, impl=impl, out_dims=out_dims)
     return tuple(
@@ -123,10 +131,11 @@ def quantized_matmul_fused(
 def _dense(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
     """Dense ``x @ w`` with f32 accumulation: in f32 when either side or the
     output is f32, else one product in ``x``'s dtype (f32-accumulated by the
-    library)."""
+    library); one batch row at a time on the CPU
+    (:func:`~repro_torch.utils.matmul_rows`)."""
     if out_dtype == torch.float32 or x.dtype == torch.float32:
-        return torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
-    return torch.matmul(x, w.to(x.dtype))
+        return matmul_rows(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
+    return matmul_rows(x, w.to(x.dtype))
 
 
 def linear(

@@ -1,6 +1,17 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``,
 for a dense decoder with an unwindowed KV cache in the compute dtype).
 
+Causal attention over the fresh sequence (train and prefill) goes through
+:func:`_causal`: on the GPU the hand-written flash-attention kernel
+(``kernels/flash_attn.py``), so the ``(S, S)`` logits never reach device
+memory; on the CPU, and under ``impl_mode("ref")``, the reference's rule:
+:func:`_sdpa` below :data:`LONG_SEQ_THRESHOLD` and the query-blocked
+:func:`_sdpa_qchunked` from it on. Decode attention over the cache is
+:func:`_sdpa_decode`, the same function written so that a batch row's
+result does not depend on the batch (the reference has no kernel for it).
+The plain attention, :func:`_sdpa` and :func:`causal_mask`, lives in
+``kernels/ref.py``, where the kernel's plain version also takes it.
+
 Every weight application goes through :func:`repro_torch.kernels.ops.linear`,
 so any leaf may be a dense tensor or a packed QuantizedTensor.
 
@@ -21,10 +32,11 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core.qtensor import QuantizedTensor
-from repro_torch.kernels.ops import linear, linear_fused
+from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.ops import current_impl_mode, linear, linear_fused
+from repro_torch.kernels.ref import NEG_INF, causal_mask
+from repro_torch.kernels.ref import sdpa as _sdpa
 from repro_torch.models.config import ModelConfig
-
-NEG_INF = torch.finfo(torch.float32).min
 
 Pos = Union[int, torch.Tensor]
 
@@ -72,36 +84,62 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """GQA softmax attention in plain torch. q (B,Sq,H,Dh); k, v (B,Sk,Hkv,Dh)
-    with H = G·Hkv; mask broadcastable to (..., Sq, Sk) or None.
-
-    Queries are grouped (B,Sq,Hkv,G,Dh) against the raw Hkv heads, so
-    repeated K/V heads are never materialised; logits, softmax and the
-    weighted sum accumulate in f32, with the probabilities rounded to V's
-    dtype first, as the reference does.
+def _sdpa_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Decode attention of one new query row per batch row over the cache:
+    the function of :func:`_sdpa` (f32 logits, probabilities rounded to V's
+    dtype, f32 weighted sum), with each of the two products written as an
+    elementwise product and a sum over its last axis. A batch row's result
+    then does not depend on how many rows share the call: the library's
+    batched GEMM behind ``einsum`` picks its algorithm, and so its order of
+    summation, by the batch count, and a slot batch must decode each request
+    exactly as a batch of one does (``infer/scheduler.py``). Each product
+    writes and reads B·H·S_max·Dh f32 elements, G times the cache rows it
+    reads. q (B,1,H,Dh); ck, cv (B,S_max,Hkv,Dh); mask (B or 1,1,1,S_max).
     """
-    b, sq, h, dh = q.shape
-    hkv = k.shape[2]
-    qg = q.reshape(b, sq, hkv, h // hkv, dh)
-    logits = torch.einsum(
-        "bqhgd,bkhd->bhgqk", qg.to(torch.float32), k.to(torch.float32)
-    ) / math.sqrt(dh)
-    if mask is not None:
-        m = mask[..., None, :, :] if mask.dim() == 4 else mask
-        logits = torch.where(m, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum(
-        "bhgqk,bkhd->bqhgd", probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
-    )
-    return out.reshape(b, sq, h, dh).to(q.dtype)
+    b, _, h, dh = q.shape
+    hkv = ck.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, 1, dh).to(torch.float32)
+    keys = ck.permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, S_max, Dh)
+    logits = (qg * keys).sum(-1) / math.sqrt(dh)  # (B, Hkv, G, S_max)
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(cv.dtype).to(torch.float32)
+    vals = cv.permute(0, 2, 3, 1)[:, :, None]  # (B, Hkv, 1, Dh, S_max)
+    out = (probs[:, :, :, None, :] * vals).sum(-1)  # (B, Hkv, G, Dh)
+    return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
-def causal_mask(sq: int, sk: int, device=None) -> torch.Tensor:
-    """(1, 1, sq, sk) boolean causal mask (query i sees keys <= i + sk - sq)."""
-    qi = torch.arange(sq, device=device)[:, None] + (sk - sq)
-    ki = torch.arange(sk, device=device)[None, :]
-    return (ki <= qi)[None, None]
+Q_CHUNK = 2048  # query-block length for long-sequence causal attention
+LONG_SEQ_THRESHOLD = 8192
+
+
+def _sdpa_qchunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int = Q_CHUNK) -> torch.Tensor:
+    """Causal attention over query blocks of ``chunk`` rows: one
+    ``(B, H, chunk, S)`` block of f32 logits is live at a time instead of
+    ``(B, H, S, S)``. Falls back to one full :func:`_sdpa` when ``chunk``
+    does not divide S, as the reference does."""
+    b, s, h, dh = q.shape
+    if s % chunk:
+        return _sdpa(q, k, v, causal_mask(s, s, device=q.device))
+    kpos = torch.arange(s, device=q.device)
+    outs = []
+    for i in range(s // chunk):
+        qpos = i * chunk + torch.arange(chunk, device=q.device)
+        mask = (kpos[None, :] <= qpos[:, None])[None, None]  # (1, 1, chunk, S)
+        outs.append(_sdpa(q[:, i * chunk : (i + 1) * chunk], k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
+def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal attention over the fresh sequence: the flash-attention kernel
+    for a CUDA tensor unless ``impl_mode("ref")`` is in force; otherwise the
+    reference's ``_causal`` rule (full :func:`_sdpa` below
+    :data:`LONG_SEQ_THRESHOLD`, :func:`_sdpa_qchunked` from it on)."""
+    if q.is_cuda and current_impl_mode() != "ref":
+        return flash_attention(q, k, v)
+    s = q.shape[1]
+    if s >= LONG_SEQ_THRESHOLD:
+        return _sdpa_qchunked(q, k, v)
+    return _sdpa(q, k, v, causal_mask(s, s, device=q.device))
 
 
 def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: Pos) -> dict:
@@ -147,7 +185,7 @@ def attention(
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
 
     if cache is None or s > 1:
-        out = _sdpa(q, k, v, causal_mask(s, s, device=x.device))
+        out = _causal(q, k, v)
         if cache is not None:
             cache = _cache_write(cache, k, v, pos)
     else:
@@ -159,7 +197,7 @@ def attention(
             mask = valid[:, None, None, :]
         else:
             mask = (slot <= int(pos))[None, None, None, :]
-        out = _sdpa(q, ck, cv, mask)
+        out = _sdpa_decode(q, ck, cv, mask)
     return linear(out.reshape(b, s, cfg.q_dim), p["wo"]), cache
 
 

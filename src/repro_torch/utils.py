@@ -24,6 +24,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (B, ..., k) @ w (k, o)`` where a batch row's result does not
+    depend on how many rows share the call. On the CPU each leading batch
+    row is its own product: the CPU BLAS takes another kernel, and sums k in
+    another order, for a batch of B decode rows than for one, and a slot
+    batch must decode each request exactly as a batch of one does
+    (``infer/scheduler.py``). On the GPU, one product."""
+    if x.is_cuda or x.dim() < 2 or x.shape[0] <= 1:
+        return torch.matmul(x, w)
+    return torch.cat([torch.matmul(r[None], w) for r in x])
+
+
 def tree_map_with_path(
     fn: Callable[[Tuple, Any], Any], tree, path: Tuple = ()
 ):

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels on the GPU, against their plain
-PyTorch versions, and the engine's kernel path against its ref-oracle path.
+PyTorch versions, the engine's kernel path against its ref-oracle path, and
+the slot-batched serving path against solo generation.
 
 Every test here needs a CUDA GPU and skips without one. The file imports
 nothing of JAX, so it also runs where JAX is not installed; there, run it
@@ -11,7 +12,13 @@ Tolerance: rtol = atol = 2e-4 for f32 and bf16 inputs alike. A kernel and
 its plain version widen the same x and scales to f32 and accumulate in f32,
 so only the order of summation separates them. ``dequant_materialize``
 computes every weight as its plain version does (a product, then a sum),
-so it is held to its plain version bit for bit.
+so it is held to its plain version bit for bit. ``flash_attention`` is held
+to its plain version (``_sdpa`` under a causal mask) at the reference
+test's tolerances, 2e-4 in f32 and 3e-2 in bf16: in bf16 the kernel rounds
+``exp(s - m)`` per key tile where the plain version rounds the normalised
+probabilities. In bf16 each query row is also held to ``BF16_ROW_TOL``
+(2^-6) of its largest value, which still sees the long rows, whose values
+fall as 1/sqrt(S) below the absolute limit.
 """
 
 import numpy as np
@@ -19,7 +26,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.infer import Engine
+from repro_torch.infer import Engine, Request, Scheduler
 from repro_torch.core.formats import get_format
 from repro_torch.kernels import (
     KERNEL_WRAPPERS,
@@ -32,6 +39,8 @@ from repro_torch.kernels import (
     dequant_materialize_plain,
     dequant_mm,
     dequant_mm_plain,
+    flash_attention,
+    flash_attention_plain,
     impl_mode,
     launch_counts,
     lutgemm,
@@ -42,6 +51,7 @@ from repro_torch.kernels import (
     uniform_mm,
     uniform_mm_plain,
 )
+from repro_torch.kernels.flash_attn import BF16_ROW_TOL, row_rel_err
 from repro_torch.models import init_params, reduced
 from repro_torch.quant import QuantPolicy, quantize_params
 
@@ -121,7 +131,7 @@ def test_kernels_match_plain(cuda, B, k, o, q, g, dtype):
         torch.testing.assert_close(fn(x, fp, fs, g=g), got, rtol=0, atol=0, msg=fmt)
     assert launch_counts() == {
         "bcq_mm": 1, "bcq_mm_fused": 1, "lutgemm": 1, "uniform_mm": 2,
-        "dequant_materialize": 4, "ternary_mm": 2, "codebook_mm": 2,
+        "dequant_materialize": 4, "ternary_mm": 2, "codebook_mm": 2, "flash_attention": 0,
     }
     torch.testing.assert_close(bcq_mm(x, packed, scales, g=g), bcq_mm(x, packed, scales, g=g), rtol=0, atol=0)
     torch.testing.assert_close(lutgemm(x, packed, scales, g=g), lutgemm(x, packed, scales, g=g), rtol=0, atol=0)
@@ -135,7 +145,7 @@ def test_kernels_raise_on_mixed_devices(cuda):
             fn(x, packed, torch.ones((s, 4, 128)), g=64)
     with pytest.raises(ValueError, match="devices"):
         dequant_materialize(packed.to(cuda), torch.ones((2, 4, 128)), g=64)
-    assert len(KERNEL_WRAPPERS) == 7
+    assert len(KERNEL_WRAPPERS) == 8
 
 
 @pytest.mark.parametrize("fmt", ["uniform", "dequant", "ternary", "codebook"])
@@ -162,7 +172,8 @@ def test_engine_format_kernel_path_matches_ref_path(cuda, fmt):
     got = logits(None)
     counts = launch_counts()
     assert counts[kernel] == 2 * (4 * cfg.n_layers + 1)
-    assert sum(counts.values()) == counts[kernel]
+    assert counts["flash_attention"] == cfg.n_layers  # the prefill's attention
+    assert sum(counts.values()) == counts[kernel] + cfg.n_layers
     torch.testing.assert_close(got, logits("ref"), rtol=2e-4, atol=2e-4)
 
 
@@ -193,3 +204,85 @@ def test_engine_kernel_path_matches_ref_path(cuda):
     a = eng.generate(prompts, 6, temperature=0.7, seed=3, scan=True)
     b = eng.generate(prompts, 6, temperature=0.7, seed=3, scan=False)
     np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+FLASH_SHAPES = [  # (B, S, H, Hkv, Dh): decode-width and ragged S, GQA / MQA / MHA, every Dh
+    (1, 1, 24, 8, 128),
+    (4, 17, 24, 8, 128),
+    (2, 100, 6, 1, 64),
+    (1, 333, 8, 2, 32),
+    (3, 65, 4, 4, 16),
+    (1, 1024, 8, 2, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,Dh", FLASH_SHAPES)
+def test_flash_attention_matches_plain(cuda, B, S, H, Hkv, Dh, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S * 31 + Dh)
+    q = torch.randn((B, S, H, Dh), generator=gen, device=cuda).to(dtype)
+    # k and v as strided views of one fused projection output, as the model passes them
+    kv = torch.randn((B, S, 2 * Hkv * Dh), generator=gen, device=cuda).to(dtype)
+    k, v = (t.reshape(B, S, Hkv, Dh) for t in kv.split(Hkv * Dh, dim=-1))
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    reset_launch_counts()
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, Dh)
+    plain = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:  # and per query row, relative to the row's values
+        assert row_rel_err(got, plain) <= BF16_ROW_TOL
+    # deterministic: no atomics, fixed reduction order
+    torch.testing.assert_close(flash_attention(q, k, v), got, rtol=0, atol=0)
+    assert launch_counts()["flash_attention"] == 2
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="devices"):
+        flash_attention(q[..., :32], q[:, :, :2, :32].cpu(), q[:, :, :2, :32].cpu())
+
+
+def test_causal_prefill_runs_on_flash_kernel(cuda):
+    """On the GPU every prefill's attention is K8 (one launch a layer), also
+    under a kernel impl_mode; impl_mode("ref") takes the plain attention."""
+    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512)
+    eng = Engine(cfg, init_params(cfg, seed=0, device=cuda), max_seq=48, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 37)), device=cuda)
+    out = {}
+    for mode in (None, "lutgemm", "ref"):
+        reset_launch_counts()
+        with impl_mode(mode):
+            out[mode], _ = eng.prefill(toks, eng._make_cache(2))
+        assert launch_counts()["flash_attention"] == (0 if mode == "ref" else cfg.n_layers)
+    torch.testing.assert_close(out[None], out["ref"], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(out["lutgemm"], out[None], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q", [0, 4], ids=["dense", "bcq_q4"])
+def test_slot_batches_match_solo_on_card(cuda, q):
+    """Continuous batching on the GPU: greedy and sampled requests through 3
+    slots, each identical to its solo generate (the kernels reduce each row
+    in a fixed order whatever the batch)."""
+    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512)
+    params = init_params(cfg, seed=0, device=cuda)
+    if q:
+        params = quantize_params(params, QuantPolicy(q=q, g=128, iters=2), device=cuda)
+    eng = Engine(cfg, params, max_seq=64, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [
+        Request(prompt=rng.integers(0, cfg.vocab, size=int(rng.integers(4, 40))).astype(np.int32),
+                max_new_tokens=int(rng.integers(3, 14)), temperature=[0.0, 1.0, 0.7][i % 3], seed=10 + i)
+        for i in range(7)
+    ]
+    sched = Scheduler(eng, n_slots=3, chunk=4)
+    for r in reqs:
+        sched.submit(r)
+    done = {c.rid: c for c in sched.run()}
+    for r in reqs:
+        solo = eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
+        np.testing.assert_array_equal(done[r.rid].new_tokens, solo.tokens[0, r.prompt.size :])

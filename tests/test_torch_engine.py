@@ -147,6 +147,36 @@ def test_serve_cli_sequential_each_format_on_cpu(capsys, fmt):
     assert f"{fmt} q=2 g=64" in out and "[sequential] 2 requests, 6 tokens" in out
 
 
+def test_serve_cli_continuous_is_the_default_on_cpu(capsys):
+    serve.main(["--device", "cpu", "--requests", "5", "--gen", "4", "--prompt-len", "6",
+                "--q", "2", "--g", "64", "--slots", "2", "--chunk", "3"])
+    out = capsys.readouterr().out
+    assert "[continuous] 5 requests, 20 tokens" in out
+    assert "2 slots, chunk=3" in out and "kernel launches:" in out and "sample:" in out
+
+
+@pytest.mark.parametrize("fmt", ["bcq", "uniform", "dequant", "ternary", "codebook"])
+def test_serve_cli_continuous_each_format_on_cpu(capsys, fmt):
+    serve.main(["--device", "cpu", "--requests", "3", "--gen", "3", "--prompt-len", "6",
+                "--q", "2", "--g", "64", "--format", fmt, "--rate", "200"])
+    out = capsys.readouterr().out
+    assert f"{fmt} q=2 g=64" in out and "[continuous] 3 requests, 9 tokens" in out
+
+
+def test_serve_modes_emit_the_same_tokens():
+    """The continuous mode's completions equal the sequential mode's, request
+    by request (greedy and sampled alike: each request is solo-identical)."""
+    cfg = reduced(get_config("llama3.2-3b"), **SIZES)
+    eng = Engine(cfg, init_params(cfg, seed=0, device="cpu"), max_seq=24, device="cpu")
+    reqs = serve.build_requests(cfg, 5, 6, 5)
+    outs, _ = serve.drive_sequential(eng, reqs, np.zeros(5))
+    _, done, _ = serve.drive_continuous(eng, serve.build_requests(cfg, 5, 6, 5), np.zeros(5),
+                                        n_slots=2, chunk=3)
+    by_rid = {c.rid: c.new_tokens for c in done}
+    for i, out in enumerate(outs):
+        np.testing.assert_array_equal(by_rid[i], out.tokens[0, 6:])
+
+
 def _format_engine(fmt, *, fuse=True, **policy):
     tcfg = reduced(get_config("llama3.2-3b"), **SIZES)
     params = init_params(tcfg, seed=1, device="cpu")
@@ -177,15 +207,15 @@ def test_mixed_format_model_decodes():
 
 
 @pytest.mark.parametrize("argv,missing", [
-    ([], "scheduler"),
+    (["--speculate", "2:4"], "speculative"),
     (["--sequential", "--speculate", "2:4"], "speculative"),
     (["--sequential", "--tp", "2"], "tensor parallelism"),
     (["--sequential", "--prefix-cache-mb", "8"], "prefix cache"),
     (["--sequential", "--prefill-chunk", "4"], "chunked prefill"),
     (["--sequential", "--trace-out", "t.json"], "tracer"),
     (["--sequential", "--profile-dir", "p"], "profiler"),
-    (["--sequential", "--slots", "4"], "scheduler"),
-    (["--sequential", "--chunk", "8"], "scheduler"),
+    (["--tp", "2"], "tensor parallelism"),
+    (["--prefill-chunk", "4"], "chunked prefill"),
     (["--sequential", "--prefix-block", "16"], "prefix cache"),
     (["--sequential", "--shared-prefix-len", "4"], "prefix cache"),
 ])
