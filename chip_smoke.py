@@ -20,7 +20,9 @@ code is non-zero:
              pre-dequantized bf16 weight, the paper's cuBLAS baseline, timed
              here only). ``dequant_materialize`` is held to its plain version
              bit for bit, and its pipeline ``dequant_mm`` (materialise, then
-             an f32 GEMM) is checked and timed beside it, GEMM alone too;
+             an f32 GEMM) is checked and timed beside it, GEMM alone too.
+             ``codebook_mm``'s bf16 leaf times are also printed as multiples
+             of their bounds and of the library call;
 4. flash     ``flash_attention`` (K8) against its plain version (``_sdpa``
              under a causal mask, run one batch row at a time) at
              llama3.2-3b's heads (24 / 8, Dh 128) for B in {1, 4} and S in
@@ -32,7 +34,9 @@ code is non-zero:
              the output; the long rows' values fall as 1/sqrt(S), below the
              absolute limit); a rerun must give the same bits. Timed like the other kernels, beside
              ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-             on the same bf16 inputs (the library yardstick, never on a path);
+             on the same bf16 inputs (the library yardstick, never on a path),
+             each with its achieved TFLOP/s (the causal pairs' operations over
+             its time). bf16 runs on the tensor cores, f32 on the CUDA cores;
 5. main path full-width llama3.2-3b with random weights from a seed, once
              per format, each quantized on the card (q=4, g=128, iters=4)
              and served by an ``Engine`` with fused QKV / gate-up:
@@ -148,7 +152,9 @@ FORMAT_KERNEL = {"uniform": "uniform_mm", "dequant": "dequant_materialize", "ter
                  "codebook": "codebook_mm"}
 # part of the device kernel names of each format's path (bcq: K1 and K2)
 PROFILE_TAG = {"bcq": "BCQDec", "uniform": "UniformDec", "dequant": "dequant_kernel",
-               "ternary": "TernaryDec", "codebook": "CodebookDec"}
+               "ternary": "TernaryDec", "codebook": "codebook_kernel"}
+# part of K8's device kernel names: bf16 on the tensor cores, f32 on the CUDA cores
+FLASH_TAGS = ("flash_tc_kernel", "flash_kernel")
 L2_BYTES = 50 * 2**20
 
 
@@ -323,6 +329,11 @@ def phase_kernels(gen):
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise SystemExit(f"chip_smoke: {len(bad)} kernel checks disagree with their plain versions: {bad[:3]}")
+    for r in records:
+        if r["kernel"] == "codebook_mm" and r["leaf"] != "sweep" and r["dtype"] == "bfloat16":
+            log(f"  codebook_mm {r['leaf']:9s} B={r['B']:<3d} {r['ms'] * 1e3:9.2f} us = "
+                f"{r['ms'] / r['bound_ms']:6.1f}x its bound ({r['bound_by']}), "
+                f"{r['ms'] / r['library_ms']:5.2f}x the library")
     return records
 
 
@@ -379,11 +390,14 @@ def check_flash(B, S, H, Hkv, Dh, dtype, gen):
         library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
-    lib = "-" if library_ms is None else f"{library_ms:.4f}"
+    rec["tflops"] = ops / ms / 1e9
+    rec["library_tflops"] = None if library_ms is None else ops / library_ms / 1e9
+    lib = "-" if library_ms is None else f"{library_ms:.4f} ({rec['library_tflops']:.1f} TFLOP/s)"
     log(f"  flash_attention B={B} S={S:<5d} H={H:<2d}/{Hkv:<2d} Dh={Dh:<3d} {rec['dtype']:8s} "
         f"err {err:.2e} (tol {tol:g}) row {row_err:.2e}{'' if row_tol is None else f' (tol {row_tol:g})'} "
         f"bits {'same' if same_bits else 'DIFFER'} {'ok' if ok else 'FAIL'}  "
-        f"ms {ms:.4f}  plain {plain_ms:.4f}  bound {rec['bound_ms']:.4f} ({rec['bound_by']})  library {lib}")
+        f"ms {ms:.4f} ({rec['tflops']:.1f} TFLOP/s)  plain {plain_ms:.4f}  "
+        f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})  library {lib}")
     return rec
 
 
@@ -606,6 +620,9 @@ def phase_main_path():
     reqs = build_requests(cfg, PROMPTS, PROMPT_LEN, NEW_TOKENS, mixed_temperature=False)
     prompts = np.stack([r.prompt for r in reqs])
 
+    from repro_torch.kernels import flash_attention
+
+    flash_attention.copies = 0
     counts, summary, bcq_engine = serve_bcq(cfg, params, prompts, reqs)
     summaries = {"bcq": summary}
     tokens = {}
@@ -614,6 +631,9 @@ def phase_main_path():
     same = int((tokens["uniform"] == tokens["dequant"]).all(axis=1).sum())
     log(f"  greedy rows identical, uniform vs dequant: {same}/{PROMPTS} (reported, not asserted: "
         f"the two kernels sum k in different orders)")
+    log(f"  K8 inputs copied for the TMA's alignment on the main path: {flash_attention.copies}")
+    if flash_attention.copies:
+        raise SystemExit("chip_smoke: the model's q, k, v views did not reach K8 in place")
     return counts, cfg, summaries, bcq_engine
 
 
@@ -744,7 +764,7 @@ def phase_serving(bcq_engine):
 
     device_ms, traced_ms, by_name = device_profile(lambda: serve(300))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    flash_ms = sum(ms for name, ms in by_name.items() if "flash_kernel" in name)
+    flash_ms = sum(ms for name, ms in by_name.items() if any(t in name for t in FLASH_TAGS))
     log(f"  [continuous] profile of a second run: device busy {device_ms:.2f} ms of {traced_ms:.2f} ms traced "
         f"wall ({device_ms / traced_ms:.1%}; {device_ms / (wall * 1e3):.1%} of the untraced run's wall), "
         f"K8 {flash_ms:.2f} ms")

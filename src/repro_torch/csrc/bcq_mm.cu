@@ -38,7 +38,6 @@ using namespace repro;
 template <typename ST>
 struct BCQDec : Planes<ST> {
   static constexpr int kTileC = 128;
-  static constexpr int kTableFloats = 0;
   struct Row {
     uint32_t bits[kMaxQ];
     float s[kMaxQ][kCols];
@@ -54,7 +53,7 @@ struct BCQDec : Planes<ST> {
     }
   }
 
-  __device__ __forceinline__ float weight(const Row& r, const float*, int, int, int j, int cc) const {
+  __device__ __forceinline__ float weight(const Row& r, int j, int cc) const {
     float w = 0.f;
 #pragma unroll
     for (int i = 0; i < kMaxQ; ++i) {

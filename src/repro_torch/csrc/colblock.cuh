@@ -1,5 +1,5 @@
 // The column-block matvec skeleton shared by the packed-weight kernels
-// (bcq_mm, uniform_mm, ternary_mm, codebook_mm): y (B, o) f32 = x (B, k) @ W,
+// (bcq_mm, uniform_mm, ternary_mm): y (B, o) f32 = x (B, k) @ W,
 // with W decoded from its packed planes in registers and never written out.
 //
 // Layout (K1's, see bcq_mm.cu for what bounds it):
@@ -16,14 +16,9 @@
 //
 // A decoder type Dec supplies the format:
 //   kTileC          byte rows per staged x tile
-//   kTableFloats    shared floats for a staged table (0: none)
 //   Row             per-thread state of one byte row
-//   load(row, c, grp, col0, valid)           read byte row c (group grp)
-//   weight(row, table, gl, lc, j, cc)        weight of bit j of column cc
-// and, with a table, groups_per_stage() and stage(table, grp0, ngrp, o0, o,
-// tid), which fills the table for groups grp0.. before their rows are read;
-// gl is the group's index in the staged run, lc the thread's column in the
-// block's 32.
+//   load(row, c, grp, col0, valid)   read byte row c (group grp)
+//   weight(row, j, cc)               weight of bit j of column cc
 #pragma once
 
 #include "common.cuh"
@@ -40,11 +35,9 @@ colblock_kernel(const XT* __restrict__ x, const Dec dec, float* __restrict__ out
                 int B, int k, int o, int g) {
   constexpr int TILE_C = Dec::kTileC;
   constexpr int XS = BT * TILE_C * 8;    // staged x tile (f32)
-  constexpr int TS = Dec::kTableFloats;  // staged table (f32)
   constexpr int RS = kTY * BT * kBlockO; // per-slice partial sums (f32)
-  constexpr int SM = XS + TS > RS ? XS + TS : RS;
+  constexpr int SM = XS > RS ? XS : RS;
   __shared__ float smem[SM];
-  float* const table = smem + XS;
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kTX + tx;
@@ -74,39 +67,23 @@ colblock_kernel(const XT* __restrict__ x, const Dec dec, float* __restrict__ out
     }
     __syncthreads();
 
-    // Segments of the tile: all of it, or with a table the rows of the
-    // groups one staged table holds.
-    for (int r0 = 0; r0 < nrows;) {
-      int r1 = nrows, grp0 = 0;
-      if constexpr (TS > 0) {
-        grp0 = (tc0 + r0) / rows_per_group;
-        const int ngrp = min(dec.groups_per_stage(), k / g - grp0);
-        r1 = min(nrows, (grp0 + ngrp) * rows_per_group - tc0);
-        if (r0 > 0) __syncthreads();  // the previous segment's lookups are done
-        dec.stage(table, grp0, ngrp, o0, o, tid);
-        __syncthreads();
-      }
-      if (valid > 0) {
-        for (int r = r0 + ty; r < r1; r += kTY) {
-          const int c = tc0 + r;
-          const int grp = c / rows_per_group;
-          dec.load(row, c, grp, col0, valid);
+    if (valid > 0) {
+      for (int r = ty; r < nrows; r += kTY) {
+        const int c = tc0 + r;
+        dec.load(row, c, c / rows_per_group, col0, valid);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float w[kCols];
+        for (int j = 0; j < 8; ++j) {
+          float w[kCols];
 #pragma unroll
-            for (int cc = 0; cc < kCols; ++cc)
-              w[cc] = dec.weight(row, table, grp - grp0, tx * kCols + cc, j, cc);
+          for (int cc = 0; cc < kCols; ++cc) w[cc] = dec.weight(row, j, cc);
 #pragma unroll
-            for (int b = 0; b < BT; ++b) {
-              const float xv = smem[b * TILE_C * 8 + r * 8 + j];
+          for (int b = 0; b < BT; ++b) {
+            const float xv = smem[b * TILE_C * 8 + r * 8 + j];
 #pragma unroll
-              for (int cc = 0; cc < kCols; ++cc) acc[b][cc] = fmaf(xv, w[cc], acc[b][cc]);
-            }
+            for (int cc = 0; cc < kCols; ++cc) acc[b][cc] = fmaf(xv, w[cc], acc[b][cc]);
           }
         }
       }
-      r0 = r1;
     }
   }
 

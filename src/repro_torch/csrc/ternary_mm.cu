@@ -23,7 +23,6 @@ using namespace repro;
 template <typename ST>
 struct TernaryDec : Planes<ST> {
   static constexpr int kTileC = 128;
-  static constexpr int kTableFloats = 0;
   struct Row {
     uint32_t sign, mask;
     float alpha[kCols];
@@ -35,7 +34,7 @@ struct TernaryDec : Planes<ST> {
     this->params(0, grp, col0, valid, r.alpha);
   }
 
-  __device__ __forceinline__ float weight(const Row& r, const float*, int, int, int j, int cc) const {
+  __device__ __forceinline__ float weight(const Row& r, int j, int cc) const {
     const int sh = 8 * cc + j;
     const float a = (r.sign >> sh) & 1u ? r.alpha[cc] : -r.alpha[cc];
     return (r.mask >> sh) & 1u ? a : 0.f;

@@ -28,7 +28,6 @@ using namespace repro;
 template <typename ST>
 struct UniformDec : Planes<ST> {
   static constexpr int kTileC = 128;
-  static constexpr int kTableFloats = 0;
   struct Row {
     uint32_t bits[kMaxQ];
     float s[kCols], z[kCols];
@@ -42,7 +41,7 @@ struct UniformDec : Planes<ST> {
     this->params(1, grp, col0, valid, r.z);
   }
 
-  __device__ __forceinline__ float weight(const Row& r, const float*, int, int, int j, int cc) const {
+  __device__ __forceinline__ float weight(const Row& r, int j, int cc) const {
     return affine(plane_code(r.bits, this->q, 8 * cc + j), r.s[cc], r.z[cc]);
   }
 };

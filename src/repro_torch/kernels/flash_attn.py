@@ -1,19 +1,26 @@
 """Causal GQA softmax attention with an online softmax (flash attention).
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attn.py::flash_attention``
-(its ``pallas_call`` over ``_flash_kernel``). The CUDA kernel is
+(its ``pallas_call`` over ``_flash_kernel``). The CUDA source is
 ``csrc/flash_attn.cu``; its header note says what bounds it on the H100 and
-how the design answers that. In short: one block per (batch row, head,
-64-query tile) walks the key tiles up to the diagonal with a running max,
-a running denominator and an f32 accumulator, so the ``(S, S)`` logits never
-reach device memory.
+how the design answers that. It holds two kernels, chosen by dtype
+(:func:`kernel_for`): bf16 runs on the tensor cores (``wgmma``, with TMA
+copies of 128-key tiles in flight while the current tile is multiplied);
+f32 runs on the CUDA cores, because the tensor cores have no f32 product
+that holds the f32 check. Either way one block per (batch row, head, query
+tile) walks the key tiles up to the diagonal with a running max, a running
+denominator and an f32 accumulator, so the ``(S, S)`` logits never reach
+device memory.
 
 q is ``(B, S, H, Dh)``, k and v ``(B, S, Hkv, Dh)`` with ``H % Hkv == 0``
 (head h reads kv head ``h // (H / Hkv)``), all f32 or all bf16, and the
 result is ``(B, S, H, Dh)`` in q's dtype. Any ``S >= 1`` is accepted: the
 kernel masks the ragged end itself (the reference's rule that S divide the
 TPU block sizes is a tiling rule of that chip, not of the function).
-``Dh`` must be one of :data:`HEAD_DIMS`, the kernel's template set.
+``Dh`` must be one of :data:`HEAD_DIMS`, the kernel's template set. The
+bf16 kernel's TMA copies read q, k and v through their strides, which must
+be 16-byte aligned (:func:`tma_ready`); the wrapper copies an input that is
+not, and counts such copies in ``flash_attention.copies``.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
 :func:`flash_attention_plain` for CPU tensors. ``flash_attention.launches``
@@ -98,8 +105,39 @@ def _entry():
     return lib, fn
 
 
-def _head_contiguous(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 else t.contiguous()
+def kernel_for(dtype: torch.dtype) -> str:
+    """Which kernel of ``csrc/flash_attn.cu`` serves ``dtype``:
+    ``"tensor_cores"`` (bf16) or ``"cuda_cores"`` (f32)."""
+    if dtype == torch.bfloat16:
+        return "tensor_cores"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise TypeError(f"flash_attention takes float32 or bfloat16, not {dtype}")
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's TMA copies can read ``t`` (B, S, heads, Dh)
+    in place: head dim contiguous, a 16-byte aligned base, and 16-byte
+    multiples for the strides of the other dims (a dim of size 1 is read at
+    index 0 only, so its stride does not matter)."""
+    size = t.element_size()
+    return (
+        t.stride(-1) == 1
+        and t.data_ptr() % 16 == 0
+        and all((t.stride(i) * size) % 16 == 0 for i in range(3) if t.shape[i] > 1)
+    )
+
+
+def _kernel_input(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel for its dtype can read it: the head dim
+    contiguous, and for bf16 :func:`tma_ready` (else a fresh aligned copy,
+    counted in ``flash_attention.copies``)."""
+    if kernel_for(t.dtype) == "cuda_cores":
+        return t if t.stride(-1) == 1 else t.contiguous()
+    if tma_ready(t):
+        return t
+    flash_attention.copies += 1
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -109,7 +147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     validate(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v)
-    q, k, v = _head_contiguous(q), _head_contiguous(k), _head_contiguous(v)
+    q, k, v = _kernel_input(q), _kernel_input(k), _kernel_input(v)
     b, s, h, dh = q.shape
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -127,3 +165,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 flash_attention.launches = 0
+flash_attention.copies = 0

@@ -21,6 +21,9 @@ probabilities. In bf16 each query row is also held to ``BF16_ROW_TOL``
 fall as 1/sqrt(S) below the absolute limit.
 """
 
+import functools
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -206,13 +209,24 @@ def test_engine_kernel_path_matches_ref_path(cuda):
     np.testing.assert_array_equal(a.tokens, b.tokens)
 
 
-FLASH_SHAPES = [  # (B, S, H, Hkv, Dh): decode-width and ragged S, GQA / MQA / MHA, every Dh
+FLASH_SHAPES = [  # (B, S, H, Hkv, Dh): decode-width and ragged S around the 64- and
+    # 128-row tile edges, GQA ratios 1, 3 and 6, every Dh, B up to 4
     (1, 1, 24, 8, 128),
     (4, 17, 24, 8, 128),
     (2, 100, 6, 1, 64),
     (1, 333, 8, 2, 32),
     (3, 65, 4, 4, 16),
     (1, 1024, 8, 2, 32),
+    (1, 63, 6, 1, 128),
+    (2, 64, 3, 1, 64),
+    (4, 65, 4, 4, 32),
+    (1, 127, 6, 2, 16),
+    (3, 128, 6, 1, 128),
+    (2, 129, 4, 4, 64),
+    (1, 1000, 24, 8, 128),
+    (4, 1000, 6, 2, 16),
+    (1, 2048, 6, 1, 128),
+    (2, 2048, 3, 3, 64),
 ]
 
 
@@ -237,6 +251,66 @@ def test_flash_attention_matches_plain(cuda, B, S, H, Hkv, Dh, dtype):
     # deterministic: no atomics, fixed reduction order
     torch.testing.assert_close(flash_attention(q, k, v), got, rtol=0, atol=0)
     assert launch_counts()["flash_attention"] == 2
+
+
+def test_flash_attention_copies_a_misaligned_view(cuda):
+    """A bf16 view the TMA cannot read in place (a base 2 bytes off 16) is
+    copied by the wrapper, counted, and gives the same bits as the aligned
+    tensor; the fused projection's own views are read in place."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    B, S, H, Hkv, Dh = 2, 300, 6, 2, 64
+    q = torch.randn((B, S, H, Dh), generator=gen, device=cuda).to(torch.bfloat16)
+    kv = torch.randn((B, S, 2 * Hkv * Dh), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (t.reshape(B, S, Hkv, Dh) for t in kv.split(Hkv * Dh, dim=-1))
+    flash_attention.copies = 0
+    want = flash_attention(q, k, v)
+    assert flash_attention.copies == 0
+    buf = torch.zeros((B, S, Hkv * Dh + 8), dtype=torch.bfloat16, device=cuda)
+    buf[..., 1 : 1 + Hkv * Dh] = v.reshape(B, S, Hkv * Dh)
+    v_off = buf[..., 1 : 1 + Hkv * Dh].reshape(B, S, Hkv, Dh)
+    got = flash_attention(q, k, v_off)
+    torch.cuda.synchronize()
+    assert flash_attention.copies == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v).float(), rtol=3e-2, atol=3e-2)
+    flash_attention.copies = 0
+
+
+CODEBOOK_CASES = [  # (B, o, chunk): batch widths, ragged o, and k-splits whose chunk
+    # boundaries fall inside a group (3 and 20 byte rows) or on one (16 at g <= 128)
+    (1, 100, None), (3, 130, 3), (4, 100, 20), (8, 130, 16), (9, 256, None), (64, 130, 20),
+]
+
+
+@pytest.mark.parametrize("g", [8, 64, 128, 768])
+@pytest.mark.parametrize("q", range(1, 9))
+def test_codebook_kernel_matches_plain(cuda, monkeypatch, q, g):
+    """K7 against its plain version within 2e-4 for q 1..8, g in {8, 64,
+    128, k}, ragged o, B from 1 to 64 and k-splits of several chunk sizes;
+    bitwise against 10 reruns, which also shows that every launch left its
+    tickets at 0 for the next."""
+    cm = importlib.import_module("repro_torch.kernels.codebook_mm")
+    plan = cm.plan
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(q * 1000 + g)
+    k = 768
+    for B, o, chunk in CODEBOOK_CASES:
+        monkeypatch.setattr(cm, "plan", plan if chunk is None else functools.partial(plan, chunk=chunk))
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((B, k), generator=gen, device=cuda).to(dtype)
+            packed = torch.randint(0, 256, (q, k // 8, o), generator=gen, device=cuda, dtype=torch.uint8)
+            table = (torch.randn((1 << q, k // g, o), generator=gen, device=cuda) / np.sqrt(k)).to(dtype)
+            reset_launch_counts()
+            got = codebook_mm(x, packed, table, g=g)
+            again = codebook_mm(x, packed, table, g=g)  # back to back, no sync between
+            torch.cuda.synchronize()
+            assert launch_counts()["codebook_mm"] == 2
+            msg = f"B={B} o={o} chunk={chunk} {dtype}"
+            torch.testing.assert_close(got, codebook_mm_plain(x, packed, table, g=g), rtol=TOL, atol=TOL, msg=msg)
+            torch.testing.assert_close(again, got, rtol=0, atol=0, msg=msg)
+            for _ in range(10):
+                torch.testing.assert_close(codebook_mm(x, packed, table, g=g), got, rtol=0, atol=0, msg=msg)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):

@@ -1,0 +1,197 @@
+"""The kernel wrappers' host-side choices, as plain Python: K7
+``codebook_mm``'s launch plan (columns a lane, the k-split, the ring's
+stages, scratch and tickets) and K8 ``flash_attention``'s choice of kernel
+by dtype and its TMA alignment check. None of this needs a GPU; the
+kernels themselves are held to their plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+
+import importlib
+import math
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attn as fa
+
+# the module (the package re-exports its function under the same name)
+cm = importlib.import_module("repro_torch.kernels.codebook_mm")
+
+LEAVES = {  # llama3.2-3b: (k, o)
+    "wqkv": (3072, 5120),
+    "wo": (3072, 3072),
+    "w_gate_up": (3072, 16384),
+    "w_down": (8192, 3072),
+    "lm_head": (3072, 128256),
+}
+SWEEP = [  # (k, o, q, g): the reference's kernel sweep, then ragged o and large q
+    (512, 256, 2, 64),
+    (512, 128, 4, 512),
+    (1024, 256, 3, 128),
+    (512, 384, 1, 8),
+    (1024, 128, 5, 1024),
+    (2048, 256, 2, 2048),
+    (768, 100, 6, 96),
+    (768, 130, 7, 8),
+    (768, 130, 8, 8),
+    (1024, 4096, 8, 128),
+]
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+def blocks(p, B):
+    """Blocks of the kernel's grid: column tiles x batch tiles x k-chunks."""
+    return p.col_tiles * -(-B // cm.row_tile(B)) * p.splits
+
+
+def chunks(p):
+    """The byte-row ranges ``[start, end)`` of the plan's k-chunks, in order."""
+    kc = p.k // 8
+    return [(i * p.chunk, min(kc, (i + 1) * p.chunk)) for i in range(p.splits)]
+
+
+def check_plan(p, k, o, q, g, x_dtype, t_dtype):
+    xb, tb = torch.finfo(x_dtype).bits // 8, torch.finfo(t_dtype).bits // 8
+    kc = k // 8
+    chunks_ = chunks(p)
+    # the chunks cover k exactly once, in order
+    assert chunks_[0][0] == 0 and chunks_[-1][1] == kc
+    assert all(a[1] == b[0] for a, b in zip(chunks_, chunks_[1:]))
+    assert all(lo < hi for lo, hi in chunks_)
+    assert p.ns == (4 if q <= 5 else 1) and p.cols == 32 * p.ns
+    assert p.col_tiles * p.cols >= o > (p.col_tiles - 1) * p.cols
+    # the stage's regions are 16-byte aligned and in order
+    assert 0 < p.off_x < p.off_t < p.stage_bytes
+    assert p.off_x % 16 == p.off_t % 16 == p.stage_bytes % 16 == 0
+    assert p.off_x >= q * p.stage_rows * p.cols  # the planes' bytes
+    assert p.off_t - p.off_x >= cm.MAX_BT * p.stage_rows * 8 * xb
+    # the table region holds every group a stage's window can touch
+    spanned = max(
+        (min(kc, r0 + p.stage_rows) * 8 - 1) // g - r0 * 8 // g + 1
+        for lo, hi in chunks_ for r0 in range(lo, hi, p.stage_rows)
+    )
+    assert p.stage_bytes - p.off_t >= spanned * (1 << q) * p.cols * tb
+    # the ring and, after it, the warps' partial sums fit the opt-in limit
+    assert cm.RING * p.stage_bytes <= p.smem <= cm.MAX_SMEM
+    assert p.smem >= cm.WARPS * cm.MAX_BT * p.cols * 4
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("leaf", list(LEAVES))
+def test_codebook_plan_fills_the_card_at_llama_leaves(leaf, dtype):
+    """Every llama3.2-3b leaf puts at least two blocks on each of 132 SMs
+    at decode widths, with a row a warp in every chunk and full waves."""
+    k, o = LEAVES[leaf]
+    p = cm.plan(k, o, 4, 128, dtype, dtype)
+    check_plan(p, k, o, 4, 128, dtype, dtype)
+    for B in (1, 4, 64):
+        assert blocks(p, B) >= cm.MIN_BLOCKS
+    for B in (1, 4):  # decode: no SM idles long at the end of the grid
+        assert cm.wave_fill(blocks(p, B)) >= 0.9
+    assert p.chunk >= cm.WARPS
+    assert p.stage_bytes <= cm.STAGE_BUDGET
+    assert math.ceil(p.chunk / p.stage_rows) >= 4 or p.stage_rows == 32
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,o,q,g", SWEEP)
+def test_codebook_plan_sweep(k, o, q, g, dtype):
+    """Chunks cover k once; the split reaches two blocks an SM unless k is
+    too short for chunks of 8 byte rows."""
+    p = cm.plan(k, o, q, g, dtype, dtype)
+    check_plan(p, k, o, q, g, dtype, dtype)
+    kc = k // 8
+    assert blocks(p, 1) >= cm.MIN_BLOCKS or p.chunk == min(cm.WARPS, kc)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 20, 24, 40, 10_000])
+def test_codebook_plan_chunk_override(chunk):
+    """A chunk given by the caller: boundaries inside a group (24 byte rows
+    = 192 k at g = 128) or on one (32), a short last chunk, a chunk past k."""
+    k, o, q, g = 1024, 130, 4, 128
+    p = cm.plan(k, o, q, g, torch.bfloat16, torch.float32, chunk=chunk)
+    check_plan(p, k, o, q, g, torch.bfloat16, torch.float32)
+    kc = k // 8
+    assert p.chunk == min(chunk, kc) and p.splits == -(-kc // p.chunk)
+
+
+def test_codebook_plan_does_not_depend_on_batch():
+    """One plan serves every B; only the batch tiles, scratch and tickets
+    scale with it."""
+    p = cm.plan(3072, 3072, 4, 128, torch.bfloat16, torch.bfloat16)
+    assert p.splits > 1
+    for B, bt in ((1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (9, 8), (64, 8)):
+        assert cm.row_tile(B) == bt
+        tiles = p.col_tiles * -(-B // bt)
+        assert blocks(p, B) == tiles * p.splits
+        assert p.tickets(B) == tiles
+        assert p.scratch_floats(B) == p.splits * B * 3072
+    one = cm.plan(3072, 128256, 4, 128, torch.bfloat16, torch.bfloat16)
+    assert one.splits == 1 and one.scratch_floats(4) == 0 and one.tickets(4) == 0
+
+
+def test_codebook_plan_refuses_what_does_not_fit(monkeypatch):
+    # q = 8 tables at g = 8 with f32 entries: stages shrink to one byte row
+    p = cm.plan(768, 130, 8, 8, torch.float32, torch.float32)
+    assert p.stage_rows == 1 and p.smem <= cm.MAX_SMEM
+    monkeypatch.setattr(cm, "MAX_SMEM", p.smem - 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        cm.plan(768, 130, 8, 8, torch.float32, torch.float32)
+
+
+@pytest.mark.parametrize(
+    "dtype,kernel",
+    [(torch.bfloat16, "tensor_cores"), (torch.float32, "cuda_cores")],
+    ids=["bf16", "f32"],
+)
+def test_flash_kernel_for_dtype(dtype, kernel):
+    assert fa.kernel_for(dtype) == kernel
+
+
+def test_flash_kernel_for_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.kernel_for(torch.float16)
+
+
+def fused_views(B, S, H, Hkv, Dh, extra=0, dtype=torch.bfloat16):
+    """q, k, v as the model passes them: views of one fused projection
+    output (B, S, (H + 2 Hkv) Dh + extra)."""
+    qkv = torch.zeros((B, S, (H + 2 * Hkv) * Dh + extra), dtype=dtype)
+    q, k, v = qkv[..., : H * Dh], qkv[..., H * Dh : (H + Hkv) * Dh], qkv[..., (H + Hkv) * Dh : (H + 2 * Hkv) * Dh]
+    return q.reshape(B, S, H, Dh), k.reshape(B, S, Hkv, Dh), v.reshape(B, S, Hkv, Dh)
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+def test_tma_ready_takes_the_models_fused_views(Dh):
+    for t in fused_views(2, 5, 6, 2, Dh):
+        assert fa.tma_ready(t)
+    assert fa.tma_ready(torch.zeros((3, 7, 4, Dh), dtype=torch.bfloat16))
+
+
+def test_tma_ready_refuses_misaligned_views():
+    base = torch.zeros((1, 5, 2 * 64 + 8), dtype=torch.bfloat16)
+    offset = base[..., 1 : 1 + 128].reshape(1, 5, 2, 64)  # base 2 bytes off
+    assert offset.data_ptr() % 16 and not fa.tma_ready(offset)
+    # a row stride of (3 Dh + 4) bf16 = 392 bytes at Dh 64 is no multiple of 16
+    _, k, _ = fused_views(2, 5, 1, 1, 64, extra=4)
+    assert not fa.tma_ready(k)
+    # ... unless that dim has size 1 (its stride is never used)
+    _, k1, _ = fused_views(1, 1, 1, 1, 64, extra=4)
+    assert fa.tma_ready(k1)
+    # the head dim must be contiguous
+    assert not fa.tma_ready(torch.zeros((1, 5, 2, 64), dtype=torch.bfloat16).transpose(2, 3))
+
+
+def test_kernel_input_copies_only_what_tma_cannot_read():
+    fa.flash_attention.copies = 0
+    q, k, v = fused_views(2, 5, 6, 2, 64)
+    assert all(fa._kernel_input(t) is t for t in (q, k, v))
+    assert fa.flash_attention.copies == 0
+    base = torch.arange(5 * 136, dtype=torch.float32).to(torch.bfloat16).reshape(1, 5, 136)
+    bad = base[..., 1:129].reshape(1, 5, 2, 64)
+    got = fa._kernel_input(bad)
+    assert got is not bad and fa.tma_ready(got) and torch.equal(got, bad)
+    assert fa.flash_attention.copies == 1
+    # f32 goes to the CUDA-core kernel, which reads any stride: no copy
+    f32 = base.float()[..., 1:129].reshape(1, 5, 2, 64)
+    assert fa._kernel_input(f32) is f32 and fa.flash_attention.copies == 1
+    fa.flash_attention.copies = 0

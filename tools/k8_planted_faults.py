@@ -5,10 +5,13 @@ check of K8 against its plain version.
     python3 tools/k8_planted_faults.py --workdir DIR    # DIR outside the checkout
 
 For each fault below, copies ``src/repro_torch`` into ``DIR/<fault>``, plants
-the fault in the copy's ``csrc/flash_attn.cu`` (the checkout is never
-changed), builds every copy at once, then runs ``chip_smoke.check_flash`` on
+the fault in the copy's ``csrc/flash_attn.cu``, in the bf16 kernel on the
+tensor cores (the checkout is never changed; a patch text that is not in the
+source exactly once stops the run), builds every copy at once, then runs
+``chip_smoke.check_flash`` on
 each copy at llama3.2-3b's heads (24 / 8, Dh 128) for the long S, in bf16
-and f32. ``none`` is the unchanged source, the control. Prints one line per
+and f32 (f32 runs the CUDA-core kernel, which carries no fault: a second
+control). ``none`` is the unchanged source, the control. Prints one line per
 check, where the check caught each fault and where its absolute limit alone
 would have, and writes the records to
 ``chiprun_out/k8_planted_faults.json``. Exits non-zero if the control fails.
@@ -26,17 +29,39 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-LOOP = "  for (int ik = 0; ik < nkt; ++ik) {\n"
-FAULTS = {  # name → (what it does, [(text, replacement)] in flash_attn.cu)
+TILE = "    const int k0 = it * kBK;\n"  # the consumers' key-tile loop
+
+
+def skip_tile_one(cond: str) -> str:
+    """Consumers take key tile 1's copies off the ring without using them
+    (the producer still sends it, so the barriers stay in step)."""
+    return (TILE + f"    if (it == 1 && {cond}) {{\n"
+            "      mbar_wait(&full_k[st], ph);\n      mbar_wait(&full_v[st], ph);\n"
+            "      mbar_arrive(&empty[st]);\n      continue;\n    }\n")
+
+
+PV = """      wgmma_pv<DHP>(o, pa + 4 * kk, desc_sw128(vt + kk * 16 * 128, kBlock, 1024));\n"""
+PV_MARK = "    // O += P V over the tile's keys, 16 keys a step\n"
+RESIDUAL = """    uint32_t pr[32];  // p - bf16(p), so P V sees p to ~16 bits more
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float a = s[2 * i], b = s[2 * i + 1];
+      pr[i] = pack_bf16(a - __bfloat162float(__float2bfloat16(a)), b - __bfloat162float(__float2bfloat16(b)));
+    }
+"""
+FAULTS = {  # name → (what it does, [(text, replacement)] in flash_attn.cu's bf16 kernel)
     "none": ("the kernel as it is", []),
     "skip_tile": ("key tile 1 skipped for the query tiles past row 7680 (the last 512 rows at S = 8192)",
-                  [(LOOP, LOOP + "    if (ik == 1 && nkt > 120) continue;\n")]),
-    "skip_tile_last": ("key tile 1 skipped for the last query tile only (rows 8128-8191 at S = 8192)",
-                       [(LOOP, LOOP + "    if (ik == 1 && nkt == 128) continue;\n")]),
-    "p_unrounded": ("p kept in f32 for the p v product (not rounded to v's dtype)",
-                    [("round_as(p0, T())", "p0"), ("round_as(p1, T())", "p1")]),
+                  [(TILE, skip_tile_one("nkt > 60"))]),
+    "skip_tile_last": ("key tile 1 skipped for the last query tile only (rows 8064-8191 at S = 8192)",
+                       [(TILE, skip_tile_one("nkt == 64"))]),
+    "p_unrounded": ("p not rounded to bf16 for the p v product (a second product adds p - bf16(p))",
+                    [(PV_MARK, RESIDUAL + PV_MARK),
+                     (PV, "    {\n" + PV + PV.replace("pa + 4", "pr + 4") + "    }\n")]),
     "store_truncated": ("the bf16 output rounded toward zero instead of to nearest",
-                        [("*p = __float2bfloat16(v);", "*p = __float2bfloat16_rz(v);")]),
+                        [("__floats2bfloat162_rn(o[4 * j + 2 * r] / li, o[4 * j + 2 * r + 1] / li)",
+                          "__halves2bfloat162(__float2bfloat16_rz(o[4 * j + 2 * r] / li), "
+                          "__float2bfloat16_rz(o[4 * j + 2 * r + 1] / li))")]),
 }
 SHAPES = [(1, 2048), (1, 8192), (4, 8192)]  # (B, S)
 
