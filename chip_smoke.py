@@ -21,8 +21,11 @@ code is non-zero:
              here only). ``dequant_materialize`` is held to its plain version
              bit for bit, and its pipeline ``dequant_mm`` (materialise, then
              an f32 GEMM) is checked and timed beside it, GEMM alone too.
-             ``codebook_mm``'s bf16 leaf times are also printed as multiples
-             of their bounds and of the library call;
+             ``codebook_mm``'s and ``lutgemm``'s bf16 leaf times are also
+             printed as multiples of their bounds and of the library call,
+             with K3's decode step at B = 1 and 4 beside the library's (the
+             paper's Table 3 comparison); each row of a 16-row K3 call at
+             ``wo`` must equal the row called alone, bit for bit;
 4. flash     ``flash_attention`` (K8) against its plain version (``_sdpa``
              under a causal mask, run one batch row at a time) at
              llama3.2-3b's heads (24 / 8, Dh 128) for B in {1, 4} and S in
@@ -329,12 +332,45 @@ def phase_kernels(gen):
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise SystemExit(f"chip_smoke: {len(bad)} kernel checks disagree with their plain versions: {bad[:3]}")
-    for r in records:
-        if r["kernel"] == "codebook_mm" and r["leaf"] != "sweep" and r["dtype"] == "bfloat16":
-            log(f"  codebook_mm {r['leaf']:9s} B={r['B']:<3d} {r['ms'] * 1e3:9.2f} us = "
-                f"{r['ms'] / r['bound_ms']:6.1f}x its bound ({r['bound_by']}), "
-                f"{r['ms'] / r['library_ms']:5.2f}x the library")
+    for name, batches in (("codebook_mm", (1, PROMPTS, prefill_rows)), ("lutgemm", (1, PROMPTS))):
+        for r in records:
+            if r["kernel"] == name and r["leaf"] != "sweep" and r["dtype"] == "bfloat16" and r["B"] in batches:
+                log(f"  {name:11s} {r['leaf']:9s} B={r['B']:<3d} {r['ms'] * 1e3:9.2f} us = "
+                    f"{r['ms'] / r['bound_ms']:6.1f}x its bound ({r['bound_by']}), "
+                    f"{r['ms'] / r['library_ms']:5.2f}x the library")
+    for B in (1, PROMPTS):  # the paper's Table 3 comparison: one decode step of K3 against cuBLAS
+        step = decode_step(records, "lutgemm", B)
+        log(f"  lutgemm decode step B={B} bf16: {step['ms']:.3f} ms, library {step['library_ms']:.3f} ms "
+            f"({step['ms'] / step['library_ms']:.2f}x), bound {step['bound_ms']:.3f} ms")
+    lutgemm_rows_equal_solo(gen)
     return records
+
+
+def decode_step(records, name, B, n_layers=28):
+    """``name``'s bf16 times at batch ``B`` summed over one decode step of
+    llama3.2-3b (each leaf once a layer, ``lm_head`` once)."""
+    every = {"wqkv": n_layers, "wo": n_layers, "w_gate_up": n_layers, "w_down": n_layers, "lm_head": 1}
+    rs = [(r, every[r["leaf"]]) for r in records
+          if r["kernel"] == name and r["leaf"] in every and r["B"] == B and r["dtype"] == "bfloat16"]
+    return {key: sum(r[key] * n for r, n in rs) for key in ("ms", "library_ms", "bound_ms", "plain_ms")}
+
+
+def lutgemm_rows_equal_solo(gen, B=16):
+    """K3's batch invariance at ``wo``: each row of a ``B``-row call equals
+    the same row called alone, bit for bit, in bf16 and f32."""
+    from repro_torch.kernels import lutgemm
+
+    k, o, _ = LEAVES["wo"]
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((B, k), generator=gen, device=DEVICE).to(dtype)
+        packed, scales = format_planes("bcq", k, o, Q, G, gen)
+        scales = scales.to(dtype)
+        full = lutgemm(x, packed, scales, g=G)
+        differ = [r for r in range(B) if not torch.equal(lutgemm(x[r : r + 1], packed, scales, g=G), full[r : r + 1])]
+        log(f"  lutgemm wo rows of B={B} against each row alone, {str(dtype).replace('torch.', '')}: "
+            f"{B - len(differ)}/{B} bitwise equal")
+        if differ:
+            raise SystemExit(f"chip_smoke: lutgemm rows {differ} of a {B}-row call differ from the row called alone")
 
 
 def flash_plain_rows(q, k, v):
@@ -1039,6 +1075,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "layers": cfg.n_layers, "records": records, "flash_records": flash_records,
+         "lutgemm_steps": {B: decode_step(records, "lutgemm", B, cfg.n_layers) for B in (1, PROMPTS)},
          "paths": summaries, **line},
         indent=1))
     print(json.dumps(line), flush=True)

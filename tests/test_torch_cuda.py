@@ -313,6 +313,62 @@ def test_codebook_kernel_matches_plain(cuda, monkeypatch, q, g):
                 torch.testing.assert_close(codebook_mm(x, packed, table, g=g), got, rtol=0, atol=0, msg=msg)
 
 
+LUTGEMM_CASES = [  # (B, o, chunk): every row tile and two batch tiles, ragged o, and
+    # k-splits whose chunk boundaries fall inside a group (3 and 20 byte rows)
+    # or on one (16 at g <= 128)
+    (1, 100, None), (2, 130, 3), (3, 1000, 20), (4, 100, 16), (8, 130, None), (9, 1000, 3),
+    (16, 130, 20), (64, 100, 16),
+]
+
+
+@pytest.mark.parametrize("g", [8, 64, 128, 768])
+@pytest.mark.parametrize("q", range(1, 9))
+def test_lutgemm_kernel_matches_plain(cuda, monkeypatch, q, g):
+    """K3 against its plain version within 2e-4 for q 1..8, g in {8, 64,
+    128, k}, ragged o, B from 1 to 64 and k-splits of several chunk sizes;
+    bitwise against 10 reruns and between two back-to-back launches, which
+    also shows that every launch left its tickets at 0 for the next."""
+    lm = importlib.import_module("repro_torch.kernels.lutgemm")
+    plan = lm.plan
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(q * 1000 + g)
+    k = 768
+    for B, o, chunk in LUTGEMM_CASES:
+        monkeypatch.setattr(lm, "plan", plan if chunk is None else functools.partial(plan, chunk=chunk))
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((B, k), generator=gen, device=cuda).to(dtype)
+            packed = torch.randint(0, 256, (q, k // 8, o), generator=gen, device=cuda, dtype=torch.uint8)
+            scales = ((torch.rand((q, k // g, o), generator=gen, device=cuda) + 0.5) / np.sqrt(k * q)).to(dtype)
+            reset_launch_counts()
+            got = lutgemm(x, packed, scales, g=g)
+            again = lutgemm(x, packed, scales, g=g)  # back to back, no sync between
+            torch.cuda.synchronize()
+            assert launch_counts()["lutgemm"] == 2
+            msg = f"B={B} o={o} chunk={chunk} {dtype}"
+            torch.testing.assert_close(got, lutgemm_plain(x, packed, scales, g=g), rtol=TOL, atol=TOL, msg=msg)
+            torch.testing.assert_close(again, got, rtol=0, atol=0, msg=msg)
+            for _ in range(10):
+                torch.testing.assert_close(lutgemm(x, packed, scales, g=g), got, rtol=0, atol=0, msg=msg)
+
+
+@pytest.mark.parametrize("B", [4, 9, 16, 64])
+@pytest.mark.parametrize("k,o,q,g", [(3072, 3072, 4, 128), (1024, 256, 3, 128)], ids=["wo", "sweep"])
+def test_lutgemm_rows_equal_solo(cuda, k, o, q, g, B):
+    """Batch invariance: row r of a B-row K3 call equals the same row
+    called alone, bit for bit (the plan does not depend on B, and a row
+    sums in the same order at every row tile)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B + k)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((B, k), generator=gen, device=cuda).to(dtype)
+        packed = torch.randint(0, 256, (q, k // 8, o), generator=gen, device=cuda, dtype=torch.uint8)
+        scales = ((torch.rand((q, k // g, o), generator=gen, device=cuda) + 0.5) / np.sqrt(k * q)).to(dtype)
+        full = lutgemm(x, packed, scales, g=g)
+        for r in range(B):
+            torch.testing.assert_close(lutgemm(x[r : r + 1], packed, scales, g=g), full[r : r + 1],
+                                       rtol=0, atol=0, msg=f"row {r} of {B}, {dtype}")
+
+
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 4, 48), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -337,11 +393,14 @@ def test_causal_prefill_runs_on_flash_kernel(cuda):
     torch.testing.assert_close(out["lutgemm"], out[None], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("q", [0, 4], ids=["dense", "bcq_q4"])
-def test_slot_batches_match_solo_on_card(cuda, q):
-    """Continuous batching on the GPU: greedy and sampled requests through 3
-    slots, each identical to its solo generate (the kernels reduce each row
-    in a fixed order whatever the batch)."""
+@pytest.mark.parametrize(
+    "q,mode,slots", [(0, None, 3), (4, None, 3), (4, "lutgemm", 9)], ids=["dense", "bcq_q4", "bcq_q4_lutgemm_9slots"]
+)
+def test_slot_batches_match_solo_on_card(cuda, q, mode, slots):
+    """Continuous batching on the GPU: greedy and sampled requests through
+    the slots, each identical to its solo generate (the kernels reduce each
+    row in a fixed order whatever the batch). Under ``impl_mode("lutgemm")``
+    9 slots put K3 at a row tile of 8 and two batch tiles."""
     cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512)
     params = init_params(cfg, seed=0, device=cuda)
     if q:
@@ -351,12 +410,15 @@ def test_slot_batches_match_solo_on_card(cuda, q):
     reqs = [
         Request(prompt=rng.integers(0, cfg.vocab, size=int(rng.integers(4, 40))).astype(np.int32),
                 max_new_tokens=int(rng.integers(3, 14)), temperature=[0.0, 1.0, 0.7][i % 3], seed=10 + i)
-        for i in range(7)
+        for i in range(max(7, slots + 3))
     ]
-    sched = Scheduler(eng, n_slots=3, chunk=4)
-    for r in reqs:
-        sched.submit(r)
-    done = {c.rid: c for c in sched.run()}
-    for r in reqs:
-        solo = eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
-        np.testing.assert_array_equal(done[r.rid].new_tokens, solo.tokens[0, r.prompt.size :])
+    reset_launch_counts()
+    with impl_mode(mode):
+        sched = Scheduler(eng, n_slots=slots, chunk=4)
+        for r in reqs:
+            sched.submit(r)
+        done = {c.rid: c for c in sched.run()}
+        for r in reqs:
+            solo = eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
+            np.testing.assert_array_equal(done[r.rid].new_tokens, solo.tokens[0, r.prompt.size :])
+    assert (launch_counts()["lutgemm"] > 0) == (mode == "lutgemm")

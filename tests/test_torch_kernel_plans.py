@@ -1,11 +1,13 @@
 """The kernel wrappers' host-side choices, as plain Python: K7
 ``codebook_mm``'s launch plan (columns a lane, the k-split, the ring's
-stages, scratch and tickets) and K8 ``flash_attention``'s choice of kernel
+stages, scratch and tickets), K3 ``lutgemm``'s (the k-split, each row
+tile's stage and shared memory, scratch and tickets) and K8 ``flash_attention``'s choice of kernel
 by dtype and its TMA alignment check. None of this needs a GPU; the
 kernels themselves are held to their plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import importlib
+import inspect
 import math
 
 import pytest
@@ -13,8 +15,9 @@ import torch
 
 from repro_torch.kernels import flash_attn as fa
 
-# the module (the package re-exports its function under the same name)
+# the modules (the package re-exports their functions under the same names)
 cm = importlib.import_module("repro_torch.kernels.codebook_mm")
+lm = importlib.import_module("repro_torch.kernels.lutgemm")
 
 LEAVES = {  # llama3.2-3b: (k, o)
     "wqkv": (3072, 5120),
@@ -195,3 +198,143 @@ def test_kernel_input_copies_only_what_tma_cannot_read():
     f32 = base.float()[..., 1:129].reshape(1, 5, 2, 64)
     assert fa._kernel_input(f32) is f32 and fa.flash_attention.copies == 1
     fa.flash_attention.copies = 0
+
+
+# ---- K3 lutgemm ----------------------------------------------------------
+
+LUT_SPLITS = {  # llama3.2-3b leaf at q = 4: (k-chunks, byte rows a chunk)
+    "wqkv": (11, 35),
+    "wo": (11, 35),
+    "w_gate_up": (4, 96),
+    "w_down": (11, 94),
+    "lm_head": (1, 384),
+}
+SM_SHARED = 228 * 1024  # shared memory of an H100 SM; each block also reserves 1 KB
+
+
+def lut_chunks(p):
+    kc = p.k // 8
+    return [(i * p.chunk, min(kc, (i + 1) * p.chunk)) for i in range(p.splits)]
+
+
+def check_lut_plan(p, k, o, q, g, x_dtype, s_dtype, own_split=True):
+    xb, sb = torch.finfo(x_dtype).bits // 8, torch.finfo(s_dtype).bits // 8
+    kc = k // 8
+    # the chunks cover k exactly once, in order, each a whole number of 8-row chunks
+    ch = lut_chunks(p)
+    assert ch[0][0] == 0 and ch[-1][1] == kc
+    assert all(a[1] == b[0] for a, b in zip(ch, ch[1:]))
+    assert all(lo < hi for lo, hi in ch)
+    assert p.col_tiles * lm.COLS >= o > (p.col_tiles - 1) * lm.COLS
+    # a stage for every row tile, its regions 16-byte aligned and in order,
+    # within the budget that lets two blocks share an SM
+    assert tuple(st.bt for st in p.stages) == lm.ROW_TILES
+    for st in p.stages:
+        assert st.chunks >= 1
+        assert st.stage_bytes % 16 == st.off_s % 16 == st.off_x % 16 == st.off_t % 16 == 0
+        assert st.off_s >= q * st.chunks * lm.COLS  # the planes' bytes
+        # the scales of every group a stage's window touches
+        spanned = max(
+            (min(hi, r0 + st.chunks) * 8 - 1) // g - r0 * 8 // g + 1
+            for lo, hi in ch for r0 in range(lo, hi, st.chunks)
+        )
+        assert spanned <= lm.stage_groups(st.chunks, g, k)
+        assert st.off_x >= st.off_s + q * lm.stage_groups(st.chunks, g, k) * lm.COLS * sb
+        assert st.stage_bytes >= st.off_x + st.bt * st.chunks * 8 * xb  # the x rows
+        assert st.off_t >= lm.RING * st.stage_bytes
+        assert st.smem >= st.off_t + lm.WARPS * lm.KEYS * st.bt * 4  # a [key][row] f32 table a warp
+        assert st.smem >= lm.WARPS * st.bt * lm.COLS * 4  # the warps' sums
+        assert st.smem <= lm.SMEM_BUDGET and 2 * (st.smem + 1024) <= SM_SHARED
+        assert st.chunks <= lm.STAGE_CHUNKS
+    # the split's partial sums stay under a quarter of the planes' bytes at B = 4
+    assert not own_split or p.splits == 1 or 4 * (2 * p.splits * 4 * o * 4) < q * kc * o
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("leaf", list(LEAVES))
+def test_lutgemm_plan_fills_the_card_at_llama_leaves(leaf, dtype):
+    """Every llama3.2-3b leaf puts at least two blocks on each of 132 SMs
+    at decode widths, within the traffic and shared-memory budgets."""
+    k, o = LEAVES[leaf]
+    p = lm.plan(k, o, 4, 128, dtype, dtype)
+    check_lut_plan(p, k, o, 4, 128, dtype, dtype)
+    assert (p.splits, p.chunk) == LUT_SPLITS[leaf]
+    for B in (1, 4, 64):
+        assert blocks(p, B) >= lm.MIN_BLOCKS
+    for B in (1, 4):
+        assert lm.wave_fill(blocks(p, B)) >= 0.8
+    assert lm.KEYS == 128  # the sign symmetry halves every table
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,o,q,g", SWEEP)
+def test_lutgemm_plan_sweep(k, o, q, g, dtype):
+    """Chunks cover k once; the split reaches two blocks an SM unless the
+    partial-sum traffic or chunks of 8 byte rows stop it first."""
+    p = lm.plan(k, o, q, g, dtype, dtype)
+    check_lut_plan(p, k, o, q, g, dtype, dtype)
+    more = p.splits + 1
+    capped = 4 * (2 * more * 4 * o * 4) >= q * (k // 8) * o or p.chunk <= lm.MIN_CHUNK
+    assert blocks(p, 1) >= lm.MIN_BLOCKS or capped
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16, 20, 24, 10_000])
+def test_lutgemm_plan_chunk_override(chunk):
+    """A chunk given by the caller: boundaries inside a group (3, 20 and 24
+    byte rows at g = 128) or on one (16), a short last chunk, a chunk past k."""
+    k, o, q = 1024, 130, 4
+    p = lm.plan(k, o, q, 128, torch.bfloat16, torch.float32, chunk=chunk)
+    check_lut_plan(p, k, o, q, 128, torch.bfloat16, torch.float32, own_split=False)
+    kc = k // 8
+    assert p.chunk == min(chunk, kc) and p.splits == -(-kc // p.chunk)
+    ch = lut_chunks(p)
+    assert ch[0][0] == 0 and ch[-1][1] == kc and all(a[1] == b[0] for a, b in zip(ch, ch[1:]))
+
+
+def test_lutgemm_plan_does_not_depend_on_batch():
+    """The plan takes no B: one split and one set of stages serve every
+    batch; only the batch tiles, scratch and tickets scale with it."""
+    assert "B" not in inspect.signature(lm.plan).parameters
+    p = lm.plan(3072, 3072, 4, 128, torch.bfloat16, torch.bfloat16)
+    assert p.splits > 1
+    for B, bt in ((1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (9, 8), (16, 8), (64, 8)):
+        assert lm.row_tile(B) == bt
+        tiles = p.col_tiles * -(-B // bt)
+        assert blocks(p, B) == tiles * p.splits
+        assert p.tickets(B) == tiles
+        assert p.scratch_floats(B) == p.splits * B * 3072
+        assert p.stage(bt).bt == bt
+
+
+@pytest.mark.parametrize("leaf", list(LEAVES))
+def test_lutgemm_workspace_at_llama_leaves(leaf):
+    """Scratch holds one (B, o) f32 slab a k-chunk and tickets one counter
+    a (column tile, batch tile), only when k is split."""
+    k, o = LEAVES[leaf]
+    splits, _ = LUT_SPLITS[leaf]
+    p = lm.plan(k, o, 4, 128, torch.bfloat16, torch.bfloat16)
+    for B in (1, 4, 9, 16, 64):
+        tiles = -(-o // 128) * -(-B // lm.row_tile(B))
+        assert p.scratch_floats(B) == (splits * B * o if splits > 1 else 0)
+        assert p.tickets(B) == (tiles if splits > 1 else 0)
+
+
+@pytest.mark.parametrize("k,o,q,g", SWEEP)
+def test_lutgemm_workspace_sweep(k, o, q, g):
+    p = lm.plan(k, o, q, g, torch.float32, torch.bfloat16)
+    for B in (1, 3, 8, 9):
+        if p.splits == 1:
+            assert p.scratch_floats(B) == 0 and p.tickets(B) == 0
+        else:
+            assert p.scratch_floats(B) == p.splits * B * o
+            assert p.tickets(B) == -(-o // 128) * -(-B // lm.row_tile(B))
+
+
+def test_lutgemm_plan_shrinks_stages_to_fit():
+    """Eight planes with f32 scales at g = 8: a stage as large as the table
+    budget allows would put the ring over the shared-memory budget, so it
+    halves."""
+    p = lm.plan(768, 130, 8, 8, torch.float32, torch.float32)
+    st = p.stage(1)
+    assert st.chunks < lm.STAGE_CHUNKS and st.smem <= lm.SMEM_BUDGET
+    assert lm._stage(1, 2 * st.chunks, 8, 8, 768, 4, 4).smem > lm.SMEM_BUDGET
