@@ -21,11 +21,20 @@ code is non-zero:
              here only). ``dequant_materialize`` is held to its plain version
              bit for bit, and its pipeline ``dequant_mm`` (materialise, then
              an f32 GEMM) is checked and timed beside it, GEMM alone too.
-             ``codebook_mm``'s and ``lutgemm``'s bf16 leaf times are also
-             printed as multiples of their bounds and of the library call,
-             with K3's decode step at B = 1 and 4 beside the library's (the
-             paper's Table 3 comparison); each row of a 16-row K3 call at
-             ``wo`` must equal the row called alone, bit for bit;
+             The bf16 leaf times of ``codebook_mm``, ``lutgemm``, ``bcq_mm``,
+             ``bcq_mm_fused`` and ``uniform_mm`` are also printed as
+             multiples of their bounds and of the library call, with the
+             decode steps of K3, of the bcq path (K1 + K2) and of K5 at
+             B = 1 and 4 beside the library's (the paper's Table 3
+             comparison). Each row of a 16-row call of K3, K1, K2 and K5 at
+             ``wo`` must equal the row called alone, bit for bit, as must
+             each row of a K1 call one row tile wider than its row slab.
+             K1 and K5 at ``wo`` for q = 1..8 on the table path and the
+             direct path (both checked, both timed) give the measurement
+             behind ``grouptable.TABLE_MAX_Q``. Last, a probe: dense bf16
+             (``utils.matmul_rows``) and ``dequant_mm`` products of 4 and
+             16 rows at ``wo`` and ``w_gate_up`` against each row alone,
+             largest difference reported (cuBLAS may sum by M);
 4. flash     ``flash_attention`` (K8) against its plain version (``_sdpa``
              under a causal mask, run one batch row at a time) at
              llama3.2-3b's heads (24 / 8, Dh 128) for B in {1, 4} and S in
@@ -86,6 +95,7 @@ it exits non-zero before printing any result. It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -154,7 +164,7 @@ LONG_NEW = 8
 FORMAT_KERNEL = {"uniform": "uniform_mm", "dequant": "dequant_materialize", "ternary": "ternary_mm",
                  "codebook": "codebook_mm"}
 # part of the device kernel names of each format's path (bcq: K1 and K2)
-PROFILE_TAG = {"bcq": "BCQDec", "uniform": "UniformDec", "dequant": "dequant_kernel",
+PROFILE_TAG = {"bcq": "BCQGroups", "uniform": "UniformGroups", "dequant": "dequant_kernel",
                "ternary": "TernaryDec", "codebook": "codebook_kernel"}
 # part of K8's device kernel names: bf16 on the tensor cores, f32 on the CUDA cores
 FLASH_TAGS = ("flash_tc_kernel", "flash_kernel")
@@ -332,17 +342,21 @@ def phase_kernels(gen):
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise SystemExit(f"chip_smoke: {len(bad)} kernel checks disagree with their plain versions: {bad[:3]}")
-    for name, batches in (("codebook_mm", (1, PROMPTS, prefill_rows)), ("lutgemm", (1, PROMPTS))):
+    every_width = (1, PROMPTS, prefill_rows)
+    for name, batches in (("codebook_mm", every_width), ("lutgemm", (1, PROMPTS)), ("bcq_mm", every_width),
+                          ("bcq_mm_fused", every_width), ("uniform_mm", every_width)):
         for r in records:
             if r["kernel"] == name and r["leaf"] != "sweep" and r["dtype"] == "bfloat16" and r["B"] in batches:
-                log(f"  {name:11s} {r['leaf']:9s} B={r['B']:<3d} {r['ms'] * 1e3:9.2f} us = "
+                log(f"  {name:12s} {r['leaf']:9s} B={r['B']:<3d} {r['ms'] * 1e3:9.2f} us = "
                     f"{r['ms'] / r['bound_ms']:6.1f}x its bound ({r['bound_by']}), "
                     f"{r['ms'] / r['library_ms']:5.2f}x the library")
-    for B in (1, PROMPTS):  # the paper's Table 3 comparison: one decode step of K3 against cuBLAS
-        step = decode_step(records, "lutgemm", B)
-        log(f"  lutgemm decode step B={B} bf16: {step['ms']:.3f} ms, library {step['library_ms']:.3f} ms "
-            f"({step['ms'] / step['library_ms']:.2f}x), bound {step['bound_ms']:.3f} ms")
-    lutgemm_rows_equal_solo(gen)
+    # the paper's Table 3 comparison: one decode step on each path's kernels against cuBLAS
+    for path, names in STEP_PATHS.items():
+        for B in (1, PROMPTS):
+            step = path_step(records, names, B)
+            log(f"  {path} decode step B={B} bf16: {step['ms']:.3f} ms, library {step['library_ms']:.3f} ms "
+                f"({step['ms'] / step['library_ms']:.2f}x), bound {step['bound_ms']:.3f} ms")
+    rows_equal_solo(gen)
     return records
 
 
@@ -355,22 +369,114 @@ def decode_step(records, name, B, n_layers=28):
     return {key: sum(r[key] * n for r, n in rs) for key in ("ms", "library_ms", "bound_ms", "plain_ms")}
 
 
-def lutgemm_rows_equal_solo(gen, B=16):
-    """K3's batch invariance at ``wo``: each row of a ``B``-row call equals
-    the same row called alone, bit for bit, in bf16 and f32."""
-    from repro_torch.kernels import lutgemm
+def path_step(records, names, B, n_layers=28):
+    """The bf16 decode step at batch ``B`` of a path whose leaves ``names``
+    serve between them (K1 + K2 for bcq)."""
+    steps = [decode_step(records, name, B, n_layers) for name in names]
+    return {key: sum(st[key] for st in steps) for key in steps[0]}
+
+
+# a decode step's kernels, by path: K3 alone, bcq's K1 + K2, K5 alone
+STEP_PATHS = {"lutgemm": ("lutgemm",), "bcq (bcq_mm + bcq_mm_fused)": ("bcq_mm", "bcq_mm_fused"),
+              "uniform_mm": ("uniform_mm",)}
+
+
+def rows_equal_solo(gen, B=16):
+    """Batch invariance at ``wo``: each row of a ``B``-row call of K3, K1,
+    K2 and K5, and of a K1 call one row tile wider than its row slab (two
+    launches), equals the same row called alone, bit for bit, in bf16 and
+    f32."""
+    from repro_torch.kernels import grouptable
 
     k, o, _ = LEAVES["wo"]
-    for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn((B, k), generator=gen, device=DEVICE).to(dtype)
-        packed, scales = format_planes("bcq", k, o, Q, G, gen)
-        scales = scales.to(dtype)
-        full = lutgemm(x, packed, scales, g=G)
-        differ = [r for r in range(B) if not torch.equal(lutgemm(x[r : r + 1], packed, scales, g=G), full[r : r + 1])]
-        log(f"  lutgemm wo rows of B={B} against each row alone, {str(dtype).replace('torch.', '')}: "
-            f"{B - len(differ)}/{B} bitwise equal")
-        if differ:
-            raise SystemExit(f"chip_smoke: lutgemm rows {differ} of a {B}-row call differ from the row called alone")
+    fns = kernel_fns()
+    slab = grouptable.plan("bcq", k, o, Q, G, torch.bfloat16, torch.bfloat16).slab_rows(1 << 20)
+    for name, rows in (("lutgemm", B), ("bcq_mm", B), ("bcq_mm_fused", B), ("uniform_mm", B),
+                       ("bcq_mm", slab + 8)):
+        fn = fns[name][0]
+        dims = (o // 2, o - o // 2) if name == "bcq_mm_fused" else None
+
+        def call(x, p, s):
+            return torch.cat(fn(x, p, s, g=G, out_dims=dims), dim=-1) if dims else fn(x, p, s, g=G)
+
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((rows, k), generator=gen, device=DEVICE).to(dtype)
+            packed, scales = format_planes(KERNELS[name][3], k, o, Q, G, gen)
+            scales = scales.to(dtype)
+            full = call(x, packed, scales)
+            differ = [r for r in range(rows) if not torch.equal(call(x[r : r + 1], packed, scales), full[r : r + 1])]
+            log(f"  {name} wo rows of B={rows} against each row alone, {str(dtype).replace('torch.', '')}: "
+                f"{rows - len(differ)}/{rows} bitwise equal")
+            if differ:
+                raise SystemExit(f"chip_smoke: {name} rows {differ[:8]} of a {rows}-row call differ from the row "
+                                 f"called alone")
+
+
+def table_limit(gen, B=PROMPTS):
+    """K1 and K5 at ``wo`` (bf16, B = 4) for q = 1..8 on both paths, each
+    held to its plain version and timed: the measurement behind
+    ``grouptable.TABLE_MAX_Q`` → records."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import bcq_mm, bcq_mm_plain, grouptable, uniform_mm, uniform_mm_plain
+
+    k, o, _ = LEAVES["wo"]
+    plan = grouptable.plan
+    records = []
+    try:
+        for name, fn, plain, fmt in (("bcq_mm", bcq_mm, bcq_mm_plain, "bcq"),
+                                     ("uniform_mm", uniform_mm, uniform_mm_plain, "uniform")):
+            for q in range(1, 9):
+                x = torch.randn((B, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+                f = get_format(fmt)
+                weights = []
+                for _ in range(n_copies(f.planes(q) * k // 8 * o)):
+                    packed, scales = format_planes(fmt, k, o, q, G, gen)
+                    weights.append((packed, scales.to(torch.bfloat16)))
+                ref = plain(x, *weights[0], g=G)
+                row = dict(kernel=name, q=q, chosen="table" if q <= grouptable.TABLE_MAX_Q[fmt] else "direct")
+                for path in ("table", "direct"):
+                    grouptable.plan = functools.partial(plan, table=path == "table")
+                    err = (fn(x, *weights[0], g=G) - ref).abs().max().item()
+                    if not err <= KERNEL_TOL:
+                        raise SystemExit(f"chip_smoke: {name} q={q} {path} path differs from its plain version: {err}")
+                    row[f"{path}_ms"] = time_ms(lambda p, s: fn(x, p, s, g=G), weights)
+                    row[f"{path}_err"] = err
+                grouptable.plan = plan
+                log(f"  {name:10s} wo B={B} q={q}: table {row['table_ms'] * 1e3:8.2f} us, direct "
+                    f"{row['direct_ms'] * 1e3:8.2f} us (errors {row['table_err']:.1e} / {row['direct_err']:.1e}); "
+                    f"the plan takes the {row['chosen']} path")
+                records.append(row)
+    finally:
+        grouptable.plan = plan
+    return records
+
+
+def probe_dense_rows(gen):
+    """Queue 3's probe: do dense bf16 linears (``utils.matmul_rows``, one
+    cuBLAS product on the card) and ``dequant_mm`` (an f32 cuBLAS product
+    after the materialise kernel) give each row of a 4- or 16-row call the
+    bits of the row called alone? Tolerance 0; reported, not asserted."""
+    from repro_torch.kernels import dequant_mm
+    from repro_torch.utils import matmul_rows
+
+    out = []
+    for leaf in ("wo", "w_gate_up"):
+        k, o, _ = LEAVES[leaf]
+        w16 = (torch.randn((k, o), generator=gen, device=DEVICE) / math.sqrt(k)).to(torch.bfloat16)
+        packed, scales = format_planes("dequant", k, o, Q, G, gen)
+        scales = scales.to(torch.bfloat16)
+        for B in (4, 16):
+            x = torch.randn((B, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+            for path, call in (("dense bf16", lambda a: matmul_rows(a, w16)),
+                               ("dequant_mm", lambda a: dequant_mm(a, packed, scales, g=G))):
+                full = call(x).float()
+                alone = torch.cat([call(x[r : r + 1]) for r in range(B)]).float()
+                diff = (full - alone).abs().max().item()
+                rows = int((full != alone).any(dim=-1).sum())
+                log(f"  probe {path:10s} {leaf:9s} B={B:<2d}: {rows}/{B} rows differ from the row alone, "
+                    f"max|d| {diff:.3e} (tolerance 0)")
+                out.append(dict(path=path, leaf=leaf, B=B, rows_differ=rows, max_abs_diff=diff))
+    return out
 
 
 def flash_plain_rows(q, k, v):
@@ -1057,6 +1163,8 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
+    limit_records = table_limit(gen)
+    probe = probe_dense_rows(gen)
 
     log("[4/7] flash_attention against its plain version")
     flash_records = phase_flash(gen)
@@ -1075,7 +1183,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "layers": cfg.n_layers, "records": records, "flash_records": flash_records,
-         "lutgemm_steps": {B: decode_step(records, "lutgemm", B, cfg.n_layers) for B in (1, PROMPTS)},
+         "steps": {path: {B: path_step(records, names, B, cfg.n_layers) for B in (1, PROMPTS)}
+                   for path, names in STEP_PATHS.items()},
+         "table_limit": limit_records, "dense_rows_probe": probe,
          "paths": summaries, **line},
         indent=1))
     print(json.dumps(line), flush=True)

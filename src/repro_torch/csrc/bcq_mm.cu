@@ -5,63 +5,76 @@
 // QKV / gate-up leaves are the same function over output-concatenated planes.
 //
 // What bounds it: at decode batch sizes (B <= 8) the packed planes and the
-// group scales are read once and every byte feeds only 8*(q + B) flops per
-// column, so the bound is the weight bytes over the card's memory rate
-// (3.35 TB/s on an H100 SXM). At prefill row counts it turns compute bound
-// (f32 FMAs on the CUDA cores).
+// group scales are read once (q/8 bytes a weight and q scales a group), so
+// the bound is those bytes over the card's memory rate (3.35 TB/s on an
+// H100 SXM); at prefill row counts it turns compute bound (f32 FMAs on the
+// CUDA cores).
 //
-// Design (the column-block skeleton of colblock.cuh, which the uniform,
-// ternary and codebook kernels share):
-//  - A block owns 32 adjacent output columns and up to BT (<= 8) batch rows
-//    and loops over all of k itself, so no two blocks write one output and
-//    no atomics are needed (the deterministic stand-in for the paper's
-//    atomicAdd, as in the TPU kernel's sequential accumulator).
-//  - 8 column threads x 32 k-slices: a column thread owns 4 adjacent columns
-//    and reads the 4 packed bytes of one byte row as one 32-bit load, so each
-//    byte row of a slice is one 32-byte sector. Byte rows are dealt to the 32
-//    slices round robin, which keeps 32 independent loads in flight per
-//    column group at B = 1, when there are few blocks.
-//  - x rows for a 1024-row k tile are staged in shared memory as f32.
-//  - Bits expand to +-alpha in registers (BCQDec below); w_eff is summed
-//    over the q planes and accumulated into x * w_eff in f32 registers,
-//    never written out.
-//  - The 32 slices' partial sums meet in shared memory and are added in a
-//    fixed order, so results are bitwise reproducible run to run.
-//  - Ragged o and B are masked in the kernel; no padding is needed.
-#include "colblock.cuh"
+// Design: the group-table skeleton of grouptable.cuh (its header says how
+// blocks, stages, the k-split and the sum order go). A (group, column) pair
+// of BCQ weights takes 2^q values: entry e is ((+-a0 +- a1) +- a2) +- ...,
+// bit i of e set meaning +a_i, folded in plane order exactly as the plain
+// version sums its planes (kernels/bcq_mm.py::bcq_weight_plain). The table
+// shares prefixes: level i doubles the entries of level i - 1 with one add
+// each, 2^(q+1) - 2 adds for 2^q entries. Above the plan's table limit each
+// weight is folded in registers from its code instead.
+#include "grouptable.cuh"
 
 namespace {
 
 using namespace repro;
 
-// q sign planes, q scale planes: w = sum_i (bit_i ? +alpha_i : -alpha_i).
-template <typename ST>
-struct BCQDec : Planes<ST> {
-  static constexpr int kTileC = 128;
-  struct Row {
-    uint32_t bits[kMaxQ];
-    float s[kMaxQ][kCols];
-  };
+struct BCQGroups {
+  static __host__ __device__ constexpr int scale_planes(int q) { return q; }
 
-  __device__ __forceinline__ void load(Row& r, int c, int grp, int col0, int valid) const {
+  template <int Q, typename ST>
+  static __device__ __forceinline__ void build(float* T, int stride, const ST* s, int sstride, int q) {
+    if constexpr (Q > 0) {
+      float v[1 << Q];
+      const float a0 = to_f32(s[0]);
+      v[0] = -a0;
+      v[1] = a0;
 #pragma unroll
-    for (int i = 0; i < kMaxQ; ++i) {
-      if (i < this->q) {
-        r.bits[i] = this->bytes(i, c, col0, valid);
-        this->params(i, grp, col0, valid, r.s[i]);
+      for (int i = 1; i < Q; ++i) {
+        const float a = to_f32(s[i * sstride]);
+#pragma unroll
+        for (int e = 0; e < (1 << i); ++e) {
+          v[e + (1 << i)] = v[e] + a;
+          v[e] = v[e] - a;  // == v[e] + (-a): the plain version's sum with a -1 sign
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < (1 << Q); ++e) T[e * stride] = v[e];
+    } else {  // the same fold, level by level in the table itself
+      const float a0 = to_f32(s[0]);
+      T[0] = -a0;
+      T[stride] = a0;
+      for (int i = 1; i < q; ++i) {
+        const float a = to_f32(s[i * sstride]);
+        for (int e = 0; e < (1 << i); ++e) {
+          const float v = T[e * stride];
+          T[(e + (1 << i)) * stride] = v + a;
+          T[e * stride] = v - a;
+        }
       }
     }
   }
 
-  __device__ __forceinline__ float weight(const Row& r, int j, int cc) const {
-    float w = 0.f;
+  struct Params {
+    float a[kMaxQ];
+  };
+
+  template <typename ST>
+  static __device__ __forceinline__ void load(Params& P, const ST* s, int sstride, int q) {
 #pragma unroll
-    for (int i = 0; i < kMaxQ; ++i) {
-      if (i < this->q) {
-        const bool bit = (r.bits[i] >> (8 * cc + j)) & 1u;
-        w += bit ? r.s[i][cc] : -r.s[i][cc];
-      }
-    }
+    for (int i = 0; i < kMaxQ; ++i) P.a[i] = i < q ? to_f32(s[i * sstride]) : 0.f;
+  }
+
+  static __device__ __forceinline__ float weight(const Params& P, uint32_t code, int q) {
+    float w = code & 1u ? P.a[0] : -P.a[0];
+#pragma unroll
+    for (int i = 1; i < kMaxQ; ++i)
+      if (i < q) w = w + ((code >> i) & 1u ? P.a[i] : -P.a[i]);
     return w;
   }
 };
@@ -70,11 +83,4 @@ struct BCQDec : Planes<ST> {
 
 REPRO_EXPORT_ERROR_STRING
 
-// x (B, k) f32/bf16; packed (q, k/8, o) u8; scales (q, k/g, o) f32/bf16;
-// out (B, o) f32. All contiguous.
-extern "C" int bcq_mm_launch(const void* x, int x_dtype, const void* packed,
-                             const void* scales, int s_dtype, void* out,
-                             int B, int k, int o, int q, int g, void* stream) {
-  return repro::colblock_entry<BCQDec>(x, x_dtype, packed, scales, s_dtype, out, B, k, o, q, g,
-                                       stream);
-}
+REPRO_GROUPTABLE_ENTRY(bcq_mm_launch, BCQGroups)

@@ -60,38 +60,6 @@ struct Plan {
   int ns, splits, chunk, stage_rows, stage_bytes, off_x, off_t, smem;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// `lines` rows of `width` elements: line i from src + src_off(i) to
-// dst + i * width, zero past `valid` elements; 16-byte copies when vec.
-template <typename T, typename F>
-__device__ __forceinline__ void copy_lines(T* dst, const T* src, int lines, int width, int valid, bool vec,
-                                           F src_off) {
-  constexpr int kPer = 16 / sizeof(T);
-  if (vec) {  // valid == width, every line 16-byte aligned
-    const int per_line = width / kPer;
-    for (int e = threadIdx.x; e < lines * per_line; e += kThreads) {
-      const int i = e / per_line, c = (e % per_line) * kPer;
-      cp_async16(dst + i * width + c, src + src_off(i) + c, 16);
-    }
-  } else {
-    for (int e = threadIdx.x; e < lines * width; e += kThreads) {
-      const int i = e / width, c = e % width;
-      dst[i * width + c] = c < valid ? src[src_off(i) + c] : T(0.f);
-    }
-  }
-}
-
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
@@ -118,7 +86,6 @@ codebook_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restri
   const bool full = valid == BC;
   const bool vec_p = full && o % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
   const bool vec_t = full && (o * sizeof(TT)) % 16 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
-  const bool vec_x = reinterpret_cast<uintptr_t>(xv) % 16 == 0;  // k * xb is a multiple of 16
 
   // slot c of this lane: column ((c + (lane & 1)) % NS) * 32 + lane of the block
   int col[NS];
@@ -129,26 +96,12 @@ codebook_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restri
   auto stage = [&](int s) {
     uint8_t* const buf = smem + (s % kRing) * p.stage_bytes;
     const int r0 = c0 + s * SR, nr = min(SR, c1 - r0);
-    copy_lines(buf, packed, q * nr, BC, valid, vec_p,
-               [&](int i) { return (static_cast<size_t>(i / nr) * kc + r0 + i % nr) * o + o0; });
+    copy_lines<kThreads>(buf, packed, q * nr, BC, valid, vec_p,
+                         [&](int i) { return (static_cast<size_t>(i / nr) * kc + r0 + i % nr) * o + o0; });
     const int ga = r0 * 8 / g, ngrp = ((r0 + nr) * 8 - 1) / g - ga + 1;
-    copy_lines(reinterpret_cast<TT*>(buf + p.off_t), table, ngrp * ncent, BC, valid, vec_t,
-               [&](int i) { return (static_cast<size_t>(i % ncent) * G + ga + i / ncent) * o + o0; });
-    // x rows b0 .. b0 + BT - 1, zero past B
-    const int xw = nr * 8 * xb / 16;  // 16-byte pieces of a row
-    uint8_t* const xs = buf + p.off_x;
-    const uint8_t* const xg = static_cast<const uint8_t*>(xv);
-    for (int e = threadIdx.x; e < BT * xw; e += kThreads) {
-      const int b = e / xw, c = e % xw;
-      uint8_t* dst = xs + b * SR * 8 * xb + c * 16;
-      const bool in = b0 + b < B;
-      const uint8_t* src = xg + (static_cast<size_t>(in ? b0 + b : 0) * k + r0 * 8) * xb + c * 16;
-      if (vec_x) {
-        cp_async16(dst, src, in ? 16 : 0);
-      } else {
-        for (int t = 0; t < 16; ++t) dst[t] = in ? src[t] : 0;
-      }
-    }
+    copy_lines<kThreads>(reinterpret_cast<TT*>(buf + p.off_t), table, ngrp * ncent, BC, valid, vec_t,
+                         [&](int i) { return (static_cast<size_t>(i % ncent) * G + ga + i / ncent) * o + o0; });
+    copy_x_rows<kThreads, BT>(buf + p.off_x, xv, xb, B, b0, k, r0, nr, SR);  // zero past B
   };
 
   float acc[BT][NS];

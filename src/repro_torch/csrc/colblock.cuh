@@ -1,8 +1,9 @@
-// The column-block matvec skeleton shared by the packed-weight kernels
-// (bcq_mm, uniform_mm, ternary_mm): y (B, o) f32 = x (B, k) @ W,
-// with W decoded from its packed planes in registers and never written out.
+// The column-block matvec skeleton of ternary_mm (K4), its only user:
+// y (B, o) f32 = x (B, k) @ W, with W decoded from its packed planes in
+// registers and never written out. (bcq_mm and uniform_mm, which began on
+// it, moved to grouptable.cuh; codebook_mm to its own kernel.)
 //
-// Layout (K1's, see bcq_mm.cu for what bounds it):
+// Layout:
 //  - A block owns 32 adjacent output columns and up to BT (<= 8) batch rows
 //    and loops over all of k itself, so no two blocks write one output and
 //    no atomics are needed.

@@ -82,6 +82,66 @@ __device__ __forceinline__ void load_scales4(const __nv_bfloat16* p, int valid, 
   for (int c = 0; c < kCols; ++c) s[c] = c < valid ? __bfloat162float(p[c]) : 0.f;
 }
 
+// 16-byte copies from device to shared memory that complete in the
+// background (cp.async), in commit groups; src_bytes < 16 zero-fills the
+// rest of the 16 bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+// Waits until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// By the kThreads threads of a block: `lines` rows of `width` elements,
+// line i from src + src_off(i) to dst + i * width, zero past `valid`
+// elements; 16-byte cp.async copies when vec.
+template <int kThreads, typename T, typename F>
+__device__ __forceinline__ void copy_lines(T* dst, const T* src, int lines, int width, int valid, bool vec,
+                                           F src_off) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (vec) {  // valid == width, every line 16-byte aligned
+    const int per_line = width / kPer;
+    for (int e = threadIdx.x; e < lines * per_line; e += kThreads) {
+      const int i = e / per_line, c = (e % per_line) * kPer;
+      cp_async16(dst + i * width + c, src + src_off(i) + c, 16);
+    }
+  } else {
+    for (int e = threadIdx.x; e < lines * width; e += kThreads) {
+      const int i = e / width, c = e % width;
+      dst[i * width + c] = c < valid ? src[src_off(i) + c] : T(0.f);
+    }
+  }
+}
+
+// By the kThreads threads of a block: byte rows r0 .. r0 + nr - 1 (8 k
+// each) of x rows b0 .. b0 + BT - 1 of x (B, k), xb bytes an element, to
+// dst as [BT][stride_rows * 8] elements, zero past B; 16-byte pieces,
+// cp.async copies when x is 16-byte aligned (k xb is a multiple of 16).
+template <int kThreads, int BT>
+__device__ __forceinline__ void copy_x_rows(uint8_t* dst, const void* x, int xb, int B, int b0, int k, int r0,
+                                            int nr, int stride_rows) {
+  const int xw = nr * 8 * xb / 16;  // 16-byte pieces of a row
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const uint8_t* const xg = static_cast<const uint8_t*>(x);
+  for (int e = threadIdx.x; e < BT * xw; e += kThreads) {
+    const int b = e / xw, c = e % xw;
+    uint8_t* const d = dst + b * stride_rows * 8 * xb + c * 16;
+    const bool in = b0 + b < B;
+    const uint8_t* const src = xg + (static_cast<size_t>(in ? b0 + b : 0) * k + r0 * 8) * xb + c * 16;
+    if (vec) {
+      cp_async16(d, src, in ? 16 : 0);
+    } else {
+      for (int u = 0; u < 16; ++u) d[u] = in ? src[u] : 0;
+    }
+  }
+}
+
 // The q-bit code at bit position `shift` of q plane words: sum_i 2^i bit_i.
 __device__ __forceinline__ uint32_t plane_code(const uint32_t* bits, int q, int shift) {
   uint32_t code = 0;

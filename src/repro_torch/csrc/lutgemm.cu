@@ -83,18 +83,6 @@ int stage_groups(int chunks, int g, int k) {
   return n < k / g ? n : k / g;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // BT consecutive floats at p (aligned to 4 BT bytes, 16 at most).
 template <int BT>
 __device__ __forceinline__ void load_rows(const float* p, float (&v)[BT]) {
@@ -145,7 +133,6 @@ lutgemm_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restric
   const int xb = x_bf16 ? 2 : 4;
   const int valid = min(kBlockCols, o - o0);
   const bool vec_p = valid == kBlockCols && o % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
-  const bool vec_x = reinterpret_cast<uintptr_t>(xv) % 16 == 0;  // k xb is a multiple of 16
   const bool vec_s = valid == kBlockCols && (o * sizeof(ST)) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(scales) % 16 == 0;
   float* const wtable = reinterpret_cast<float*>(smem + p.off_t) + warp * kKeys * BT;  // [kKeys][BT]
@@ -187,20 +174,7 @@ lutgemm_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restric
             col < valid ? packed[(static_cast<size_t>(i) * kc + r0 + c) * o + o0 + col] : 0;
       }
     }
-    const int xw = nr * 8 * xb / 16;  // 16-byte pieces of a row
-    uint8_t* const xs = buf + p.off_x;
-    const uint8_t* const xg = static_cast<const uint8_t*>(xv);
-    for (int e = threadIdx.x; e < BT * xw; e += kThreads) {
-      const int b = e / xw, piece = e % xw;
-      uint8_t* const dst = xs + b * SC * 8 * xb + piece * 16;
-      const bool in = b0 + b < B;
-      const uint8_t* const src = xg + (static_cast<size_t>(in ? b0 + b : 0) * k + r0 * 8) * xb + piece * 16;
-      if (vec_x) {
-        cp_async16(dst, src, in ? 16 : 0);
-      } else {
-        for (int t = 0; t < 16; ++t) dst[t] = in ? src[t] : 0;
-      }
-    }
+    copy_x_rows<kThreads, BT>(buf + p.off_x, xv, xb, B, b0, k, r0, nr, SC);
   };
 
   float acc[BT][kCols];

@@ -4,45 +4,47 @@
 // (_uniform_mm_kernel, _unpack_codes_block).
 //
 // What bounds it: at decode batch sizes (B <= 8) the q code planes (q/8
-// bytes a weight) and the (s, z) pair of each group are read once and feed
-// a few flops each, so the bound is those bytes over the card's memory rate
-// (3.35 TB/s on an H100 SXM). In practice the code reassembly (a shift, a
-// mask and an or per plane and weight) costs more issue slots than the
-// bytes cost time, as K1's sign expansion does.
+// bytes a weight) and the (s, z) pair of each group are read once, so the
+// bound is those bytes over the card's memory rate (3.35 TB/s on an H100
+// SXM).
 //
-// Design: the column-block skeleton of colblock.cuh (a block owns 32 output
-// columns and loops over all of k; fixed-order reduction, no atomics). Each
-// thread reads the q plane bytes of a byte row for its 4 columns as 32-bit
-// loads, reassembles every weight's code as sum_i 2^i bit_i in registers
-// and applies code * s + z in f32 with the product and the sum rounded
-// separately, so every weight equals the plain version's bit for bit and
-// only the order of the k summation differs. (Accumulating sum x * code and
-// sum x per group and applying s and z once per group would save work but
-// round differently; not done here.)
-#include "colblock.cuh"
+// Design: the group-table skeleton of grouptable.cuh (its header says how
+// blocks, stages, the k-split and the sum order go). A (group, column) pair
+// takes 2^q weights: entry c is c * s + z in f32 with the product and the
+// sum rounded apart (common.cuh::affine), as the reference and the plain
+// version (formats.uniform_dequantize) round each weight, so a looked-up
+// weight equals the plain version's bit for bit and only the order of the
+// k summation differs. Above the plan's table limit each weight is made
+// from its code in registers the same way.
+#include "grouptable.cuh"
 
 namespace {
 
 using namespace repro;
 
-template <typename ST>
-struct UniformDec : Planes<ST> {
-  static constexpr int kTileC = 128;
-  struct Row {
-    uint32_t bits[kMaxQ];
-    float s[kCols], z[kCols];
-  };
+struct UniformGroups {
+  static __host__ __device__ constexpr int scale_planes(int) { return 2; }  // scale, zero
 
-  __device__ __forceinline__ void load(Row& r, int c, int grp, int col0, int valid) const {
-#pragma unroll
-    for (int i = 0; i < kMaxQ; ++i)
-      if (i < this->q) r.bits[i] = this->bytes(i, c, col0, valid);
-    this->params(0, grp, col0, valid, r.s);
-    this->params(1, grp, col0, valid, r.z);
+  template <int Q, typename ST>
+  static __device__ __forceinline__ void build(float* T, int stride, const ST* s, int sstride, int q) {
+    if constexpr (Q > 0) q = Q;
+    const float sc = to_f32(s[0]), z = to_f32(s[sstride]);
+#pragma unroll 4
+    for (int e = 0; e < (1 << q); ++e) T[e * stride] = affine(e, sc, z);
   }
 
-  __device__ __forceinline__ float weight(const Row& r, int j, int cc) const {
-    return affine(plane_code(r.bits, this->q, 8 * cc + j), r.s[cc], r.z[cc]);
+  struct Params {
+    float s, z;
+  };
+
+  template <typename ST>
+  static __device__ __forceinline__ void load(Params& P, const ST* s, int sstride, int) {
+    P.s = to_f32(s[0]);
+    P.z = to_f32(s[sstride]);
+  }
+
+  static __device__ __forceinline__ float weight(const Params& P, uint32_t code, int) {
+    return affine(code, P.s, P.z);
   }
 };
 
@@ -50,11 +52,4 @@ struct UniformDec : Planes<ST> {
 
 REPRO_EXPORT_ERROR_STRING
 
-// x (B, k) f32/bf16; packed (q, k/8, o) u8; scales (2, k/g, o) f32/bf16
-// (scale, zero); out (B, o) f32. All contiguous.
-extern "C" int uniform_mm_launch(const void* x, int x_dtype, const void* packed,
-                                 const void* scales, int s_dtype, void* out,
-                                 int B, int k, int o, int q, int g, void* stream) {
-  return repro::colblock_entry<UniformDec>(x, x_dtype, packed, scales, s_dtype, out, B, k, o, q,
-                                           g, stream);
-}
+REPRO_GROUPTABLE_ENTRY(uniform_mm_launch, UniformGroups)

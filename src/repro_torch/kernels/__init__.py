@@ -1,16 +1,17 @@
 """Hand-written CUDA kernels for LUT-GEMM on Hopper, their plain PyTorch
 versions, and the quantized-matmul dispatch.
 
-- ``bcq_mm.py``       packed BCQ matmul, sign bits expanded in registers
+- ``bcq_mm.py``       packed BCQ matmul, each group's 2^q weights built in shared memory
 - ``bcq_mm_fused.py`` the same kernel over fused QKV / gate-up projections
 - ``lutgemm.py``      the paper's LUT kernel (shared-memory tables)
-- ``uniform_mm.py``   uniform int-q matmul, codes reassembled in registers
+- ``uniform_mm.py``   uniform int-q matmul on bcq_mm's group-table skeleton
+- ``grouptable.py``   that skeleton's plan and launch (K1/K2, K5)
 - ``dequant_mm.py``   the paper's baseline: materialise the weight, then GEMM
 - ``ternary_mm.py``   ternary matmul from sign + mask planes
 - ``codebook_mm.py``  codebook matmul, centroid tables in shared memory
 - ``flash_attn.py``   causal GQA attention with an online softmax (prefill)
 - ``_build.py``       nvcc build of ``csrc/*.cu`` at first use, ctypes loading
-- ``_common.py``      wrapper checks and the shared launch plumbing
+- ``_common.py``      wrapper checks, launch helpers and the split-k workspace
 - ``ops.py``          ``qmatmul`` format dispatch, ``linear``, ``impl_mode``
 - ``ref.py``          oracles
 

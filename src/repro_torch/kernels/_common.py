@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,6 +20,62 @@ from repro_torch.kernels import _build
 
 # dtype codes understood by the C entry points (csrc/common.cuh::DTypeCode)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The launch shape shared by the split-k kernels (K3 lutgemm, K7 codebook_mm,
+# K1/K2 bcq_mm and K5 uniform_mm): blocks of 8 warps, up to 8 batch rows a
+# block, and a k-split sized to fill the card.
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MIN_BLOCKS = 2 * SMS  # two blocks of 8 warps on every SM: one wave (128 registers a thread)
+WARPS = 8  # warps of a block
+MAX_BT = 8  # batch rows a block owns at most
+
+
+def row_tile(B: int) -> int:
+    """Batch rows a block owns: the smallest of 1, 2, 4, 8 that covers
+    ``min(B, 8)`` (``csrc/common.cuh::row_tile``)."""
+    return next(t for t in (1, 2, 4, 8) if t >= min(B, MAX_BT))
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def wave_fill(blocks: int) -> float:
+    """The share of its last wave's ``MIN_BLOCKS`` slots that a grid of
+    ``blocks`` fills, over all its waves: 1.0 when no SM idles at the end."""
+    return blocks / (-(-blocks // MIN_BLOCKS) * MIN_BLOCKS)
+
+
+def split_chunk(kc: int, col_tiles: int, min_chunk: int = WARPS) -> int:
+    """Byte rows a k-chunk: at least ``MIN_BLOCKS`` blocks at one batch
+    tile, chunks of at least ``min_chunk`` byte rows, and of the split
+    counts up to 4x the least such, the one whose waves are fullest (fewest
+    splits on a tie)."""
+    least = -(-MIN_BLOCKS // col_tiles)
+    best = None
+    for want in range(least, 4 * least + 1):
+        chunk = max(min_chunk, -(-kc // want))
+        blocks = col_tiles * -(-kc // chunk)
+        key = (blocks >= MIN_BLOCKS, wave_fill(blocks), -blocks)
+        if best is None or key > best[0]:
+            best = (key, chunk)
+    return best[1]
+
+
+_WORKSPACE: dict = {}  # device → (f32 scratch, int32 tickets), grown on demand
+
+
+def _workspace(device: torch.device, n_scratch: int, n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scratch for a k-split's partial sums and its zeroed tickets (each
+    kernel resets every ticket it uses), kept per device and shared by the
+    split-k kernels. Launches on one stream use them in turn."""
+    scratch, tickets = _WORKSPACE.get(device, (None, None))
+    if scratch is None or scratch.numel() < n_scratch:
+        scratch = torch.empty(max(1, n_scratch), dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(1, n_tickets), dtype=torch.int32, device=device)
+    _WORKSPACE[device] = (scratch, tickets)
+    return scratch, tickets
 
 
 def _check_dtype(name: str, t: torch.Tensor) -> None:

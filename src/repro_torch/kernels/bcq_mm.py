@@ -1,15 +1,19 @@
 """BCQ matmul consumed in packed form: ``y = x @ Σ_i alpha_i ∘ b_i``.
 
 Replaces the TPU kernel ``src/repro/kernels/bcq_mm.py::bcq_mm`` (its
-``pallas_call`` in ``bcq_mm_call``). The CUDA kernel is
-``csrc/bcq_mm.cu``; its header note says what bounds it on the H100 and how
-the design answers that. In short: a block owns 32 output columns and loops
-over all of k itself (deterministic, no atomics), expands sign bits to
-``±alpha`` in registers and accumulates ``x · w_eff`` in f32.
+``pallas_call`` in ``bcq_mm_call``). The CUDA kernel is ``csrc/bcq_mm.cu``
+on the group-table skeleton ``csrc/grouptable.cuh``, launched through
+:mod:`repro_torch.kernels.grouptable` (its plan and its note say what bounds
+it and how the design answers that). In short: the ``2^q`` weights a
+(group, column) pair can take, ``±alpha_0 ± … ± alpha_{q-1}`` folded in
+plane order, are built in shared memory from the staged scales and looked
+up by each weight's q-bit code; x · w is accumulated in f32 and the
+k-split's partial sums are added in a fixed order.
 
 :func:`bcq_mm` launches the kernel for CUDA tensors and runs
-:func:`bcq_mm_plain` for CPU tensors. ``bcq_mm.launches`` counts kernel
-launches.
+:func:`bcq_mm_plain` for CPU tensors. ``bcq_mm.launches`` counts calls that
+launched the kernel: one a call, also where a call wider than a row slab
+(``grouptable.Plan.slab_rows``, prefill widths) makes several launches.
 """
 
 from __future__ import annotations
@@ -17,19 +21,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
-from repro_torch.kernels._common import launch_matvec, validate
+from repro_torch.kernels import grouptable
+from repro_torch.kernels._common import validate
 
 
-def bcq_mm_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int) -> torch.Tensor:
-    """The plain PyTorch version: unpack the planes to ±1, expand the group
-    scales over g rows, sum the planes into w_eff (f32) and multiply."""
+def bcq_weight_plain(packed: torch.Tensor, scales: torch.Tensor, g: int) -> torch.Tensor:
+    """``(k, o)`` f32 w_eff: the planes unpacked to ±1, the group scales
+    expanded over g rows, summed plane by plane in order."""
     q = packed.shape[0]
     signs = packing.unpack_signs(packed)  # (q, k, o) int8
     w = None
     for i in range(q):  # one plane at a time bounds the f32 temporaries
         wi = signs[i].to(torch.float32) * scales[i].to(torch.float32).repeat_interleave(g, dim=0)
         w = wi if w is None else w + wi
-    return torch.matmul(x.to(torch.float32), w)
+    return w
+
+
+def bcq_mm_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int) -> torch.Tensor:
+    """The plain PyTorch version: :func:`bcq_weight_plain`, then a matmul in f32."""
+    return torch.matmul(x.to(torch.float32), bcq_weight_plain(packed, scales, g))
 
 
 def bcq_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int) -> torch.Tensor:
@@ -41,7 +51,7 @@ def bcq_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: in
     validate(x, packed, scales, g)
     if not x.is_cuda:
         return bcq_mm_plain(x, packed, scales, g=g)
-    out = launch_matvec("bcq_mm", x, packed, scales, g)
+    out = grouptable.launch("bcq", x, packed, scales, g)
     bcq_mm.launches += 1
     return out
 

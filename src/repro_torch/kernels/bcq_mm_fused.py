@@ -3,11 +3,13 @@
 Replaces ``src/repro/kernels/bcq_mm_fused.py::bcq_mm_fused``, which runs the
 ``bcq_mm`` TPU kernel over projections whose packed planes and scales were
 concatenated along the output dim ahead of time (``core.fuse_tensors``).
-Here too it is the ``csrc/bcq_mm.cu`` kernel, launched once over the fused
-output dim, and the ``(B, Σo_i)`` result is split into N views by
+Here too it is the ``csrc/bcq_mm.cu`` kernel, launched over the fused
+output dim (the projections' boundaries need not fall on a block's 128
+columns), and the ``(B, Σo_i)`` result is split into N views by
 ``out_dims``. The activation is read once for all N projections.
 
-``bcq_mm_fused.launches`` counts its own launches, apart from ``bcq_mm``'s.
+``bcq_mm_fused.launches`` counts its own calls that launched the kernel,
+apart from ``bcq_mm``'s: one a call, as ``bcq_mm.launches`` does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Sequence, Tuple
 import torch
 
 from repro_torch.core.formats import split_outputs
-from repro_torch.kernels._common import launch_matvec, validate
+from repro_torch.kernels import grouptable
+from repro_torch.kernels._common import validate
 from repro_torch.kernels.bcq_mm import bcq_mm_plain
 
 
@@ -36,7 +39,7 @@ def bcq_mm_fused(
     validate(x, packed, scales, g)
     if not x.is_cuda:
         return split_outputs(bcq_mm_plain(x, packed, scales, g=g), out_dims)
-    y = launch_matvec("bcq_mm", x, packed, scales, g)
+    y = grouptable.launch("bcq", x, packed, scales, g)
     bcq_mm_fused.launches += 1
     return split_outputs(y, out_dims)
 

@@ -31,13 +31,20 @@ import torch
 
 from repro_torch.core.formats import codebook_dequantize
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES, validate
+from repro_torch.kernels._common import (  # noqa: F401  (MIN_BLOCKS, wave_fill: read beside the plan)
+    DTYPE_CODES,
+    MAX_BT,
+    MIN_BLOCKS,
+    WARPS,
+    _align16,
+    _workspace,
+    row_tile,
+    split_chunk,
+    validate,
+    wave_fill,
+)
 
-SMS = 132  # streaming multiprocessors of an H100 SXM
-MIN_BLOCKS = 2 * SMS  # two blocks of 8 warps on every SM: one wave (128 registers a thread)
-WARPS = 8  # warps of a block; they take a stage's byte rows round robin
 RING = 3  # stages of the cp.async ring
-MAX_BT = 8  # batch rows a block owns at most
 STAGE_BUDGET = 32 * 1024  # bytes of one stage: 3 stages leave room for 2 blocks an SM
 MAX_SMEM = 232448  # dynamic shared memory a block may opt in to
 
@@ -80,16 +87,6 @@ class Plan:
         return self.col_tiles * -(-B // row_tile(B)) if self.splits > 1 else 0
 
 
-def row_tile(B: int) -> int:
-    """Batch rows a block owns: the smallest of 1, 2, 4, 8 that covers
-    ``min(B, 8)`` (``csrc/common.cuh::row_tile``)."""
-    return next(t for t in (1, 2, 4, 8) if t >= min(B, MAX_BT))
-
-
-def _align16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
 def _stage_layout(rows: int, q: int, g: int, k: int, cols: int, xb: int, tb: int):
     """(off_x, off_t, stage bytes) of a stage of ``rows`` byte rows: the q
     planes' bytes, MAX_BT x rows, then the table of every group such a
@@ -102,32 +99,11 @@ def _stage_layout(rows: int, q: int, g: int, k: int, cols: int, xb: int, tb: int
     return planes, planes + xs, planes + xs + table
 
 
-def wave_fill(blocks: int) -> float:
-    """The share of its last wave's ``MIN_BLOCKS`` slots that a grid of
-    ``blocks`` fills, over all its waves: 1.0 when no SM idles at the end."""
-    return blocks / (-(-blocks // MIN_BLOCKS) * MIN_BLOCKS)
-
-
-def _split_chunk(kc: int, col_tiles: int) -> int:
-    """Byte rows a k-chunk: at least ``MIN_BLOCKS`` blocks at one batch
-    tile, chunks of at least a row a warp, and of the split counts up to 4x
-    the least such, the one whose waves are fullest (fewest splits on a tie)."""
-    least = -(-MIN_BLOCKS // col_tiles)
-    best = None
-    for want in range(least, 4 * least + 1):
-        chunk = max(WARPS, -(-kc // want))
-        blocks = col_tiles * -(-kc // chunk)
-        key = (blocks >= MIN_BLOCKS, wave_fill(blocks), -blocks)
-        if best is None or key > best[0]:
-            best = (key, chunk)
-    return best[1]
-
-
 def plan(k: int, o: int, q: int, g: int, x_dtype: torch.dtype, t_dtype: torch.dtype,
          chunk: Optional[int] = None) -> Plan:
     """The launch shape for ``x (B, k) @ codebook[(q, k/8, o), (2^q, k/g, o)]``.
 
-    The k-split (:func:`_split_chunk`): enough chunks that
+    The k-split (:func:`~repro_torch.kernels._common.split_chunk`): enough chunks that
     ``col_tiles * splits >= MIN_BLOCKS`` as far as k allows, with the
     fullest last wave; ``chunk`` (byte rows) overrides it. Stages hold 32 byte rows, fewer
     where that leaves a chunk under 4 stages or a stage over
@@ -138,7 +114,7 @@ def plan(k: int, o: int, q: int, g: int, x_dtype: torch.dtype, t_dtype: torch.dt
     cols = 32 * ns
     col_tiles = -(-o // cols)
     if chunk is None:
-        chunk = _split_chunk(kc, col_tiles)
+        chunk = split_chunk(kc, col_tiles)
     chunk = max(1, min(chunk, kc))
     splits = -(-kc // chunk)
     xb = torch.finfo(x_dtype).bits // 8
@@ -170,22 +146,6 @@ def _entry():
     fn.argtypes = [p, i, p, p, i, p, p, p] + [i] * 13 + [p]
     fn.restype = i
     return lib, fn
-
-
-_WORKSPACE: dict = {}  # device → (f32 scratch, int32 tickets), grown on demand
-
-
-def _workspace(device: torch.device, n_scratch: int, n_tickets: int):
-    """Scratch for the split's partial sums and its zeroed tickets (the
-    kernel resets every ticket it uses), kept per device. Launches on one
-    stream share them."""
-    scratch, tickets = _WORKSPACE.get(device, (None, None))
-    if scratch is None or scratch.numel() < n_scratch:
-        scratch = torch.empty(max(1, n_scratch), dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(max(1, n_tickets), dtype=torch.int32, device=device)
-    _WORKSPACE[device] = (scratch, tickets)
-    return scratch, tickets
 
 
 def codebook_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int) -> torch.Tensor:

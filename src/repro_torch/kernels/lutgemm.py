@@ -33,9 +33,15 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES, validate
-# K7's launch helpers: the same card, row tiles and per-device workspace
-from repro_torch.kernels.codebook_mm import MIN_BLOCKS, _align16, _workspace, row_tile, wave_fill
+from repro_torch.kernels._common import (
+    DTYPE_CODES,
+    MIN_BLOCKS,
+    _align16,
+    _workspace,
+    row_tile,
+    validate,
+    wave_fill,
+)
 
 MU = packing.MU
 _PLAIN_MAX_ELEMS = 1 << 27  # bounds the plain version's gathered (rows, k/8, o) block

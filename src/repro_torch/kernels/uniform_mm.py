@@ -2,14 +2,18 @@
 
 Replaces the TPU kernel ``src/repro/kernels/uniform_mm.py::uniform_mm``
 (``uniform_mm_call``, ``_uniform_mm_kernel``, ``_unpack_codes_block``). The
-CUDA kernel is ``csrc/uniform_mm.cu``: K1's layout (a block owns 32 output
-columns and loops over all of k, no atomics), with each weight's q-bit code
-reassembled from the bit planes in registers and ``code·s + z`` applied in
-f32; the dense weight never reaches device memory.
+CUDA kernel is ``csrc/uniform_mm.cu`` on K1's group-table skeleton
+(``csrc/grouptable.cuh``, launched through
+:mod:`repro_torch.kernels.grouptable`): the ``2^q`` weights ``c·s + z`` of
+each (group, column) pair are built in shared memory from the staged scale
+and zero, product and sum rounded apart as the plain version rounds them,
+and looked up by each weight's q-bit code; the dense weight never reaches
+device memory.
 
 :func:`uniform_mm` launches the kernel for CUDA tensors and runs
 :func:`uniform_mm_plain` for CPU tensors. ``uniform_mm.launches`` counts
-kernel launches.
+calls that launched the kernel: one a call, also where a call wider than a
+row slab makes several launches.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import uniform_dequantize
-from repro_torch.kernels._common import launch_matvec, validate
+from repro_torch.kernels import grouptable
+from repro_torch.kernels._common import validate
 
 
 def uniform_mm_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int) -> torch.Tensor:
@@ -34,7 +39,7 @@ def uniform_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g
     validate(x, packed, scales, g, scale_planes=2)
     if not x.is_cuda:
         return uniform_mm_plain(x, packed, scales, g=g)
-    out = launch_matvec("uniform_mm", x, packed, scales, g)
+    out = grouptable.launch("uniform", x, packed, scales, g)
     uniform_mm.launches += 1
     return out
 

@@ -369,6 +369,109 @@ def test_lutgemm_rows_equal_solo(cuda, k, o, q, g, B):
                                        rtol=0, atol=0, msg=f"row {r} of {B}, {dtype}")
 
 
+GROUPTABLE_CASES = [  # (B, o, chunk): every row tile and two batch tiles, ragged o, and
+    # k-splits whose chunk boundaries fall inside a group (3, 20 and 35 byte
+    # rows) or on one (16 at g <= 128)
+    (1, 100, None), (2, 130, 3), (3, 1000, 20), (4, 100, 16), (8, 130, None), (9, 1000, 35),
+    (16, 130, 20), (64, 100, 16),
+]
+GROUPTABLE_KERNELS = ["bcq_mm", "bcq_mm_fused", "uniform_mm"]
+
+
+def grouptable_call(name, x, packed, scales, g):
+    """One call of a group-table kernel's wrapper → ``(B, o)`` f32; the
+    fused wrapper's outputs are concatenated back."""
+    if name == "bcq_mm":
+        return bcq_mm(x, packed, scales, g=g)
+    if name == "uniform_mm":
+        return uniform_mm(x, packed, scales, g=g)
+    o = packed.shape[-1]
+    return torch.cat(bcq_mm_fused(x, packed, scales, g=g, out_dims=(o // 3, o - o // 3)), dim=-1)
+
+
+def grouptable_inputs(name, B, k, o, q, g, dtype, gen, device):
+    x = torch.randn((B, k), generator=gen, device=device).to(dtype)
+    fmt = "uniform" if name == "uniform_mm" else "bcq"
+    packed, scales = format_planes(fmt, k, o, q, g, dtype, gen, device)
+    if fmt == "bcq":
+        scales = (scales / np.sqrt(q)).to(dtype)
+    return x, packed, scales
+
+
+@pytest.mark.parametrize("path", ["table", "direct"])
+@pytest.mark.parametrize("g", [8, 64, 128, 768])
+@pytest.mark.parametrize("q", range(1, 9))
+@pytest.mark.parametrize("name", GROUPTABLE_KERNELS)
+def test_grouptable_kernel_matches_plain(cuda, monkeypatch, name, q, g, path):
+    """K1, K2 and K5 against their plain versions within 2e-4 for q 1..8,
+    g in {8, 64, 128, k}, on the table path and the direct path alike,
+    ragged o, B from 1 to 64 and k-splits of several chunk sizes; bitwise
+    against 10 reruns and between two back-to-back calls, which also shows
+    that every launch left its tickets at 0 for the next."""
+    gt = importlib.import_module("repro_torch.kernels.grouptable")
+    plan = gt.plan
+    plain = uniform_mm_plain if name == "uniform_mm" else bcq_mm_plain
+    counter = {"bcq_mm": bcq_mm, "bcq_mm_fused": bcq_mm_fused, "uniform_mm": uniform_mm}[name]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(q * 1000 + g)
+    k = 768
+    for B, o, chunk in GROUPTABLE_CASES:
+        monkeypatch.setattr(gt, "plan", functools.partial(plan, chunk=chunk, table=path == "table"))
+        for dtype in (torch.bfloat16, torch.float32):
+            x, packed, scales = grouptable_inputs(name, B, k, o, q, g, dtype, gen, cuda)
+            reset_launch_counts()
+            got = grouptable_call(name, x, packed, scales, g)
+            again = grouptable_call(name, x, packed, scales, g)  # back to back, no sync between
+            torch.cuda.synchronize()
+            assert launch_counts()[name] == 2
+            msg = f"B={B} o={o} chunk={chunk} {dtype}"
+            torch.testing.assert_close(got, plain(x, packed, scales, g=g), rtol=TOL, atol=TOL, msg=msg)
+            torch.testing.assert_close(again, got, rtol=0, atol=0, msg=msg)
+            for _ in range(10):
+                torch.testing.assert_close(grouptable_call(name, x, packed, scales, g), got, rtol=0, atol=0, msg=msg)
+
+
+@pytest.mark.parametrize("B", [4, 9, 16, 64])
+@pytest.mark.parametrize("k,o,q,g", [(3072, 3072, 4, 128), (1024, 256, 3, 128)], ids=["wo", "sweep"])
+@pytest.mark.parametrize("name", GROUPTABLE_KERNELS)
+def test_grouptable_rows_equal_solo(cuda, name, k, o, q, g, B):
+    """Batch invariance: row r of a B-row K1, K2 or K5 call equals the same
+    row called alone, bit for bit (the plan does not depend on B, and a row
+    sums in the same order at every row tile)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B + k)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, packed, scales = grouptable_inputs(name, B, k, o, q, g, dtype, gen, cuda)
+        full = grouptable_call(name, x, packed, scales, g)
+        for r in range(B):
+            torch.testing.assert_close(grouptable_call(name, x[r : r + 1], packed, scales, g), full[r : r + 1],
+                                       rtol=0, atol=0, msg=f"row {r} of {B}, {dtype}")
+
+
+@pytest.mark.parametrize("name", GROUPTABLE_KERNELS)
+def test_grouptable_rows_equal_solo_across_row_slabs(cuda, monkeypatch, name):
+    """A call wider than a row slab launches once a slab (the scratch cap
+    lowered here to 8 rows a slab at ``wo``): each row equals the row alone,
+    bit for bit, and the call counts once."""
+    gt = importlib.import_module("repro_torch.kernels.grouptable")
+    k, o, q, g = 3072, 3072, 4, 128
+    p = gt.plan("uniform" if name == "uniform_mm" else "bcq", k, o, q, g, torch.bfloat16, torch.bfloat16)
+    monkeypatch.setattr(gt, "SCRATCH_CAP", 8 * 4 * p.splits * o)
+    assert p.slab_rows(21) == 8
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(21)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, packed, scales = grouptable_inputs(name, 21, k, o, q, g, dtype, gen, cuda)
+        reset_launch_counts()
+        full = grouptable_call(name, x, packed, scales, g)
+        assert launch_counts()[name] == 1
+        plain = uniform_mm_plain if name == "uniform_mm" else bcq_mm_plain
+        torch.testing.assert_close(full, plain(x, packed, scales, g=g), rtol=TOL, atol=TOL)
+        for r in range(21):
+            torch.testing.assert_close(grouptable_call(name, x[r : r + 1], packed, scales, g), full[r : r + 1],
+                                       rtol=0, atol=0, msg=f"row {r} of 21, {dtype}")
+
+
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 4, 48), device=cuda)
     with pytest.raises(ValueError, match="head dim"):

@@ -1,7 +1,9 @@
 """The kernel wrappers' host-side choices, as plain Python: K7
 ``codebook_mm``'s launch plan (columns a lane, the k-split, the ring's
 stages, scratch and tickets), K3 ``lutgemm``'s (the k-split, each row
-tile's stage and shared memory, scratch and tickets) and K8 ``flash_attention``'s choice of kernel
+tile's stage and shared memory, scratch and tickets), the group-table plan
+of K1/K2 ``bcq_mm`` and K5 ``uniform_mm`` (the table or direct path, the
+k-split, stages, tables, row slabs) and K8 ``flash_attention``'s choice of kernel
 by dtype and its TMA alignment check. None of this needs a GPU; the
 kernels themselves are held to their plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
@@ -18,6 +20,8 @@ from repro_torch.kernels import flash_attn as fa
 # the modules (the package re-exports their functions under the same names)
 cm = importlib.import_module("repro_torch.kernels.codebook_mm")
 lm = importlib.import_module("repro_torch.kernels.lutgemm")
+gt = importlib.import_module("repro_torch.kernels.grouptable")
+common = importlib.import_module("repro_torch.kernels._common")
 
 LEAVES = {  # llama3.2-3b: (k, o)
     "wqkv": (3072, 5120),
@@ -338,3 +342,158 @@ def test_lutgemm_plan_shrinks_stages_to_fit():
     st = p.stage(1)
     assert st.chunks < lm.STAGE_CHUNKS and st.smem <= lm.SMEM_BUDGET
     assert lm._stage(1, 2 * st.chunks, 8, 8, 768, 4, 4).smem > lm.SMEM_BUDGET
+
+
+# ---- K1/K2 bcq_mm and K5 uniform_mm (group tables) ------------------------
+
+KINDS = ["bcq", "uniform"]
+
+
+def gt_stages(p):
+    """Every stage's byte rows ``[r0, r1)``, chunk by chunk, in order."""
+    return [[(r0, min(c1, r0 + p.stage_rows)) for r0 in range(c0, c1, p.stage_rows)]
+            for c0, c1 in chunks(p)]
+
+
+def check_gt_plan(p, kind, k, o, q, g, x_dtype, s_dtype):
+    xb, sb = torch.finfo(x_dtype).bits // 8, torch.finfo(s_dtype).bits // 8
+    S = q if kind == "bcq" else 2
+    kc = k // 8
+    ch = chunks(p)
+    # the chunks cover k exactly once, in order, and the stages each chunk
+    assert ch[0][0] == 0 and ch[-1][1] == kc
+    assert all(a[1] == b[0] for a, b in zip(ch, ch[1:])) and all(lo < hi for lo, hi in ch)
+    for (c0, c1), st in zip(ch, gt_stages(p)):
+        assert st[0][0] == c0 and st[-1][1] == c1 and all(a[1] == b[0] for a, b in zip(st, st[1:]))
+    assert p.ns == (1 if p.table and q > gt.NS_TABLE_MAX_Q else 4) and p.cols == 32 * p.ns
+    assert p.col_tiles * p.cols >= o > (p.col_tiles - 1) * p.cols
+    # the scales and tables hold every group a stage touches
+    spanned = max((r1 * 8 - 1) // g - r0 * 8 // g + 1 for st in gt_stages(p) for r0, r1 in st)
+    assert p.stage_groups == spanned
+    # a stage's regions are 16-byte aligned, in order, and large enough
+    assert p.stage_bytes % 16 == p.off_s % 16 == p.off_x % 16 == p.off_t % 16 == p.table_bytes % 16 == 0
+    assert p.off_s >= q * p.stage_rows * p.cols
+    assert p.off_x >= p.off_s + S * p.stage_groups * p.cols * sb
+    assert p.stage_bytes >= p.off_x + common.MAX_BT * p.stage_rows * 8 * xb
+    assert p.off_t >= gt.RING * p.stage_bytes
+    assert p.table_bytes >= (p.stage_groups * (1 << q) * p.cols * 4 if p.table else 0)
+    assert p.smem >= p.off_t + 2 * p.table_bytes
+    assert p.smem >= common.WARPS * common.MAX_BT * p.cols * 4  # the warps' sums
+    # two blocks an SM, as MIN_BLOCKS counts them
+    assert p.smem <= gt.SMEM_BUDGET and 2 * (p.smem + 1024) <= SM_SHARED
+    assert p.stage_rows <= gt.STAGE_ROWS
+    # a whole chunk's stages are balanced: the last is short by less than one row a stage
+    for st in gt_stages(p)[:-1]:
+        assert len(st) == -(-p.chunk // p.stage_rows)
+        assert st[-1][1] - st[-1][0] > p.stage_rows - len(st)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("leaf", list(LEAVES))
+def test_grouptable_plan_fills_the_card_at_llama_leaves(leaf, dtype, kind):
+    """Every llama3.2-3b leaf puts at least two blocks on each of 132 SMs
+    at decode widths, with full waves, on the table path at q = 4, within
+    the shared memory that lets two blocks share an SM."""
+    k, o = LEAVES[leaf]
+    p = gt.plan(kind, k, o, 4, 128, dtype, dtype)
+    check_gt_plan(p, kind, k, o, 4, 128, dtype, dtype)
+    assert p.table and p.ns == 4
+    for B in (1, 4, 64):
+        assert blocks(p, B) >= common.MIN_BLOCKS
+    for B in (1, 4):
+        assert common.wave_fill(blocks(p, B)) >= 0.9
+    assert p.chunk >= common.WARPS  # a row a warp at least
+    # the split of K7's rule: 13 chunks at wqkv, 11 at wo and w_down, 4 at w_gate_up
+    assert p.splits == {"wqkv": 13, "wo": 11, "w_gate_up": 4, "w_down": 11, "lm_head": 1}[leaf]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,o,q,g", SWEEP)
+def test_grouptable_plan_sweep(k, o, q, g, dtype, kind):
+    """The reference's sweep shapes, ragged o and large q, on the path the
+    plan picks and on both forced paths: chunks cover k once, every stage
+    fits, and the split reaches two blocks an SM unless chunks of 8 byte
+    rows stop it."""
+    for table in (None, True, False):
+        p = gt.plan(kind, k, o, q, g, dtype, dtype, table=table)
+        check_gt_plan(p, kind, k, o, q, g, dtype, dtype)
+        assert p.table == (q <= gt.TABLE_MAX_Q[kind] if table is None else table)
+        assert blocks(p, 1) >= common.MIN_BLOCKS or p.chunk == min(common.WARPS, k // 8)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16, 20, 35, 10_000])
+def test_grouptable_plan_chunk_override(chunk):
+    """A chunk given by the caller: boundaries inside a group (3, 20 and 35
+    byte rows at g = 128) or on one (16), a short last chunk, a chunk past k."""
+    k, o, q, g = 1024, 130, 4, 128
+    for kind in KINDS:
+        p = gt.plan(kind, k, o, q, g, torch.bfloat16, torch.float32, chunk=chunk)
+        check_gt_plan(p, kind, k, o, q, g, torch.bfloat16, torch.float32)
+        kc = k // 8
+        assert p.chunk == min(chunk, kc) and p.splits == -(-kc // p.chunk)
+
+
+def test_grouptable_plan_does_not_depend_on_batch():
+    """The plan takes no B: one path, split and stage size serve every
+    batch; only the batch tiles, row slabs, scratch and tickets scale with it."""
+    assert "B" not in inspect.signature(gt.plan).parameters
+    p = gt.plan("bcq", 3072, 3072, 4, 128, torch.bfloat16, torch.bfloat16)
+    assert p.splits > 1
+    for B, bt in ((1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (9, 8), (16, 8), (64, 8)):
+        assert common.row_tile(B) == bt
+        tiles = p.col_tiles * -(-B // bt)
+        assert blocks(p, B) == tiles * p.splits
+        assert p.tickets(B) == tiles
+        assert p.scratch_floats(B) == p.splits * B * 3072
+        assert p.slab_rows(B) == B
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("leaf", list(LEAVES))
+def test_grouptable_scratch_within_cap_at_long_prefill(leaf, kind):
+    """At the 8192-token prefill the split's scratch would reach gigabytes;
+    row slabs of whole row tiles keep a launch's scratch within
+    ``SCRATCH_CAP`` (64 MB) and cover the rows once, in order."""
+    k, o = LEAVES[leaf]
+    p = gt.plan(kind, k, o, 4, 128, torch.bfloat16, torch.bfloat16)
+    B = 8192
+    slab = p.slab_rows(B)
+    assert 4 * p.scratch_floats(slab) <= gt.SCRATCH_CAP
+    assert slab == B if p.splits == 1 else (slab % common.MAX_BT == 0 and slab < B)
+    starts = list(range(0, B, slab))
+    assert sum(min(slab, B - b0) for b0 in starts) == B
+    if leaf == "wqkv":  # ~240 rows a slab, ~34 launches a call
+        assert 200 <= slab <= 256 and 30 <= len(starts) <= 40
+
+
+def test_grouptable_table_limit_and_columns():
+    """The table path up to ``TABLE_MAX_Q`` of each format, 32 columns a
+    block for a table above q = 5; the direct path keeps 128."""
+    for kind in KINDS:
+        for q in range(1, 9):
+            p = gt.plan(kind, 768, 130, q, 8, torch.float32, torch.float32)
+            assert p.table == (q <= gt.TABLE_MAX_Q[kind])
+            assert p.ns == (1 if p.table and q > gt.NS_TABLE_MAX_Q else 4)
+            assert gt.plan(kind, 768, 130, q, 8, torch.float32, torch.float32, table=False).ns == 4
+
+
+def test_grouptable_plan_refuses_what_does_not_fit(monkeypatch):
+    p = gt.plan("bcq", 768, 130, 8, 8, torch.float32, torch.float32, table=True)
+    assert p.stage_rows == 1 and p.smem <= gt.MAX_SMEM
+    gt.plan.cache_clear()
+    monkeypatch.setattr(gt, "MAX_SMEM", p.smem - 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        gt.plan("bcq", 768, 130, 8, 8, torch.float32, torch.float32, table=True)
+    gt.plan.cache_clear()
+
+
+def test_split_kernels_share_one_set_of_launch_helpers():
+    """K3, K7 and the group-table kernels take the card's numbers, row
+    tiles and per-device workspace from one module."""
+    for mod in (cm, lm, gt):
+        assert mod._workspace is common._workspace
+        assert mod.row_tile is common.row_tile
+    for mod in (cm, lm):
+        assert mod.MIN_BLOCKS == common.MIN_BLOCKS and mod.wave_fill is common.wave_fill
