@@ -12,9 +12,12 @@ code is non-zero:
 3. kernels   each of the seven quantized-matmul kernels against its plain
              PyTorch version at the main path's leaf shapes (B = 1, 4 and the
              prefill row count) and the reference's kernel sweep, with bf16
-             and f32 inputs: max error against the tolerance (2e-4 for both:
-             kernel and plain version widen the same inputs to f32 and differ
-             only in summation order), kernel time, plain time, the byte /
+             and f32 inputs (``ternary_mm`` also with bf16 x and f32 scales
+             and the reverse: bf16/bf16 takes its tensor cores, the other
+             three its group-table kernel): max error against the tolerance
+             (2e-4 for all: kernel and plain version widen the same inputs
+             to f32 and differ only in summation order), the same bits on a
+             rerun, kernel time, plain time, the byte /
              operation bound (the format's own planes, scales, x and output)
              and ``library_ms`` (``torch.matmul`` of bf16 x against the
              pre-dequantized bf16 weight, the paper's cuBLAS baseline, timed
@@ -22,19 +25,22 @@ code is non-zero:
              bit for bit, and its pipeline ``dequant_mm`` (materialise, then
              an f32 GEMM) is checked and timed beside it, GEMM alone too.
              The bf16 leaf times of ``codebook_mm``, ``lutgemm``, ``bcq_mm``,
-             ``bcq_mm_fused`` and ``uniform_mm`` are also printed as
-             multiples of their bounds and of the library call, with the
-             decode steps of K3, of the bcq path (K1 + K2) and of K5 at
-             B = 1 and 4 beside the library's (the paper's Table 3
-             comparison). Each row of a 16-row call of K3, K1, K2 and K5 at
-             ``wo`` must equal the row called alone, bit for bit, as must
-             each row of a K1 call one row tile wider than its row slab.
-             K1 and K5 at ``wo`` for q = 1..8 on the table path and the
-             direct path (both checked, both timed) give the measurement
-             behind ``grouptable.TABLE_MAX_Q``. Last, a probe: dense bf16
-             (``utils.matmul_rows``) and ``dequant_mm`` products of 4 and
-             16 rows at ``wo`` and ``w_gate_up`` against each row alone,
-             largest difference reported (cuBLAS may sum by M);
+             ``bcq_mm_fused``, ``uniform_mm`` and ``ternary_mm`` are also
+             printed as multiples of their bounds and of the library call,
+             with the decode steps of K3, of the bcq path (K1 + K2), of K5
+             and of K4 at B = 1, 4 and 64 beside the library's (the paper's
+             Table 3 comparison). Each row of a 16-row call of K3, K1, K2,
+             K5 and K4 at ``wo`` must equal the row called alone, bit for
+             bit, as must each row of a K1 and a K4 call 8 rows wider than
+             its row slab, in bf16 and f32 (K4: both paths). K1 and K5 at
+             ``wo`` for q = 1..8, and K4's group-table path, on the table
+             path and the direct path (both checked, both timed) give the
+             measurement behind ``grouptable.TABLE_MAX_Q``. Last, the dense
+             check (asserted): dense bf16 (``utils.matmul_rows``) and
+             ``dequant_mm`` products of 4, 9, 16 and 64 decode rows at
+             ``wo`` and ``w_gate_up`` must give each row the bits of the row
+             alone (fixed tiles of rows, so cuBLAS sees one shape), and what
+             the tiles cost a B = 4 decode step against one product;
 4. flash     ``flash_attention`` (K8) against its plain version (``_sdpa``
              under a causal mask, run one batch row at a time) at
              llama3.2-3b's heads (24 / 8, Dh 128) for B in {1, 4} and S in
@@ -56,7 +62,8 @@ code is non-zero:
                as ``--sequential`` serves them, and batched again with every
                quantized linear on the paper's LUT kernel;
              - ``uniform``, ``dequant``, ``ternary``, ``codebook``:
-               ``generate`` batched.
+               ``generate`` batched; every ternary linear of the bf16 model
+               must take K4's tensor-core path.
              Every prefill's attention runs on K8. Launch counts are set to
              0 just before each path's run and read just after; each path
              must launch its kernels the expected number of times and take
@@ -163,9 +170,14 @@ LONG_NEW = 8
 # the formats served after bcq, with the kernel each one's path launches
 FORMAT_KERNEL = {"uniform": "uniform_mm", "dequant": "dequant_materialize", "ternary": "ternary_mm",
                  "codebook": "codebook_mm"}
-# part of the device kernel names of each format's path (bcq: K1 and K2)
+# part of the device kernel names of each format's path (bcq: K1 and K2; ternary's
+# bf16 model: K4's tensor-core kernel)
 PROFILE_TAG = {"bcq": "BCQGroups", "uniform": "UniformGroups", "dequant": "dequant_kernel",
-               "ternary": "TernaryDec", "codebook": "codebook_kernel"}
+               "ternary": "ternary_tc_kernel", "codebook": "codebook_kernel"}
+# the (x, scales) dtype pairs each kernel is checked at: K4 takes the tensor
+# cores for bf16/bf16 and the group-table kernel for the other three
+SAME_DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32))
+DTYPE_PAIRS = {"ternary_mm": SAME_DTYPES + ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))}
 # part of K8's device kernel names: bf16 on the tensor cores, f32 on the CUDA cores
 FLASH_TAGS = ("flash_tc_kernel", "flash_kernel")
 L2_BYTES = 50 * 2**20
@@ -252,8 +264,10 @@ def format_planes(fmt, k, o, q, g, gen):
     return packed, u
 
 
-def check_kernel(name, B, k, o, q, g, dtype, gen, out_dims=None):
-    """One kernel vs its plain version at one shape → record dict."""
+def check_kernel(name, B, k, o, q, g, dtype, gen, out_dims=None, s_dtype=None):
+    """One kernel vs its plain version at one shape, x in ``dtype`` and the
+    scales in ``s_dtype`` (default: ``dtype``), and against itself on a
+    rerun (same bits) → record dict."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.qtensor import QuantizedTensor
     from repro_torch.kernels import dequant_materialize, dequant_materialize_plain
@@ -261,13 +275,14 @@ def check_kernel(name, B, k, o, q, g, dtype, gen, out_dims=None):
     fn, plain = kernel_fns()[name]
     fmt = KERNELS[name][3]
     f = get_format(fmt)
+    s_dtype = s_dtype or dtype
     x = torch.randn((B, k), generator=gen, device=DEVICE).to(dtype)
     planes, scale_elems = f.planes(q), math.prod(f.scales_shape(q, k // g, o))
-    wbytes = planes * (k // 8) * o + scale_elems * x.element_size()
+    wbytes = planes * (k // 8) * o + scale_elems * torch.finfo(s_dtype).bits // 8
     weights = []
     for _ in range(n_copies(wbytes)):
         packed, scales = format_planes(fmt, k, o, q, g, gen)
-        weights.append((packed, scales.to(dtype)))
+        weights.append((packed, scales.to(s_dtype)))
     packed, scales = weights[0]
     call = (lambda p, s: fn(x, p, s, g=g, out_dims=out_dims)) if out_dims else (lambda p, s: fn(x, p, s, g=g))
     y = call(packed, scales)
@@ -275,8 +290,10 @@ def check_kernel(name, B, k, o, q, g, dtype, gen, out_dims=None):
     torch.cuda.synchronize()
     ref = plain(x, packed, scales, g=g)
     err = (y - ref).abs().max().item()
+    again = call(packed, scales)
+    same_bits = bool(torch.equal(torch.cat(again, dim=-1) if out_dims else again, y))
     tol = KERNEL_TOL
-    ok = bool(torch.allclose(y, ref, rtol=tol, atol=tol)) and bool(torch.isfinite(y).all())
+    ok = bool(torch.allclose(y, ref, rtol=tol, atol=tol)) and bool(torch.isfinite(y).all()) and same_bits
     extra = {}
     if name == "dequant_materialize":
         # the kernel: materialise (k, o) f32, held to its plain version bit for bit
@@ -296,7 +313,7 @@ def check_kernel(name, B, k, o, q, g, dtype, gen, out_dims=None):
         ms = time_ms(call, weights)
         plain_ms = time_ms(lambda p, s: plain(x, p, s, g=g), [(packed, scales)], reps=3, inner=2)
         nbytes = x.numel() * x.element_size() + wbytes + B * o * 4
-        ops_ms = 2.0 * B * k * o / PEAK_OPS[dtype] * 1e3
+        ops_ms = 2.0 * B * k * o / PEAK_OPS[torch.promote_types(dtype, s_dtype)] * 1e3
     # library yardstick: bf16 x @ pre-dequantized bf16 weight
     w16 = f.dequantize(QuantizedTensor(packed=packed, scales=scales, g=g, k=k, o=o, fmt=fmt),
                        dtype=torch.bfloat16)
@@ -307,14 +324,16 @@ def check_kernel(name, B, k, o, q, g, dtype, gen, out_dims=None):
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     rec = dict(
         kernel=name, format=fmt, B=B, k=k, o=o, q=planes, g=g, dtype=str(dtype).replace("torch.", ""),
-        max_abs_err=err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
+        s_dtype=str(s_dtype).replace("torch.", ""), max_abs_err=err, tol=tol, same_bits=same_bits, ok=ok,
+        ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations", **extra,
     )
     more = "".join(f"  {key} {val:.4f}" for key, val in extra.items() if key.endswith("_ms"))
     log(
         f"  {name:19s} B={B:<3d} k={k:<5d} o={o:<6d} q={planes} g={g:<4d} {rec['dtype']:8s} "
-        f"err {err:.2e} (tol {tol:g}) {'ok' if ok else 'FAIL'}  ms {ms:.4f}  "
+        f"{'' if s_dtype == dtype else 'scales ' + rec['s_dtype'] + ' '}"
+        f"err {err:.2e} (tol {tol:g}) bits {'same' if same_bits else 'DIFFER'} {'ok' if ok else 'FAIL'}  ms {ms:.4f}  "
         f"plain {plain_ms:.4f}  bound {rec['bound_ms']:.4f} ({rec['bound_by']})  library {library_ms:.4f}"
         f"{more}"
     )
@@ -328,15 +347,15 @@ def phase_kernels(gen):
         for leaf in leaves:
             k, o, dims = LEAVES[leaf]
             for B in (1, PROMPTS, prefill_rows):
-                for dtype in (torch.bfloat16, torch.float32):
+                for dtype, s_dtype in DTYPE_PAIRS.get(name, SAME_DTYPES):
                     out_dims = dims if name == "bcq_mm_fused" else None
-                    rec = check_kernel(name, B, k, o, Q, G, dtype, gen, out_dims)
+                    rec = check_kernel(name, B, k, o, Q, G, dtype, gen, out_dims, s_dtype)
                     rec["leaf"] = leaf
                     records.append(rec)
         for B, k, o, q, g in SWEEP:
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype, s_dtype in DTYPE_PAIRS.get(name, SAME_DTYPES):
                 out_dims = (o // 2, o - o // 2) if name == "bcq_mm_fused" else None
-                rec = check_kernel(name, B, k, o, q, g, dtype, gen, out_dims)
+                rec = check_kernel(name, B, k, o, q, g, dtype, gen, out_dims, s_dtype)
                 rec["leaf"] = "sweep"
                 records.append(rec)
     bad = [r for r in records if not r["ok"]]
@@ -344,15 +363,15 @@ def phase_kernels(gen):
         raise SystemExit(f"chip_smoke: {len(bad)} kernel checks disagree with their plain versions: {bad[:3]}")
     every_width = (1, PROMPTS, prefill_rows)
     for name, batches in (("codebook_mm", every_width), ("lutgemm", (1, PROMPTS)), ("bcq_mm", every_width),
-                          ("bcq_mm_fused", every_width), ("uniform_mm", every_width)):
+                          ("bcq_mm_fused", every_width), ("uniform_mm", every_width), ("ternary_mm", every_width)):
         for r in records:
-            if r["kernel"] == name and r["leaf"] != "sweep" and r["dtype"] == "bfloat16" and r["B"] in batches:
+            if r["kernel"] == name and r["leaf"] != "sweep" and is_bf16(r) and r["B"] in batches:
                 log(f"  {name:12s} {r['leaf']:9s} B={r['B']:<3d} {r['ms'] * 1e3:9.2f} us = "
                     f"{r['ms'] / r['bound_ms']:6.1f}x its bound ({r['bound_by']}), "
                     f"{r['ms'] / r['library_ms']:5.2f}x the library")
     # the paper's Table 3 comparison: one decode step on each path's kernels against cuBLAS
     for path, names in STEP_PATHS.items():
-        for B in (1, PROMPTS):
+        for B in (1, PROMPTS, prefill_rows):
             step = path_step(records, names, B)
             log(f"  {path} decode step B={B} bf16: {step['ms']:.3f} ms, library {step['library_ms']:.3f} ms "
                 f"({step['ms'] / step['library_ms']:.2f}x), bound {step['bound_ms']:.3f} ms")
@@ -360,12 +379,22 @@ def phase_kernels(gen):
     return records
 
 
+def is_bf16(r):
+    """A record of bf16 x with bf16 scales, the bf16 model's main path."""
+    return r["dtype"] == "bfloat16" and r.get("s_dtype", r["dtype"]) == "bfloat16"
+
+
+def step_counts(n_layers):
+    """How often one decode step of llama3.2-3b runs each leaf: once a layer, ``lm_head`` once."""
+    return {"wqkv": n_layers, "wo": n_layers, "w_gate_up": n_layers, "w_down": n_layers, "lm_head": 1}
+
+
 def decode_step(records, name, B, n_layers=28):
     """``name``'s bf16 times at batch ``B`` summed over one decode step of
     llama3.2-3b (each leaf once a layer, ``lm_head`` once)."""
-    every = {"wqkv": n_layers, "wo": n_layers, "w_gate_up": n_layers, "w_down": n_layers, "lm_head": 1}
+    every = step_counts(n_layers)
     rs = [(r, every[r["leaf"]]) for r in records
-          if r["kernel"] == name and r["leaf"] in every and r["B"] == B and r["dtype"] == "bfloat16"]
+          if r["kernel"] == name and r["leaf"] in every and r["B"] == B and is_bf16(r)]
     return {key: sum(r[key] * n for r, n in rs) for key in ("ms", "library_ms", "bound_ms", "plain_ms")}
 
 
@@ -376,23 +405,33 @@ def path_step(records, names, B, n_layers=28):
     return {key: sum(st[key] for st in steps) for key in steps[0]}
 
 
-# a decode step's kernels, by path: K3 alone, bcq's K1 + K2, K5 alone
+# a decode step's kernels, by path: K3 alone, bcq's K1 + K2, K5 alone, K4 (tensor cores) alone
 STEP_PATHS = {"lutgemm": ("lutgemm",), "bcq (bcq_mm + bcq_mm_fused)": ("bcq_mm", "bcq_mm_fused"),
-              "uniform_mm": ("uniform_mm",)}
+              "uniform_mm": ("uniform_mm",), "ternary_mm": ("ternary_mm",)}
 
 
 def rows_equal_solo(gen, B=16):
     """Batch invariance at ``wo``: each row of a ``B``-row call of K3, K1,
-    K2 and K5, and of a K1 call one row tile wider than its row slab (two
-    launches), equals the same row called alone, bit for bit, in bf16 and
-    f32."""
+    K2, K5 and K4, and of a K1 and a K4 call 8 rows wider than their row
+    slab (two launches), equals the same row called alone, bit for bit, in
+    bf16 and f32 (for K4: the tensor-core path and the group-table path)."""
     from repro_torch.kernels import grouptable
+    from repro_torch.kernels.ternary_mm import tc_plan
 
     k, o, _ = LEAVES["wo"]
     fns = kernel_fns()
-    slab = grouptable.plan("bcq", k, o, Q, G, torch.bfloat16, torch.bfloat16).slab_rows(1 << 20)
-    for name, rows in (("lutgemm", B), ("bcq_mm", B), ("bcq_mm_fused", B), ("uniform_mm", B),
-                       ("bcq_mm", slab + 8)):
+    bcq_slab = grouptable.plan("bcq", k, o, Q, G, torch.bfloat16, torch.bfloat16).slab_rows(1 << 20)
+
+    def ternary_slab(dtype):  # bf16: the tensor-core plan's slab; f32: the group-table plan's
+        if dtype == torch.bfloat16:
+            return tc_plan(k, o, G).slab_rows(1 << 20)
+        return grouptable.plan("ternary", k, o, 2, G, dtype, dtype).slab_rows(1 << 20)
+
+    if max(bcq_slab, ternary_slab(torch.bfloat16), ternary_slab(torch.float32)) >= 1 << 20:
+        raise SystemExit("chip_smoke: a plan at wo takes no row slabs; the slab check needs a split")
+
+    for name, slab in (("lutgemm", None), ("bcq_mm", None), ("bcq_mm_fused", None), ("uniform_mm", None),
+                       ("ternary_mm", None), ("bcq_mm", lambda d: bcq_slab), ("ternary_mm", ternary_slab)):
         fn = fns[name][0]
         dims = (o // 2, o - o // 2) if name == "bcq_mm_fused" else None
 
@@ -400,6 +439,7 @@ def rows_equal_solo(gen, B=16):
             return torch.cat(fn(x, p, s, g=G, out_dims=dims), dim=-1) if dims else fn(x, p, s, g=G)
 
         for dtype in (torch.bfloat16, torch.float32):
+            rows = B if slab is None else slab(dtype) + 8
             x = torch.randn((rows, k), generator=gen, device=DEVICE).to(dtype)
             packed, scales = format_planes(KERNELS[name][3], k, o, Q, G, gen)
             scales = scales.to(dtype)
@@ -413,20 +453,24 @@ def rows_equal_solo(gen, B=16):
 
 
 def table_limit(gen, B=PROMPTS):
-    """K1 and K5 at ``wo`` (bf16, B = 4) for q = 1..8 on both paths, each
-    held to its plain version and timed: the measurement behind
-    ``grouptable.TABLE_MAX_Q`` → records."""
+    """K1 and K5 at ``wo`` (bf16, B = 4) for q = 1..8, and K4's group-table
+    path (f32 x, bf16 alpha: the f32 model's; q = 2 planes), on the table
+    path and the direct path, each held to its plain version and timed: the
+    measurement behind ``grouptable.TABLE_MAX_Q`` → records."""
     from repro_torch.core.formats import get_format
-    from repro_torch.kernels import bcq_mm, bcq_mm_plain, grouptable, uniform_mm, uniform_mm_plain
+    from repro_torch.kernels import (bcq_mm, bcq_mm_plain, grouptable, ternary_mm, ternary_mm_plain, uniform_mm,
+                                     uniform_mm_plain)
 
     k, o, _ = LEAVES["wo"]
     plan = grouptable.plan
     records = []
     try:
-        for name, fn, plain, fmt in (("bcq_mm", bcq_mm, bcq_mm_plain, "bcq"),
-                                     ("uniform_mm", uniform_mm, uniform_mm_plain, "uniform")):
-            for q in range(1, 9):
-                x = torch.randn((B, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+        for name, fn, plain, fmt, qs, x_dtype in (
+                ("bcq_mm", bcq_mm, bcq_mm_plain, "bcq", range(1, 9), torch.bfloat16),
+                ("uniform_mm", uniform_mm, uniform_mm_plain, "uniform", range(1, 9), torch.bfloat16),
+                ("ternary_mm", ternary_mm, ternary_mm_plain, "ternary", (2,), torch.float32)):
+            for q in qs:
+                x = torch.randn((B, k), generator=gen, device=DEVICE).to(x_dtype)
                 f = get_format(fmt)
                 weights = []
                 for _ in range(n_copies(f.planes(q) * k // 8 * o)):
@@ -442,7 +486,8 @@ def table_limit(gen, B=PROMPTS):
                     row[f"{path}_ms"] = time_ms(lambda p, s: fn(x, p, s, g=G), weights)
                     row[f"{path}_err"] = err
                 grouptable.plan = plan
-                log(f"  {name:10s} wo B={B} q={q}: table {row['table_ms'] * 1e3:8.2f} us, direct "
+                log(f"  {name:10s} wo B={B} q={q} x {str(x_dtype).replace('torch.', '')}: "
+                    f"table {row['table_ms'] * 1e3:8.2f} us, direct "
                     f"{row['direct_ms'] * 1e3:8.2f} us (errors {row['table_err']:.1e} / {row['direct_err']:.1e}); "
                     f"the plan takes the {row['chosen']} path")
                 records.append(row)
@@ -451,13 +496,16 @@ def table_limit(gen, B=PROMPTS):
     return records
 
 
-def probe_dense_rows(gen):
-    """Queue 3's probe: do dense bf16 linears (``utils.matmul_rows``, one
-    cuBLAS product on the card) and ``dequant_mm`` (an f32 cuBLAS product
-    after the materialise kernel) give each row of a 4- or 16-row call the
-    bits of the row called alone? Tolerance 0; reported, not asserted."""
-    from repro_torch.kernels import dequant_mm
-    from repro_torch.utils import matmul_rows
+def dense_rows_check(gen):
+    """Queue 3's repair, asserted: dense bf16 linears (``utils.matmul_rows``)
+    and ``dequant_mm`` told its rows are decode rows give each row of a B-row
+    call the bits of the row called alone, at B in {4, 9, 16, 64}, at
+    ``wo`` and ``w_gate_up``; tolerance 0. Then what the repair costs: per
+    leaf at B = 1, 4 and 64, one product before (``torch.matmul``; for
+    ``dequant`` materialise, then one f32 product) against the row tiles
+    after, summed over a decode step → dict of records and steps."""
+    from repro_torch.kernels import dequant_materialize, dequant_mm
+    from repro_torch.utils import ROW_TILE, matmul_rows
 
     out = []
     for leaf in ("wo", "w_gate_up"):
@@ -465,18 +513,52 @@ def probe_dense_rows(gen):
         w16 = (torch.randn((k, o), generator=gen, device=DEVICE) / math.sqrt(k)).to(torch.bfloat16)
         packed, scales = format_planes("dequant", k, o, Q, G, gen)
         scales = scales.to(torch.bfloat16)
-        for B in (4, 16):
+        for B in (4, 9, 16, 64):
             x = torch.randn((B, k), generator=gen, device=DEVICE).to(torch.bfloat16)
-            for path, call in (("dense bf16", lambda a: matmul_rows(a, w16)),
-                               ("dequant_mm", lambda a: dequant_mm(a, packed, scales, g=G))):
+            for path, call in (("dense bf16", lambda a: matmul_rows(a[:, None], w16)[:, 0]),
+                               ("dequant_mm", lambda a: dequant_mm(a, packed, scales, g=G, token_rows=True))):
                 full = call(x).float()
                 alone = torch.cat([call(x[r : r + 1]) for r in range(B)]).float()
                 diff = (full - alone).abs().max().item()
                 rows = int((full != alone).any(dim=-1).sum())
-                log(f"  probe {path:10s} {leaf:9s} B={B:<2d}: {rows}/{B} rows differ from the row alone, "
+                log(f"  {path:10s} {leaf:9s} B={B:<2d}: {rows}/{B} rows differ from the row alone, "
                     f"max|d| {diff:.3e} (tolerance 0)")
                 out.append(dict(path=path, leaf=leaf, B=B, rows_differ=rows, max_abs_diff=diff))
-    return out
+    bad = [r for r in out if r["rows_differ"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: dense / dequant rows differ from the row alone: {bad[:4]}")
+
+    costs, steps = [], {}
+    widths = (1, PROMPTS, PROMPTS * PROMPT_LEN)
+    for leaf, (k, o, _) in LEAVES.items():
+        w16 = (torch.randn((k, o), generator=gen, device=DEVICE) / math.sqrt(k)).to(torch.bfloat16)
+        ws = [(w16,)] + [(w16.clone(),) for _ in range(n_copies(w16.numel() * 2) - 1)]
+        qs = []
+        for _ in range(n_copies(Q * k // 8 * o)):
+            packed, scales = format_planes("dequant", k, o, Q, G, gen)
+            qs.append((packed, scales.to(torch.bfloat16)))
+        for B in widths:
+            x = torch.randn((B, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+            xf = x.float()
+            rec = dict(leaf=leaf, B=B,
+                       dense_before_ms=time_ms(lambda w: torch.matmul(x, w), ws),
+                       dense_after_ms=time_ms(lambda w: matmul_rows(x[:, None], w), ws),
+                       dequant_before_ms=time_ms(lambda p, s: torch.matmul(xf, dequant_materialize(p, s, g=G)), qs),
+                       dequant_after_ms=time_ms(lambda p, s: dequant_mm(x, p, s, g=G, token_rows=True), qs))
+            log(f"  cost at {leaf:9s} B={B:<3d}: dense bf16 {rec['dense_before_ms'] * 1e3:8.2f} -> "
+                f"{rec['dense_after_ms'] * 1e3:8.2f} us, dequant {rec['dequant_before_ms'] * 1e3:8.2f} -> "
+                f"{rec['dequant_after_ms'] * 1e3:8.2f} us")
+            costs.append(rec)
+        del ws, w16, qs
+    every = step_counts(28)
+    for B in widths:
+        steps[B] = {key: sum(r[key] * every[r["leaf"]] for r in costs if r["B"] == B)
+                    for key in ("dense_before_ms", "dense_after_ms", "dequant_before_ms", "dequant_after_ms")}
+        st = steps[B]
+        log(f"  decode step B={B} (28 layers): dense bf16 {st['dense_before_ms']:.3f} -> "
+            f"{st['dense_after_ms']:.3f} ms, dequant {st['dequant_before_ms']:.3f} -> "
+            f"{st['dequant_after_ms']:.3f} ms (before: one product; after: tiles of {ROW_TILE} rows)")
+    return dict(rows=out, costs=costs, steps=steps)
 
 
 def flash_plain_rows(q, k, v):
@@ -717,12 +799,15 @@ def serve_bcq(cfg, params, prompts, reqs):
 def serve_format(cfg, params, prompts, fmt):
     """One of the other formats' paths: batched ``generate`` in a counted
     window → (its kernel's launches, tokens, summary)."""
+    from repro_torch.kernels import ternary_mm
+
     engine = quantized_engine(cfg, params, fmt)
     engine.generate(prompts, 2)  # warm-up
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     res, dt, counts, ref_calls = run_counted(lambda: engine.generate(prompts, NEW_TOKENS))
     peak = torch.cuda.max_memory_allocated()
+    tc_launches = ternary_mm.tc_launches
     kernel = FORMAT_KERNEL[fmt]
     n_tok = PROMPTS * NEW_TOKENS
     log(f"  [{fmt}] generate batched ({PROMPTS}x{PROMPT_LEN} + {NEW_TOKENS}): {dt:.3f}s, "
@@ -736,11 +821,17 @@ def serve_format(cfg, params, prompts, fmt):
         raise SystemExit(f"chip_smoke: [{fmt}] launch counts {counts} != expected {expect}")
     if ref_calls:
         raise SystemExit(f"chip_smoke: the {fmt} path took the ref oracle {ref_calls} times")
+    # the bf16 model's ternary linears all take K4's tensor cores, no other path
+    expect_tc = expect["ternary_mm"]
+    if fmt == "ternary":
+        log(f"  [{fmt}] of them on K4's tensor cores: {tc_launches} (expected {expect_tc})")
+    if tc_launches != expect_tc:
+        raise SystemExit(f"chip_smoke: [{fmt}] K4 took its tensor-core path {tc_launches} times, not {expect_tc}")
     check_tokens(cfg, [res])
     check_logits(engine, prompts, fmt, (None,))
     small_model_check(fmt)
     summary = dict(tok_s=n_tok / dt, wall_s=dt, peak_gb=peak / 1e9, transient_gb=(peak - base) / 1e9,
-                   profile=profile_generate(engine, prompts, dt, fmt))
+                   tc_launches=tc_launches, profile=profile_generate(engine, prompts, dt, fmt))
     return counts[kernel], res.tokens, summary
 
 
@@ -770,6 +861,7 @@ def phase_main_path():
     tokens = {}
     for fmt, kernel in FORMAT_KERNEL.items():
         counts[kernel], tokens[fmt], summaries[fmt] = serve_format(cfg, params, prompts, fmt)
+    counts["ternary_mm_tc"] = summaries["ternary"]["tc_launches"]
     same = int((tokens["uniform"] == tokens["dequant"]).all(axis=1).sum())
     log(f"  greedy rows identical, uniform vs dequant: {same}/{PROMPTS} (reported, not asserted: "
         f"the two kernels sum k in different orders)")
@@ -1090,14 +1182,14 @@ def kernels_line(records, counts, n_layers, flash_records):
     for K8, in bf16, its time summed over the L launches of one
     8192-token prefill (one launch a layer at B = 1, S = 8192)."""
     out = []
-    every_leaf = {"wqkv": n_layers, "wo": n_layers, "w_gate_up": n_layers, "w_down": n_layers, "lm_head": 1}
+    every_leaf = step_counts(n_layers)
     per_step = {"bcq_mm": {"wo": n_layers, "w_down": n_layers, "lm_head": 1},
                 "bcq_mm_fused": {"wqkv": n_layers, "w_gate_up": n_layers}}
     for name, (src, replaces, _, _) in KERNELS.items():
         leaves = per_step.get(name, every_leaf)
         rs = [r for r in records if r["kernel"] == name]
         step = [(r, leaves[r["leaf"]]) for r in rs
-                if r["leaf"] in leaves and r["B"] == PROMPTS and r["dtype"] == "bfloat16"]
+                if r["leaf"] in leaves and r["B"] == PROMPTS and is_bf16(r)]
         total = lambda key: sum(r[key] * n for r, n in step)  # noqa: E731
         out.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/{src}", replaces=replaces,
@@ -1106,6 +1198,8 @@ def kernels_line(records, counts, n_layers, flash_records):
             bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
             library_ms=total("library_ms"),
         ))
+        if name == "ternary_mm":
+            out[-1]["tc_launches"] = counts["ternary_mm_tc"]
     H, Hkv, Dh = LLAMA_HEADS
     (r,) = [r for r in flash_records
             if (r["B"], r["S"], r["H"], r["Dh"], r["dtype"]) == (1, FLASH_S[-1], H, Dh, "bfloat16")]
@@ -1164,7 +1258,7 @@ def main() -> int:
     gen.manual_seed(0)
     records = phase_kernels(gen)
     limit_records = table_limit(gen)
-    probe = probe_dense_rows(gen)
+    dense_rows = dense_rows_check(gen)
 
     log("[4/7] flash_attention against its plain version")
     flash_records = phase_flash(gen)
@@ -1183,9 +1277,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "layers": cfg.n_layers, "records": records, "flash_records": flash_records,
-         "steps": {path: {B: path_step(records, names, B, cfg.n_layers) for B in (1, PROMPTS)}
+         "steps": {path: {B: path_step(records, names, B, cfg.n_layers) for B in (1, PROMPTS, PROMPTS * PROMPT_LEN)}
                    for path, names in STEP_PATHS.items()},
-         "table_limit": limit_records, "dense_rows_probe": probe,
+         "table_limit": limit_records, "dense_rows": dense_rows,
          "paths": summaries, **line},
         indent=1))
     print(json.dumps(line), flush=True)

@@ -71,15 +71,24 @@ class QuantFormat(abc.ABC):
 
     @abc.abstractmethod
     def matvec(
-        self, xb: torch.Tensor, qt: QuantizedTensor, *, impl: str, out_dims: Sequence[int]
+        self,
+        xb: torch.Tensor,
+        qt: QuantizedTensor,
+        *,
+        impl: str,
+        out_dims: Sequence[int],
+        token_rows: bool = False,
     ) -> Tuple[torch.Tensor, ...]:
         """Kernel entry: ``(B, k) @ qt`` → the ``(B, o_i)`` f32 pieces of
-        ``out_dims``, consuming the packed form through the kernel ``impl``."""
+        ``out_dims``, consuming the packed form through the kernel ``impl``.
+        ``token_rows``: each row of ``xb`` is one token of its own request
+        (:func:`~repro_torch.utils.token_rows`); the packed kernels sum a row
+        alike at every B anyway, and ``dequant`` tiles its GEMM by it."""
 
     def matmul(self, xb: torch.Tensor, qt: QuantizedTensor, *, dtype) -> torch.Tensor:
-        """Oracle entry: dequantize into ``dtype`` and run one dense product
-        accumulated in f32: ``(B, ..., k)`` → ``(B, ..., o)`` f32 (one batch
-        row at a time on the CPU: :func:`~repro_torch.utils.matmul_rows`)."""
+        """Oracle entry: dequantize into ``dtype`` and run a dense product
+        accumulated in f32: ``(B, ..., k)`` → ``(B, ..., o)`` f32, a batch
+        row's result independent of B (:func:`~repro_torch.utils.matmul_rows`)."""
         w = self.dequantize(qt, dtype=dtype)
         return matmul_rows(xb.to(dtype).to(torch.float32), w.to(torch.float32))
 
@@ -194,7 +203,7 @@ class BCQFormat(QuantFormat):
         w = bcq_lib.dequantize(qt.scales.to(torch.float32), signs, qt.g)
         return w.to(dtype)
 
-    def matvec(self, xb, qt, *, impl, out_dims):
+    def matvec(self, xb, qt, *, impl, out_dims, token_rows=False):
         from repro_torch.kernels.bcq_mm import bcq_mm
         from repro_torch.kernels.bcq_mm_fused import bcq_mm_fused
         from repro_torch.kernels.lutgemm import lutgemm
@@ -293,7 +302,7 @@ class UniformFormat(QuantFormat):
     def dequantize(self, qt, dtype=torch.float32):
         return uniform_dequantize(qt.packed, qt.scales, qt.g).to(dtype)
 
-    def matvec(self, xb, qt, *, impl, out_dims):
+    def matvec(self, xb, qt, *, impl, out_dims, token_rows=False):
         from repro_torch.kernels.uniform_mm import uniform_mm
 
         return split_outputs(uniform_mm(xb, qt.packed, qt.scales, g=qt.g), out_dims)
@@ -310,10 +319,10 @@ class DequantFormat(UniformFormat):
     name = "dequant"
     impls = ("dequant_mm",)
 
-    def matvec(self, xb, qt, *, impl, out_dims):
+    def matvec(self, xb, qt, *, impl, out_dims, token_rows=False):
         from repro_torch.kernels.dequant_mm import dequant_mm
 
-        return split_outputs(dequant_mm(xb, qt.packed, qt.scales, g=qt.g), out_dims)
+        return split_outputs(dequant_mm(xb, qt.packed, qt.scales, g=qt.g, token_rows=token_rows), out_dims)
 
 
 # The QLoRA NF4 grid: 16 quantiles of N(0, 1) normalised to [-1, 1]; a weight
@@ -420,7 +429,7 @@ class CodebookFormat(QuantFormat):
     def dequantize(self, qt, dtype=torch.float32):
         return codebook_dequantize(qt.packed, qt.scales, qt.g).to(dtype)
 
-    def matvec(self, xb, qt, *, impl, out_dims):
+    def matvec(self, xb, qt, *, impl, out_dims, token_rows=False):
         from repro_torch.kernels.codebook_mm import codebook_mm
 
         return split_outputs(codebook_mm(xb, qt.packed, qt.scales, g=qt.g), out_dims)
@@ -478,7 +487,7 @@ class TernaryFormat(QuantFormat):
     def dequantize(self, qt, dtype=torch.float32):
         return ternary_dequantize(qt.packed, qt.scales, qt.g).to(dtype)
 
-    def matvec(self, xb, qt, *, impl, out_dims):
+    def matvec(self, xb, qt, *, impl, out_dims, token_rows=False):
         from repro_torch.kernels.ternary_mm import ternary_mm
 
         return split_outputs(ternary_mm(xb, qt.packed, qt.scales, g=qt.g), out_dims)

@@ -25,6 +25,7 @@ namespace {
 using namespace repro;
 
 struct BCQGroups {
+  static constexpr int kQ = 0;  // any q
   static __host__ __device__ constexpr int scale_planes(int q) { return q; }
 
   template <int Q, typename ST>

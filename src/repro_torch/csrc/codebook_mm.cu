@@ -8,11 +8,11 @@
 // 2^q centroids per group and column (at q = 4, g = 128 and bf16 another
 // quarter byte a weight) are read once, so at decode batch sizes the bound
 // is those bytes over the card's memory rate (3.35 TB/s on an H100 SXM).
-// What held the column-block version (colblock.cuh) at 15-45x that bound:
-// a lookup's shared-memory bank depended on the column only (a 4-way
-// conflict), each index was rebuilt bit by bit (~2q operations a weight),
-// the table was re-staged behind barriers with nothing in flight, and the
-// narrow leaves filled 96 of 132 SMs.
+// What held the first, column-block version (a block of 32 columns over
+// all of k) at 15-45x that bound: a lookup's shared-memory bank depended on
+// the column only (a 4-way conflict), each index was rebuilt bit by bit
+// (~2q operations a weight), the table was re-staged behind barriers with
+// nothing in flight, and the narrow leaves filled 96 of 132 SMs.
 //
 // Design:
 //  - A block owns 32 NS output columns (NS = 4 up to q = 5, else 1), up to
@@ -72,7 +72,6 @@ codebook_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restri
                 unsigned* __restrict__ tickets, int B, int k, int o, int q, int g, Plan p) {
   constexpr int BC = 32 * NS;  // columns of a block
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int s_last;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int o0 = blockIdx.x * BC, b0 = blockIdx.y * BT;
@@ -173,48 +172,14 @@ codebook_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restri
   }
   cp_async_wait<0>();
 
-  // the warps' sums in warp order
+  // the warps' sums, then the k-chunks' partials, in order
   float* const red = reinterpret_cast<float*>(smem);  // [warp][BT][BC]
 #pragma unroll
   for (int b = 0; b < BT; ++b)
 #pragma unroll
     for (int c = 0; c < NS; ++c) red[(warp * BT + b) * BC + col[c]] = acc[b][c];
   __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  float* const dst = p.splits > 1 ? scratch + static_cast<size_t>(blockIdx.z) * B * o : out;
-  for (int e = threadIdx.x; e < BT * BC; e += kThreads) {
-    const int b = e / BC, cl = e % BC;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[(w * BT + b) * BC + cl];
-    if (b0 + b < B && cl < valid) dst[static_cast<size_t>(b0 + b) * o + o0 + cl] = sum;
-  }
-  if (p.splits == 1) return;
-
-  // the last block of this column tile adds the chunks' partials in order
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(&tickets[tile], 1u) == static_cast<unsigned>(p.splits - 1);
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int e = threadIdx.x; e < BT * BC; e += kThreads) {
-    const int b = e / BC, cl = e % BC;
-    if (b0 + b >= B || cl >= valid) continue;
-    const size_t at = static_cast<size_t>(b0 + b) * o + o0 + cl;
-    float sum = 0.f;
-    for (int sp0 = 0; sp0 < p.splits; sp0 += 8) {  // 8 loads in flight, added in split order
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        v[u] = sp0 + u < p.splits ? __ldcg(scratch + static_cast<size_t>(sp0 + u) * B * o + at) : 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (sp0 + u < p.splits) sum += v[u];
-    }
-    out[at] = sum;
-  }
-  if (threadIdx.x == 0) tickets[tile] = 0;  // ready for the next launch
+  finish_split<kThreads, kWarps, BT, BC>(red, out, scratch, tickets, B, o, b0, o0, valid);
 }
 
 template <typename TT, int NS, int BT, int Q>

@@ -50,15 +50,6 @@ bool dispatch_dtypes(int a, int b, F&& f) {
   return true;
 }
 
-// The kCols packed bytes of one byte row at p (columns col0..col0+3), byte
-// cc in bits 8cc..8cc+7: one 32-bit load when vec and all columns are valid.
-__device__ __forceinline__ uint32_t load_bytes4(const uint8_t* p, int valid, bool vec) {
-  if (vec && valid == kCols) return *reinterpret_cast<const uint32_t*>(p);
-  uint32_t v = 0;
-  for (int c = 0; c < valid; ++c) v |= static_cast<uint32_t>(p[c]) << (8 * c);
-  return v;
-}
-
 // kCols group parameters at p as f32 (0 past the ragged edge).
 __device__ __forceinline__ void load_scales4(const float* p, int valid, bool vec, float* s) {
   if (vec && valid == kCols) {
@@ -140,6 +131,58 @@ __device__ __forceinline__ void copy_x_rows(uint8_t* dst, const void* x, int xb,
       for (int u = 0; u < 16; ++u) d[u] = in ? src[u] : 0;
     }
   }
+}
+
+// By the kThreads threads of a block whose kWarps warps wrote their sums to
+// red as [warp][BT][BC] f32 and then met at a barrier: the sums in warp
+// order go to out (B, o) at rows b0.., columns o0.. (valid of them), or, with
+// more than one k-chunk (gridDim.z), to this chunk's (B, o) slab of scratch;
+// then the last block of the column tile to arrive (an atomic ticket, one a
+// (column tile, batch tile)) adds the chunks' partials in chunk order, writes
+// out and resets its ticket. Nothing of that order depends on B, the row
+// tile or the block that arrives last, so the result is bitwise the same
+// run to run and a row equals the row called alone.
+template <int kThreads, int kWarps, int BT, int BC>
+__device__ __forceinline__ void finish_split(const float* red, float* __restrict__ out, float* __restrict__ scratch,
+                                             unsigned* __restrict__ tickets, int B, int o, int b0, int o0,
+                                             int valid) {
+  __shared__ int s_last;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int splits = gridDim.z;
+  float* const dst = splits > 1 ? scratch + static_cast<size_t>(blockIdx.z) * B * o : out;
+  for (int e = threadIdx.x; e < BT * BC; e += kThreads) {
+    const int b = e / BC, cl = e % BC;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += red[(w * BT + b) * BC + cl];
+    if (b0 + b < B && cl < valid) dst[static_cast<size_t>(b0 + b) * o + o0 + cl] = sum;
+  }
+  if (splits == 1) return;
+
+  // the last block of this column tile adds the chunks' partials in order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&tickets[tile], 1u) == static_cast<unsigned>(splits - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int e = threadIdx.x; e < BT * BC; e += kThreads) {
+    const int b = e / BC, cl = e % BC;
+    if (b0 + b >= B || cl >= valid) continue;
+    const size_t at = static_cast<size_t>(b0 + b) * o + o0 + cl;
+    float sum = 0.f;
+    for (int sp0 = 0; sp0 < splits; sp0 += 8) {  // 8 loads in flight, added in split order
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        v[u] = sp0 + u < splits ? __ldcg(scratch + static_cast<size_t>(sp0 + u) * B * o + at) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (sp0 + u < splits) sum += v[u];
+    }
+    out[at] = sum;
+  }
+  if (threadIdx.x == 0) tickets[tile] = 0;  // ready for the next launch
 }
 
 // The q-bit code at bit position `shift` of q plane words: sum_i 2^i bit_i.

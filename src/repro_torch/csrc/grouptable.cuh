@@ -1,4 +1,5 @@
-// The group-table skeleton shared by bcq_mm (K1/K2) and uniform_mm (K5):
+// The group-table skeleton shared by bcq_mm (K1/K2), uniform_mm (K5) and the
+// CUDA-core path of ternary_mm (K4):
 // y (B, o) f32 = x (B, k) @ W, where W[r, c] is a function of the q-bit code
 // of (r, c), read from q packed planes, and of the scales of the group r / g
 // of column c. A (group, column) pair can take only 2^q weight values.
@@ -7,10 +8,10 @@
 // and a few scales a group are read once, so the bound is those bytes over
 // the card's memory rate (3.35 TB/s on an H100 SXM); in practice the
 // instructions spent a weight (code build, lookup, B FMAs) bound it. What held
-// the column-block version (colblock.cuh) at 20-30x that bound: each weight
-// rebuilt bit by bit (~17 instructions at q = 4 for BCQ), the group's
-// scales reloaded for every byte row, nothing in flight while x was staged,
-// and 96 blocks on 132 SMs at o = 3072.
+// the first, column-block version (32 columns a block over all of k) at
+// 20-30x that bound: each weight rebuilt bit by bit (~17 instructions at
+// q = 4 for BCQ), the group's scales reloaded for every byte row, nothing
+// in flight while x was staged, and 96 blocks on 132 SMs at o = 3072.
 //
 // Design (K7 codebook_mm's shape, with the table built on the chip):
 //  - A block owns 32 NS output columns (NS = 4, or 1 where a q > 5 table
@@ -48,6 +49,7 @@
 //    B-row call equals the row called alone, bit for bit.
 //
 // A format supplies Dec:
+//   kQ                            0, or the one q the format stores (ternary: 2)
 //   scale_planes(q)               scale planes S of the (S, k/g, o) tensor
 //   build(T, stride, s, sstride, q)  the 2^q weights of one (group, column)
 //                                 into T[e * stride], from its scales at
@@ -111,7 +113,6 @@ grouptable_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __rest
                   unsigned* __restrict__ tickets, int B, int k, int o, int q, int g, Plan p) {
   constexpr int BC = 32 * NS;  // columns of a block
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int s_last;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int o0 = blockIdx.x * BC, b0 = blockIdx.y * BT;
@@ -247,49 +248,14 @@ grouptable_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __rest
   }
   __syncthreads();  // the ring and the tables are no longer read
 
-  // the warps' sums in warp order
+  // the warps' sums, then the k-chunks' partials, in order
   float* const red = reinterpret_cast<float*>(smem);  // [warp][BT][BC]
 #pragma unroll
   for (int b = 0; b < BT; ++b)
 #pragma unroll
     for (int c = 0; c < NS; ++c) red[(warp * BT + b) * BC + c * 32 + lane] = acc[b][c];
   __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int splits = gridDim.z;
-  float* const dst = splits > 1 ? scratch + static_cast<size_t>(blockIdx.z) * B * o : out;
-  for (int e = threadIdx.x; e < BT * BC; e += kThreads) {
-    const int b = e / BC, cl = e % BC;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[(w * BT + b) * BC + cl];
-    if (b0 + b < B && cl < valid) dst[static_cast<size_t>(b0 + b) * o + o0 + cl] = sum;
-  }
-  if (splits == 1) return;
-
-  // the last block of this column tile adds the chunks' partials in order
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(&tickets[tile], 1u) == static_cast<unsigned>(splits - 1);
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int e = threadIdx.x; e < BT * BC; e += kThreads) {
-    const int b = e / BC, cl = e % BC;
-    if (b0 + b >= B || cl >= valid) continue;
-    const size_t at = static_cast<size_t>(b0 + b) * o + o0 + cl;
-    float sum = 0.f;
-    for (int sp0 = 0; sp0 < splits; sp0 += 8) {  // 8 loads in flight, added in split order
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        v[u] = sp0 + u < splits ? __ldcg(scratch + static_cast<size_t>(sp0 + u) * B * o + at) : 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (sp0 + u < splits) sum += v[u];
-    }
-    out[at] = sum;
-  }
-  if (threadIdx.x == 0) tickets[tile] = 0;  // ready for the next launch
+  finish_split<kThreads, kWarps, BT, BC>(red, out, scratch, tickets, B, o, b0, o0, valid);
 }
 
 struct Args {
@@ -332,13 +298,19 @@ cudaError_t launch_bt(const Args& a, cudaStream_t st) {
 }
 
 // The table path at q = 4 with 4 columns a lane (the main path), at any
-// other q with 4 or 1 columns a lane; the direct path with 4.
+// other q with 4 or 1 columns a lane; the direct path with 4. A format of
+// one q (Dec::kQ) fixes it at compile time on both paths.
 template <typename ST, typename Dec>
 cudaError_t launch_path(const Args& a, int table, int ns, cudaStream_t st) {
-  if (!table) return launch_bt<ST, Dec, 4, 0, false>(a, st);
-  if (ns == 1) return launch_bt<ST, Dec, 1, 0, true>(a, st);
-  if (a.q == 4) return launch_bt<ST, Dec, 4, 4, true>(a, st);
-  return launch_bt<ST, Dec, 4, 0, true>(a, st);
+  if constexpr (Dec::kQ > 0) {
+    if (table) return launch_bt<ST, Dec, 4, Dec::kQ, true>(a, st);
+    return launch_bt<ST, Dec, 4, Dec::kQ, false>(a, st);
+  } else {
+    if (!table) return launch_bt<ST, Dec, 4, 0, false>(a, st);
+    if (ns == 1) return launch_bt<ST, Dec, 1, 0, true>(a, st);
+    if (a.q == 4) return launch_bt<ST, Dec, 4, 4, true>(a, st);
+    return launch_bt<ST, Dec, 4, 0, true>(a, st);
+  }
 }
 
 // The C entry of a format: checks the plan against the shapes, then
@@ -350,8 +322,8 @@ int entry(const void* x, int x_dtype, const void* packed, const void* scales, in
           void* stream) {
   cudaGetLastError();  // clear any stale error so the return is this launch's
   const int kc = k / 8;
-  if (q < 1 || q > kMaxQ || g <= 0 || g % 8 != 0 || k % g != 0 || (ns != 1 && ns != 4) ||
-      (ns == 1 && !table) || p.splits < 1 || p.chunk < 1 ||
+  if (q < 1 || q > kMaxQ || (Dec::kQ > 0 && (q != Dec::kQ || ns != 4)) || g <= 0 || g % 8 != 0 ||
+      k % g != 0 || (ns != 1 && ns != 4) || (ns == 1 && !table) || p.splits < 1 || p.chunk < 1 ||
       static_cast<long long>(p.chunk) * p.splits < kc || p.chunk * (p.splits - 1) >= kc ||
       (x_dtype != kF32 && x_dtype != kBF16) || (s_dtype != kF32 && s_dtype != kBF16) ||
       (p.splits > 1 && (scratch == nullptr || tickets == nullptr)))

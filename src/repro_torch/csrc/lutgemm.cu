@@ -121,7 +121,6 @@ lutgemm_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restric
                const ST* __restrict__ scales, float* __restrict__ out, float* __restrict__ scratch,
                unsigned* __restrict__ tickets, int B, int k, int o, int q, int g, Plan p) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int s_last;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int o0 = blockIdx.x * kBlockCols, b0 = blockIdx.y * BT;
@@ -256,48 +255,14 @@ lutgemm_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restric
   cp_async_wait<0>();
   __syncthreads();  // the ring and tables are no longer read
 
-  // the warps' sums in warp order
+  // the warps' sums, then the k-chunks' partials, in order
   float* const red = reinterpret_cast<float*>(smem);  // [warp][BT][kBlockCols]
 #pragma unroll
   for (int b = 0; b < BT; ++b)
     *reinterpret_cast<float4*>(red + (warp * BT + b) * kBlockCols + kCols * lane) =
         make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
   __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  float* const dst = p.splits > 1 ? scratch + static_cast<size_t>(blockIdx.z) * B * o : out;
-  for (int e = threadIdx.x; e < BT * kBlockCols; e += kThreads) {
-    const int b = e / kBlockCols, cl = e % kBlockCols;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[(w * BT + b) * kBlockCols + cl];
-    if (b0 + b < B && cl < valid) dst[static_cast<size_t>(b0 + b) * o + o0 + cl] = sum;
-  }
-  if (p.splits == 1) return;
-
-  // the last block of this column tile adds the chunks' partials in order
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(&tickets[tile], 1u) == static_cast<unsigned>(p.splits - 1);
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int e = threadIdx.x; e < BT * kBlockCols; e += kThreads) {
-    const int b = e / kBlockCols, cl = e % kBlockCols;
-    if (b0 + b >= B || cl >= valid) continue;
-    const size_t at = static_cast<size_t>(b0 + b) * o + o0 + cl;
-    float sum = 0.f;
-    for (int sp0 = 0; sp0 < p.splits; sp0 += 8) {  // 8 loads in flight, added in split order
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        v[u] = sp0 + u < p.splits ? __ldcg(scratch + static_cast<size_t>(sp0 + u) * B * o + at) : 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (sp0 + u < p.splits) sum += v[u];
-    }
-    out[at] = sum;
-  }
-  if (threadIdx.x == 0) tickets[tile] = 0;  // ready for the next launch
+  finish_split<kThreads, kWarps, BT, kBlockCols>(red, out, scratch, tickets, B, o, b0, o0, valid);
 }
 
 template <typename ST, int BT, int Q>

@@ -23,6 +23,7 @@ namespace {
 using namespace repro;
 
 struct UniformGroups {
+  static constexpr int kQ = 0;  // any q
   static __host__ __device__ constexpr int scale_planes(int) { return 2; }  // scale, zero
 
   template <int Q, typename ST>

@@ -5,13 +5,13 @@ versions, and the quantized-matmul dispatch.
 - ``bcq_mm_fused.py`` the same kernel over fused QKV / gate-up projections
 - ``lutgemm.py``      the paper's LUT kernel (shared-memory tables)
 - ``uniform_mm.py``   uniform int-q matmul on bcq_mm's group-table skeleton
-- ``grouptable.py``   that skeleton's plan and launch (K1/K2, K5)
+- ``grouptable.py``   that skeleton's plan and launch (K1/K2, K5, K4's f32 path)
 - ``dequant_mm.py``   the paper's baseline: materialise the weight, then GEMM
-- ``ternary_mm.py``   ternary matmul from sign + mask planes
+- ``ternary_mm.py``   ternary matmul from sign + mask planes (tensor cores for bf16)
 - ``codebook_mm.py``  codebook matmul, centroid tables in shared memory
 - ``flash_attn.py``   causal GQA attention with an online softmax (prefill)
 - ``_build.py``       nvcc build of ``csrc/*.cu`` at first use, ctypes loading
-- ``_common.py``      wrapper checks, launch helpers and the split-k workspace
+- ``_common.py``      wrapper checks, the split-k launch shape and workspace
 - ``ops.py``          ``qmatmul`` format dispatch, ``linear``, ``impl_mode``
 - ``ref.py``          oracles
 
@@ -49,9 +49,11 @@ KERNEL_WRAPPERS = (
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0 (and ``ternary_mm``'s
+    count of tensor-core calls)."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    ternary_mm.tc_launches = 0
 
 
 def launch_counts() -> dict:

@@ -9,21 +9,19 @@ plus shapes, dtypes and devices, before a kernel ever sees the tensors.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import packing
-from repro_torch.kernels import _build
 
 # dtype codes understood by the C entry points (csrc/common.cuh::DTypeCode)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The launch shape shared by the split-k kernels (K3 lutgemm, K7 codebook_mm,
-# K1/K2 bcq_mm and K5 uniform_mm): blocks of 8 warps, up to 8 batch rows a
-# block, and a k-split sized to fill the card.
+# K1/K2 bcq_mm, K5 uniform_mm and both paths of K4 ternary_mm): blocks of 8
+# warps, up to 8 batch rows a block (K4's tensor cores: 32), and a k-split
+# sized to fill the card.
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MIN_BLOCKS = 2 * SMS  # two blocks of 8 warps on every SM: one wave (128 registers a thread)
 WARPS = 8  # warps of a block
@@ -132,37 +130,3 @@ def validate(
             f"x, packed and scales lie on different devices: "
             f"{x.device}, {packed.device}, {scales.device}"
         )
-
-
-@functools.lru_cache(maxsize=None)
-def _matvec_entry(name: str):
-    lib = _build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, i, p, i, i, i, i, i, p]
-    fn.restype = i
-    return lib, fn
-
-
-def launch_matvec(
-    name: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, g: int
-) -> torch.Tensor:
-    """One launch of ``csrc/<name>.cu``'s ``<name>_launch`` entry on PyTorch's
-    current stream (validated CUDA inputs) → ``(B, o)`` f32. Counts nothing;
-    the public wrappers do. The entry's C signature is
-    ``(x, x_dtype, packed, scales, s_dtype, out, B, k, o, q, g, stream)``."""
-    x, packed, scales = x.contiguous(), packed.contiguous(), scales.contiguous()
-    B, k = x.shape
-    q, _, o = packed.shape
-    out = torch.empty((B, o), dtype=torch.float32, device=x.device)
-    if B == 0:
-        return out
-    lib, fn = _matvec_entry(name)
-    with torch.cuda.device(x.device):
-        rc = fn(
-            x.data_ptr(), DTYPE_CODES[x.dtype], packed.data_ptr(), scales.data_ptr(),
-            DTYPE_CODES[scales.dtype], out.data_ptr(), B, k, o, q, g,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, rc, f"{name} launch")
-    return out

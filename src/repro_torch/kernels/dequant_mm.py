@@ -9,6 +9,9 @@ coalesced along o. :func:`dequant_mm` then runs a stock GEMM on the
 materialised weight (``torch.matmul`` in f32, as the reference's
 ``jnp.dot`` outside its ``pallas_call``): two dispatches and a dense-weight
 round trip through device memory, the overhead the one-pass kernels avoid.
+Told that its rows are one token each (a decode step), it runs that GEMM
+in fixed tiles of rows (:func:`~repro_torch.utils.matmul_rows`), so each
+row gets the bits of the row called alone.
 
 :func:`dequant_materialize` launches the kernel for CUDA tensors and runs
 :func:`dequant_materialize_plain` for CPU tensors.
@@ -25,6 +28,7 @@ import torch
 from repro_torch.core.formats import uniform_dequantize
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import DTYPE_CODES, validate, validate_planes
+from repro_torch.utils import matmul_rows
 
 
 def dequant_materialize_plain(
@@ -81,10 +85,20 @@ def dequant_materialize(
 dequant_materialize.launches = 0
 
 
-def dequant_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int) -> torch.Tensor:
+def dequant_mm(
+    x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int, token_rows: bool = False
+) -> torch.Tensor:
     """x (B, k) @ uniform-packed weights via materialise + dense f32 GEMM →
     (B, o) f32. Same contract as :func:`~repro_torch.kernels.uniform_mm.uniform_mm`;
-    deliberately the slow way round: the paper's baseline, not a fast path."""
+    deliberately the slow way round: the paper's baseline, not a fast path.
+
+    ``token_rows``: each row of x is one token of its own request (a decode
+    step over B requests), so the GEMM runs as :func:`~repro_torch.utils.
+    matmul_rows` runs such rows (one at a time on the CPU, in fixed tiles
+    on the GPU) and a row's result does not depend on B. A prompt's rows
+    (the default) are one product."""
     validate(x, packed, scales, g, scale_planes=2)
     w = dequant_materialize(packed, scales, g=g)
+    if token_rows:
+        return matmul_rows(x.to(torch.float32), w)
     return torch.matmul(x.to(torch.float32), w)

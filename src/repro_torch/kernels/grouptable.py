@@ -1,9 +1,10 @@
-"""The group-table kernels' host side: K1/K2 ``bcq_mm`` and K5 ``uniform_mm``.
+"""The group-table kernels' host side: K1/K2 ``bcq_mm``, K5 ``uniform_mm``
+and the CUDA-core path of K4 ``ternary_mm`` (f32 x or f32 alpha).
 
-Both are ``csrc/grouptable.cuh`` with a format's way of making the ``2^q``
+Each is ``csrc/grouptable.cuh`` with a format's way of making the ``2^q``
 weights that a (group, column) pair can take (``csrc/bcq_mm.cu``,
-``csrc/uniform_mm.cu``); the skeleton's header note says what bounds them
-and how the design answers that. In short: a block owns 128 columns (32 for
+``csrc/uniform_mm.cu``, ``csrc/ternary_mm.cu``); the skeleton's header
+note says what bounds them and how the design answers that. In short: a block owns 128 columns (32 for
 a table above q = 5), up to 8 batch rows and one k-chunk; planes, the
 stage's scales and x stream through a ``cp.async`` ring; the next stage's
 tables are built in shared memory from its scales while the current one is
@@ -51,10 +52,13 @@ NS_TABLE_MAX_Q = 5  # above it a table of 4 columns a lane is too large: 1 colum
 # is made from its code in registers. Measured at llama3.2-3b's wo, B = 4,
 # bf16 (chip_smoke.py's table_limit; PERF.md): BCQ's table wins up to q = 5
 # (its direct fold costs ~3 operations a plane), uniform's at q = 4 only
-# (its direct weight is one conversion, a product and a sum).
-TABLE_MAX_Q = {"bcq": 5, "uniform": 4}
-# The format's scale planes: q, or 2 (scale, zero).
-SCALE_PLANES = {"bcq": None, "uniform": 2}
+# (its direct weight is one conversion, a product and a sum). Ternary
+# stores q = 2 planes (sign, mask) whatever its policy says; its table of
+# {0, 0, -alpha, +alpha} and its direct select came within 2% of each
+# other (the same measurement at f32 x), and it keeps the table.
+TABLE_MAX_Q = {"bcq": 5, "uniform": 4, "ternary": 2}
+# The format's scale planes: q, 2 (scale, zero) or 1 (alpha).
+SCALE_PLANES = {"bcq": None, "uniform": 2, "ternary": 1}
 
 
 def stage_groups(kc: int, chunk: int, rows: int, g: int) -> int:
@@ -143,7 +147,8 @@ def _layout(rows: int, chunk: int, q: int, S: int, g: int, k: int, cols: int, xb
 def plan(kind: str, k: int, o: int, q: int, g: int, x_dtype: torch.dtype, s_dtype: torch.dtype,
          chunk: Optional[int] = None, table: Optional[bool] = None) -> Plan:
     """The launch shape for ``x (B, k) @ W[(q, k/8, o) planes, (S, k/g, o) scales]``
-    of format ``kind`` (``"bcq"``: S = q; ``"uniform"``: S = 2).
+    of format ``kind`` (``"bcq"``: S = q; ``"uniform"``: S = 2; ``"ternary"``:
+    q = 2, S = 1).
 
     The path: the table up to ``TABLE_MAX_Q[kind]`` (``table`` overrides),
     with 32 columns a block above ``NS_TABLE_MAX_Q``. The k-split
@@ -175,7 +180,7 @@ def plan(kind: str, k: int, o: int, q: int, g: int, x_dtype: torch.dtype, s_dtyp
 
 @functools.lru_cache(maxsize=None)
 def _entry(kind: str):
-    name = f"{kind}_mm"  # csrc/bcq_mm.cu, csrc/uniform_mm.cu
+    name = f"{kind}_mm"  # csrc/bcq_mm.cu, csrc/uniform_mm.cu, csrc/ternary_mm.cu
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_launch")
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -217,8 +222,12 @@ def table_plain(kind: str, scales: torch.Tensor, q: int) -> torch.Tensor:
     can take, made as the kernels make it: BCQ entry ``e`` folds
     ``±alpha_i`` over the planes in order (bit i of e set: +), level i
     doubling level i - 1; uniform entry ``c`` is ``c·s + z``, product and
-    sum rounded apart."""
+    sum rounded apart; ternary entry ``sign | mask << 1`` is ``{0, 0,
+    -alpha, +alpha}``."""
     s = scales.to(torch.float32)
+    if kind == "ternary":
+        zero = torch.zeros_like(s[0])
+        return torch.stack([zero, zero, -s[0], s[0]])
     if kind == "bcq":
         t = torch.stack([-s[0], s[0]])
         for i in range(1, q):

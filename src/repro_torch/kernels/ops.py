@@ -19,7 +19,10 @@ Passing ``out_dims`` runs the fused multi-projection path: N projections of
 one activation whose packed weights were concatenated along the output dim
 run as one kernel launch over the concatenated o, split into N outputs.
 
-Leading batch dims are flattened into the kernel's row dim and restored.
+Leading batch dims are flattened into the kernel's row dim and restored; a
+call whose rows are one token each (``(B, 1, k)``, a decode step) says so to
+the format (``token_rows``), so a product that sums by the row count (the
+``dequant`` GEMM) can keep each row's bits independent of B.
 Every path returns values computed in f32, cast to ``out_dtype`` (default:
 ``x``'s dtype).
 """
@@ -33,7 +36,7 @@ import torch
 
 from repro_torch.core.formats import get_format, split_outputs
 from repro_torch.core.qtensor import QuantizedTensor
-from repro_torch.utils import matmul_rows
+from repro_torch.utils import matmul_rows, token_rows
 
 # How ``impl="auto"`` resolves, overridable per scope via :func:`impl_mode`:
 #   None       the format's own policy (kernel on the GPU, ref on the CPU);
@@ -99,7 +102,7 @@ def qmatmul(
         xr = x.reshape(x.shape[0], -1, k) if x.dim() > 2 else xb  # batch rows kept apart
         parts = split_outputs(f.matmul(xr, qt, dtype=x.dtype), out_dims)
     else:
-        parts = f.matvec(xb, qt, impl=impl, out_dims=out_dims)
+        parts = f.matvec(xb, qt, impl=impl, out_dims=out_dims, token_rows=token_rows(x))
     return tuple(
         part.reshape(*lead, d).to(out_dtype) for part, d in zip(parts, out_dims)
     )
@@ -130,9 +133,9 @@ def quantized_matmul_fused(
 
 def _dense(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
     """Dense ``x @ w`` with f32 accumulation: in f32 when either side or the
-    output is f32, else one product in ``x``'s dtype (f32-accumulated by the
-    library); one batch row at a time on the CPU
-    (:func:`~repro_torch.utils.matmul_rows`)."""
+    output is f32, else in ``x``'s dtype (f32-accumulated by the library);
+    a batch row's result independent of B (:func:`~repro_torch.utils.matmul_rows`:
+    one batch row at a time on the CPU, decode rows in fixed tiles on the GPU)."""
     if out_dtype == torch.float32 or x.dtype == torch.float32:
         return matmul_rows(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
     return matmul_rows(x, w.to(x.dtype))

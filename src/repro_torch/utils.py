@@ -1,4 +1,5 @@
-"""Small shared helpers: device resolution and walks over parameter trees.
+"""Small shared helpers: device resolution, dense products whose batch rows
+do not depend on the batch, and walks over parameter trees.
 
 A parameter tree is nested ``dict``s and ``tuple``s (the JAX package's pytree
 layout) whose leaves are tensors or :class:`~repro_torch.core.qtensor.
@@ -7,6 +8,7 @@ QuantizedTensor` containers, which count as one leaf each.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -24,16 +26,56 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# Rows of one fixed-shape product on the GPU: every decode call is cut into
+# zero-padded tiles of this many rows, so each tile is the same (R, k) @
+# (k, o) library call (the same cuBLAS algorithm, the same sum order), and
+# a row's bits depend on its own values alone. A memory-bound product costs
+# about the same at 8 rows as at 1.
+ROW_TILE = 8
+
+
+def token_rows(x: torch.Tensor) -> bool:
+    """Whether each row of ``x (..., k)`` is one token of its own request:
+    ``x`` is ``(B, k)``, or ``(B, 1, ..., 1, k)`` (a decode step over B
+    requests), as opposed to a prompt's ``(B, S, k)`` with S > 1."""
+    return math.prod(x.shape[1:-1]) == 1
+
+
+def matmul_row_tiles(x: torch.Tensor, w: torch.Tensor, rows: int = ROW_TILE) -> torch.Tensor:
+    """``x (B, k) @ w (k, o)`` as one ``(rows, k) @ (k, o)`` product per tile
+    of ``rows`` rows, the last tile zero-padded: ``(B, o)``. Every tile is
+    copied into one fresh buffer first, so each product sees the same shape
+    and the same alignment whatever B is and wherever ``x`` lay."""
+    B, k = x.shape
+    xp = x.new_zeros((-(-B // rows) * rows, k))
+    xp[:B] = x
+    if xp.shape[0] == rows:  # one tile: nothing to join
+        return torch.matmul(xp, w)[:B]
+    return torch.cat([torch.matmul(xp[t : t + rows], w) for t in range(0, xp.shape[0], rows)])[:B]
+
+
 def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x (B, ..., k) @ w (k, o)`` where a batch row's result does not
-    depend on how many rows share the call. On the CPU each leading batch
-    row is its own product: the CPU BLAS takes another kernel, and sums k in
-    another order, for a batch of B decode rows than for one, and a slot
-    batch must decode each request exactly as a batch of one does
-    (``infer/scheduler.py``). On the GPU, one product."""
-    if x.is_cuda or x.dim() < 2 or x.shape[0] <= 1:
+    depend on how many rows share the call. A slot batch must decode each
+    request exactly as a batch of one does (``infer/scheduler.py``), and a
+    library product may take another kernel, and sum k in another order,
+    for B rows than for one.
+
+    - On the CPU each leading batch row is its own product.
+    - On the GPU a call whose rows are one token each (:func:`token_rows`)
+      runs in tiles of ``ROW_TILE`` rows (:func:`matmul_row_tiles`); any
+      other call, a prompt's, is one product: an admission prefills one
+      request alone, as its solo ``generate`` does."""
+    if x.dim() < 2 or x.shape[0] == 0:
         return torch.matmul(x, w)
-    return torch.cat([torch.matmul(r[None], w) for r in x])
+    if not x.is_cuda:
+        if x.shape[0] == 1:
+            return torch.matmul(x, w)
+        return torch.cat([torch.matmul(r[None], w) for r in x])
+    if not token_rows(x):
+        return torch.matmul(x, w)
+    y = matmul_row_tiles(x.reshape(x.shape[0], x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def tree_map_with_path(

@@ -57,6 +57,7 @@ from repro_torch.kernels import (
 from repro_torch.kernels.flash_attn import BF16_ROW_TOL, row_rel_err
 from repro_torch.models import init_params, reduced
 from repro_torch.quant import QuantPolicy, quantize_params
+from repro_torch.utils import ROW_TILE, matmul_rows
 
 pytestmark = pytest.mark.needs_cuda
 
@@ -496,18 +497,183 @@ def test_causal_prefill_runs_on_flash_kernel(cuda):
     torch.testing.assert_close(out["lutgemm"], out[None], rtol=0, atol=0)
 
 
+TERNARY_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                  (torch.float32, torch.bfloat16), (torch.float32, torch.float32)]
+TERNARY_IDS = ["bf16_bf16", "bf16_f32", "f32_bf16", "f32_f32"]
+LLAMA_LEAVES = [(4, 3072, 5120, 4, 128), (4, 3072, 3072, 4, 128), (4, 3072, 16384, 4, 128),
+                (4, 8192, 3072, 4, 128), (4, 3072, 128256, 4, 128), (64, 3072, 3072, 4, 128)]
+TERNARY_EXTRA = [(5, 776, 100, 2, 8), (33, 1024, 200, 2, 1024), (9, 4096, 130, 2, 64)]  # k no whole 32-k tile, g = k, ragged
+
+
+def ternary_inputs(B, k, o, g, x_dtype, s_dtype, gen, device):
+    x = torch.randn((B, k), generator=gen, device=device).to(x_dtype)
+    packed, scales = format_planes("ternary", k, o, 2, g, s_dtype, gen, device)
+    return x, packed, scales
+
+
+@pytest.mark.parametrize("dtypes", TERNARY_DTYPES, ids=TERNARY_IDS)
+@pytest.mark.parametrize("B,k,o,q,g", SHAPES + LLAMA_LEAVES + TERNARY_EXTRA)
+def test_ternary_kernel_matches_plain_on_both_paths(cuda, B, k, o, q, g, dtypes):
+    """K4 against its plain version within 2e-4 at the sweep, llama3.2-3b's
+    five leaves and edge shapes (g = 8, g = k, ragged o, a k that is no
+    whole number of 32-k tiles), on the tensor cores for bf16 x with bf16
+    alpha and on the group-table kernel for the other three pairs; the same
+    bits on reruns; the tensor-core count moves for bf16/bf16 only."""
+    x_dtype, s_dtype = dtypes
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B * 7 + k + o + g)
+    x, packed, scales = ternary_inputs(B, k, o, g, x_dtype, s_dtype, gen, cuda)
+    reset_launch_counts()
+    got = ternary_mm(x, packed, scales, g=g)
+    again = ternary_mm(x, packed, scales, g=g)  # back to back, no sync between
+    torch.cuda.synchronize()
+    tc = x_dtype == s_dtype == torch.bfloat16
+    assert launch_counts()["ternary_mm"] == 2 and ternary_mm.tc_launches == (2 if tc else 0)
+    torch.testing.assert_close(got, ternary_mm_plain(x, packed, scales, g=g), rtol=TOL, atol=TOL)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+    for _ in range(3):
+        torch.testing.assert_close(ternary_mm(x, packed, scales, g=g), got, rtol=0, atol=0)
+
+
+def test_ternary_tensor_cores_take_a_misaligned_x(cuda):
+    """x whose base is 8 bytes off 16 (a view into a larger buffer): the
+    tensor-core kernel reads x in 16-byte pieces, so the wrapper copies it,
+    and the result has the bits of the aligned call."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    B, k, o, g = 5, 3072, 3072, 128
+    x, packed, scales = ternary_inputs(B, k, o, g, torch.bfloat16, torch.bfloat16, gen, cuda)
+    buf = torch.empty(B * k + 4, dtype=torch.bfloat16, device=cuda)
+    buf[4:] = x.reshape(-1)
+    x_off = buf[4:].view(B, k)
+    assert x_off.data_ptr() % 16 == 8
+    reset_launch_counts()
+    got = ternary_mm(x_off, packed, scales, g=g)
+    assert ternary_mm.tc_launches == 1
+    torch.testing.assert_close(got, ternary_mm(x, packed, scales, g=g), rtol=0, atol=0)
+
+
+TERNARY_CASES = [  # (B, o, chunk): every row tile and two batch tiles, ragged o, and
+    # k-splits of 1, 5 and 3 tiles (chunk boundaries inside a group at g = 128)
+    (1, 100, None), (3, 130, 4), (8, 1000, 20), (9, 100, 12), (16, 130, None), (33, 1000, 20), (64, 100, 4),
+]
+
+
+@pytest.mark.parametrize("g", [8, 64, 128, 768])
+def test_ternary_tensor_core_kernel_forced_splits(cuda, monkeypatch, g):
+    """The tensor-core path at forced k-splits (chunks of 1, 3 and 5
+    tiles), every row tile and two batch tiles, ragged o: within 2e-4 of
+    the plain version and bitwise against reruns, which also shows that
+    every launch left its tickets at 0 for the next."""
+    tm = importlib.import_module("repro_torch.kernels.ternary_mm")
+    plan = tm.tc_plan
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(g)
+    k = 768
+    for B, o, chunk in TERNARY_CASES:
+        monkeypatch.setattr(tm, "tc_plan", plan if chunk is None else functools.partial(plan, chunk=chunk))
+        x, packed, scales = ternary_inputs(B, k, o, g, torch.bfloat16, torch.bfloat16, gen, cuda)
+        reset_launch_counts()
+        got = ternary_mm(x, packed, scales, g=g)
+        again = ternary_mm(x, packed, scales, g=g)
+        torch.cuda.synchronize()
+        assert ternary_mm.tc_launches == 2
+        msg = f"B={B} o={o} chunk={chunk}"
+        torch.testing.assert_close(got, ternary_mm_plain(x, packed, scales, g=g), rtol=TOL, atol=TOL, msg=msg)
+        torch.testing.assert_close(again, got, rtol=0, atol=0, msg=msg)
+        for _ in range(5):
+            torch.testing.assert_close(ternary_mm(x, packed, scales, g=g), got, rtol=0, atol=0, msg=msg)
+
+
+@pytest.mark.parametrize("B", [1, 4, 9, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["tensor_cores", "group_table"])
+@pytest.mark.parametrize("k,o,g", [(3072, 3072, 128), (1024, 256, 128), (776, 100, 8)], ids=["wo", "sweep", "g8"])
+def test_ternary_rows_equal_solo(cuda, k, o, g, dtype, B):
+    """Batch invariance on both paths: row r of a B-row K4 call equals the
+    same row called alone, bit for bit (the plans do not depend on B, and a
+    row sums in the same order in every n-tile and row tile)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B + k)
+    x, packed, scales = ternary_inputs(B, k, o, g, dtype, dtype, gen, cuda)
+    full = ternary_mm(x, packed, scales, g=g)
+    for r in range(B):
+        torch.testing.assert_close(ternary_mm(x[r : r + 1], packed, scales, g=g), full[r : r + 1],
+                                   rtol=0, atol=0, msg=f"row {r} of {B}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["tensor_cores", "group_table"])
+def test_ternary_rows_equal_solo_across_row_slabs(cuda, monkeypatch, dtype):
+    """A call wider than a row slab launches once a slab (the scratch cap
+    lowered here: 32-row slabs on the tensor cores, 8 on the group-table
+    path, at ``wo``): each row equals the row alone, bit for bit, and the
+    call counts once."""
+    gt = importlib.import_module("repro_torch.kernels.grouptable")
+    tm = importlib.import_module("repro_torch.kernels.ternary_mm")
+    k, o, g = 3072, 3072, 128
+    if dtype == torch.bfloat16:
+        splits, slab, B = tm.tc_plan(k, o, g).splits, tm.MAX_ROWS, 72
+    else:
+        splits, slab, B = gt.plan("ternary", k, o, 2, g, dtype, dtype).splits, 8, 21
+    monkeypatch.setattr(gt, "SCRATCH_CAP", slab * 4 * splits * o)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B)
+    x, packed, scales = ternary_inputs(B, k, o, g, dtype, dtype, gen, cuda)
+    reset_launch_counts()
+    full = ternary_mm(x, packed, scales, g=g)
+    assert launch_counts()["ternary_mm"] == 1
+    assert ternary_mm.tc_launches == (1 if dtype == torch.bfloat16 else 0)
+    torch.testing.assert_close(full, ternary_mm_plain(x, packed, scales, g=g), rtol=TOL, atol=TOL)
+    for r in range(B):
+        torch.testing.assert_close(ternary_mm(x[r : r + 1], packed, scales, g=g), full[r : r + 1],
+                                   rtol=0, atol=0, msg=f"row {r} of {B}")
+
+
+@pytest.mark.parametrize("B", [2, 4, 9, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,o", [(3072, 3072), (3072, 16384), (8192, 3072)], ids=["wo", "w_gate_up", "w_down"])
+def test_dense_and_dequant_rows_equal_solo(cuda, k, o, dtype, B):
+    """Queue 3: a dense linear's product (``utils.matmul_rows`` on decode
+    rows, tiles of ``ROW_TILE``) and ``dequant_mm`` told its rows are decode
+    rows give each row of a B-row call the bits of the row called alone."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B + o)
+    x = torch.randn((B, 1, k), generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((k, o), generator=gen, device=cuda) / np.sqrt(k)).to(dtype)
+    full = matmul_rows(x, w)
+    assert full.shape == (B, 1, o)
+    torch.testing.assert_close(full, torch.matmul(x, w), rtol=2e-2, atol=2e-2)
+    for r in range(B):
+        torch.testing.assert_close(matmul_rows(x[r : r + 1], w), full[r : r + 1], rtol=0, atol=0, msg=f"dense {r}")
+    packed, scales = format_planes("dequant", k, o, 4, 128, dtype, gen, cuda)
+    xd = x[:, 0]
+    got = dequant_mm(xd, packed, scales, g=128, token_rows=True)
+    torch.testing.assert_close(got, dequant_mm_plain(xd, packed, scales, g=128), rtol=TOL, atol=TOL)
+    for r in range(B):
+        torch.testing.assert_close(dequant_mm(xd[r : r + 1], packed, scales, g=128, token_rows=True),
+                                   got[r : r + 1], rtol=0, atol=0, msg=f"dequant {r}")
+    assert ROW_TILE == 8
+
+
 @pytest.mark.parametrize(
-    "q,mode,slots", [(0, None, 3), (4, None, 3), (4, "lutgemm", 9)], ids=["dense", "bcq_q4", "bcq_q4_lutgemm_9slots"]
+    "q,mode,slots,fmt,dtype",
+    [(0, None, 3, "bcq", "float32"), (4, None, 3, "bcq", "float32"), (4, "lutgemm", 9, "bcq", "float32"),
+     (0, None, 9, "bcq", "bfloat16"), (4, None, 9, "dequant", "bfloat16"), (4, None, 4, "dequant", "float32"),
+     (4, None, 9, "ternary", "bfloat16"), (4, None, 3, "ternary", "float32")],
+    ids=["dense", "bcq_q4", "bcq_q4_lutgemm_9slots", "dense_bf16_9slots", "dequant_bf16_9slots", "dequant_f32",
+         "ternary_bf16_9slots", "ternary_f32"],
 )
-def test_slot_batches_match_solo_on_card(cuda, q, mode, slots):
+def test_slot_batches_match_solo_on_card(cuda, q, mode, slots, fmt, dtype):
     """Continuous batching on the GPU: greedy and sampled requests through
     the slots, each identical to its solo generate (the kernels reduce each
-    row in a fixed order whatever the batch). Under ``impl_mode("lutgemm")``
-    9 slots put K3 at a row tile of 8 and two batch tiles."""
-    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512)
+    row in a fixed order whatever the batch; dense and ``dequant`` products
+    run decode rows in fixed tiles). Under ``impl_mode("lutgemm")`` 9 slots
+    put K3 at a row tile of 8 and two batch tiles; the bf16 ternary model
+    runs K4's tensor cores, the f32 one its group-table path."""
+    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_kv_heads=4, d_ff=512, param_dtype=dtype,
+                  compute_dtype=dtype)
     params = init_params(cfg, seed=0, device=cuda)
     if q:
-        params = quantize_params(params, QuantPolicy(q=q, g=128, iters=2), device=cuda)
+        params = quantize_params(params, QuantPolicy(q=q, g=128, iters=2, fmt=fmt), device=cuda)
     eng = Engine(cfg, params, max_seq=64, device=cuda)
     rng = np.random.default_rng(0)
     reqs = [
@@ -525,3 +691,5 @@ def test_slot_batches_match_solo_on_card(cuda, q, mode, slots):
             solo = eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
             np.testing.assert_array_equal(done[r.rid].new_tokens, solo.tokens[0, r.prompt.size :])
     assert (launch_counts()["lutgemm"] > 0) == (mode == "lutgemm")
+    assert (ternary_mm.tc_launches > 0) == (q > 0 and fmt == "ternary" and dtype == "bfloat16")
+    assert (launch_counts()["dequant_materialize"] > 0) == (q > 0 and fmt == "dequant")

@@ -497,3 +497,126 @@ def test_split_kernels_share_one_set_of_launch_helpers():
         assert mod.row_tile is common.row_tile
     for mod in (cm, lm):
         assert mod.MIN_BLOCKS == common.MIN_BLOCKS and mod.wave_fill is common.wave_fill
+
+
+# K4 ternary_mm: the tensor-core path's plan (bf16 x with bf16 alpha) and the
+# group-table plan of its CUDA-core path (f32 x or f32 alpha).
+tm = importlib.import_module("repro_torch.kernels.ternary_mm")
+TC_SWEEP = [(k, o, g) for k, o, _, g in SWEEP] + [(776, 100, 8), (16384, 256, 128), (3072, 130, 3072)]
+
+
+def check_tc_plan(p, k, o, g):
+    kc = k // 8
+    ch = chunks(p)
+    # the chunks cover k once, in order, in whole 32-k tiles (4 byte rows)
+    assert ch[0][0] == 0 and ch[-1][1] == kc
+    assert all(a[1] == b[0] for a, b in zip(ch, ch[1:])) and all(lo < hi for lo, hi in ch)
+    assert p.chunk % tm.TILE_ROWS == 0 and p.stage_rows % tm.TILE_ROWS == 0
+    assert p.stage_rows <= tm.STAGE_ROWS
+    stages = [[(r0, min(c1, r0 + p.stage_rows)) for r0 in range(c0, c1, p.stage_rows)] for c0, c1 in ch]
+    # a whole chunk's stages are balanced: the fewest of at most STAGE_ROWS, short by less than a tile a stage
+    for st in stages[:-1]:
+        assert len(st) == -(-p.chunk // tm.STAGE_ROWS)
+        assert st[-1][1] - st[-1][0] > p.stage_rows - tm.TILE_ROWS * len(st)
+    # alpha holds every group a stage touches, with 3 groups of margin for a short last tile
+    spanned = max((r1 * 8 - 1) // g - r0 * 8 // g + 1 for st in stages for r0, r1 in st)
+    assert p.stage_groups == spanned
+    assert p.off_s >= 2 * p.stage_rows * tm.PLANE_STRIDE
+    assert p.stage_bytes >= p.off_s + (p.stage_groups + 3) * tm.COLS * 2
+    assert p.off_s % 16 == p.stage_bytes % 16 == 0
+    assert p.smem >= tm.RING * p.stage_bytes
+    assert p.smem >= common.WARPS * tm.MAX_ROWS * tm.COLS * 4  # the warps' sums
+    assert p.smem <= tm.SMEM_BUDGET and 2 * (p.smem + 1024) <= SM_SHARED
+    assert p.col_tiles * tm.COLS >= o > (p.col_tiles - 1) * tm.COLS
+
+
+def tc_blocks(p, B):
+    return p.col_tiles * -(-B // tm.tc_rows(B)) * p.splits
+
+
+@pytest.mark.parametrize("leaf", list(LEAVES))
+def test_ternary_tc_plan_fills_the_card_at_llama_leaves(leaf):
+    """Every llama3.2-3b leaf puts at least two blocks on each of 132 SMs
+    at every width, with full waves at decode widths, at least one 32-k
+    tile a warp, and splits k only where the column tiles leave SMs idle."""
+    k, o = LEAVES[leaf]
+    p = tm.tc_plan(k, o, 128)
+    check_tc_plan(p, k, o, 128)
+    for B in (1, 4, 64):
+        assert tc_blocks(p, B) >= common.MIN_BLOCKS
+    for B in (1, 4):
+        assert common.wave_fill(tc_blocks(p, B)) >= 0.9
+    assert p.chunk >= common.WARPS * tm.TILE_ROWS
+    assert p.splits == {"wqkv": 6, "wo": 11, "w_gate_up": 2, "w_down": 11, "lm_head": 1}[leaf]
+
+
+@pytest.mark.parametrize("k,o,g", TC_SWEEP)
+def test_ternary_tc_plan_sweep(k, o, g):
+    """The reference's sweep shapes, g = 8 (a group a byte row), g = k, a k
+    that is no whole number of 32-k tiles, ragged o: chunks cover k once,
+    every stage fits two blocks an SM, and the split reaches two blocks an
+    SM unless tiles of one a warp stop it."""
+    p = tm.tc_plan(k, o, g)
+    check_tc_plan(p, k, o, g)
+    tiles = -(-(k // 8) // tm.TILE_ROWS)
+    assert tc_blocks(p, 1) >= common.MIN_BLOCKS or p.chunk == tm.TILE_ROWS * min(common.WARPS, tiles)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 4, 20, 36, 10_000])
+def test_ternary_tc_plan_chunk_override(chunk):
+    """A chunk given by the caller, rounded up to whole tiles: boundaries
+    inside a group (20 and 36 byte rows at g = 128) or on one, a short last
+    chunk, a chunk past k."""
+    k, o, g = 1024, 130, 128
+    p = tm.tc_plan(k, o, g, chunk=chunk)
+    check_tc_plan(p, k, o, g)
+    kc = k // 8
+    assert p.chunk == min(-(-chunk // 4) * 4, kc) and p.splits == -(-kc // p.chunk)
+
+
+def test_ternary_tc_plan_does_not_depend_on_batch():
+    """The plan takes (k, o, g) alone: one split and one set of stages serve
+    every batch; only the batch tiles, row slabs, scratch and tickets scale
+    with B."""
+    assert list(inspect.signature(tm.tc_plan).parameters) == ["k", "o", "g", "chunk"]
+    p = tm.tc_plan(3072, 3072, 128)
+    assert p.splits > 1
+    for B, rows in ((1, 8), (4, 8), (8, 8), (9, 16), (16, 16), (17, 32), (64, 32)):
+        assert tm.tc_rows(B) == rows
+        tiles = p.col_tiles * -(-B // rows)
+        assert tc_blocks(p, B) == tiles * p.splits
+        assert p.tickets(B) == tiles
+        assert p.scratch_floats(B) == p.splits * B * 3072
+        assert p.slab_rows(B) == B
+
+
+@pytest.mark.parametrize("leaf", list(LEAVES))
+def test_ternary_tc_scratch_within_cap_at_long_prefill(leaf):
+    """At 8192 rows the split's scratch would reach gigabytes; row slabs of
+    whole 32-row blocks keep a launch's within ``SCRATCH_CAP`` and cover
+    the rows once, in order."""
+    k, o = LEAVES[leaf]
+    p = tm.tc_plan(k, o, 128)
+    B = 8192
+    slab = p.slab_rows(B)
+    assert 4 * p.scratch_floats(slab) <= gt.SCRATCH_CAP
+    assert slab == B if p.splits == 1 else (slab % tm.MAX_ROWS == 0 and slab < B)
+    assert sum(min(slab, B - b0) for b0 in range(0, B, slab)) == B
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)], ids=["f32_f32", "f32_bf16", "bf16_f32"])
+@pytest.mark.parametrize("leaf", list(LEAVES))
+def test_ternary_grouptable_plan_at_llama_leaves(leaf, dtypes):
+    """The CUDA-core path takes the group-table plan at q = 2 planes and one
+    alpha plane: the table path by ``TABLE_MAX_Q``, 128 columns a block,
+    two blocks an SM, the same split rule as K1/K5."""
+    k, o = LEAVES[leaf]
+    p = gt.plan("ternary", k, o, 2, 128, *dtypes)
+    assert p.q == 2 and p.ns == 4 and p.table == (2 <= gt.TABLE_MAX_Q["ternary"])
+    assert gt.SCALE_PLANES["ternary"] == 1
+    assert p.off_x >= p.off_s + 1 * p.stage_groups * p.cols * torch.finfo(dtypes[1]).bits // 8
+    assert p.smem <= gt.SMEM_BUDGET
+    for B in (1, 4):
+        assert blocks(p, B) >= common.MIN_BLOCKS
+    assert p.splits == gt.plan("uniform", k, o, 4, 128, *dtypes).splits

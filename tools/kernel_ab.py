@@ -4,7 +4,7 @@ g=128, bf16 x and scales) for several source trees of the port in turns,
 inside one run.
 
     python3 tools/kernel_ab.py --tree parent=DIR --tree change=. \\
-        [--kernels bcq_mm bcq_mm_fused uniform_mm] [--batches 1 4 64] [--out FILE]
+        [--kernels bcq_mm bcq_mm_fused uniform_mm ternary_mm] [--batches 1 4 64] [--out FILE]
 
 Each ``--tree NAME=DIR`` names a directory holding ``src/repro_torch`` (for
 example a ``git archive`` of another commit, unpacked under the gitignored
@@ -14,7 +14,9 @@ process times every kernel at each leaf it serves and each batch size:
 calls cycling through rotated weight copies (so weights come from device
 memory, not the 50 MB L2) are captured in a CUDA graph and its replays
 timed with CUDA events, median of 7; the first call is held to the plain
-version within 2e-4. It prints one line per turn, a table of medians with
+version within 2e-4, unless ``--unchecked`` (for trees whose kernel had a
+part taken out on purpose, to see what that part costs: their results
+are wrong by design). It prints one line per turn, a table of medians with
 each tree's decode step (each leaf once a layer, ``lm_head`` once, 28
 layers), and with ``--out`` writes every run's times to that JSON file.
 Needs one CUDA GPU.
@@ -43,12 +45,13 @@ SERVES = {  # kernel: (format, leaves)
     "bcq_mm": ("bcq", ("wo", "w_down", "lm_head")),
     "bcq_mm_fused": ("bcq", ("wqkv", "w_gate_up")),
     "uniform_mm": ("uniform", tuple(LEAVES)),
+    "ternary_mm": ("ternary", tuple(LEAVES)),  # bf16 x and alpha: the tensor-core path
 }
 L2_BYTES = 50 * 2**20
 TOL = 2e-4
 
 
-def child(kernels, batches) -> None:
+def child(kernels, batches, checked=True) -> None:
     import torch
 
     from repro_torch import kernels as K
@@ -104,7 +107,7 @@ def child(kernels, batches) -> None:
                     call = lambda p, s: fn(x, p, s, g=g)  # noqa: E731
                     y = call(*weights[0])
                 err = (y - plain(x, *weights[0], g=g)).abs().max().item()
-                if not err <= TOL:
+                if checked and not err <= TOL:
                     raise SystemExit(f"kernel_ab: {name} {leaf} B={B} differs from its plain version by {err}")
                 out[f"{name} {leaf} {B}"] = timed(call, weights)
             del weights
@@ -118,10 +121,11 @@ def main() -> int:
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 4, 64])
     ap.add_argument("--rounds", type=int, default=1, help="forward-and-backward passes over the trees")
     ap.add_argument("--out", type=Path, help="a JSON file for every run's times")
+    ap.add_argument("--unchecked", action="store_true", help="time without holding the first call to the plain version")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.kernels, args.batches)
+        child(args.kernels, args.batches, checked=not args.unchecked)
         return 0
     if not args.tree:
         ap.error("name at least one --tree")
@@ -134,7 +138,7 @@ def main() -> int:
     for name, d in order:
         env = dict(os.environ, PYTHONPATH=str((Path(d) / "src").resolve()))
         cmd = [sys.executable, __file__, "--child", "--kernels", *args.kernels,
-               "--batches", *map(str, args.batches)]
+               "--batches", *map(str, args.batches)] + (["--unchecked"] if args.unchecked else [])
         res = subprocess.run(cmd, env=env, capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout[-2000:], res.stderr[-3000:], file=sys.stderr)
