@@ -40,13 +40,19 @@ code is non-zero:
              ``dequant_mm`` products of 4, 9, 16 and 64 decode rows at
              ``wo`` and ``w_gate_up`` must give each row the bits of the row
              alone (fixed tiles of rows, so cuBLAS sees one shape), and what
-             the tiles cost a B = 4 decode step against one product;
+             the tiles cost a B = 4 decode step against one product. The
+             speculative path's shapes (bf16): K1/K2 and K3 at q' = 1 and 2
+             planes on the five leaves at B = 1, 4, the verify's 4·(γ+1) =
+             20 rows and the draft prefill's 64, at q = 4 at 20 rows, and K4
+             at 20 rows, each checked and timed with its byte bound; K1/K2
+             at q' = 2 and q = 4 at phase 6's prompt lengths, checked; and
+             each path's decode step at every q and B;
 4. flash     ``flash_attention`` (K8) against its plain version (``_sdpa``
              under a causal mask, run one batch row at a time) at
              llama3.2-3b's heads (24 / 8, Dh 128) for B in {1, 4} and S in
              {1, 16, 17, 100, 512, 2048, 8192}, at the reference test's four
-             shapes and at Dh 16 and 64, in bf16 (tolerance 3e-2) and f32
-             (2e-4), the reference test's own tolerances, and in bf16 also
+             shapes and at Dh 16 and 64, in bf16 (rtol = atol = 3e-2) and f32
+             (2e-4), the reference test's own ``assert_allclose``, and in bf16 also
              per query row: max|Δ| over the row's Dh values within 2^-6 of
              the row's max|plain| (``BF16_ROW_TOL``: twice one bf16 ulp of
              the output; the long rows' values fall as 1/sqrt(S), below the
@@ -84,8 +90,30 @@ code is non-zero:
              the ~6.4 GB of f32 logits per layer that ``_sdpa`` would need,
              and its greedy tokens against the same request under
              ``impl_mode("ref")`` (``_sdpa_qchunked`` at this length);
-7. one JSON line listing every kernel, its launches and its numbers;
-8. last line ``{"ok": true, "device": {...}}``.
+7. spec      self-speculative decoding (``SpecConfig(2, 4)``; ternary
+             ``(1, 4)``) at full width and depth: a batched ``generate`` (4
+             prompts of 16 tokens, 16 new) on the bcq model, on it under
+             ``impl_mode("lutgemm")`` and on the ternary model must give the
+             plain greedy tokens; each run's launches, counted by (kernel,
+             planes, rows) (``kernel_census``), must be what the chunk
+             structure predicts (both prefills at q and q' planes, γ + 1 draft
+             steps at q' planes and B rows, one verify at q planes and
+             B·(γ+1) rows a chunk), K8 twice a layer, the ref oracle never,
+             and every (kernel, planes, rows) launched must be one phase 3
+             held to its plain version. A fourth run drafts with all q = 4
+             planes (``SpecConfig(4, 4)``: the draft is the target) and must
+             accept every proposal, so the verify's rows 1..γ, the
+             multi-token commit and the draft cache's continuity are
+             exercised at full depth. Then phase 6's 12 requests through a speculative 4-slot
+             scheduler, the temperature-1.0 requests opted out: every greedy
+             and opted-out request must equal its solo plain ``generate``,
+             with the launches predicted the same way. Each run prints its
+             acceptance, chunks, tok/s and TTFT beside the plain run's, and
+             the device-busy share of a profiled second run; the device time
+             of one draft step, one q = 4 step and one verify forward too;
+8. one JSON line listing every kernel, its launches (``spec_launches``: on
+             phase 7's runs) and its numbers;
+9. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -101,8 +129,11 @@ it exits non-zero before printing any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import math
 import statistics
@@ -166,6 +197,15 @@ FLASH_EXTRA = [  # (B, S, H, Hkv, Dh): the reference test's shapes, then Dh 16 a
 # the continuous-batching phase: prompt lengths over 16..512 (ragged for K8)
 SERVE_PROMPT_LENS = (16, 512, 37, 200, 100, 17, 300, 64, 450, 129, 24, 256)
 SERVE_SLOTS, SERVE_CHUNK = 4, 8
+# self-speculative decoding (phase 7): q' draft planes, gamma proposals a chunk;
+# a speculative dispatch of the scheduler runs SPEC_CHUNK chunks
+SPEC_Q, SPEC_GAMMA, SPEC_Q_TERNARY = 2, 4, 1
+SPEC_CHUNK = 2
+VERIFY_ROWS = PROMPTS * (SPEC_GAMMA + 1)  # a batched generate's verify: B·(γ+1) rows
+DRAFT_Q = (1, 2)
+# the bcq model's leaves and the kernel each one launches (fused leaves: K2)
+BCQ_LEAF_KERNELS = {"wqkv": "bcq_mm_fused", "wo": "bcq_mm", "w_gate_up": "bcq_mm_fused", "w_down": "bcq_mm",
+                    "lm_head": "bcq_mm"}
 LONG_NEW = 8
 # the formats served after bcq, with the kernel each one's path launches
 FORMAT_KERNEL = {"uniform": "uniform_mm", "dequant": "dequant_materialize", "ternary": "ternary_mm",
@@ -594,11 +634,12 @@ def check_flash(B, S, H, Hkv, Dh, dtype, gen):
     ref = flash_plain_rows(q, k, v)
     err = (out.float() - ref.float()).abs().max().item()
     row_err = row_rel_err(out, ref)
+    tol = FLASH_TOL[dtype]
+    within = bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol))  # the reference test's assert
     del ref
     same_bits = bool(torch.equal(flash_attention(q, k, v), out))
-    tol = FLASH_TOL[dtype]
     row_tol = BF16_ROW_TOL if dtype == torch.bfloat16 else None
-    ok = (err <= tol and (row_tol is None or row_err <= row_tol) and same_bits
+    ok = (within and (row_tol is None or row_err <= row_tol) and same_bits
           and bool(torch.isfinite(out).all()) and out.dtype == dtype)
     ms = time_ms(flash_attention, inputs)
     plain_ms = time_ms(flash_plain_rows, [(q, k, v)], reps=3, inner=1)
@@ -618,7 +659,7 @@ def check_flash(B, S, H, Hkv, Dh, dtype, gen):
     rec["library_tflops"] = None if library_ms is None else ops / library_ms / 1e9
     lib = "-" if library_ms is None else f"{library_ms:.4f} ({rec['library_tflops']:.1f} TFLOP/s)"
     log(f"  flash_attention B={B} S={S:<5d} H={H:<2d}/{Hkv:<2d} Dh={Dh:<3d} {rec['dtype']:8s} "
-        f"err {err:.2e} (tol {tol:g}) row {row_err:.2e}{'' if row_tol is None else f' (tol {row_tol:g})'} "
+        f"err {err:.2e} (rtol = atol = {tol:g}) row {row_err:.2e}{'' if row_tol is None else f' (tol {row_tol:g})'} "
         f"bits {'same' if same_bits else 'DIFFER'} {'ok' if ok else 'FAIL'}  "
         f"ms {ms:.4f} ({rec['tflops']:.1f} TFLOP/s)  plain {plain_ms:.4f}  "
         f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})  library {lib}")
@@ -832,7 +873,7 @@ def serve_format(cfg, params, prompts, fmt):
     small_model_check(fmt)
     summary = dict(tok_s=n_tok / dt, wall_s=dt, peak_gb=peak / 1e9, transient_gb=(peak - base) / 1e9,
                    tc_launches=tc_launches, profile=profile_generate(engine, prompts, dt, fmt))
-    return counts[kernel], res.tokens, summary
+    return counts[kernel], res.tokens, summary, engine
 
 
 def phase_main_path():
@@ -860,7 +901,10 @@ def phase_main_path():
     summaries = {"bcq": summary}
     tokens = {}
     for fmt, kernel in FORMAT_KERNEL.items():
-        counts[kernel], tokens[fmt], summaries[fmt] = serve_format(cfg, params, prompts, fmt)
+        counts[kernel], tokens[fmt], summaries[fmt], engine = serve_format(cfg, params, prompts, fmt)
+        if fmt == "ternary":
+            ternary_engine = engine  # phase 7 speculates on it
+        del engine
     counts["ternary_mm_tc"] = summaries["ternary"]["tc_launches"]
     same = int((tokens["uniform"] == tokens["dequant"]).all(axis=1).sum())
     log(f"  greedy rows identical, uniform vs dequant: {same}/{PROMPTS} (reported, not asserted: "
@@ -868,7 +912,7 @@ def phase_main_path():
     log(f"  K8 inputs copied for the TMA's alignment on the main path: {flash_attention.copies}")
     if flash_attention.copies:
         raise SystemExit("chip_smoke: the model's q, k, v views did not reach K8 in place")
-    return counts, cfg, summaries, bcq_engine
+    return counts, cfg, summaries, bcq_engine, ternary_engine, prompts
 
 
 def serving_engine(engine, max_seq):
@@ -920,10 +964,17 @@ def slot_vs_solo_logits(engine, reqs):
     return worst
 
 
-def device_profile(run):
+def device_profile(run, cross_check=False):
     """Device busy time by kernel over ``run()``, traced with
     ``torch.profiler`` (CUDA activity only, which slows the host least) →
-    (device ms, traced wall ms, {kernel: ms})."""
+    (device ms, traced wall ms, {kernel: ms}). The device activities are
+    summed straight from the trace's events (``kineto_results``, a private
+    attribute, checked on torch 2.11): ``key_averages()`` builds a Python
+    object per event (~70 us each), a minute for the ~10^5 kernels of a
+    speculative run. Without that attribute the sum falls back to
+    ``key_averages()``; ``cross_check`` computes both and fails unless they
+    agree within 0.1% plus a microsecond an event (the rounding of the
+    public sum)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -932,12 +983,40 @@ def device_profile(run):
         run()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
-    return sum(by_name.values()), traced_ms, by_name
+    fast = _trace_device_ms(prof)
+    if fast is None or cross_check:
+        public = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if us > 0:
+                public[ev.key] = public.get(ev.key, 0.0) + us / 1e3
+        if fast is None:
+            return sum(public.values()), traced_ms, public
+        n_events, by_name = fast
+        a, b = sum(by_name.values()), sum(public.values())
+        log(f"  device_profile cross-check (torch {torch.__version__}): trace events {a:.3f} ms over {n_events} "
+            f"events, key_averages() {b:.3f} ms")
+        if abs(a - b) > 1e-3 * b + 1e-3 * n_events:
+            raise SystemExit(f"chip_smoke: the trace's device events sum to {a:.3f} ms, key_averages() to "
+                             f"{b:.3f} ms: the profiler's private event list changed meaning")
+    return sum(fast[1].values()), traced_ms, fast[1]
+
+
+def _trace_device_ms(prof):
+    """(events, {kernel: ms}) of the trace's device activities, or None where
+    this torch has no ``kineto_results`` event list."""
+    try:
+        from torch.autograd import DeviceType
+
+        events = prof.profiler.kineto_results.events()
+    except (AttributeError, ImportError):
+        return None
+    by_name, n = {}, 0
+    for ev in events:
+        if ev.device_type() == DeviceType.CUDA:
+            by_name[ev.name()] = by_name.get(ev.name(), 0.0) + ev.duration_ns() / 1e6
+            n += 1
+    return n, by_name
 
 
 def phase_serving(bcq_engine):
@@ -1009,7 +1088,7 @@ def phase_serving(bcq_engine):
                    max_logit_diff_slot_vs_solo=worst, solo_s=solo_s, device_ms=device_ms,
                    traced_wall_ms=traced_ms, busy_share=device_ms / (wall * 1e3), flash_ms=flash_ms,
                    top=[[k, v] for k, v in top])
-    return counts["flash_attention"], summary
+    return counts["flash_attention"], summary, dict(engine=engine, solos=solos)
 
 
 def forced_logits(engine, prompt, tokens, mode):
@@ -1160,7 +1239,8 @@ def small_model_check(fmt):
 
 def profile_generate(engine, prompts, untraced_s, fmt):
     """Device busy time by kernel over one batched ``generate``."""
-    device_ms, traced_ms, by_name = device_profile(lambda: engine.generate(prompts, NEW_TOKENS))
+    device_ms, traced_ms, by_name = device_profile(lambda: engine.generate(prompts, NEW_TOKENS),
+                                                   cross_check=fmt == "bcq")
     if not device_ms:
         log(f"  [{fmt}] profile: torch.profiler recorded no device time; busy share not measured")
         return None
@@ -1176,11 +1256,364 @@ def profile_generate(engine, prompts, untraced_s, fmt):
                 format_kernels_ms=ours_ms, top=[[name, ms] for name, ms in top])
 
 
-def kernels_line(records, counts, n_layers, flash_records):
+def draft_shapes(gen, records):
+    """The speculative path's shapes (phase 3), bf16, each held to its plain
+    version: K1/K2 and K3 at q' = 1 and 2 planes on the five leaves at B = 1,
+    4, the verify's 4·(γ+1) = 20 rows and the draft prefill's 64 rows, at
+    q = 4 at 20 rows, and K4 (the ternary verify) at 20 rows, each timed with
+    its byte bound; K1/K2 at q' and q planes at each of phase 6's prompt
+    lengths (the speculative scheduler's two prefills), checked only. Then
+    each path's decode step at every q and B (``records`` holds the q = 4
+    rows at B = 1 and 4) → (records, steps)."""
+    recs = []
+    widths = [(q, B) for q in DRAFT_Q for B in (1, PROMPTS, VERIFY_ROWS, PROMPTS * PROMPT_LEN)] + [(Q, VERIFY_ROWS)]
+    timed_shapes = [(name, q, B) for name in ("bcq_mm", "bcq_mm_fused", "lutgemm") for q, B in widths]
+    timed_shapes += [("ternary_mm", Q, VERIFY_ROWS)]
+    for name, q, B in timed_shapes:
+        for leaf in KERNELS[name][2]:
+            k, o, dims = LEAVES[leaf]
+            rec = check_kernel(name, B, k, o, q, G, torch.bfloat16, gen, dims if name == "bcq_mm_fused" else None)
+            rec["leaf"] = leaf
+            recs.append(rec)
+    bad = [r for r in recs if not r["ok"]]
+    for name in ("bcq_mm", "bcq_mm_fused"):
+        for leaf in KERNELS[name][2]:
+            k, o, dims = LEAVES[leaf]
+            for q in (SPEC_Q, Q):
+                for B in sorted(set(SERVE_PROMPT_LENS)):
+                    rec = check_untimed(name, B, k, o, q, gen, dims if name == "bcq_mm_fused" else None)
+                    rec["leaf"] = leaf
+                    recs.append(rec)
+                    bad += [] if rec["ok"] else [rec]
+    if bad:
+        raise SystemExit(f"chip_smoke: {len(bad)} draft-shape checks disagree with their plain versions: {bad[:3]}")
+    log(f"  speculative path's shapes: {len(recs)} bf16 checks against the plain versions pass "
+        f"(K1/K2/K3 at q'={DRAFT_Q} B={(1, PROMPTS, VERIFY_ROWS, PROMPTS * PROMPT_LEN)}, q={Q} B={VERIFY_ROWS}; "
+        f"K4 B={VERIFY_ROWS}; K1/K2 at q={(SPEC_Q, Q)} over {len(set(SERVE_PROMPT_LENS))} prompt lengths)")
+    steps = {}
+    for path, names in (("bcq (bcq_mm + bcq_mm_fused)", ("bcq_mm", "bcq_mm_fused")), ("lutgemm", ("lutgemm",))):
+        for B in (1, PROMPTS, VERIFY_ROWS):
+            at = {q: path_step([r for r in records + recs if r["q"] == q and "ms" in r], names, B)
+                  for q in (*DRAFT_Q, Q)}
+            steps[f"{path} B={B}"] = {str(q): st for q, st in at.items()}
+            log(f"  {path} decode step B={B} bf16: " + ", ".join(
+                f"q={q} {st['ms']:.3f} ms (bound {st['bound_ms']:.3f})" for q, st in at.items())
+                + f"; q'=2 / q=4 {at[2]['ms'] / at[Q]['ms']:.2f}x time, "
+                f"{at[2]['bound_ms'] / at[Q]['bound_ms']:.2f}x bound")
+    return recs, steps
+
+
+def check_untimed(name, B, k, o, q, gen, out_dims=None):
+    """One bf16 kernel call against its plain version and a rerun, as in
+    :func:`check_kernel`, without the timings → record dict."""
+    fn, plain = kernel_fns()[name]
+    x = torch.randn((B, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+    packed, scales = format_planes(KERNELS[name][3], k, o, q, G, gen)
+    scales = scales.to(torch.bfloat16)
+
+    def call():
+        return torch.cat(fn(x, packed, scales, g=G, out_dims=out_dims), dim=-1) if out_dims else fn(
+            x, packed, scales, g=G)
+
+    y = call()
+    ref = plain(x, packed, scales, g=G)
+    err = (y - ref).abs().max().item()
+    same_bits = bool(torch.equal(call(), y))
+    ok = bool(torch.allclose(y, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL)) and bool(torch.isfinite(y).all()) and same_bits
+    return dict(kernel=name, format=KERNELS[name][3], B=B, k=k, o=o, q=q, g=G, dtype="bfloat16",
+                s_dtype="bfloat16", max_abs_err=err, tol=KERNEL_TOL, same_bits=same_bits, ok=ok)
+
+
+def checked_shapes(records):
+    """(kernel, planes, rows) of every bf16 leaf-shape check of phase 3."""
+    return {(r["kernel"], r["q"], r["B"]) for r in records if r["leaf"] != "sweep" and is_bf16(r)}
+
+
+def assert_checked(label, seen, checked):
+    """Every (kernel, planes, rows) a counted run launched must have been
+    held to its plain version in phase 3."""
+    missing = sorted(set(seen) - checked)
+    if missing:
+        raise SystemExit(f"chip_smoke: [{label}] launched (kernel, planes, rows) {missing} that phase 3 never "
+                         f"held to a plain version")
+
+
+class _Counted:
+    """A kernel wrapper seen through :func:`kernel_census`: counts each call
+    by (kernel, planes, rows), then calls the wrapper. The wrapper counts its
+    launches on its own module-level name, which now resolves here, so the
+    counters pass through to the wrapper's."""
+
+    def __init__(self, fn, name, seen):
+        self._fn, self._name, self._seen = fn, name, seen
+
+    def __call__(self, x, packed, scales, *a, **kw):
+        self._seen[(self._name, packed.shape[0], x.shape[0])] += 1
+        return self._fn(x, packed, scales, *a, **kw)
+
+    def __getattr__(self, attr):  # launches, tc_launches, ...
+        return getattr(self._fn, attr)
+
+    def __setattr__(self, attr, value):
+        if attr.startswith("_"):
+            object.__setattr__(self, attr, value)
+        else:
+            setattr(self._fn, attr, value)
+
+
+@contextlib.contextmanager
+def kernel_census():
+    """Count every K1, K2, K3 and K4 call by (kernel, planes, rows) while the
+    block runs: the formats' ``matvec`` imports the wrapper at each call, so
+    the module attribute patched here sees them all."""
+    seen = collections.Counter()
+    patched = []
+    for name in ("bcq_mm", "bcq_mm_fused", "lutgemm", "ternary_mm"):
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        fn = getattr(mod, name)
+        setattr(mod, name, _Counted(fn, name, seen))
+        patched.append((mod, name, fn))
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+
+
+def forward_census(kernel_of, planes, rows, head_rows, n_layers, times=1):
+    """The (kernel, planes, rows) calls of ``times`` forwards: each layer leaf
+    once a layer at ``rows``, ``lm_head`` once at ``head_rows``."""
+    c = collections.Counter()
+    for leaf, kernel in kernel_of.items():
+        c[(kernel, planes, head_rows if leaf == "lm_head" else rows)] += times * (1 if leaf == "lm_head" else n_layers)
+    return c
+
+
+def spec_paths(mode):
+    """(target kernels, target planes, draft kernels, draft planes, SpecConfig)
+    of each speculative path. "bcq q'=q" drafts with all q planes, so the
+    draft is the target and every proposal must be accepted."""
+    from repro_torch.infer import SpecConfig
+
+    lut = dict.fromkeys(BCQ_LEAF_KERNELS, "lutgemm")
+    return {
+        "bcq": (BCQ_LEAF_KERNELS, Q, BCQ_LEAF_KERNELS, SPEC_Q, SpecConfig(SPEC_Q, SPEC_GAMMA)),
+        "bcq q'=q": (BCQ_LEAF_KERNELS, Q, BCQ_LEAF_KERNELS, Q, SpecConfig(Q, SPEC_GAMMA)),
+        "bcq lutgemm": (lut, Q, lut, SPEC_Q, SpecConfig(SPEC_Q, SPEC_GAMMA)),
+        "ternary": (dict.fromkeys(BCQ_LEAF_KERNELS, "ternary_mm"), 2, BCQ_LEAF_KERNELS, SPEC_Q_TERNARY,
+                    SpecConfig(SPEC_Q_TERNARY, SPEC_GAMMA)),
+    }[mode]
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def busy(run, wall_s):
+    """Device busy ms of a profiled second run, and its share of the untraced run's wall."""
+    device_ms, traced_ms, _ = device_profile(run)
+    return dict(device_ms=device_ms, traced_wall_ms=traced_ms, busy_share=device_ms / (wall_s * 1e3))
+
+
+def spec_generate_path(engine, prompts, path, checked):
+    """Plain and speculative batched ``generate`` of the same prompts on one
+    path: tokens equal, the speculative run's launches by (kernel, planes,
+    rows) as the chunk structure predicts and each in ``checked`` (phase 3's
+    shapes), K8 twice a layer (target and draft prefill), no ref-oracle
+    dispatch; a q' = q draft must have every proposal accepted → summary."""
+    import numpy as np
+
+    from repro_torch.kernels import impl_mode
+
+    kt, qt, kd, qd, spec = spec_paths(path)
+    mode = "lutgemm" if path == "bcq lutgemm" else None
+    L, B, n_tok = engine.cfg.n_layers, PROMPTS, PROMPTS * NEW_TOKENS
+    with impl_mode(mode):
+        engine.generate(prompts, 2, speculate=spec)  # warm-up: the draft view, allocator
+        plain, t_plain = timed(lambda: engine.generate(prompts, NEW_TOKENS))
+        _, ttft_plain = timed(lambda: engine.generate(prompts, 1))
+        _, ttft_spec = timed(lambda: engine.generate(prompts, 1, speculate=spec))
+        with kernel_census() as seen:
+            res, dt, counts, ref_calls = run_counted(lambda: engine.generate(prompts, NEW_TOKENS, speculate=spec))
+        from repro_torch.kernels import ternary_mm
+        tc_launches = ternary_mm.tc_launches
+        st = res.spec_stats
+        prof_spec = busy(lambda: engine.generate(prompts, NEW_TOKENS, speculate=spec), dt)
+        prof_plain = busy(lambda: engine.generate(prompts, NEW_TOKENS), t_plain)
+    chunks, S = st["chunks"], PROMPT_LEN
+    expect = (forward_census(kt, qt, B * S, B, L) + forward_census(kd, qd, B * S, B, L)
+              + forward_census(kd, qd, B, B, L, chunks * (spec.gamma + 1))
+              + forward_census(kt, qt, B * (spec.gamma + 1), B * (spec.gamma + 1), L, chunks))
+    same = int((res.tokens == plain.tokens).all(axis=1).sum())
+    log(f"  [spec {path}] q'={spec.q_draft} γ={spec.gamma}: accept rate {st['accept_rate']:.3f} "
+        f"({st['accepted']}/{st['proposed']}), {chunks} chunks; {dt:.3f}s, {n_tok / dt:.1f} tok/s "
+        f"(plain {t_plain:.3f}s, {n_tok / t_plain:.1f} tok/s); TTFT {ttft_spec:.3f}s (plain {ttft_plain:.3f}s); "
+        f"device busy {prof_spec['device_ms']:.2f} ms, {prof_spec['busy_share']:.1%} of the wall "
+        f"(plain {prof_plain['device_ms']:.2f} ms, {prof_plain['busy_share']:.1%})")
+    log(f"  [spec {path}] greedy rows identical to plain: {same}/{PROMPTS}; launches {json.dumps(counts)}, "
+        f"ref-oracle dispatches {ref_calls}")
+    if same != PROMPTS:
+        raise SystemExit(f"chip_smoke: [spec {path}] speculative greedy tokens differ from plain greedy")
+    if qd == qt and not (st["accept_rate"] == 1.0 and st["accepted"] == st["proposed"] > 0):
+        raise SystemExit(f"chip_smoke: [spec {path}] the draft is the target, yet only {st['accepted']}/"
+                         f"{st['proposed']} proposals were accepted: a verify row differs from a decode step")
+    if ref_calls:
+        raise SystemExit(f"chip_smoke: [spec {path}] took the ref oracle {ref_calls} times")
+    if dict(seen) != dict(expect):
+        raise SystemExit(f"chip_smoke: [spec {path}] launches by (kernel, planes, rows) {dict(seen)} != "
+                         f"predicted {dict(expect)}")
+    assert_checked(f"spec {path}", seen, checked)
+    if counts["flash_attention"] != 2 * L:
+        raise SystemExit(f"chip_smoke: [spec {path}] K8 launched {counts['flash_attention']} times, not {2 * L}")
+    if tc_launches != counts["ternary_mm"]:
+        raise SystemExit(f"chip_smoke: [spec {path}] K4 took its tensor cores {tc_launches} of "
+                         f"{counts['ternary_mm']} times")
+    log(f"  [spec {path}] launches by (kernel, planes, rows) as predicted: "
+        + ", ".join(f"{k}:{q}:{r}={n}" for (k, q, r), n in sorted(seen.items())))
+    return dict(spec_stats=st, wall_s=dt, tok_s=n_tok / dt, plain_wall_s=t_plain, plain_tok_s=n_tok / t_plain,
+                ttft_s=ttft_spec, plain_ttft_s=ttft_plain, profile=prof_spec, plain_profile=prof_plain,
+                census={f"{k}:{q}:{r}": n for (k, q, r), n in seen.items()}, launches=counts,
+                tokens_equal=same)
+
+
+def step_device_ms(engine, spec):
+    """Device time (profiler, busy ms over 3 calls) of one draft decode step
+    at q', one q = 4 decode step and one verify forward, B = 4 at position
+    16 of a filled cache."""
+    from repro_torch.models import forward
+
+    cfg, B = engine.cfg, PROMPTS
+    toks = torch.randint(0, cfg.vocab, (B, PROMPT_LEN + spec.gamma + 1), device=DEVICE)
+    _, cache = engine.prefill(toks[:, :PROMPT_LEN], engine._make_cache(B))
+    pos = torch.full((B,), PROMPT_LEN, device=DEVICE)
+    draft = engine.draft_params(spec.q_draft)
+    runs = {
+        f"draft step q'={spec.q_draft}": lambda: forward(cfg, draft, tokens=toks[:, PROMPT_LEN : PROMPT_LEN + 1],
+                                                        cache=cache, pos=pos, logits_mode="last"),
+        f"decode step q={Q}": lambda: forward(cfg, engine.params, tokens=toks[:, PROMPT_LEN : PROMPT_LEN + 1],
+                                              cache=cache, pos=pos, logits_mode="last"),
+        f"verify forward q={Q}, {spec.gamma + 1} tokens": lambda: forward(
+            cfg, engine.params, tokens=toks[:, PROMPT_LEN:], cache=cache, pos=pos, logits_mode="all",
+            chunked_decode=True),
+    }
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        device_ms, traced_ms, _ = device_profile(lambda: [fn() for _ in range(3)])
+        out[name] = dict(device_ms=device_ms / 3, wall_ms=traced_ms / 3)
+    log(f"  [spec] device time a forward (B={B}, {cfg.n_layers} layers, profiler busy ms; traced wall in brackets): "
+        + ", ".join(
+        f"{name} {v['device_ms']:.3f} ms [{v['wall_ms']:.1f}]" for name, v in out.items()))
+    return out
+
+
+def spec_serving(serving, plain_summary, checked):
+    """Phase 6's 12 requests through ``Scheduler(speculate=SpecConfig(2, 4))``
+    with 4 slots; the temperature-1.0 requests opt out. Every greedy and
+    opted-out request must equal phase 6's solo plain ``generate`` of it;
+    sampled speculative ones are reported. Launches as in
+    :func:`spec_generate_path`."""
+    import numpy as np
+
+    from repro_torch.infer import SpecConfig
+    from repro_torch.launch.serve import drive_continuous
+
+    engine, solos = serving["engine"], serving["solos"]
+    spec = SpecConfig(SPEC_Q, SPEC_GAMMA)
+    L, n, slots = engine.cfg.n_layers, len(SERVE_PROMPT_LENS), SERVE_SLOTS
+
+    def requests(seed0):
+        reqs = serve_requests(engine.cfg, SERVE_PROMPT_LENS, NEW_TOKENS, seed0)
+        for r in reqs:
+            r.speculate = r.temperature != 1.0
+        return reqs
+
+    def serve(seed0):
+        reqs = requests(seed0)
+        sched, done, wall = drive_continuous(engine, reqs, np.zeros(n), n_slots=slots, chunk=SPEC_CHUNK,
+                                             speculate=spec)
+        return reqs, sched, done, wall
+
+    drive_continuous(engine, serve_requests(engine.cfg, (16, 40), 2, 900), np.zeros(2), n_slots=slots,
+                     chunk=SPEC_CHUNK, speculate=spec)  # warm-up
+    with kernel_census() as seen:
+        (reqs, sched, done, wall), _, counts, ref_calls = run_counted(lambda: serve(200))
+    summ = sched.summary()
+    if len(done) != n or summ["by_state"] != {"finished": n}:
+        raise SystemExit(f"chip_smoke: [spec continuous] not every request finished: {summ['by_state']}")
+    by_rid = {c.rid: c.new_tokens for c in done}
+    same = [bool(np.array_equal(by_rid[r.rid], o.tokens[0, r.prompt.size:])) for r, o in zip(reqs, solos)]
+    held = [r.temperature == 0 or not r.speculate for r in reqs]
+    dispatches = sched.decode_steps // SPEC_CHUNK
+    kt, kd = BCQ_LEAF_KERNELS, BCQ_LEAF_KERNELS
+    expect = collections.Counter()
+    for r in reqs:
+        expect += forward_census(kt, Q, r.prompt.size, 1, L) + forward_census(kd, SPEC_Q, r.prompt.size, 1, L)
+    expect += forward_census(kd, SPEC_Q, slots, slots, L, dispatches * SPEC_CHUNK * (SPEC_GAMMA + 1))
+    expect += forward_census(kt, Q, slots * (SPEC_GAMMA + 1), slots * (SPEC_GAMMA + 1), L, dispatches * SPEC_CHUNK)
+    tok_s, ttft = n * NEW_TOKENS / wall, summ["ttft_s"]
+    prof = busy(lambda: serve(300), wall)
+    ptt = plain_summary["ttft_s"]
+    log(f"  [spec continuous] {n} requests, {slots} slots, {SPEC_CHUNK} chunks a dispatch, q'={SPEC_Q} "
+        f"γ={SPEC_GAMMA}: {wall:.3f}s, {tok_s:.1f} tok/s (plain, phase 6: {plain_summary['tok_s']:.1f}), "
+        f"TTFT p50 {ttft['p50']:.3f}s p95 {ttft['p95']:.3f}s (plain {ptt['p50']:.3f}s / {ptt['p95']:.3f}s), "
+        f"draft acceptance ~{sched.spec_accept_rate:.3f}, {dispatches} dispatches; device busy "
+        f"{prof['device_ms']:.2f} ms, {prof['busy_share']:.1%} of the wall (plain "
+        f"{plain_summary['busy_share']:.1%})")
+    log(f"  [spec continuous] greedy and opted-out requests == solo plain generate: "
+        f"{sum(a for a, h in zip(same, held) if h)}/{sum(held)}; sampled speculative (reported, not asserted): "
+        f"{sum(a for a, h in zip(same, held) if not h)}/{n - sum(held)} identical to the plain stream")
+    log(f"  [spec continuous] launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
+    if not all(a for a, h in zip(same, held) if h):
+        raise SystemExit("chip_smoke: [spec continuous] a greedy or opted-out request differs from its solo generate")
+    if ref_calls:
+        raise SystemExit(f"chip_smoke: [spec continuous] took the ref oracle {ref_calls} times")
+    if dict(seen) != dict(expect):
+        raise SystemExit(f"chip_smoke: [spec continuous] launches by (kernel, planes, rows) {dict(seen)} != "
+                         f"predicted {dict(expect)}")
+    assert_checked("spec continuous", seen, checked)
+    if counts["flash_attention"] != 2 * L * n:
+        raise SystemExit(f"chip_smoke: [spec continuous] K8 launched {counts['flash_attention']} times, "
+                         f"not {2 * L * n}")
+    return dict(wall_s=wall, tok_s=tok_s, ttft_s=ttft, tpot_s=summ["tpot_s"], accept_rate=sched.spec_accept_rate,
+                dispatches=dispatches, chunk_rows=sched.chunk_rows, held_same=same, profile=prof,
+                plain_tok_s=plain_summary["tok_s"], plain_ttft_s=ptt, plain_busy_share=plain_summary["busy_share"],
+                launches=counts)
+
+
+def phase_speculative(bcq_engine, ternary_engine, prompts, serving, plain_continuous, checked):
+    """Self-speculative decoding at full width and depth (module docstring,
+    phase 7) → (summary, launches summed over its runs)."""
+    out, launches, took = {}, collections.Counter(), {}
+    for path, engine in (("bcq", bcq_engine), ("bcq lutgemm", bcq_engine), ("ternary", ternary_engine),
+                         ("bcq q'=q", bcq_engine)):
+        t0 = time.perf_counter()
+        out[path] = spec_generate_path(engine, prompts, path, checked)
+        launches.update(out[path]["launches"])
+        took[path] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["steps"] = step_device_ms(bcq_engine, spec_paths("bcq")[4])
+    took["steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["continuous"] = spec_serving(serving, plain_continuous, checked)
+    launches.update(out["continuous"]["launches"])
+    took["continuous"] = time.perf_counter() - t0
+    log("  [spec] phase wall by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in took.items()))
+    out["took_s"] = took
+    return out, launches
+
+
+def kernels_line(records, counts, n_layers, flash_records, spec_launches):
     """Per kernel: its launches in its path's counted run and, in bf16 at the
     batched decode width, its time summed over one decode step's launches;
     for K8, in bf16, its time summed over the L launches of one
-    8192-token prefill (one launch a layer at B = 1, S = 8192)."""
+    8192-token prefill (one launch a layer at B = 1, S = 8192). Kernels on
+    the speculative path also carry ``spec_launches``, their launches summed
+    over phase 7's counted runs."""
     out = []
     every_leaf = step_counts(n_layers)
     per_step = {"bcq_mm": {"wo": n_layers, "w_down": n_layers, "lm_head": 1},
@@ -1200,6 +1633,7 @@ def kernels_line(records, counts, n_layers, flash_records):
         ))
         if name == "ternary_mm":
             out[-1]["tc_launches"] = counts["ternary_mm_tc"]
+        out[-1]["spec_launches"] = spec_launches[name]
     H, Hkv, Dh = LLAMA_HEADS
     (r,) = [r for r in flash_records
             if (r["B"], r["S"], r["H"], r["Dh"], r["dtype"]) == (1, FLASH_S[-1], H, Dh, "bfloat16")]
@@ -1209,8 +1643,16 @@ def kernels_line(records, counts, n_layers, flash_records):
         launches=counts[name], max_abs_err=max(x["max_abs_err"] for x in flash_records),
         ms=r["ms"] * n_layers, plain_ms=r["plain_ms"] * n_layers, bound_ms=r["bound_ms"] * n_layers,
         bound_by=r["bound_by"], library_ms=r["library_ms"] * n_layers,
+        spec_launches=spec_launches[name],
     ))
     return {"kernels": out}
+
+
+def phase_wall(walls):
+    """Log the wall seconds since the previous phase began."""
+    now = time.perf_counter()
+    log(f"  (phase wall {now - walls['t']:.1f}s)")
+    walls["t"] = now
 
 
 def main() -> int:
@@ -1228,7 +1670,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/7] card")
+    walls = {"t": time.perf_counter()}
+    log("[1/8] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1236,7 +1679,8 @@ def main() -> int:
     log(card)
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
-    log("[2/7] build")
+    phase_wall(walls)
+    log("[2/8] build")
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
@@ -1253,26 +1697,38 @@ def main() -> int:
         for line in spills:
             log(f"    {line}")
 
-    log("[3/7] kernels against their plain versions")
+    phase_wall(walls)
+    log("[3/8] kernels against their plain versions")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
+    draft_records, draft_steps = draft_shapes(gen, records)
     limit_records = table_limit(gen)
     dense_rows = dense_rows_check(gen)
 
-    log("[4/7] flash_attention against its plain version")
+    phase_wall(walls)
+    log("[4/8] flash_attention against its plain version")
     flash_records = phase_flash(gen)
 
-    log("[5/7] main path, one run per format")
-    counts, cfg, summaries, bcq_engine = phase_main_path()
+    phase_wall(walls)
+    log("[5/8] main path, one run per format")
+    counts, cfg, summaries, bcq_engine, ternary_engine, prompts = phase_main_path()
 
-    log("[6/7] continuous serving and one long request")
-    counts["flash_attention"], summaries["continuous"] = phase_serving(bcq_engine)
+    phase_wall(walls)
+    log("[6/8] continuous serving and one long request")
+    counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
     summaries["long"] = phase_long(bcq_engine)
-    del bcq_engine
 
-    log("[7/7] kernels")
-    line = kernels_line(records, counts, cfg.n_layers, flash_records)
+    phase_wall(walls)
+    log("[7/8] self-speculative decoding")
+    summaries["speculative"], spec_launches = phase_speculative(bcq_engine, ternary_engine, prompts, serving,
+                                                                summaries["continuous"],
+                                                                checked_shapes(records + draft_records))
+    del bcq_engine, ternary_engine, serving
+
+    phase_wall(walls)
+    log("[8/8] kernels")
+    line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1280,6 +1736,7 @@ def main() -> int:
          "steps": {path: {B: path_step(records, names, B, cfg.n_layers) for B in (1, PROMPTS, PROMPTS * PROMPT_LEN)}
                    for path, names in STEP_PATHS.items()},
          "table_limit": limit_records, "dense_rows": dense_rows,
+         "draft_records": draft_records, "draft_steps": draft_steps,
          "paths": summaries, **line},
         indent=1))
     print(json.dumps(line), flush=True)

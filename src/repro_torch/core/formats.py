@@ -502,26 +502,35 @@ class TernaryFormat(QuantFormat):
         """The exact 2-plane BCQ view: ``b1 = sign | ~mask``, ``b2 = sign &
         mask`` on the packed bytes, each plane scaled ``alpha/2``, so
         ``dequantize(as_bcq(qt)) == dequantize(qt)`` bit for bit."""
-        sign = qt.packed[..., 0, :, :]
-        mask = qt.packed[..., 1, :, :]
-        half = (0.5 * qt.scales.to(torch.float32)).to(qt.scales.dtype)
+        b1, half = self._b1_plane(qt)
+        b2 = qt.packed[..., 0, :, :] & qt.packed[..., 1, :, :]  # sign & mask
         return qt.replace(
-            packed=torch.stack([sign | ~mask, sign & mask], dim=-3),
+            packed=torch.stack([b1, b2], dim=-3),
             scales=torch.cat([half, half], dim=-3),  # (…, 2, G, o)
             fmt="bcq",
         )
 
+    @staticmethod
+    def _b1_plane(qt):
+        """The first BCQ plane of a ternary tensor, ``b1 = sign | ~mask``,
+        and its scales ``alpha/2`` (shared by both planes) → (packed, half)."""
+        sign = qt.packed[..., 0, :, :]
+        mask = qt.packed[..., 1, :, :]
+        return sign | ~mask, (0.5 * qt.scales.to(torch.float32)).to(qt.scales.dtype)
+
     def truncate(self, qt, q_new):
         """``q_new == 2`` is the tensor itself (served by ``ternary_mm``);
-        ``q_new == 1`` is the ``b1 = sign | ~mask`` plane as a 1-plane BCQ
-        tensor, whose drafts run through ``bcq_mm``."""
+        ``q_new == 1`` is the ``b1 = sign | ~mask`` plane of :meth:`as_bcq`
+        as a 1-plane BCQ tensor, whose drafts run through ``bcq_mm``. Only
+        that plane is built (a contiguous tensor), not both."""
         if not 1 <= q_new <= self.PLANES:
             raise ValueError(
                 f"cannot truncate ternary tensor to q'={q_new} (valid: 1..{self.PLANES})"
             )
         if q_new == self.PLANES:
             return qt
-        return get_format("bcq").truncate(self.as_bcq(qt), q_new)
+        b1, half = self._b1_plane(qt)
+        return qt.replace(packed=b1.unsqueeze(-3), scales=half, fmt="bcq")
 
 
 register_format(BCQFormat())

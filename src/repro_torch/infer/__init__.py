@@ -1,6 +1,6 @@
 """Inference: the engine (prefill / decode over packed weights, slot-batched
-serving), the continuous-batching scheduler, the request lifecycle and
-deterministic fault injection."""
+serving, self-speculative decoding), the continuous-batching scheduler, the
+request lifecycle and deterministic fault injection."""
 
 from repro_torch.infer.engine import Engine, GenerationResult
 from repro_torch.infer.faults import FaultPlan, InjectedFault, StepClock
@@ -12,6 +12,7 @@ from repro_torch.infer.lifecycle import (
     latency_summary,
 )
 from repro_torch.infer.scheduler import Completion, DispatchError, Request, Scheduler
+from repro_torch.infer.speculative import SpecConfig
 
 __all__ = [
     "Completion",
@@ -25,6 +26,7 @@ __all__ = [
     "RequestLifecycle",
     "RequestState",
     "Scheduler",
+    "SpecConfig",
     "StepClock",
     "TransitionError",
     "latency_summary",

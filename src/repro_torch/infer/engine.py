@@ -26,8 +26,15 @@ That needs every row computed as a batch of one computes it: the kernels
 reduce each row in a fixed order whatever the batch, the decode
 attention sums each row's products on their own (``layers._sdpa_decode``)
 and the dense products on the CPU run one batch row at a time
-(``utils.matmul_rows``). Speculative slot
-batches and chunked or prefix-cached admission are not ported.
+(``utils.matmul_rows``).
+
+Self-speculative decoding (``generate(speculate=SpecConfig(...))``,
+``init_slots(speculate=...)`` + ``spec_decode_slots``; ``infer/speculative.py``):
+the ``q_draft``-plane truncation of the same weights (:meth:`Engine.draft_params`)
+drafts γ tokens a chunk and one chunked forward of the full model verifies
+them. Greedy output equals plain greedy output token for token, because the
+verify gives each of its γ + 1 rows the bits of a decode step there.
+Chunked or prefix-cached admission is not ported.
 """
 
 from __future__ import annotations
@@ -38,9 +45,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.formats import format_names, get_format
+from repro_torch.core.qtensor import QuantizedTensor
+from repro_torch.infer.speculative import (
+    SpecConfig,
+    draft_seed,
+    freeze_inactive,
+    has_recurrent_state,
+    has_ring_buffer,
+    spec_chunk,
+)
 from repro_torch.models import forward, fuse_decode_projections, init_cache
 from repro_torch.models.config import ModelConfig
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.quant import truncate_params
+from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -51,6 +69,9 @@ class GenerationResult:
     # per-row index into the generated tokens of the first stop token
     # (-1 = none); set when generate(stop_tokens=...) was given
     stop_positions: Optional[np.ndarray] = None
+    # generate(speculate=...): accept_rate, accepted, proposed, chunks,
+    # q_draft, gamma
+    spec_stats: Optional[dict] = None
 
     def generated(self, b: int = 0) -> np.ndarray:
         """Row ``b``'s generated tokens, cut after its first stop token
@@ -67,6 +88,12 @@ def stop_positions_for(new_tokens: np.ndarray, stop_tokens) -> np.ndarray:
     hits = np.isin(np.asarray(new_tokens), np.asarray(list(stop_tokens), np.int64))
     first = np.argmax(hits, axis=1)
     return np.where(hits.any(axis=1), first, -1).astype(np.int32)
+
+
+def _seeded(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 def _sample(
@@ -103,6 +130,7 @@ class Engine:
         params = tree_map(lambda leaf: leaf.to(self.device), params)
         self.params = fuse_decode_projections(cfg, params) if fuse else params
         self.max_seq = max_seq
+        self._draft_params: dict = {}  # q_draft -> truncated params
 
     def _make_cache(self, batch: int) -> dict:
         return init_cache(self.cfg, batch, self.max_seq, device=self.device)
@@ -119,6 +147,62 @@ class Engine:
             raise ValueError(
                 f"prompt token ids must lie in [0, vocab={self.cfg.vocab}); got "
                 f"range [{prompt.min()}, {prompt.max()}]"
+            )
+
+    # -- speculative decoding (infer/speculative.py) -------------------------
+
+    def draft_params(self, q_draft: int):
+        """The nested ``q_draft``-plane draft view of this engine's (fused)
+        params: every quantized leaf truncated, everything else shared.
+        Cached per ``q_draft``. A bcq leaf's draft is a view of its first
+        planes; each layer's slice of it is contiguous, so the kernels'
+        ``.contiguous()`` copies nothing at launch (checked here)."""
+        if q_draft not in self._draft_params:
+            draft = truncate_params(self.params, q_draft)
+            for leaf in tree_leaves(draft):
+                if isinstance(leaf, QuantizedTensor):
+                    layer = (leaf.packed, leaf.scales) if leaf.packed.dim() == 3 else (leaf.packed[0], leaf.scales[0])
+                    if not all(t.is_contiguous() for t in layer):
+                        raise RuntimeError("a truncated leaf's per-layer slice is not contiguous")
+            self._draft_params[q_draft] = draft
+        return self._draft_params[q_draft]
+
+    def _validate_spec(self, spec: SpecConfig) -> None:
+        """Refuse what speculation cannot serve exactly: formats without a
+        nested draft, non-token inputs, MoE, and the ring-window and
+        recurrent families, whose rollback is not ported."""
+        if not isinstance(spec, SpecConfig):
+            raise ValueError(f"speculative decoding needs a SpecConfig, got {spec!r}")
+        bad = sorted({
+            leaf.fmt for leaf in tree_leaves(self.params)
+            if isinstance(leaf, QuantizedTensor) and not get_format(leaf.fmt).supports_truncate
+        })
+        if bad:
+            capable = [n for n in format_names() if get_format(n).supports_truncate]
+            raise ValueError(
+                f"speculative decoding needs truncation-capable weight formats; "
+                f"{bad} do not support nested draft truncation "
+                f"(truncation-capable formats: {capable})"
+            )
+        if getattr(self.cfg, "input_kind", "tokens") != "tokens":
+            raise ValueError("speculative decoding requires a tokens-input model")
+        if getattr(self.cfg, "n_experts", 0):
+            raise ValueError(
+                "speculative decoding does not support MoE models: shared expert "
+                "capacity couples the verified chunk's tokens"
+            )
+        if has_ring_buffer(self.cfg) or has_recurrent_state(self.cfg):
+            raise ValueError(
+                "speculative decoding of ring-window or recurrent models needs the "
+                "cache rollback (speculative.snapshot_rows / restore_rows / "
+                "select_recurrent_*), not ported yet"
+            )
+
+    def _check_spec_headroom(self, plen: int, n_new: int, spec: SpecConfig) -> None:
+        if plen + n_new + spec.gamma > self.max_seq:
+            raise ValueError(
+                f"prompt({plen}) + n_steps({n_new}) + gamma({spec.gamma}) exceeds "
+                f"max_seq={self.max_seq}"
             )
 
     @torch.no_grad()
@@ -146,9 +230,17 @@ class Engine:
         temperature: float = 0.0,
         seed: int = 0,
         scan: bool = True,
+        speculate: Optional[SpecConfig] = None,
         stop_tokens=None,
     ) -> GenerationResult:
         """Greedy (``temperature == 0``) or sampled autoregressive generation.
+
+        ``speculate=SpecConfig(q_draft, gamma)`` decodes self-speculatively:
+        greedy output equals plain greedy output token for token; sampled
+        output follows the target's distribution by rejection sampling, from
+        per-row generators (row ``b`` seeded ``seed + b``, its draft stream
+        ``draft_seed(seed + b)``), so its stream is not the plain path's.
+        ``GenerationResult.spec_stats`` reports the acceptance.
 
         ``stop_tokens`` (token ids) marks each row's first stop: decode still
         runs all ``n_steps``, the result records the stop positions and
@@ -157,6 +249,14 @@ class Engine:
         b, s = prompt_tokens.shape[:2]
         pt = np.asarray(prompt_tokens)
         self._check_prompt(pt, n_steps)
+        if speculate is not None:
+            self._validate_spec(speculate)
+            self._check_spec_headroom(s, n_steps, speculate)
+            new, stats = self._spec_generate(pt, n_steps, temperature, seed, speculate)
+            out = np.concatenate([pt, new.astype(pt.dtype)], axis=1)
+            stops = stop_positions_for(new, stop_tokens) if stop_tokens else None
+            return GenerationResult(tokens=out, prompt_len=s, steps=n_steps, stop_positions=stops,
+                                    spec_stats=stats)
         greedy = temperature <= 0
         gen = None
         if not greedy:
@@ -179,21 +279,69 @@ class Engine:
         stops = stop_positions_for(new, stop_tokens) if stop_tokens else None
         return GenerationResult(tokens=out, prompt_len=s, steps=n_steps, stop_positions=stops)
 
+    def _spec_generate(self, pt: np.ndarray, n_steps: int, temperature: float, seed: int,
+                       spec: SpecConfig):
+        """Both prefills whole-shot, the first token from the target's prefill
+        logits, then chunks until every row has ``n_steps`` tokens →
+        ((B, n_steps) tokens, spec_stats)."""
+        b, s = pt.shape
+        greedy = temperature <= 0
+        draft = self.draft_params(spec.q_draft)
+        tokens = torch.as_tensor(pt, dtype=torch.long, device=self.device)
+        logits, cache = self.prefill(tokens, self._make_cache(b))
+        _, dcache = forward(self.cfg, draft, tokens=tokens, cache=self._make_cache(b), pos=0,
+                            logits_mode="last")
+        gens = [None if greedy else _seeded(seed + i, self.device) for i in range(b)]
+        dgens = [None if greedy else _seeded(draft_seed(seed + i), self.device) for i in range(b)]
+        t0 = torch.argmax(logits, dim=-1)
+        if not greedy:
+            for i in range(b):
+                t0[i] = torch.multinomial(
+                    torch.softmax(logits[i : i + 1] / max(temperature, 1e-6), dim=-1), 1, generator=gens[i]
+                )[0, 0]
+        rows = [[t] for t in t0.cpu().numpy().tolist()]
+        state = {"t_pend": t0, "pos": np.full((b,), s, np.int64), "cache": cache, "draft_cache": dcache,
+                 "logits": logits}
+        emitted = np.ones((b,), np.int64)
+        acc = prop = chunks = 0
+        flags = dict(greedy=np.full((b,), greedy), temperature=np.full((b,), temperature if not greedy else 1.0),
+                     spec_enabled=np.ones((b,), bool))
+        while n_steps and (emitted < n_steps).any():
+            active = emitted < n_steps
+            commit, n_keep, new_state = spec_chunk(
+                self.cfg, self.params, draft, state, gamma=spec.gamma, active=active,
+                gens=gens, draft_gens=dgens, **flags,
+            )
+            for i in np.flatnonzero(active):
+                rows[i].extend(commit[i, : n_keep[i]].tolist())
+            # acceptances past the n_steps cut are not counted
+            acc += int(np.minimum(n_keep - 1, n_steps - emitted)[active].sum())
+            prop += int(active.sum()) * spec.gamma
+            chunks += 1
+            emitted = np.where(active, emitted + n_keep, emitted)
+            state = freeze_inactive(new_state, state, active)
+        new = np.asarray([r[:n_steps] for r in rows], np.int64).reshape(b, n_steps)
+        stats = {"accept_rate": acc / max(prop, 1), "accepted": acc, "proposed": prop, "chunks": chunks,
+                 "q_draft": spec.q_draft, "gamma": spec.gamma}
+        return new, stats
+
     # -- slot-batched serving API (infer/scheduler.py drives these) ---------
 
-    def init_slots(self, n_slots: int, speculate=None) -> dict:
+    def init_slots(self, n_slots: int, speculate: Optional[SpecConfig] = None) -> dict:
         """Fresh slot-batched decode state: an ``n_slots``-row KV cache, the
         carried next-token logits ``(n_slots, V)`` and per-slot position,
         budget, sampling parameters and generator. All slots start inactive.
 
         The cache and the logits live on the engine's device; positions,
         the active mask, budgets and sampling parameters on the host
-        (numpy), where each step decides how every row samples."""
+        (numpy), where each step decides how every row samples.
+
+        ``speculate`` makes the batch speculative: the state keeps the
+        SpecConfig and grows a draft cache, each row's pending token
+        ``t_pend``, a per-row opt-in ``spec`` and draft generators; drive it with
+        :meth:`spec_decode_slots` instead of :meth:`decode_slots`."""
         if speculate is not None:
-            raise ValueError(
-                "speculative slot batches need self-speculative decoding "
-                "(infer/speculative.py), which is not ported yet"
-            )
+            self._validate_spec(speculate)
         if getattr(self.cfg, "input_kind", "tokens") != "tokens":
             raise ValueError(
                 "slot-batched serving requires a tokens-input model "
@@ -205,7 +353,7 @@ class Engine:
                 "expert capacity couples batch rows, breaking per-request "
                 "token-identity (use one-shot Engine.generate instead)"
             )
-        return {
+        slots = {
             "cache": self._make_cache(n_slots),
             "logits": torch.zeros((n_slots, self.cfg.vocab), dtype=torch.float32, device=self.device),
             "pos": np.zeros((n_slots,), np.int64),
@@ -215,10 +363,19 @@ class Engine:
             "greedy": np.ones((n_slots,), bool),
             "gens": [None] * n_slots,
         }
+        if speculate is not None:
+            slots.update(
+                speculate=speculate,
+                draft_cache=self._make_cache(n_slots),
+                t_pend=torch.zeros((n_slots,), dtype=torch.long, device=self.device),
+                spec=np.zeros((n_slots,), bool),
+                draft_gens=[None] * n_slots,
+            )
+        return slots
 
-    def _slot_cache(self, slots: dict, slot: int) -> dict:
-        """Views of one slot's rows of the slot cache (batch of one)."""
-        return tree_map(lambda leaf: leaf[:, slot : slot + 1], slots["cache"])
+    def _slot_cache(self, slots: dict, slot: int, key: str = "cache") -> dict:
+        """Views of one slot's rows of the slot cache ``key`` (batch of one)."""
+        return tree_map(lambda leaf: leaf[:, slot : slot + 1], slots[key])
 
     @torch.no_grad()
     def admit_slot(
@@ -230,6 +387,7 @@ class Engine:
         max_new_tokens: int,
         temperature: float = 0.0,
         seed: int = 0,
+        speculate: bool = True,
     ) -> dict:
         """Prefill one request (batch of one, the whole prompt at once) and
         install it into ``slot``: its KV rows, position, budget, sampling
@@ -240,16 +398,29 @@ class Engine:
         The prefill writes its K/V rows straight into the slot's rows of the
         slot cache (no batch-1 cache and no copy); rows past the prompt keep
         the previous tenant's values, which are never read: decode writes row
-        ``pos`` before it attends rows ``<= pos``."""
+        ``pos`` before it attends rows ``<= pos``.
+
+        In a speculative batch (``init_slots(speculate=...)``) the draft
+        model prefills the slot's draft-cache rows too, and the request's
+        first token is sampled here as a plain decode's first step samples
+        it, left in ``slots["t_pend"][slot]`` and counted against the budget
+        (the caller emits it; a budget of one completes here). A sampled
+        row's draft generator is seeded ``draft_seed(seed)``.
+        ``speculate=False`` opts the request out: it commits one plain token
+        a chunk, the stream of a solo plain ``generate``. Outside a
+        speculative batch ``speculate`` is ignored."""
         prompt = np.asarray(prompt_tokens).reshape(1, -1)
+        spec = slots.get("speculate")
         self._check_prompt(prompt, max_new_tokens)
+        if spec is not None:
+            self._check_spec_headroom(prompt.shape[1], max_new_tokens, spec)
         tokens = torch.as_tensor(prompt, dtype=torch.long, device=self.device)
         logits1, _ = self.prefill(tokens, self._slot_cache(slots, slot))
+        if spec is not None:
+            forward(self.cfg, self.draft_params(spec.q_draft), tokens=tokens,
+                    cache=self._slot_cache(slots, slot, "draft_cache"), pos=0, logits_mode="last")
         greedy = temperature <= 0
-        gen = None
-        if not greedy:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
+        gen = None if greedy else _seeded(seed, self.device)
         slots["logits"][slot] = logits1[0]
         slots["pos"][slot] = prompt.shape[1]
         slots["active"][slot] = True
@@ -257,6 +428,17 @@ class Engine:
         slots["temperature"][slot] = temperature if not greedy else 1.0
         slots["greedy"][slot] = greedy
         slots["gens"][slot] = gen
+        if spec is not None:
+            t0 = torch.argmax(logits1[0])
+            if not greedy:
+                t0 = torch.multinomial(
+                    torch.softmax(logits1[0:1] / max(float(temperature), 1e-6), dim=-1), 1, generator=gen
+                )[0, 0]
+            slots["t_pend"][slot] = t0
+            slots["spec"][slot] = bool(speculate)
+            slots["draft_gens"][slot] = None if greedy else _seeded(draft_seed(seed), self.device)
+            slots["remaining"][slot] = max_new_tokens - 1
+            slots["active"][slot] = max_new_tokens > 1
         return slots
 
     @torch.no_grad()
@@ -314,6 +496,59 @@ class Engine:
         acts = np.stack(act_steps, axis=1) if act_steps else np.zeros((b, 0), bool)
         slots.update(logits=logits, pos=pos, active=active, remaining=remaining)
         return toks, acts, slots
+
+    @torch.no_grad()
+    def spec_decode_slots(self, slots: dict, n_chunks: int):
+        """Run ``n_chunks`` speculative chunks over the whole slot batch.
+
+        Returns ``(tokens (B, n_chunks·(γ+1)) int32, valid (B, same) bool,
+        slots)``; each chunk gives an active row 1..γ + 1 valid tokens (one
+        for a row admitted with ``speculate=False``), clipped to its budget.
+        Inactive rows flow through every forward at a frozen position,
+        clamped so the chunk's γ + 1 writes stay inside the cache.
+
+        As :meth:`decode_slots`, the slot state is committed at the end: if a
+        chunk raises, positions, budgets, pending tokens and every generator
+        are as they were before the call."""
+        spec = slots.get("speculate")
+        if spec is None:
+            raise ValueError("slots were not initialised with speculate=...")
+        gens = [g for g in slots["gens"] + slots["draft_gens"] if g is not None]
+        saved = [g.get_state() for g in gens]
+        try:
+            return self._spec_decode_slots(slots, n_chunks, spec)
+        except BaseException:
+            for g, st in zip(gens, saved):
+                g.set_state(st)
+            raise
+
+    def _spec_decode_slots(self, slots: dict, n_chunks: int, spec: SpecConfig):
+        draft = self.draft_params(spec.q_draft)
+        state = {key: slots[key] for key in ("t_pend", "cache", "draft_cache", "logits")}
+        state["pos"] = slots["pos"].copy()
+        active, remaining = slots["active"].copy(), slots["remaining"].copy()
+        width = spec.gamma + 1
+        toks, valid = [], []
+        for _ in range(n_chunks):
+            commit, n_keep, new_state = spec_chunk(
+                self.cfg, self.params, draft, state, gamma=spec.gamma, greedy=slots["greedy"],
+                temperature=slots["temperature"], spec_enabled=slots["spec"], active=active,
+                gens=slots["gens"], draft_gens=slots["draft_gens"],
+            )
+            emit_n = np.where(active, np.minimum(n_keep, remaining), 0)
+            ok = np.arange(width)[None, :] < emit_n[:, None]
+            toks.append(np.where(ok, commit, -1))
+            valid.append(ok)
+            remaining = remaining - emit_n
+            state = freeze_inactive(new_state, state, active)
+            active = active & (remaining > 0)
+        b = len(active)
+        out_toks = np.concatenate(toks, axis=1).astype(np.int32) if toks else np.zeros((b, 0), np.int32)
+        out_valid = np.concatenate(valid, axis=1) if valid else np.zeros((b, 0), bool)
+        slots.update(t_pend=state["t_pend"], pos=state["pos"], logits=state["logits"],
+                     cache=state["cache"], draft_cache=state["draft_cache"],
+                     active=active, remaining=remaining)
+        return out_toks, out_valid, slots
 
     def release_slot(self, slots: dict, slot: int) -> dict:
         """Reclaim one slot at a chunk boundary (cancel, timeout,

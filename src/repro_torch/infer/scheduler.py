@@ -48,11 +48,18 @@ undisturbed run (``tests/test_torch_lifecycle.py``). The mechanisms:
 truncation at the chunk boundary (the stop token is kept), the slot frees at
 once, and the completion equals a solo ``generate`` cut at the same place.
 
-Not ported: speculative slot batches (``speculate``, needs
-``infer/speculative.py``), chunked prefill (``prefill_chunk``, needs
-chunked admission), the prefix cache, and the span tracer and metrics
-registry (``tracer``, ``metrics``, from ``repro.obs``). Each of those
-arguments raises when set, naming what is missing.
+**Speculative slots** (``speculate=SpecConfig(...)``, ``infer/speculative.py``):
+each dispatch runs ``chunk`` speculative chunks (``Engine.spec_decode_slots``),
+each committing 1..γ + 1 tokens a row; admission emits the request's first
+token, so a budget-1 request completes at admission, and every request needs
+γ + 1 cache rows of headroom. ``Request.speculate=False`` opts a request out:
+it commits one plain token a chunk, its solo plain ``generate``'s stream.
+Greedy and opted-out requests stay identical to their solo plain ``generate``.
+
+Not ported: chunked prefill (``prefill_chunk``, needs chunked admission),
+the prefix cache, and the span tracer and metrics registry (``tracer``,
+``metrics``, from ``repro.obs``). Each of those arguments raises when set,
+naming what is missing.
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from repro_torch.infer.lifecycle import (
     RequestState,
     latency_summary,
 )
+from repro_torch.infer.speculative import SpecConfig
 
 
 class DispatchError(RuntimeError):
@@ -82,8 +90,9 @@ class DispatchError(RuntimeError):
 @dataclasses.dataclass
 class Request:
     """One generation request. ``seed`` and ``temperature`` are per request:
-    greedy and sampled requests share a batch. ``speculate`` is kept for the
-    reference's signature; speculative slot batches are not ported.
+    greedy and sampled requests share a batch. In a speculative scheduler,
+    ``speculate=False`` opts the request out of drafting (None or True: it
+    speculates); elsewhere it is ignored.
 
     ``stop_tokens`` ends the generation early at the first matching token
     (kept; the slot frees at the next chunk boundary).
@@ -171,6 +180,8 @@ class Scheduler:
     >>> sched.submit(Request(prompt, max_new_tokens=16))
     >>> done = sched.run()   # or: sched.step() in a serving loop
 
+    - ``speculate``: a :class:`SpecConfig` makes every dispatch ``chunk``
+      speculative chunks (module docstring), with γ + 1 rows of headroom.
     - ``max_queue`` bounds the admission queue; a full queue rejects at
       ``submit`` with :class:`QueueFullError` (None = unbounded).
     - ``retries`` / ``backoff_s``: bounded exponential-backoff retry around
@@ -194,7 +205,7 @@ class Scheduler:
         engine: Engine,
         n_slots: int = 4,
         chunk: int = 8,
-        speculate=None,
+        speculate: Optional[SpecConfig] = None,
         *,
         prefill_chunk: Optional[int] = None,
         max_queue: Optional[int] = 64,
@@ -210,7 +221,6 @@ class Scheduler:
         metrics=None,
     ):
         for given, what in (
-            (speculate, "speculate needs self-speculative decoding (infer/speculative.py), not ported yet"),
             (prefill_chunk, "prefill_chunk needs chunked admission (Engine.begin_admission / "
                             "advance_admission), not ported yet"),
             (tracer, "tracer needs the span tracer (repro.obs), not ported yet"),
@@ -229,6 +239,7 @@ class Scheduler:
         self.engine = engine
         self.n_slots = n_slots
         self.chunk = chunk
+        self.speculate = speculate
         self.max_queue = max_queue
         self.retries = retries
         self.backoff_s = backoff_s
@@ -238,13 +249,14 @@ class Scheduler:
         self.on_event = on_event
         self._clock = clock
         self._sleep = sleep
-        self.slots = engine.init_slots(n_slots)
+        self.slots = engine.init_slots(n_slots, speculate=speculate)
         self.queue: Deque[Request] = deque()
         self._tenants: List[Optional[_Tenant]] = [None] * n_slots
         self.outcomes: Dict[int, RequestLifecycle] = {}
         self._pending_cancel: Dict[int, str] = {}
         self.decode_steps = 0  # total chunked decode steps executed
-        self.steps_active = 0  # sum over steps of active slots (utilisation)
+        self.steps_active = 0  # sum over steps of active slots (utilisation); tokens in spec mode
+        self.chunk_rows = 0  # spec mode: row-chunks dispatched (the accept-rate estimate)
         self.counters: Dict[str, int] = {
             "rejected_queue_full": 0,
             "shed": 0,
@@ -264,9 +276,11 @@ class Scheduler:
 
     def submit(self, req: Request) -> int:
         plen = int(req.prompt.size)
-        if plen + req.max_new_tokens > self.engine.max_seq:
+        headroom = 0 if self.speculate is None else self.speculate.gamma + 1
+        if plen + req.max_new_tokens + headroom > self.engine.max_seq:
             raise ValueError(
-                f"request needs {plen + req.max_new_tokens} cache rows, engine "
+                f"request needs {plen + req.max_new_tokens + headroom} cache rows "
+                f"(incl. {headroom} speculation headroom), engine "
                 f"max_seq={self.engine.max_seq}"
             )
         vocab = self.engine.cfg.vocab
@@ -315,6 +329,17 @@ class Scheduler:
     @property
     def idle(self) -> bool:
         return not self.queue and self.n_active == 0
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Estimated draft acceptance over all speculative dispatches: a
+        row-chunk commits 1 + γ·accept_rate tokens on average (a slight
+        underestimate when rows finish mid-dispatch). 0.0 until a speculative
+        chunk has run."""
+        if self.speculate is None or self.chunk_rows == 0:
+            return 0.0
+        tokens_per_row_chunk = self.steps_active / self.chunk_rows
+        return max(0.0, (tokens_per_row_chunk - 1.0) / self.speculate.gamma)
 
     def summary(self) -> dict:
         """Lifecycle and latency summary: TTFT/TPOT percentiles over finished
@@ -484,9 +509,27 @@ class Scheduler:
             stopped=stopped,
         )
 
-    def _admit_free_slots(self) -> None:
+    def _install_tenant(self, slot: int, req: Request) -> Optional[Completion]:
+        """After a successful admission: the DECODING transition and the
+        tenant; in spec mode also the first token, sampled at admission, which
+        completes a budget-1 request right here."""
+        rec = self.outcomes[req.rid]
+        rec.prefill_chunks = 1
+        rec.transition(RequestState.DECODING, self._clock())
+        tenant = _Tenant(req, self.decode_steps)
+        self._tenants[slot] = tenant
+        if self.speculate is not None:
+            stopped = self._record_tokens(tenant, [int(self.slots["t_pend"][slot])])
+            if stopped or len(tenant.emitted) >= req.max_new_tokens:
+                return self._finish(slot, stopped=stopped)
+        return None
+
+    def _admit_free_slots(self) -> List[Completion]:
         """Fill free slots from the queue. A prefill that keeps failing
-        fails only its request; the slot stays free for the next one."""
+        fails only its request; the slot stays free for the next one. In
+        spec mode a request done at admission (budget 1, or a stop token
+        first) is returned, and its slot refills in the same round."""
+        done: List[Completion] = []
         for slot in range(self.n_slots):
             while self.queue and self._tenants[slot] is None:
                 req = self.queue.popleft()
@@ -503,6 +546,7 @@ class Scheduler:
                         max_new_tokens=req.max_new_tokens,
                         temperature=req.temperature,
                         seed=req.seed,
+                        speculate=req.speculate is not False,
                     )
 
                 try:
@@ -513,9 +557,10 @@ class Scheduler:
                     self.counters["failed"] += 1
                     self._terminal(rec, RequestState.FAILED, str(e))
                     continue  # the slot is still free: try the next request
-                rec.prefill_chunks = 1
-                rec.transition(RequestState.DECODING, self._clock())
-                self._tenants[slot] = _Tenant(req, self.decode_steps)
+                c = self._install_tenant(slot, req)
+                if c is not None:
+                    done.append(c)
+        return done
 
     def _harvest(self, slot: int) -> Optional[Completion]:
         tenant = self._tenants[slot]
@@ -537,7 +582,9 @@ class Scheduler:
         def dispatch():
             if self.faults is not None:
                 self.faults.on_chunk(ordinal)
-            return self.engine.decode_slots(self.slots, self.chunk)
+            if self.speculate is None:
+                return self.engine.decode_slots(self.slots, self.chunk)
+            return self.engine.spec_decode_slots(self.slots, self.chunk)
 
         try:
             return self._with_retry(dispatch, what=f"decode chunk {ordinal}")
@@ -552,7 +599,7 @@ class Scheduler:
                     tokens=tenant.emitted,
                 )
                 self._tenants[slot] = None
-            self.slots = self.engine.init_slots(self.n_slots)
+            self.slots = self.engine.init_slots(self.n_slots, speculate=self.speculate)
             return None
 
     def _inject_and_guard_nan(self) -> None:
@@ -584,7 +631,7 @@ class Scheduler:
         done: List[Completion] = []
         self._apply_cancels()
         self._enforce_deadlines()
-        self._admit_free_slots()
+        done.extend(self._admit_free_slots())
         if self.n_active == 0:
             return done
         res = self._dispatch_decode()
@@ -592,6 +639,8 @@ class Scheduler:
             return done
         toks, valid, self.slots = res
         self.decode_steps += self.chunk
+        if self.speculate is not None:
+            self.chunk_rows += self.n_active * self.chunk
         self.steps_active += int(valid.sum())
         for slot, tenant in enumerate(self._tenants):
             if tenant is None:

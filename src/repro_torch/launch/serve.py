@@ -25,11 +25,16 @@ decoded ``--chunk`` steps per dispatch; each request's tokens equal a solo
 same workload as one ``generate`` call per request in arrival order, the
 baseline the scheduler is measured against.
 
-``--speculate``, ``--tp``, the prefix cache (``--prefix-cache-mb``,
-``--prefix-block``, ``--shared-prefix-len``), chunked prefill
-(``--prefill-chunk``) and the tracing / profiling flags belong to
-subsystems that are not ported yet; each is refused with an error naming
-the missing piece.
+``--speculate QD:GAMMA`` serves the continuous path self-speculatively
+(``infer/speculative.py``): the first QD planes of the ``bcq`` or
+``ternary`` weights draft GAMMA tokens a chunk and the full model verifies
+them; it prints the draft acceptance. It needs ``--q > 0`` and a
+truncation-capable format, and cannot be combined with ``--sequential``.
+
+``--tp``, the prefix cache (``--prefix-cache-mb``, ``--prefix-block``,
+``--shared-prefix-len``), chunked prefill (``--prefill-chunk``) and the
+tracing / profiling flags belong to subsystems that are not ported yet;
+each is refused with an error naming the missing piece.
 """
 
 from __future__ import annotations
@@ -40,9 +45,9 @@ import time
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.core.formats import format_names
+from repro_torch.core.formats import format_names, get_format
 from repro_torch.data import MarkovCorpus
-from repro_torch.infer import Engine, Request, Scheduler
+from repro_torch.infer import Engine, Request, Scheduler, SpecConfig
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import init_params, reduced
 from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
@@ -69,12 +74,13 @@ def poisson_arrivals(n, rate, seed=0):
     return np.cumsum(rng.exponential(1.0 / rate, size=n))
 
 
-def drive_continuous(engine, reqs, arrivals, *, n_slots, chunk):
+def drive_continuous(engine, reqs, arrivals, *, n_slots, chunk, speculate=None):
     """Wall-clock serve loop: submit each request at its arrival offset,
     step the scheduler whenever there is work. Returns (scheduler,
     completions, makespan seconds); the scheduler carries the utilisation
-    counters and the lifecycle summary."""
-    sched = Scheduler(engine, n_slots=n_slots, chunk=chunk)
+    counters and the lifecycle summary. ``speculate`` (a SpecConfig)
+    serves speculatively."""
+    sched = Scheduler(engine, n_slots=n_slots, chunk=chunk, speculate=speculate)
     done = []
     t0 = time.perf_counter()
     i = 0
@@ -142,7 +148,6 @@ def main(argv=None) -> None:
                                         "not ported yet"),
         (args.shared_prefix_len is not None, "--shared-prefix-len is the prefix cache's workload; the "
                                              "prefix cache (infer/prefix_cache.py) is not ported yet"),
-        (args.speculate, "--speculate needs self-speculative decoding (infer/speculative.py), not ported yet"),
         (args.tp != 1, "--tp needs tensor parallelism (parallel/tp.py), not ported yet"),
         (args.prefix_cache_mb, "--prefix-cache-mb needs the prefix cache (infer/prefix_cache.py), not ported yet"),
         (args.prefill_chunk, "--prefill-chunk needs chunked prefill in the scheduler, not ported yet"),
@@ -154,6 +159,22 @@ def main(argv=None) -> None:
             ap.error(msg)
     if args.slots < 1 or args.chunk < 1:
         ap.error("--slots and --chunk must be >= 1")
+    spec = None
+    if args.speculate:
+        try:
+            spec = SpecConfig.parse(args.speculate)
+        except ValueError as e:
+            ap.error(f"--speculate: {e}")
+    if spec and not args.q:
+        ap.error("--speculate requires a quantized model (--q > 0)")
+    if spec and not get_format(args.format).supports_truncate:
+        capable = [n for n in format_names() if get_format(n).supports_truncate]
+        ap.error(f"--speculate needs a truncation-capable format; "
+                 f"{args.format!r} has no nested low-bit draft "
+                 f"(truncation-capable formats: {', '.join(capable)})")
+    if spec and args.sequential:
+        ap.error("--speculate drives the continuous-batching scheduler; "
+                 "it cannot be combined with --sequential")
 
     # the reference launcher's reduced config (>=128-dim linears, so quantization bites)
     cfg = reduced(get_config(args.arch), d_model=256, n_kv_heads=4,
@@ -167,7 +188,8 @@ def main(argv=None) -> None:
         )
         print(f"{args.format} q={args.q} g={args.g}: "
               f"{quantized_bytes(params)/2**20:.2f} MiB")
-    engine = Engine(cfg, params, max_seq=args.prompt_len + args.gen + 8,
+    headroom = spec.gamma + 1 if spec else 0
+    engine = Engine(cfg, params, max_seq=args.prompt_len + args.gen + 8 + headroom,
                     device=args.device)
     del params  # the engine holds the fused layout
     reqs = build_requests(cfg, args.requests, args.prompt_len, args.gen)
@@ -182,11 +204,18 @@ def main(argv=None) -> None:
         sample = outs[0].tokens[0, args.prompt_len:]
     else:
         sched, done, dt = drive_continuous(engine, reqs, arrivals, n_slots=args.slots,
-                                           chunk=args.chunk)
+                                           chunk=args.chunk, speculate=spec)
         util = sched.steps_active / max(1, sched.decode_steps * sched.n_slots)
-        print(f"[continuous] {len(done)} requests, {total_new} tokens in "
+        tag, extra = "continuous", ""
+        if spec:
+            # steps_active counts committed tokens here; occupancy is the
+            # dispatched row-chunks over capacity
+            util = sched.chunk_rows / max(1, sched.decode_steps * sched.n_slots)
+            tag = f"speculative q'={spec.q_draft} γ={spec.gamma}"
+            extra = f", draft acceptance ~{sched.spec_accept_rate:.0%}"
+        print(f"[{tag}] {len(done)} requests, {total_new} tokens in "
               f"{dt:.2f}s ({total_new/dt:.1f} tok/s on {engine.device}, "
-              f"{args.slots} slots, chunk={args.chunk}, slot utilisation {util:.0%})")
+              f"{args.slots} slots, chunk={args.chunk}, slot utilisation {util:.0%}{extra})")
         sample = done[0].new_tokens
     print("kernel launches:", launch_counts())
     print("sample:", sample)

@@ -8,7 +8,9 @@ memory; on the CPU, and under ``impl_mode("ref")``, the reference's rule:
 :func:`_sdpa` below :data:`LONG_SEQ_THRESHOLD` and the query-blocked
 :func:`_sdpa_qchunked` from it on. Decode attention over the cache is
 :func:`_sdpa_decode`, the same function written so that a batch row's
-result does not depend on the batch (the reference has no kernel for it).
+result does not depend on the batch (the reference has no kernel for it);
+a speculative verify (``attention(chunked=True)``) runs it once per chunk
+token, so each token gets the bits of a decode step at its position.
 The plain attention, :func:`_sdpa` and :func:`causal_mask`, lives in
 ``kernels/ref.py``, where the kernel's plain version also takes it.
 
@@ -37,6 +39,7 @@ from repro_torch.kernels.ops import current_impl_mode, linear, linear_fused
 from repro_torch.kernels.ref import NEG_INF, causal_mask
 from repro_torch.kernels.ref import sdpa as _sdpa
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils import row_sum
 
 Pos = Union[int, torch.Tensor]
 
@@ -66,8 +69,12 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead=(), device="cuda") -> 
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis; the mean of squares is a
+    :func:`~repro_torch.utils.row_sum`, so a row's bits do not depend on how
+    many rows share the call (a decode step of B rows and a speculative
+    verify of B·(γ+1) rows normalise a row alike)."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = row_sum(xf * xf) / xf.shape[-1]
     return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
 
 
@@ -159,6 +166,33 @@ def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: Pos) -> dic
     return cache
 
 
+def token_rows_view(x: torch.Tensor) -> torch.Tensor:
+    """``(B, s, d)`` → ``(B·s, 1, d)``: each of a chunk's tokens as a row of
+    its own (:func:`~repro_torch.utils.token_rows`), so the linears sum it
+    exactly as they sum a decode step's row."""
+    return x.reshape(-1, 1, x.shape[-1])
+
+
+def _chunk_decode(q: torch.Tensor, cache: dict, pos: Pos) -> torch.Tensor:
+    """Chunked decode (a speculative verify): query ``i`` of ``s`` attends
+    the cache at position ``pos + i`` under its own mask, through one
+    :func:`_sdpa_decode` call per chunk token, so each gets the bits of a
+    single-token decode step at that position over the same cache. q
+    (B, s, H, Dh) after the chunk's s K/V rows were written."""
+    ck, cv = cache["k"], cache["v"]
+    b, s = q.shape[:2]
+    slot = torch.arange(ck.shape[1], device=q.device)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        base = pos.to(q.device)[:, None]  # (B, 1)
+    else:
+        base = torch.full((b, 1), int(pos), device=q.device)
+    outs = []
+    for i in range(s):
+        mask = (slot[None, :] <= base + i)[:, None, None, :]  # (B, 1, 1, S_max)
+        outs.append(_sdpa_decode(q[:, i : i + 1], ck, cv, mask))
+    return torch.cat(outs, dim=1)
+
+
 def attention(
     p: dict,
     cfg: ModelConfig,
@@ -167,6 +201,7 @@ def attention(
     *,
     cache: Optional[dict] = None,
     pos: Optional[Pos] = None,
+    chunked: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """GQA self-attention. Returns (out, cache).
 
@@ -174,16 +209,27 @@ def attention(
     prefill  cache=empty, s > 1          as train, then writes the cache at pos
     decode   cache=filled, s == 1        writes row pos, attends the cache;
                                          ``pos`` is a scalar or a (B,) tensor
+    chunked  cache=filled, chunked=True  s fresh tokens at pos..pos+s-1 (a
+                                         speculative verify): all s rows are
+                                         written, then token i attends the
+                                         cache as a decode step at pos+i does;
+                                         the linears see B·s token rows
     """
     b, s, _ = x.shape
+    xr = token_rows_view(x) if chunked else x
     if "wqkv" in p:
-        q, k, v = linear_fused(x, p["wqkv"], (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
+        q, k, v = linear_fused(xr, p["wqkv"], (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
     else:
-        q, k, v = linear(x, p["wq"]), linear(x, p["wk"]), linear(x, p["wv"])
+        q, k, v = linear(xr, p["wq"]), linear(xr, p["wk"]), linear(xr, p["wv"])
     q = rope(q.reshape(b, s, cfg.n_heads, cfg.d_head), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, cfg.n_kv_heads, cfg.d_head), positions, cfg.rope_theta)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
 
+    if chunked:
+        cache = _cache_write(cache, k, v, pos)
+        out = _chunk_decode(q, cache, pos)
+        y = linear(token_rows_view(out.reshape(b, s, cfg.q_dim)), p["wo"])
+        return y.reshape(b, s, -1), cache
     if cache is None or s > 1:
         out = _causal(q, k, v)
         if cache is not None:

@@ -10,6 +10,7 @@ One :func:`forward` serves train, prefill and decode:
   train    cache=None                      → logits (B, S, V)
   prefill  cache=init_cache(...), pos=0    → logits (B, 1, V) with "last"
   decode   cache=filled, pos=cur_len       → logits (B, 1, V)
+  verify   cache=filled, pos, chunked_decode=True → logits (B, S, V)
 The cache is updated in place (``layers._cache_write``) and returned.
 """
 
@@ -103,16 +104,22 @@ def apply_block(
     positions: torch.Tensor,
     cache: Optional[dict],
     pos,
+    *,
+    chunked: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One pre-norm decoder block → (h, cache)."""
+    """One pre-norm decoder block → (h, cache). ``chunked``: the block's
+    tokens are a chunked decode (``layers.attention``), and the MLP sees
+    them as token rows."""
     if btype not in ATTN_BLOCKS:
         raise ValueError(f"block type {btype!r} is not ported yet")
     r, cache = L.attention(
-        p["attn"], cfg, L.rmsnorm(p["ln1"], h), positions, cache=cache, pos=pos
+        p["attn"], cfg, L.rmsnorm(p["ln1"], h), positions, cache=cache, pos=pos, chunked=chunked
     )
     h = h + r
-    h = h + L.mlp_swiglu(p["mlp"], L.rmsnorm(p["ln2"], h))
-    return h, cache
+    x = L.rmsnorm(p["ln2"], h)
+    if chunked:
+        return h + L.mlp_swiglu(p["mlp"], L.token_rows_view(x)).reshape(h.shape), cache
+    return h + L.mlp_swiglu(p["mlp"], x), cache
 
 
 def forward(
@@ -124,8 +131,15 @@ def forward(
     cache: Optional[dict] = None,
     pos=None,
     logits_mode: str = "all",  # "all" | "last"
+    chunked_decode: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Run the decoder on ``tokens (B, S)``. Returns (logits f32, cache)."""
+    """Run the decoder on ``tokens (B, S)``. Returns (logits f32, cache).
+
+    ``chunked_decode=True`` feeds S > 1 tokens mid-sequence against a
+    filled cache at ``pos`` (a speculative verify): every position's logits
+    are those S single-token decode steps would give, bit for bit."""
+    if chunked_decode and cache is None:
+        raise ValueError("chunked_decode needs a filled cache")
     h = params["embed"][tokens].to(cfg.cdtype)
     b, s = tokens.shape
     if positions is None:
@@ -145,11 +159,15 @@ def forward(
                 key = f"b{bi}"
                 c_in = None if stage_c is None else layer_slice(stage_c[key], l)
                 h, _ = apply_block(
-                    layer_slice(stage_p[key], l), cfg, btype, h, positions, c_in, pos
+                    layer_slice(stage_p[key], l), cfg, btype, h, positions, c_in, pos,
+                    chunked=chunked_decode,
                 )
 
     h = L.rmsnorm(params["final_norm"], h)
     if logits_mode == "last":
         h = h[:, -1:]
+    if chunked_decode:
+        logits = linear(L.token_rows_view(h), params["lm_head"], out_dtype=torch.float32)
+        return logits.reshape(*h.shape[:2], -1), cache
     logits = linear(h, params["lm_head"], out_dtype=torch.float32)
     return logits, cache

@@ -1,5 +1,5 @@
-"""Small shared helpers: device resolution, dense products whose batch rows
-do not depend on the batch, and walks over parameter trees.
+"""Small shared helpers: device resolution, dense products and row sums whose
+batch rows do not depend on the batch, and walks over parameter trees.
 
 A parameter tree is nested ``dict``s and ``tuple``s (the JAX package's pytree
 layout) whose leaves are tensors or :class:`~repro_torch.core.qtensor.
@@ -76,6 +76,30 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, w)
     y = matmul_row_tiles(x.reshape(x.shape[0], x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+# Widest reduction of :func:`row_sum`'s stages: a sum over a last axis this
+# short gets one warp per output from torch's CUDA reduction at any number of
+# outputs, so its order of summation is fixed.
+ROW_SUM_WIDTH = 32
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(-1, keepdim=True)`` whose result for one row does not depend
+    on how many rows share the call. torch's CUDA reduction picks its block
+    shape, and so its order of summation, from the number of outputs as well
+    as from the reduced length (for 3072 values: 512 lanes a row for one
+    row, 128 for four, 32 from sixteen on), so ``torch.mean`` of a decode
+    step's rows and of a speculative verify's rows would round differently.
+    Here the last axis is summed in stages of :data:`ROW_SUM_WIDTH` values
+    (zero-padded), each of which torch reduces in one warp per output
+    whatever the row count."""
+    while x.shape[-1] > ROW_SUM_WIDTH:
+        pad = -x.shape[-1] % ROW_SUM_WIDTH
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        x = x.reshape(*x.shape[:-1], -1, ROW_SUM_WIDTH).sum(-1)
+    return x.sum(-1, keepdim=True)
 
 
 def tree_map_with_path(

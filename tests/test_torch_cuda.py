@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.infer import Engine, Request, Scheduler
+from repro_torch.infer import Engine, Request, Scheduler, SpecConfig
 from repro_torch.core.formats import get_format
 from repro_torch.kernels import (
     KERNEL_WRAPPERS,
@@ -55,7 +55,8 @@ from repro_torch.kernels import (
     uniform_mm_plain,
 )
 from repro_torch.kernels.flash_attn import BF16_ROW_TOL, row_rel_err
-from repro_torch.models import init_params, reduced
+from repro_torch.models import forward, init_params, reduced
+from repro_torch.models.layers import rmsnorm
 from repro_torch.quant import QuantPolicy, quantize_params
 from repro_torch.utils import ROW_TILE, matmul_rows
 
@@ -693,3 +694,114 @@ def test_slot_batches_match_solo_on_card(cuda, q, mode, slots, fmt, dtype):
     assert (launch_counts()["lutgemm"] > 0) == (mode == "lutgemm")
     assert (ternary_mm.tc_launches > 0) == (q > 0 and fmt == "ternary" and dtype == "bfloat16")
     assert (launch_counts()["dequant_materialize"] > 0) == (q > 0 and fmt == "dequant")
+
+
+# -- self-speculative decoding on the card ------------------------------------
+
+# llama3.2-3b's widths at 2 layers, bf16: the main path's shapes for every kernel
+FULL_WIDTH = dict(d_model=3072, n_heads=24, n_kv_heads=8, d_ff=8192, vocab=128256,
+                  param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+@functools.lru_cache(maxsize=None)
+def _full_width_engine(fmt):
+    cfg = reduced(get_config("llama3.2-3b"), **FULL_WIDTH)
+    params = init_params(cfg, seed=0, device="cuda")
+    if fmt != "dense":
+        params = quantize_params(params, QuantPolicy(q=4, g=128, iters=2, fmt=fmt), device="cuda")
+    return Engine(cfg, params, max_seq=64, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 3072])
+def test_rmsnorm_rows_equal_solo(cuda, d, dtype):
+    """``rmsnorm`` gives a row the bits of the row alone at any row count
+    (``utils.row_sum``; ``torch.mean`` picks its reduction's block shape by
+    the number of rows), as a (N, 1, d) decode batch and as (1, N, d)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x = torch.randn((64, 1, d), generator=gen, device=cuda).to(dtype)
+    w = (1 + 0.1 * torch.randn((d,), generator=gen, device=cuda)).to(dtype)
+    alone = torch.cat([rmsnorm(w, x[i : i + 1]) for i in range(64)])
+    for n in (1, 2, 4, 5, 9, 16, 20, 45, 64):
+        assert torch.equal(rmsnorm(w, x[:n]), alone[:n]), n
+        assert torch.equal(rmsnorm(w, x[:n].reshape(1, n, d)).reshape(n, 1, d), alone[:n]), n
+
+
+@pytest.mark.parametrize("fmt,mode", [("bcq", None), ("bcq", "lutgemm"), ("ternary", None), ("dense", None)],
+                         ids=["bcq", "bcq_lutgemm", "ternary", "dense"])
+def test_chunked_verify_equals_step_decode_on_card(cuda, fmt, mode):
+    """The verify forward of 5 tokens against a filled cache gives each
+    position the bits of a single-token decode step there (full widths,
+    bf16, every linear on its kernel: K1/K2, K3, K4's tensor cores, or the
+    dense row tiles)."""
+    eng = _full_width_engine(fmt)
+    cfg = eng.cfg
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 12)), device=cuda)
+    chunk = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 5)), device=cuda)
+    pos = torch.tensor([12, 12, 12, 12], device=cuda)
+    with impl_mode(mode):
+        _, c_chunk = eng.prefill(prompt, eng._make_cache(4))
+        _, c_step = eng.prefill(prompt, eng._make_cache(4))
+        got, _ = forward(cfg, eng.params, tokens=chunk, cache=c_chunk, pos=pos, logits_mode="all",
+                         chunked_decode=True)
+        steps = []
+        for t in range(5):
+            lg, c_step = eng.decode(chunk[:, t : t + 1], c_step, pos + t)
+            steps.append(lg)
+    assert torch.equal(got, torch.stack(steps, dim=1))
+
+
+def test_dense_speculation_accepts_every_proposal_on_card(cuda):
+    """A dense model drafts with itself: the chunked verify gives the draft
+    steps' bits, so every proposal is accepted (16 tokens: the first, then
+    three chunks of 5, so no acceptance falls past the cut uncounted)."""
+    eng = _full_width_engine("dense")
+    prompts = np.random.default_rng(2).integers(0, eng.cfg.vocab, (4, 8))
+    spec = eng.generate(prompts, 16, speculate=SpecConfig(2, 4))
+    assert spec.spec_stats["accept_rate"] == 1.0 and spec.spec_stats["chunks"] == 3
+    np.testing.assert_array_equal(spec.tokens, eng.generate(prompts, 16).tokens)
+
+
+@pytest.mark.parametrize("fmt,mode,q_draft", [("bcq", None, 2), ("bcq", "lutgemm", 2), ("ternary", None, 1)],
+                         ids=["bcq", "bcq_lutgemm", "ternary"])
+def test_spec_greedy_equals_plain_on_card(cuda, fmt, mode, q_draft):
+    """Speculative greedy == plain greedy token for token, in bf16 at full
+    widths: drafts at q' planes on K1/K2 (K3 under ``lutgemm``), the verify
+    on K1/K2, K3 or K4."""
+    eng = _full_width_engine(fmt)
+    prompts = np.random.default_rng(3).integers(0, eng.cfg.vocab, (4, 8))
+    reset_launch_counts()
+    with impl_mode(mode):
+        spec = eng.generate(prompts, 12, speculate=SpecConfig(q_draft, 4))
+        plain = eng.generate(prompts, 12)
+    np.testing.assert_array_equal(spec.tokens, plain.tokens)
+    counts = launch_counts()
+    assert counts["flash_attention"] == 3 * eng.cfg.n_layers  # target + draft prefill, plain prefill
+    if fmt == "ternary":
+        assert counts["bcq_mm"] > 0 and ternary_mm.tc_launches == counts["ternary_mm"] > 0
+    assert (counts["lutgemm"] > 0) == (mode == "lutgemm")
+
+
+@pytest.mark.parametrize("slots", [4, 9])
+def test_spec_slot_batches_match_solo_on_card(cuda, slots):
+    """Speculative slots at full widths: greedy requests and sampled requests
+    that opt out give the bits of their solo plain ``generate``."""
+    eng = _full_width_engine("bcq")
+    rng = np.random.default_rng(4)
+    reqs = [
+        Request(prompt=rng.integers(0, eng.cfg.vocab, size=int(rng.integers(4, 30))).astype(np.int32),
+                max_new_tokens=int(rng.integers(3, 14)), temperature=[0.0, 1.0, 0.7][i % 3], seed=10 + i,
+                speculate=i % 3 != 1)
+        for i in range(slots + 3)
+    ]
+    sched = Scheduler(eng, n_slots=slots, chunk=2, speculate=SpecConfig(2, 4))
+    for r in reqs:
+        sched.submit(r)
+    done = {c.rid: c for c in sched.run()}
+    for r in reqs:
+        assert done[r.rid].new_tokens.shape == (r.max_new_tokens,)
+        if r.temperature == 0.0 or not r.speculate:
+            solo = eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
+            np.testing.assert_array_equal(done[r.rid].new_tokens, solo.tokens[0, r.prompt.size :])

@@ -207,8 +207,11 @@ def test_mixed_format_model_decodes():
 
 
 @pytest.mark.parametrize("argv,missing", [
-    (["--speculate", "2:4"], "speculative"),
-    (["--sequential", "--speculate", "2:4"], "speculative"),
+    # --speculate is ported: its two cases hold the reference's refusals of
+    # a dense model and of --sequential (ids kept from when it was refused)
+    pytest.param(["--speculate", "2:4", "--q", "0"], "requires a quantized model", id="argv0-speculative"),
+    pytest.param(["--sequential", "--speculate", "2:4"], "cannot be combined with --sequential",
+                 id="argv1-speculative"),
     (["--sequential", "--tp", "2"], "tensor parallelism"),
     (["--sequential", "--prefix-cache-mb", "8"], "prefix cache"),
     (["--sequential", "--prefill-chunk", "4"], "chunked prefill"),
@@ -220,6 +223,8 @@ def test_mixed_format_model_decodes():
     (["--sequential", "--shared-prefix-len", "4"], "prefix cache"),
 ])
 def test_serve_cli_refuses_unported_flags(capsys, argv, missing):
+    """Flags of subsystems not ported yet, and combinations the reference's
+    launcher refuses, exit with an argparse error naming the reason."""
     with pytest.raises(SystemExit) as e:
         serve.main(argv + ["--device", "cpu"])
     assert e.value.code == 2

@@ -5,9 +5,8 @@ are bit-identical to the same request in an undisturbed run — plus the
 state machine, validation, backpressure, deadlines, retry, stop tokens and
 the streaming callbacks.
 
-Not mirrored: the speculative and tensor-parallel cells of the survivor
-matrix (``test_survivor_invariance_speculative``,
-``test_survivor_invariance_tp2``): neither subsystem is ported. Added: a
+Not mirrored: the tensor-parallel cell of the survivor matrix
+(``test_survivor_invariance_tp2``): tensor parallelism is not ported. Added: a
 decode chunk that fails part-way leaves the slot state as it was, so its
 retry is exact; and the port's lifecycle modules match the reference's.
 """
@@ -28,6 +27,7 @@ from repro_torch.infer import (
     RequestLifecycle,
     RequestState,
     Scheduler,
+    SpecConfig,
     StepClock,
     TransitionError,
 )
@@ -500,14 +500,19 @@ def _matrix_requests():
     return reqs
 
 
-@pytest.mark.parametrize("q", [0, 4], ids=["dense", "bcq_q4"])
-def test_survivor_invariance_plain(q):
-    engine = _engine(q)
-    _, rids_ref, ref = _run(engine, _matrix_requests(), chunk=2)
+SPEC = SpecConfig(q_draft=2, gamma=3)
+
+
+def _disturbed_vs_undisturbed(engine, *, speculate=None):
+    """The same 5-request workload undisturbed and disturbed (one mid-flight
+    cancel, one injected NaN row, one deadline): every survivor bit for bit
+    the same, and the partial tokens of the disturbed a prefix of theirs."""
+    _, rids_ref, ref = _run(engine, _matrix_requests(), chunk=2, speculate=speculate)
 
     clk = StepClock()
     plan = FaultPlan(nan_row={2: 1})
-    sched = Scheduler(engine, n_slots=2, chunk=2, faults=plan, clock=clk, sleep=clk.sleep)
+    sched = Scheduler(engine, n_slots=2, chunk=2, speculate=speculate, faults=plan, clock=clk,
+                      sleep=clk.sleep)
     reqs = _matrix_requests()
     reqs[3].deadline_s = 0.5
     rids = [sched.submit(r) for r in reqs]
@@ -530,3 +535,12 @@ def test_survivor_invariance_plain(q):
     for i in (0, 2):
         part = sched.outcomes[rids[i]].new_tokens
         np.testing.assert_array_equal(part, ref[rids_ref[i]].new_tokens[: part.size])
+
+
+@pytest.mark.parametrize("q", [0, 4], ids=["dense", "bcq_q4"])
+def test_survivor_invariance_plain(q):
+    _disturbed_vs_undisturbed(_engine(q))
+
+
+def test_survivor_invariance_speculative():
+    _disturbed_vs_undisturbed(_engine(4), speculate=SPEC)

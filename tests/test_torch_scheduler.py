@@ -7,7 +7,8 @@ requests are interleaved, admitted mid-flight or slots reused.
 Not mirrored: ``test_continuous_batching_recurrent_and_window`` (the port
 has no recurrent or windowed architectures yet). Added: the port's
 scheduler gives the greedy completions of the reference's ``Scheduler`` on
-the same weights, and refuses the subsystems it does not have.
+the same weights, and refuses the subsystems it does not have. Speculative
+slots are held in ``tests/test_torch_speculative.py``.
 """
 
 import jax
@@ -26,7 +27,7 @@ from repro.quant import QuantPolicy as JPolicy
 from repro.quant import quantize_params as jquantize_params
 from repro_torch.configs import get_config
 from repro_torch.data import MarkovCorpus
-from repro_torch.infer import Engine, Request, Scheduler
+from repro_torch.infer import Engine, Request, Scheduler, SpecConfig
 from repro_torch.models import init_params, params_from_numpy, reduced
 from repro_torch.quant import QuantPolicy, quantize_params
 from torch_helpers import jax_tree_to_numpy
@@ -174,6 +175,7 @@ def test_scheduler_validation():
 
 
 @pytest.mark.parametrize("kw,missing", [
+    # speculation is ported; a speculate that is not a SpecConfig is refused
     (dict(speculate=object()), "speculative"),
     (dict(prefill_chunk=4), "chunked admission"),
     (dict(tracer=object()), "span tracer"),
@@ -185,8 +187,13 @@ def test_scheduler_refuses_unported_subsystems(kw, missing):
 
 
 def test_init_slots_refuses_speculation():
+    """``init_slots`` takes a SpecConfig (speculation is ported) and refuses
+    anything else."""
     with pytest.raises(ValueError, match="speculative"):
         _engine().init_slots(2, speculate=object())
+    slots = _engine().init_slots(2, speculate=SpecConfig(2, 2))
+    assert {"draft_cache", "t_pend", "spec", "draft_gens"} <= set(slots)
+    assert not slots["active"].any() and slots["t_pend"].shape == (2,)
 
 
 def test_greedy_completions_match_reference_scheduler():
