@@ -46,7 +46,12 @@ code is non-zero:
              20 rows and the draft prefill's 64, at q = 4 at 20 rows, and K4
              at 20 rows, each checked and timed with its byte bound; K1/K2
              at q' = 2 and q = 4 at phase 6's prompt lengths, checked; and
-             each path's decode step at every q and B;
+             each path's decode step at every q and B. Prompt rows (asserted):
+             dense bf16 and ``dequant_mm`` rows of a 544-row prompt at
+             ``wo`` and ``w_gate_up`` equal the same rows in a 32-row call
+             (``utils.PROMPT_TILE``), and the tiles' cost on a dense bf16
+             prefill of 512 and 8192 tokens, one product against tiles of 64
+             and 128 rows;
 4. flash     ``flash_attention`` (K8) against its plain version (``_sdpa``
              under a causal mask, run one batch row at a time) at
              llama3.2-3b's heads (24 / 8, Dh 128) for B in {1, 4} and S in
@@ -60,7 +65,16 @@ code is non-zero:
              ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
              on the same bf16 inputs (the library yardstick, never on a path),
              each with its achieved TFLOP/s (the causal pairs' operations over
-             its time). bf16 runs on the tensor cores, f32 on the CUDA cores;
+             its time). bf16 runs on the tensor cores, f32 on the CUDA cores.
+             The offset entry (queries at ``q_start``, keys a view of the
+             first ``q_start + Sq`` rows of a cache whose later rows are NaN)
+             at (q_start, Sq) = (512, 32), (7168, 1024), (384, 128) and (544,
+             3), B = 1, bf16 and f32: against its plain version, each row bitwise equal to the
+             same row of one cold launch over the whole sequence, the same
+             bits on a rerun, read in place; timed beside SDPA with
+             ``causal_lower_right``, its bound the larger of 4·H·Dh·Sq·
+             (q_start + (Sq+1)/2) operations and the bytes of q, out and K/V
+             rows [0, Sk);
 5. main path full-width llama3.2-3b with random weights from a seed, once
              per format, each quantized on the card (q=4, g=128, iters=4)
              and served by an ``Engine`` with fused QKV / gate-up:
@@ -111,9 +125,35 @@ code is non-zero:
              acceptance, chunks, tok/s and TTFT beside the plain run's, and
              the device-busy share of a profiled second run; the device time
              of one draft step, one q = 4 step and one verify forward too;
-8. one JSON line listing every kernel, its launches (``spec_launches``: on
-             phase 7's runs) and its numbers;
-9. last line ``{"ok": true, "device": {...}}``.
+8. prefix    the prefix cache and chunked prefill on the bcq model at 28
+             layers: 12 requests sharing a 512-token system prompt, each
+             with a 16-64-token tail and 16 new tokens (temperatures 0, 1.0,
+             0.7), through 4 slots, chunk 8, after a warm-up of 6 of them on
+             a cache of their own: a cold wave and an identical
+             warm wave against one ``PrefixCache(block_tokens=16, max_bytes
+             = 256 MB)`` with ``prefill_chunk=128``, then the same requests
+             whole-shot without a cache. Every request's tokens and its
+             last-prompt logits must be equal (bitwise) in all three, greedy
+             ones equal to solo ``generate``, the warm wave must hit on every
+             request, the accounting must be clean, and K8 must launch L
+             times a prefill dispatch (offset ones counted apart); then each
+             admission's device time cold against warm. Then phase 6's
+             8192-token request through a 1-slot scheduler with
+             ``prefill_chunk=1024`` (8 chunks, the last at q_start = 7168):
+             tokens and last-prompt logits bitwise equal to phase 6's
+             whole-shot run, its prefill time and peak memory beside it.
+             What a cold wave costs: the cold wave, a cold wave with
+             whole-shot admissions and the run without a cache, each again
+             on a fresh cache, untraced and then traced (device busy share,
+             device ms by part: K8, K1/K2, copies, the rest). Last, every
+             shape the phase launched is held to its plain version: each
+             (kernel, planes, rows, leaf) of K1/K2 that phase 3 did not
+             check is checked, and each K8 (q_start, Sq) against its plain
+             version and the rows of one cold launch;
+9. one JSON line listing every kernel, its launches (``spec_launches``: on
+             phase 7's runs; K8's ``offset_launches``: on phase 8's) and its
+             numbers;
+10. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -190,6 +230,10 @@ FLASH = ("flash_attention", "csrc/flash_attn.cu", "src/repro/kernels/flash_attn.
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}  # the reference test's tolerances
 LLAMA_HEADS = (24, 8, 128)  # llama3.2-3b: H, Hkv, Dh
 FLASH_S = (1, 16, 17, 100, 512, 2048, 8192)
+# K8's offset entry (a prompt chunk, or a suffix after a cached prefix): (q_start, Sq) at B = 1
+# (the first chunk, the last chunk of the 8192-token prompt) and two shapes of phase 8's:
+# a 128-query chunk at a tile-aligned q_start and a 3-token warm suffix that straddles a key tile
+FLASH_OFFSETS = ((512, 32), (7168, 1024), (384, 128), (544, 3))
 FLASH_EXTRA = [  # (B, S, H, Hkv, Dh): the reference test's shapes, then Dh 16 and 64
     (2, 512, 4, 4, 64), (1, 1024, 8, 2, 32), (2, 512, 6, 1, 64), (1, 512, 2, 2, 128),
     (2, 300, 4, 2, 16), (1, 777, 8, 4, 64),
@@ -207,6 +251,14 @@ DRAFT_Q = (1, 2)
 BCQ_LEAF_KERNELS = {"wqkv": "bcq_mm_fused", "wo": "bcq_mm", "w_gate_up": "bcq_mm_fused", "w_down": "bcq_mm",
                     "lm_head": "bcq_mm"}
 LONG_NEW = 8
+LONG_CHUNK = 1024  # phase 8: the 8192-token request prefilled in chunks of this many tokens
+# phase 8, the prefix cache: 12 requests share a system prompt of PREFIX_LEN
+# tokens, each with its own tail of 16..64 tokens
+PREFIX_LEN, PREFIX_BLOCK, PREFIX_CHUNK, PREFIX_CACHE_BYTES = 512, 16, 128, 256 << 20
+PREFIX_TAILS = (16, 64, 23, 40, 31, 57, 18, 48, 35, 62, 27, 44)
+# dense prompt rows (phase 3): the widths timed, and the row tiles compared
+PROMPT_ROWS = (512, 8192)
+PROMPT_TILES = (64, 128)
 # the formats served after bcq, with the kernel each one's path launches
 FORMAT_KERNEL = {"uniform": "uniform_mm", "dequant": "dequant_materialize", "ternary": "ternary_mm",
                  "codebook": "codebook_mm"}
@@ -601,6 +653,60 @@ def dense_rows_check(gen):
     return dict(rows=out, costs=costs, steps=steps)
 
 
+def prompt_tiles_check(gen):
+    """Prompt rows (``utils.PROMPT_TILE``), asserted: a dense bf16
+    product (``utils.matmul_rows``) and ``dequant_mm`` of a 544-row prompt
+    at ``wo`` and ``w_gate_up`` give its rows the bits of the same rows in a
+    32-row call (a chunk or a warm suffix), tile-aligned or not; tolerance
+    0. Then the cost, on a dense bf16 prefill of 512 and 8192 tokens: the
+    four layer leaves at those rows as one product, and in tiles of 64 and
+    of 128 rows, summed over 28 layers → dict."""
+    from repro_torch.kernels import dequant_mm
+    from repro_torch.utils import PROMPT_TILE, matmul_row_tiles, matmul_rows
+
+    checks = []
+    for leaf in ("wo", "w_gate_up"):
+        k, o, _ = LEAVES[leaf]
+        w16 = (torch.randn((k, o), generator=gen, device=DEVICE) / math.sqrt(k)).to(torch.bfloat16)
+        packed, scales = format_planes("dequant", k, o, Q, G, gen)
+        scales = scales.to(torch.bfloat16)
+        x = torch.randn((1, 544, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+        full, dfull = matmul_rows(x, w16), dequant_mm(x[0], packed, scales, g=G)
+        for start in (512, 500, 77):
+            part = x[:, start : start + 32]
+            dense_ok = torch.equal(matmul_rows(part, w16), full[:, start : start + 32])
+            deq_ok = torch.equal(dequant_mm(part[0], packed, scales, g=G), dfull[start : start + 32])
+            checks.append(dict(leaf=leaf, start=start, dense=dense_ok, dequant=deq_ok))
+            log(f"  prompt rows {start}..{start + 31} of 544 at {leaf:9s} in a 32-row call (tiles of "
+                f"{PROMPT_TILE}): dense bf16 {'equal' if dense_ok else 'DIFFER'}, dequant_mm "
+                f"{'equal' if deq_ok else 'DIFFER'} (tolerance 0)")
+    if not all(c["dense"] and c["dequant"] for c in checks):
+        raise SystemExit(f"chip_smoke: prompt rows differ by the call they are in: {checks}")
+
+    costs = []
+    for leaf in ("wqkv", "wo", "w_gate_up", "w_down"):
+        k, o, _ = LEAVES[leaf]
+        w16 = (torch.randn((k, o), generator=gen, device=DEVICE) / math.sqrt(k)).to(torch.bfloat16)
+        ws = [(w16,)] + [(w16.clone(),) for _ in range(n_copies(w16.numel() * 2) - 1)]
+        for S in PROMPT_ROWS:
+            x = torch.randn((S, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+            rec = dict(leaf=leaf, S=S, one_ms=time_ms(lambda w: torch.matmul(x, w), ws))
+            for tile in PROMPT_TILES:
+                rec[f"tile{tile}_ms"] = time_ms(lambda w, t=tile: matmul_row_tiles(x, w, t), ws)
+            costs.append(rec)
+        del ws, w16
+    forward = {}
+    for S in PROMPT_ROWS:
+        keys = ["one_ms"] + [f"tile{t}_ms" for t in PROMPT_TILES]
+        forward[S] = {key: 28 * sum(r[key] for r in costs if r["S"] == S) for key in keys}
+        f = forward[S]
+        log(f"  dense bf16 prefill of {S} tokens, the four layer leaves over 28 layers: one product "
+            f"{f['one_ms']:.3f} ms; " + ", ".join(
+                f"tiles of {t} {f[f'tile{t}_ms']:.3f} ms ({f[f'tile{t}_ms'] / f['one_ms'] - 1:+.1%})"
+                for t in PROMPT_TILES) + f"; utils.PROMPT_TILE = {PROMPT_TILE}")
+    return dict(checks=checks, costs=costs, forward=forward)
+
+
 def flash_plain_rows(q, k, v):
     """K8's plain version one batch row at a time: the same function (rows
     are independent), with one row's ``(H, S, S)`` f32 logits live at once."""
@@ -666,15 +772,114 @@ def check_flash(B, S, H, Hkv, Dh, dtype, gen):
     return rec
 
 
+def sdpa_lower_right(q, k, v):
+    """The library yardstick of the offset entry: one fused PyTorch attention
+    call with the causal mask aligned to the last key
+    (``torch.nn.attention.bias.causal_lower_right``). Timed only."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    mask = causal_lower_right(q.shape[1], k.shape[1])
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
+    ).transpose(1, 2)
+
+
+def flash_offset_inputs(q_start, sq, dtype, gen, B=1):
+    """Inputs of K8's offset entry at llama3.2-3b's heads: the queries of the
+    whole sequence ``(B, Sk, H, Dh)`` and a K/V cache ``(2, B, Sk + 64,
+    Hkv, Dh)`` whose rows past ``Sk = q_start + Sq`` hold NaN."""
+    H, Hkv, Dh = LLAMA_HEADS
+    sk = q_start + sq
+    q_all = torch.randn((B, sk, H, Dh), generator=gen, device=DEVICE).to(dtype)
+    cache = torch.full((2, B, sk + 64, Hkv, Dh), float("nan"), device=DEVICE, dtype=dtype)
+    cache[:, :, :sk] = torch.randn((2, B, sk, Hkv, Dh), generator=gen, device=DEVICE).to(dtype)
+    return q_all, cache
+
+
+def flash_offset_verdict(q_all, cache, q_start, sq):
+    """K8's offset entry on :func:`flash_offset_inputs`: queries ``q_all[:,
+    q_start:]`` over the views ``cache[:, :, :q_start + Sq]``, against its
+    plain version (the tolerances of :func:`check_flash`), each row against
+    the same row of one cold launch over the whole sequence (bitwise), a
+    rerun (bitwise), read in place → record."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attn import BF16_ROW_TOL, row_rel_err
+
+    H, Hkv, Dh = LLAMA_HEADS
+    dtype, sk = q_all.dtype, q_start + sq
+    q, k, v = q_all[:, q_start:], cache[0, :, :sk], cache[1, :, :sk]
+    copies0 = flash_attention.copies
+    out = flash_attention(q, k, v, q_start)
+    torch.cuda.synchronize()
+    plain = flash_attention_plain(q, k, v, q_start)
+    err = (out.float() - plain.float()).abs().max().item()
+    row_err = row_rel_err(out, plain)
+    tol = FLASH_TOL[dtype]
+    within = bool(torch.allclose(out.float(), plain.float(), rtol=tol, atol=tol))
+    del plain
+    cold = flash_attention(q_all, k.contiguous(), v.contiguous())[:, q_start:]
+    rows_equal = bool(torch.equal(out, cold))
+    same_bits = bool(torch.equal(flash_attention(q, k, v, q_start), out))
+    in_place = flash_attention.copies == copies0
+    row_tol = BF16_ROW_TOL if dtype == torch.bfloat16 else None
+    ok = (within and (row_tol is None or row_err <= row_tol) and rows_equal and same_bits and in_place
+          and bool(torch.isfinite(out).all()))
+    return dict(kernel=FLASH[0], B=q_all.shape[0], q_start=q_start, Sq=sq, Sk=sk, H=H, Hkv=Hkv, Dh=Dh,
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=tol, row_rel_err=row_err,
+                row_tol=row_tol, rows_equal_cold=rows_equal, same_bits=same_bits, in_place=in_place, ok=ok)
+
+
+def check_flash_offset(q_start, sq, dtype, gen):
+    """K8's offset entry at llama3.2-3b's heads, B = 1, checked as in
+    :func:`flash_offset_verdict`, then timed beside ``sdpa_lower_right``
+    → record."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+
+    H, Hkv, Dh = LLAMA_HEADS
+    sk = q_start + sq
+    size = 4 if dtype == torch.float32 else 2
+    nbytes = (2 * sq * H * Dh + 2 * sk * Hkv * Dh) * size  # q and out; K/V rows [0, Sk)
+    sets = [flash_offset_inputs(q_start, sq, dtype, gen) for _ in range(n_copies(nbytes))]
+    inputs = [(q_all[:, q_start:], cache[0, :, :sk], cache[1, :, :sk]) for q_all, cache in sets]
+    rec = flash_offset_verdict(*sets[0], q_start, sq)
+    err, row_err = rec["max_abs_err"], rec["row_rel_err"]
+    rows_equal, same_bits, in_place, ok = rec["rows_equal_cold"], rec["same_bits"], rec["in_place"], rec["ok"]
+    ms = time_ms(lambda q, k, v: flash_attention(q, k, v, q_start), inputs)
+    plain_ms = time_ms(lambda q, k, v: flash_attention_plain(q, k, v, q_start), inputs[:1], reps=3, inner=1)
+    library_ms = None
+    if dtype == torch.bfloat16:
+        try:
+            library_ms = time_ms(sdpa_lower_right, inputs)
+        except RuntimeError as e:  # the yardstick only: time it on K/V heads repeated instead
+            log(f"  (SDPA with causal_lower_right refused enable_gqa: {str(e)[:200]}; timed with the K/V "
+                f"heads repeated {H // Hkv}x)")
+            wide = [(a, b.repeat_interleave(H // Hkv, 2), c.repeat_interleave(H // Hkv, 2)) for a, b, c in inputs]
+            library_ms = time_ms(sdpa_lower_right, wide)
+    ops = 4.0 * H * Dh * sq * (q_start + (sq + 1) / 2)
+    ops_ms = ops / PEAK_OPS[dtype] * 1e3
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+               bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    lib = "-" if library_ms is None else f"{library_ms:.4f}"
+    log(f"  flash_attention offset q_start={q_start:<5d} Sq={sq:<5d} Sk={sk:<5d} {rec['dtype']:8s} err {err:.2e} "
+        f"row {row_err:.2e} rows == cold launch {'yes' if rows_equal else 'NO'} bits "
+        f"{'same' if same_bits else 'DIFFER'} in place {'yes' if in_place else 'NO'} {'ok' if ok else 'FAIL'}  "
+        f"ms {ms:.4f} = {ms / rec['bound_ms']:.1f}x bound {rec['bound_ms']:.4f} ({rec['bound_by']})  plain "
+        f"{plain_ms:.4f}  library (causal_lower_right SDPA) {lib}")
+    return rec
+
+
 def phase_flash(gen):
     H, Hkv, Dh = LLAMA_HEADS
     shapes = [(B, S, H, Hkv, Dh) for B in (1, PROMPTS) for S in FLASH_S] + FLASH_EXTRA
     records = [check_flash(*shape, dtype, gen) for shape in shapes
                for dtype in (torch.bfloat16, torch.float32)]
-    bad = [r for r in records if not r["ok"]]
+    offsets = [check_flash_offset(q_start, sq, dtype, gen) for q_start, sq in FLASH_OFFSETS
+               for dtype in (torch.bfloat16, torch.float32)]
+    bad = [r for r in records + offsets if not r["ok"]]
     if bad:
         raise SystemExit(f"chip_smoke: {len(bad)} flash_attention checks disagree with the plain version: {bad[:3]}")
-    return records
+    return records, offsets
 
 
 def run_counted(fn):
@@ -915,11 +1120,13 @@ def phase_main_path():
     return counts, cfg, summaries, bcq_engine, ternary_engine, prompts
 
 
-def serving_engine(engine, max_seq):
-    """The bcq engine's fused weights behind another cache length (no copy)."""
+def serving_engine(engine, max_seq, prefix_cache=None):
+    """The bcq engine's fused weights behind another cache length (no copy),
+    with ``prefix_cache`` if given."""
     from repro_torch.infer import Engine
 
-    return Engine(engine.cfg, engine.params, max_seq=max_seq, fuse=False, device="cuda")
+    return Engine(engine.cfg, engine.params, max_seq=max_seq, fuse=False, device="cuda",
+                  prefix_cache=prefix_cache)
 
 
 def serve_requests(cfg, lens, new_tokens, seed0):
@@ -1091,6 +1298,12 @@ def phase_serving(bcq_engine):
     return counts["flash_attention"], summary, dict(engine=engine, solos=solos)
 
 
+def synced_clock():
+    """A lifecycle clock whose stamps include the device's work."""
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
 def forced_logits(engine, prompt, tokens, mode):
     """Under ``impl_mode(mode)``: the prompt's prefill, then ``tokens`` fed
     one decode step at a time → the ``(len(tokens), V)`` logits that chose
@@ -1111,7 +1324,8 @@ def phase_long(bcq_engine):
     """One request of LONG_SEQ_THRESHOLD prompt tokens through the
     scheduler on the kernels, and again under impl_mode("ref"); then the
     kernel path's tokens teacher-forced through both paths and an f32-weight
-    oracle, so the logits are compared on the same inputs."""
+    oracle, so the logits are compared on the same inputs → (summary, the
+    whole-shot kernel path's last-prompt logits, its tokens)."""
     import numpy as np
 
     from repro_torch.infer import RequestState, Scheduler
@@ -1122,10 +1336,6 @@ def phase_long(bcq_engine):
     L, S = cfg.n_layers, LONG_SEQ_THRESHOLD
     engine = serving_engine(bcq_engine, S + LONG_NEW)
     (req,) = serve_requests(cfg, (S,), LONG_NEW, 500)  # greedy
-
-    def synced_clock():  # lifecycle stamps that include the device's work
-        torch.cuda.synchronize()
-        return time.perf_counter()
 
     def run(mode):
         with impl_mode(mode):
@@ -1188,12 +1398,13 @@ def phase_long(bcq_engine):
              if dec and int(kl[t].argmax()) != int(rl[t].argmax())]
     if flips:
         raise SystemExit(f"chip_smoke: [long] the kernel and ref paths pick different tokens at decisive steps {flips}")
-    return dict(prompt_len=S, new_tokens=LONG_NEW, wall_s=wall, prefill_s=prefill_s, peak_gb=peak / 1e9,
-                base_gb=base / 1e9, sdpa_logits_gb_per_layer=logits_gb, ref_prefill_s=rprefill_s,
-                ref_peak_gb=rpeak / 1e9, tokens_identical=same, tokens=toks.tolist(), ref_tokens=rtoks.tolist(),
-                rel_kernel_ref=rel_kr, rel_kernel_f32=rel_kf, rel_ref_f32=rel_rf, margins=margin,
-                max_abs_diff=diff, top1_kernel_ref=agree(kl, rl), top1_kernel_f32=agree(kl, fl),
-                top1_ref_f32=agree(rl, fl))
+    summary = dict(prompt_len=S, new_tokens=LONG_NEW, wall_s=wall, prefill_s=prefill_s, peak_gb=peak / 1e9,
+                   base_gb=base / 1e9, sdpa_logits_gb_per_layer=logits_gb, ref_prefill_s=rprefill_s,
+                   ref_peak_gb=rpeak / 1e9, tokens_identical=same, tokens=toks.tolist(), ref_tokens=rtoks.tolist(),
+                   rel_kernel_ref=rel_kr, rel_kernel_f32=rel_kf, rel_ref_f32=rel_rf, margins=margin,
+                   max_abs_diff=diff, top1_kernel_ref=agree(kl, rl), top1_kernel_f32=agree(kl, fl),
+                   top1_ref_f32=agree(rl, fl))
+    return summary, kl[0].clone(), toks
 
 
 def step_logits(engine, prompts, mode):
@@ -1344,11 +1555,12 @@ class _Counted:
     launches on its own module-level name, which now resolves here, so the
     counters pass through to the wrapper's."""
 
-    def __init__(self, fn, name, seen):
-        self._fn, self._name, self._seen = fn, name, seen
+    def __init__(self, fn, name, seen, by_leaf):
+        self._fn, self._name, self._seen, self._by_leaf = fn, name, seen, by_leaf
 
     def __call__(self, x, packed, scales, *a, **kw):
-        self._seen[(self._name, packed.shape[0], x.shape[0])] += 1
+        leaf = (x.shape[-1], packed.shape[-1]) if self._by_leaf else ()
+        self._seen[(self._name, packed.shape[0], x.shape[0], *leaf)] += 1
         return self._fn(x, packed, scales, *a, **kw)
 
     def __getattr__(self, attr):  # launches, tc_launches, ...
@@ -1362,22 +1574,76 @@ class _Counted:
 
 
 @contextlib.contextmanager
-def kernel_census():
+def kernel_census(by_leaf=False):
     """Count every K1, K2, K3 and K4 call by (kernel, planes, rows) while the
-    block runs: the formats' ``matvec`` imports the wrapper at each call, so
-    the module attribute patched here sees them all."""
+    block runs (``by_leaf``: by (kernel, planes, rows, k, o)): the formats'
+    ``matvec`` imports the wrapper at each call, so the module attribute
+    patched here sees them all."""
     seen = collections.Counter()
     patched = []
     for name in ("bcq_mm", "bcq_mm_fused", "lutgemm", "ternary_mm"):
         mod = importlib.import_module(f"repro_torch.kernels.{name}")
         fn = getattr(mod, name)
-        setattr(mod, name, _Counted(fn, name, seen))
+        setattr(mod, name, _Counted(fn, name, seen, by_leaf))
         patched.append((mod, name, fn))
     try:
         yield seen
     finally:
         for mod, name, fn in patched:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def flash_census():
+    """Count every K8 call of the model by (B, q_start, Sq, dtype) while the
+    block runs: ``models.layers`` holds the wrapper under its own name, which
+    is patched here."""
+    from repro_torch.models import layers
+
+    seen = collections.Counter()
+    real = layers.flash_attention
+
+    def counted(q, k, v, q_start=0):
+        seen[(q.shape[0], q_start, q.shape[1], q.dtype)] += 1
+        return real(q, k, v, q_start)
+
+    layers.flash_attention = counted
+    try:
+        yield seen
+    finally:
+        layers.flash_attention = real
+
+
+def check_launched(label, seen, attn, records, gen):
+    """Hold every shape a phase launched to its plain version: each (kernel,
+    planes, rows, k, o) of ``seen`` (:func:`kernel_census` by leaf) that
+    phase 3's ``records`` did not check at that leaf, through
+    :func:`check_untimed`, and each K8 (B, q_start, Sq, dtype) of ``attn``
+    (:func:`flash_census`) through :func:`flash_offset_verdict` (plain
+    version, rows of the cold launch, rerun) → records."""
+    if not (seen and attn):
+        raise SystemExit(f"chip_smoke: [{label}] the census saw no launches (K1-K4: {len(seen)}, K8: {len(attn)})")
+    done = {(r["kernel"], r["q"], r["B"], r["k"], r["o"]) for r in records if r["leaf"] != "sweep" and is_bf16(r)}
+    leaf_of = {(k, o): (leaf, dims) for leaf, (k, o, dims) in LEAVES.items()}
+    recs = []
+    for name, q, rows, k, o in sorted(set(seen) - done):
+        leaf, dims = leaf_of[(k, o)]
+        rec = check_untimed(name, rows, k, o, q, gen, dims if name == "bcq_mm_fused" else None)
+        rec["leaf"] = leaf
+        recs.append(rec)
+    flash = [flash_offset_verdict(*flash_offset_inputs(q_start, sq, dtype, gen, B), q_start, sq)
+             for B, q_start, sq, dtype in sorted(attn, key=lambda t: (t[0], t[1], t[2], str(t[3])))]
+    bad = [r for r in recs + flash if not r["ok"]]
+    rows = sorted({r["B"] for r in recs})
+    log(f"  [{label}] launched shapes held to their plain versions: {len(set(seen))} (kernel, planes, rows, leaf) "
+        f"of K1-K4, {len(set(seen) - done)} of them not checked in phase 3 and checked now (rows {rows}); "
+        f"{len(flash)} K8 (B, q_start, Sq) shapes (q_start {sorted({r['q_start'] for r in flash})}, Sq "
+        f"{sorted({r['Sq'] for r in flash})}), largest K8 error {max((r['max_abs_err'] for r in flash), default=0):.2e}"
+        f": {len(bad)} disagree")
+    if bad:
+        raise SystemExit(f"chip_smoke: [{label}] {len(bad)} launched shapes disagree with their plain versions: "
+                         f"{bad[:3]}")
+    return recs + flash
 
 
 def forward_census(kernel_of, planes, rows, head_rows, n_layers, times=1):
@@ -1607,13 +1873,285 @@ def phase_speculative(bcq_engine, ternary_engine, prompts, serving, plain_contin
     return out, launches
 
 
-def kernels_line(records, counts, n_layers, flash_records, spec_launches):
+def prompt_key(prompt):
+    """A prompt's token ids (host array or device tensor) as a dict key."""
+    if isinstance(prompt, torch.Tensor):
+        prompt = prompt.cpu().numpy()
+    return tuple(int(t) for t in prompt.reshape(-1))
+
+
+def record_admissions(engine):
+    """Keep the last-prompt logits of every admission the engine finishes,
+    keyed by :func:`prompt_key` (patches ``finish_admission`` on the
+    instance; ``admit_slot`` goes through it too). Undo with
+    ``del engine.finish_admission``."""
+    seen = {}
+    real = engine.finish_admission
+
+    def finish(slots, slot, pending):
+        out = real(slots, slot, pending)
+        seen[prompt_key(pending.prompt)] = out["logits"][slot].clone()
+        return out
+
+    engine.finish_admission = finish
+    return seen
+
+
+def prefix_requests(cfg):
+    """12 requests sharing a ``PREFIX_LEN``-token system prompt, each with
+    its own tail (``PREFIX_TAILS``); temperatures cycle 0, 1.0, 0.7."""
+    import numpy as np
+
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.infer import Request
+
+    corpus = MarkovCorpus(cfg.vocab, seed=3)
+    shared = corpus.sample(1, PREFIX_LEN, seed=99)[0, :PREFIX_LEN]
+    return [
+        Request(prompt=np.concatenate([shared, corpus.sample(1, t, seed=600 + i)[0, :t]]).astype(np.int32),
+                max_new_tokens=NEW_TOKENS, temperature=[0.0, 1.0, 0.7][i % 3], seed=10 + i)
+        for i, t in enumerate(PREFIX_TAILS)
+    ]
+
+
+def chunk_launches(sched, reqs, chunk):
+    """K8 launches a layer of a scheduler run's admissions, and those of them
+    at ``q_start > 0``: one per prefill dispatch (whole-shot: one; chunked:
+    ceil of the uncached rows over ``chunk``), offset unless it starts at 0."""
+    total = offset = 0
+    for r in reqs:
+        rec = sched.outcomes[r.rid]
+        n = 1 if chunk is None else -(-(r.prompt.size - rec.prefix_hit_tokens) // chunk)
+        if rec.prefill_chunks != n:
+            raise SystemExit(f"chip_smoke: [prefix] request {r.rid} took {rec.prefill_chunks} prefill "
+                             f"dispatches, not {n}")
+        total += n
+        offset += n if rec.prefix_hit_tokens else n - 1
+    return total, offset
+
+
+def phase_prefix(bcq_engine, long_whole, records, gen):
+    """The prefix cache and chunked prefill at full width and depth
+    (module docstring, phase 8), every shape it launched then held to its
+    plain version (``records``: phase 3's) → summary."""
+    with kernel_census(by_leaf=True) as seen, flash_census() as attn:
+        out = prefix_runs(bcq_engine, long_whole)
+    out["launched_checks"] = check_launched("prefix", seen, attn, records, gen)
+    return out
+
+
+def device_split(by_name):
+    """A trace's device ms by part: K8, K1/K2, copies (copy kernels, cat,
+    memcpy, memset) and the rest."""
+    parts = dict.fromkeys(("K8", "K1/K2", "copies", "other"), 0.0)
+    for name, ms in by_name.items():
+        low = name.lower()
+        part = ("K8" if any(t in name for t in FLASH_TAGS) else "K1/K2" if PROFILE_TAG["bcq"] in name
+                else "copies" if any(t in low for t in ("copy", "memcpy", "memset")) else "other")
+        parts[part] += ms
+    return parts
+
+
+def prefix_profiles(bcq_engine, max_seq):
+    """What a cold wave costs against no cache: the cold wave (a fresh
+    cache, ``prefill_chunk=PREFIX_CHUNK``), a cold wave with a fresh cache
+    and whole-shot admissions, and the requests without a cache, each run
+    once untraced and once traced (:func:`device_profile`), each run on an
+    engine and cache of its own → {run: summary}."""
+    import numpy as np
+
+    from repro_torch.infer import PrefixCache
+    from repro_torch.launch.serve import drive_continuous
+
+    cfg, n = bcq_engine.cfg, len(PREFIX_TAILS)
+    out = {}
+    for name, cached, chunk in (("cold wave", True, PREFIX_CHUNK), ("cold wave, whole-shot", True, None),
+                                ("no cache", False, None)):
+        def wave():
+            cache = PrefixCache(block_tokens=PREFIX_BLOCK, max_bytes=PREFIX_CACHE_BYTES) if cached else None
+            engine = serving_engine(bcq_engine, max_seq, prefix_cache=cache)
+            return drive_continuous(engine, prefix_requests(cfg), np.zeros(n), n_slots=SERVE_SLOTS,
+                                    chunk=SERVE_CHUNK, prefill_chunk=chunk)
+
+        sched, _, wall = wave()
+        device_ms, traced_ms, by_name = device_profile(wave)
+        parts = device_split(by_name)
+        ttft = sched.summary()["ttft_s"]
+        dispatches = sum(rec.prefill_chunks for rec in sched.outcomes.values())
+        out[name] = dict(wall_s=wall, tok_s=n * NEW_TOKENS / wall, ttft_s=ttft, prefill_dispatches=dispatches,
+                         decode_steps=sched.decode_steps, device_ms=device_ms, traced_wall_ms=traced_ms,
+                         busy_share=device_ms / (wall * 1e3), device_by_part=parts)
+        log(f"  [prefix profile] {name}: {wall:.3f}s, {n * NEW_TOKENS / wall:.1f} tok/s, TTFT p50 "
+            f"{ttft['p50']:.3f}s p95 {ttft['p95']:.3f}s, {dispatches} prefill dispatches, {sched.decode_steps} "
+            f"decode steps; traced: device busy {device_ms:.2f} ms of {traced_ms:.2f} ms traced wall "
+            f"({device_ms / traced_ms:.1%}; {device_ms / (wall * 1e3):.1%} of the untraced wall); device ms by "
+            "part: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    return out
+
+
+def prefix_runs(bcq_engine, long_whole):
+    """Phase 8's runs (module docstring) → summary."""
+    import numpy as np
+
+    from repro_torch.infer import PrefixCache
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.serve import drive_continuous
+
+    cfg = bcq_engine.cfg
+    L, n = cfg.n_layers, len(PREFIX_TAILS)
+    max_seq = PREFIX_LEN + max(PREFIX_TAILS) + NEW_TOKENS + 8
+    cache = PrefixCache(block_tokens=PREFIX_BLOCK, max_bytes=PREFIX_CACHE_BYTES)
+    warm = serving_engine(bcq_engine, max_seq, prefix_cache=cache)
+    plain = serving_engine(bcq_engine, max_seq)
+    runs, out = {}, {}
+    # warm-up, as in phase 6: 6 of the requests, chunked, on a cache of their own (4 miss, 2 hit)
+    drive_continuous(serving_engine(bcq_engine, max_seq, prefix_cache=PrefixCache(
+        block_tokens=PREFIX_BLOCK, max_bytes=PREFIX_CACHE_BYTES)), prefix_requests(cfg)[:SERVE_SLOTS + 2],
+        np.zeros(SERVE_SLOTS + 2), n_slots=SERVE_SLOTS, chunk=SERVE_CHUNK, prefill_chunk=PREFIX_CHUNK)
+    copies0 = flash_attention.copies
+    for name, engine, chunk in (("cold wave", warm, PREFIX_CHUNK), ("warm wave", warm, PREFIX_CHUNK),
+                                ("no cache", plain, None)):
+        logits = record_admissions(engine)
+        reqs = prefix_requests(cfg)
+        hits0 = cache.counters["hits"]
+        (sched, done, wall), _, counts, ref_calls = run_counted(lambda: drive_continuous(
+            engine, reqs, np.zeros(n), n_slots=SERVE_SLOTS, chunk=SERVE_CHUNK, prefill_chunk=chunk))
+        offset = flash_attention.offset_launches
+        del engine.finish_admission
+        summ = sched.summary()
+        if len(done) != n or summ["by_state"] != {"finished": n}:
+            raise SystemExit(f"chip_smoke: [prefix {name}] not every request finished: {summ['by_state']}")
+        dispatches, offsets = chunk_launches(sched, reqs, chunk)
+        expect = expect_forward_counts(counts, dispatches + sched.decode_steps, dispatches, L)
+        hit = [sched.outcomes[r.rid].prefix_hit_tokens for r in reqs]
+        by_rid = {c.rid: c.new_tokens for c in done}
+        runs[name] = dict(tokens=[by_rid[r.rid] for r in reqs], logits=[logits[prompt_key(r.prompt)] for r in reqs])
+        ttft = summ["ttft_s"]
+        out[name] = dict(wall_s=wall, tok_s=n * NEW_TOKENS / wall, ttft_s=ttft, tpot_s=summ["tpot_s"],
+                         hit_tokens=hit, hits=cache.counters["hits"] - hits0 if engine is warm else 0,
+                         prefill_dispatches=dispatches, launches=counts, offset_launches=offset,
+                         cached_bytes=cache.cached_bytes if engine is warm else 0)
+        log(f"  [prefix {name}] {n} requests ({PREFIX_LEN}-token shared prompt + {min(PREFIX_TAILS)}-"
+            f"{max(PREFIX_TAILS)}-token tails, {NEW_TOKENS} new), {SERVE_SLOTS} slots, chunk {SERVE_CHUNK}, "
+            f"prefill_chunk {chunk}: {wall:.3f}s, {n * NEW_TOKENS / wall:.1f} tok/s, TTFT p50 {ttft['p50']:.3f}s "
+            f"p95 {ttft['p95']:.3f}s; hit tokens {sum(hit)} ({hit}); {dispatches} prefill dispatches; "
+            f"K8 {counts['flash_attention']} launches, {offset} at q_start > 0")
+        if counts != expect or offset != offsets * L:
+            raise SystemExit(f"chip_smoke: [prefix {name}] launches {counts} (offset {offset}) != expected "
+                             f"{expect} (offset {offsets * L})")
+        if ref_calls:
+            raise SystemExit(f"chip_smoke: [prefix {name}] took the ref oracle {ref_calls} times")
+    c = cache.counters
+    st = cache.stats()
+    if flash_attention.copies != copies0:
+        raise SystemExit("chip_smoke: [prefix] K8 copied a cache view instead of reading it in place")
+    log(f"  [prefix] cache: {c['hits']} hits / {c['misses']} misses, {c['commits']} commits, {c['aborts']} "
+        f"aborts, {c['evictions']} evictions, {st['cached_bytes'] / 1e6:.1f} MB cached in {st['nodes']} blocks "
+        f"of {PREFIX_BLOCK} tokens (budget {PREFIX_CACHE_BYTES / 1e6:.1f} MB), pinned {st['pinned']}")
+    if c["hits"] + c["misses"] != c["commits"] + c["aborts"] or st["pinned"]:
+        raise SystemExit(f"chip_smoke: [prefix] the cache's accounting is not clean: {st}")
+    if out["warm wave"]["hits"] != n or min(out["warm wave"]["hit_tokens"]) < PREFIX_LEN:
+        raise SystemExit(f"chip_smoke: [prefix] the warm wave did not hit on every request: "
+                         f"{out['warm wave']['hit_tokens']}")
+    ref = runs["no cache"]
+    for name in ("cold wave", "warm wave"):
+        same_tok = [bool(np.array_equal(a, b)) for a, b in zip(runs[name]["tokens"], ref["tokens"])]
+        same_log = [bool(torch.equal(a, b)) for a, b in zip(runs[name]["logits"], ref["logits"])]
+        log(f"  [prefix] {name} vs whole-shot without a cache: tokens equal {sum(same_tok)}/{n}, last-prompt "
+            f"logits bitwise equal {sum(same_log)}/{n}")
+        out[name].update(tokens_equal=sum(same_tok), logits_equal=sum(same_log))
+        if not (all(same_tok) and all(same_log)):
+            raise SystemExit(f"chip_smoke: [prefix] the {name} differs from whole-shot admission: tokens "
+                             f"{same_tok}, logits {same_log}")
+    reqs = prefix_requests(cfg)
+    greedy = [(i, r) for i, r in enumerate(reqs) if r.temperature == 0]
+    for i, r in greedy:
+        solo = plain.generate(r.prompt[None], r.max_new_tokens)
+        if not np.array_equal(solo.tokens[0, r.prompt.size:], ref["tokens"][i]):
+            raise SystemExit(f"chip_smoke: [prefix] greedy request {i} differs from its solo generate")
+    log(f"  [prefix] greedy requests == solo generate: {len(greedy)}/{len(greedy)}")
+
+    # each admission's prefill device time: cold (whole-shot, no cache) and warm (its blocks cached)
+    cold_ms, warm_ms = [], []
+    for r in reqs:
+        for engine, dest in ((plain, cold_ms), (warm, warm_ms)):
+            slots = engine.init_slots(1)
+            ms, _, _ = device_profile(lambda: engine.admit_slot(slots, 0, r.prompt, max_new_tokens=NEW_TOKENS))
+            dest.append(ms)
+    log("  [prefix] admission device ms, cold -> warm: " + ", ".join(
+        f"{r.prompt.size}: {a:.2f} -> {b:.2f}" for r, a, b in zip(reqs, cold_ms, warm_ms))
+        + f"; total {sum(cold_ms):.2f} -> {sum(warm_ms):.2f} ms ({sum(warm_ms) / sum(cold_ms):.1%})")
+    out.update(cold_admission_ms=cold_ms, warm_admission_ms=warm_ms, cache=st)
+    if cache.pinned:
+        raise SystemExit("chip_smoke: [prefix] pins left after the profiled admissions")
+    del warm, plain
+    out["profiles"] = prefix_profiles(bcq_engine, max_seq)
+    out["long"] = long_chunked(bcq_engine, *long_whole)
+    return out
+
+
+def long_chunked(bcq_engine, whole, whole_logits, whole_tokens):
+    """Phase 6's 8192-token request through a 1-slot scheduler with
+    ``prefill_chunk=LONG_CHUNK``: 8 chunks, the last at q_start = 7168. Its
+    tokens and last-prompt logits must equal the whole-shot run's, bitwise."""
+    import numpy as np
+
+    from repro_torch.infer import RequestState, Scheduler
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.layers import LONG_SEQ_THRESHOLD
+
+    cfg = bcq_engine.cfg
+    L, S = cfg.n_layers, LONG_SEQ_THRESHOLD
+    engine = serving_engine(bcq_engine, S + LONG_NEW)
+    (req,) = serve_requests(cfg, (S,), LONG_NEW, 500)  # phase 6's request
+    logits = record_admissions(engine)
+
+    def run():
+        sched = Scheduler(engine, n_slots=1, chunk=SERVE_CHUNK, prefill_chunk=LONG_CHUNK, clock=synced_clock)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rid = sched.submit(dataclasses.replace(req, rid=None))
+        (c,) = sched.run()
+        peak = torch.cuda.max_memory_allocated() - base
+        rec = sched.outcomes[rid]
+        stamps = dict(rec.history)
+        return c.new_tokens, stamps[RequestState.DECODING] - stamps[RequestState.PREFILLING], peak, rec.prefill_chunks
+
+    (toks, prefill_s, peak, chunks), wall, counts, ref_calls = run_counted(run)
+    offset = flash_attention.offset_launches
+    del engine.finish_admission
+    n_chunks = -(-S // LONG_CHUNK)
+    same_tok = bool(np.array_equal(toks, whole_tokens))
+    same_log = bool(torch.equal(logits[prompt_key(req.prompt)], whole_logits))
+    log(f"  [prefix long] {S}-token prompt in {chunks} chunks of {LONG_CHUNK} (the last at q_start = "
+        f"{(n_chunks - 1) * LONG_CHUNK}) + {LONG_NEW} new tokens: prefill {prefill_s:.3f}s against whole-shot "
+        f"{whole['prefill_s']:.3f}s; peak device memory {peak / 1e9:.3f} GB above the resident (whole-shot "
+        f"{whole['peak_gb']:.3f} GB); K8 {counts['flash_attention']} launches, {offset} at q_start > 0; "
+        f"tokens {'equal' if same_tok else 'DIFFER'}, last-prompt logits "
+        f"{'bitwise equal' if same_log else 'DIFFER'} to the whole-shot run")
+    if chunks != n_chunks or counts["flash_attention"] != n_chunks * L or offset != (n_chunks - 1) * L:
+        raise SystemExit(f"chip_smoke: [prefix long] {chunks} chunks, K8 {counts['flash_attention']} launches "
+                         f"({offset} offset); expected {n_chunks}, {n_chunks * L} ({(n_chunks - 1) * L})")
+    if ref_calls:
+        raise SystemExit(f"chip_smoke: [prefix long] took the ref oracle {ref_calls} times")
+    if not (same_tok and same_log):
+        raise SystemExit("chip_smoke: [prefix long] the chunked prefill differs from the whole-shot one")
+    return dict(prompt_len=S, chunk=LONG_CHUNK, chunks=chunks, prefill_s=prefill_s, whole_prefill_s=whole["prefill_s"],
+                peak_gb=peak / 1e9, whole_peak_gb=whole["peak_gb"], wall_s=wall, launches=counts,
+                offset_launches=offset, tokens_equal=same_tok, logits_equal=same_log)
+
+
+def kernels_line(records, counts, n_layers, flash_records, spec_launches, flash_offsets, offset_launches):
     """Per kernel: its launches in its path's counted run and, in bf16 at the
     batched decode width, its time summed over one decode step's launches;
     for K8, in bf16, its time summed over the L launches of one
     8192-token prefill (one launch a layer at B = 1, S = 8192). Kernels on
     the speculative path also carry ``spec_launches``, their launches summed
-    over phase 7's counted runs."""
+    over phase 7's counted runs. K8 also carries its offset entry: its
+    launches at ``q_start > 0`` over phase 8's counted runs
+    (``offset_launches``) and, per checked (q_start, Sq) and dtype, one
+    launch's numbers (``offset``)."""
     out = []
     every_leaf = step_counts(n_layers)
     per_step = {"bcq_mm": {"wo": n_layers, "w_down": n_layers, "lm_head": 1},
@@ -1643,7 +2181,9 @@ def kernels_line(records, counts, n_layers, flash_records, spec_launches):
         launches=counts[name], max_abs_err=max(x["max_abs_err"] for x in flash_records),
         ms=r["ms"] * n_layers, plain_ms=r["plain_ms"] * n_layers, bound_ms=r["bound_ms"] * n_layers,
         bound_by=r["bound_by"], library_ms=r["library_ms"] * n_layers,
-        spec_launches=spec_launches[name],
+        spec_launches=spec_launches[name], offset_launches=offset_launches,
+        offset=[{key: o[key] for key in ("q_start", "Sq", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")} for o in flash_offsets],
     ))
     return {"kernels": out}
 
@@ -1671,7 +2211,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     walls = {"t": time.perf_counter()}
-    log("[1/8] card")
+    log("[1/9] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1680,7 +2220,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
     phase_wall(walls)
-    log("[2/8] build")
+    log("[2/9] build")
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
@@ -1698,44 +2238,55 @@ def main() -> int:
             log(f"    {line}")
 
     phase_wall(walls)
-    log("[3/8] kernels against their plain versions")
+    log("[3/9] kernels against their plain versions")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
     draft_records, draft_steps = draft_shapes(gen, records)
     limit_records = table_limit(gen)
     dense_rows = dense_rows_check(gen)
+    prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[4/8] flash_attention against its plain version")
-    flash_records = phase_flash(gen)
+    log("[4/9] flash_attention against its plain version")
+    flash_records, flash_offsets = phase_flash(gen)
 
     phase_wall(walls)
-    log("[5/8] main path, one run per format")
+    log("[5/9] main path, one run per format")
     counts, cfg, summaries, bcq_engine, ternary_engine, prompts = phase_main_path()
 
     phase_wall(walls)
-    log("[6/8] continuous serving and one long request")
+    log("[6/9] continuous serving and one long request")
     counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
-    summaries["long"] = phase_long(bcq_engine)
+    summaries["long"], long_logits, long_tokens = phase_long(bcq_engine)
 
     phase_wall(walls)
-    log("[7/8] self-speculative decoding")
+    log("[7/9] self-speculative decoding")
     summaries["speculative"], spec_launches = phase_speculative(bcq_engine, ternary_engine, prompts, serving,
                                                                 summaries["continuous"],
                                                                 checked_shapes(records + draft_records))
-    del bcq_engine, ternary_engine, serving
+    del ternary_engine, serving
 
     phase_wall(walls)
-    log("[8/8] kernels")
-    line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches)
+    log("[8/9] prefix cache and chunked prefill")
+    summaries["prefix"] = phase_prefix(bcq_engine, (summaries["long"], long_logits, long_tokens),
+                                       records + draft_records, gen)
+    offset_launches = (sum(summaries["prefix"][run]["offset_launches"] for run in ("cold wave", "warm wave"))
+                       + summaries["prefix"]["long"]["offset_launches"])
+    del bcq_engine
+
+    phase_wall(walls)
+    log("[9/9] kernels")
+    line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches, flash_offsets,
+                        offset_launches)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "layers": cfg.n_layers, "records": records, "flash_records": flash_records,
          "steps": {path: {B: path_step(records, names, B, cfg.n_layers) for B in (1, PROMPTS, PROMPTS * PROMPT_LEN)}
                    for path, names in STEP_PATHS.items()},
-         "table_limit": limit_records, "dense_rows": dense_rows,
+         "table_limit": limit_records, "dense_rows": dense_rows, "prompt_tiles": prompt_tiles,
+         "flash_offsets": flash_offsets,
          "draft_records": draft_records, "draft_steps": draft_steps,
          "paths": summaries, **line},
         indent=1))

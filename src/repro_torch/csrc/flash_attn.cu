@@ -1,5 +1,9 @@
 // flash_attn: causal GQA softmax attention with an online softmax.
-//   out (B, S, H, Dh) = softmax(q k^T / sqrt(Dh), causal) v, q's dtype.
+//   out (B, Sq, H, Dh) = softmax(q k^T / sqrt(Dh), causal) v, q's dtype,
+//   k, v (B, Sk, Hkv, Dh). Query r sits at the absolute position
+//   q_start + r with q_start = Sk - Sq, and sees keys j <= q_start + r:
+//   q_start = 0 is a fresh causal sequence, q_start > 0 a prompt chunk (or
+//   the suffix after a cached prefix) over the KV cache's rows [0, Sk).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py::flash_attention
 // (_flash_kernel).
@@ -8,7 +12,9 @@
 // (B, S, H, Dh) prefill moves ~4 B S H Dh elements; the work is
 // 4 H Dh S(S+1)/2 operations per batch row (q k^T and p v over the causal
 // pairs). From S of a few hundred up, operations bound it: on the tensor
-// cores at 989 TFLOP/s in bf16.
+// cores at 989 TFLOP/s in bf16. A chunk of Sq queries at q_start reads the
+// Sk = q_start + Sq cache rows once and does 4 H Dh Sq (q_start + (Sq+1)/2)
+// operations; a short chunk deep in the cache is bound by those bytes.
 //
 // Two kernels, chosen by dtype (a dispatch, not a fallback: a bf16 launch
 // that fails is an error):
@@ -41,8 +47,16 @@
 // Both keep the reference's arithmetic: scores in f32 times 1/sqrt(Dh),
 // the mask value finfo(f32).min, p = exp(s - m_new) rounded to v's dtype
 // only for p v while l sums the unrounded p, l clamped at 1e-30 (the bf16
-// kernel takes exp as exp2 of (s - m) log2(e)). Tiles wholly in the future
-// are never visited; the diagonal tile is masked. The q-tile index runs
+// kernel takes exp as exp2 of (s - m) log2(e)). Key tiles are aligned to
+// absolute positions and every score past a row's position is masked by
+// absolute position (with q_start % 128 != 0 a 128-query tile straddles the
+// diagonals of two key tiles; both are masked); a block walks the key tiles
+// up to its last query's position. A row that meets a key tile wholly past
+// its own position (its block's tile walks further) gets p = exp(min - m) = 0
+// for all of it and a rescale of exactly 1, so its result does not depend on
+// q_start, on which query tile holds it, or on how many such tiles its block
+// walks: each row of an offset launch equals, bit for bit, the same row of
+// one launch over the whole sequence. The q-tile index runs
 // from the last tile down, so the longest rows of the causal triangle
 // start first. No atomics: every sum runs in a fixed order, bitwise the
 // same run to run.
@@ -90,7 +104,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int S, int H, int Hkv, int BH, int nqt, Strides sq,
+             T* __restrict__ out, int Sq, int Sk, int H, int Hkv, int BH, int nqt, Strides sq,
              Strides sk, Strides sv, Strides so, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;              // [kBQ][DH]
@@ -110,6 +124,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int q0 = iq * kBQ;
+  const int q_start = Sk - Sq;  // absolute position of query row 0
   const int c0 = lane % kLW, rg = lane / kLW;
 
   const T* qb = q + b * sq.b + h * sq.h;
@@ -118,7 +133,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int i = tid; i < kBQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH, pos = q0 + r;
-    q_s[i] = pos < S ? to_f32(qb[pos * sq.s + d]) : 0.f;
+    q_s[i] = pos < Sq ? to_f32(qb[pos * sq.s + d]) : 0.f;
   }
 
   float m[kRowsW], l[kRowsW], corr[kRowsW], acc[kRL][kCPL];
@@ -132,8 +147,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
     for (int c = 0; c < kCPL; ++c) acc[i][c] = 0.f;
 
-  const int last = min(S, q0 + kBQ) - 1;  // the tile's last valid query row
-  const int nkt = last / kBK + 1;         // key tiles up to the diagonal
+  const int last = q_start + min(Sq, q0 + kBQ) - 1;  // the tile's last valid query's position
+  const int nkt = last / kBK + 1;                    // key tiles up to its diagonal
   const float* qw = q_s + w * kRowsW * DH;
   float* pw = p_s + w * kRowsW * kBK;
 
@@ -142,7 +157,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < kBK * DH; i += kThreads) {
       const int j = i / DH, d = i % DH, pos = k0 + j;
-      const bool ok = pos < S;
+      const bool ok = pos < Sk;
       kT[d * kKT + j] = ok ? to_f32(kb[pos * sk.s + d]) : 0.f;
       v_s[i] = ok ? to_f32(vb[pos * sv.s + d]) : 0.f;
     }
@@ -178,10 +193,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int kp0 = k0 + lane, kp1 = kp0 + 32;
 #pragma unroll
     for (int r = 0; r < kRowsW; ++r) {
-      const int qpos = q0 + w * kRowsW + r;
+      const int qpos = q_start + q0 + w * kRowsW + r;  // absolute
       float s0 = s[r][0] * scale, s1 = s[r][1] * scale;
-      if (kp0 > qpos || kp0 >= S) s0 = kNegInf;
-      if (kp1 > qpos || kp1 >= S) s1 = kNegInf;
+      if (kp0 > qpos || kp0 >= Sk) s0 = kNegInf;
+      if (kp1 > qpos || kp1 >= Sk) s1 = kNegInf;
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
       const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       corr[r] = expf(m[r] - m_new);
@@ -232,7 +247,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int gi = 1; gi < kRS; ++gi)
       if (rg == gi) li = l[kRS * i + gi];
     li = fmaxf(li, 1e-30f);
-    if (pos < S) {
+    if (pos < Sq) {
       T* ob = out + b * so.b + h * so.h + pos * so.s;
 #pragma unroll
       for (int c = 0; c < kCPL; ++c) store_as(ob + c0 + c * kLW, acc[i][c] / li);
@@ -241,8 +256,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 template <typename T, int DH>
-cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                     int Hkv, Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t stream) {
+cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+                     int H, int Hkv, Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t stream) {
   constexpr int smem = smem_floats<DH>() * static_cast<int>(sizeof(float));
   static bool attr_set = false;  // per instantiation; above 48 KB needs the opt-in
   if (!attr_set) {
@@ -251,12 +266,12 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, int
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const int nqt = (S + kBQ - 1) / kBQ;
+  const int nqt = (Sq + kBQ - 1) / kBQ;
   const int BH = B * H;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));  // f32(1/sqrt(Dh))
   flash_kernel<T, DH><<<nqt * BH, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, Hkv, BH, nqt, sq, sk, sv, so, scale);
+      static_cast<T*>(out), Sq, Sk, H, Hkv, BH, nqt, sq, sk, sv, so, scale);
   return cudaGetLastError();
 }
 
@@ -424,8 +439,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 template <int DHP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int S, int H,
-                int Hkv, int Dh, int BH, int nqt, Strides so, float scale) {
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
+                int H, int Hkv, int Dh, int BH, int nqt, Strides so, float scale) {
   constexpr int NB = DHP / kColBlock;  // 64-column blocks of a tile
   constexpr int kTile = tile_bytes<DHP>();
   constexpr int kBlock = kBQ * kColBlock * 2;  // bytes of one 128 x 64 block
@@ -446,7 +461,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int q0 = iq * kBQ;
-  const int nkt = (min(S, q0 + kBQ) - 1) / kBK + 1;  // key tiles up to the diagonal
+  const int q_start = Sk - Sq;  // absolute position of query row 0
+  const int nkt = (q_start + min(Sq, q0 + kBQ) - 1) / kBK + 1;  // key tiles up to the last query's diagonal
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -481,7 +497,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
   const int wg = warp / 4, wq = warp % 4;
-  const int row0 = q0 + 64 * wg + 16 * wq + lane / 4;  // and row0 + 8
+  const int row0 = q0 + 64 * wg + 16 * wq + lane / 4;  // and row0 + 8 (query rows)
+  const int pos0 = q_start + row0;                     // their absolute positions
   const int t2 = 2 * (lane % 4);
   float s[64], o[DHP / 2];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -512,13 +529,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     wgmma_wait_all();
     fence_regs(s);
 
-    // scale, mask the diagonal tile, online softmax in the fragment layout
-    const bool diag = k0 + kBK - 1 > q0 + 64 * wg;
+    // scale, mask by absolute position any tile that holds a key past the
+    // warpgroup's first row, online softmax in the fragment layout
+    const bool diag = k0 + kBK - 1 > q_start + q0 + 64 * wg;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       float v = s[i] * scale;
-      if (diag && k0 + 8 * (i >> 2) + t2 + (i & 1) > row0 + 8 * ((i >> 1) & 1)) v = kNegInf;
+      if (diag && k0 + 8 * (i >> 2) + t2 + (i & 1) > pos0 + 8 * ((i >> 1) & 1)) v = kNegInf;
       s[i] = v;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
     }
@@ -569,7 +587,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int pos = row0 + 8 * r;
-    if (pos >= S) continue;
+    if (pos >= Sq) continue;
     const float li = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* ob = out + b * so.b + h * so.h + pos * so.s;
 #pragma unroll
@@ -624,8 +642,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int Dh
 }
 
 template <int DHP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int Hkv,
-                   int Dh, Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
+                   int Hkv, int Dh, Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DHP>();
   static bool attr_set = false;  // per instantiation; above 48 KB needs the opt-in
   if (!attr_set) {
@@ -635,14 +653,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, S, H, Dh, sq) || !make_map(&tk, k, B, S, Hkv, Dh, sk) ||
-      !make_map(&tv, v, B, S, Hkv, Dh, sv))
+  // K and V maps end at Sk: the TMA's zero fill, not the cache's stale rows,
+  // fills a key tile past the chunk
+  if (!make_map(&tq, q, B, Sq, H, Dh, sq) || !make_map(&tk, k, B, Sk, Hkv, Dh, sk) ||
+      !make_map(&tv, v, B, Sk, Hkv, Dh, sv))
     return cudaErrorInvalidValue;
-  const int nqt = (S + kBQ - 1) / kBQ;
+  const int nqt = (Sq + kBQ - 1) / kBQ;
   const int BH = B * H;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));  // f32(1/sqrt(Dh))
   flash_tc_kernel<DHP><<<nqt * BH, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, H, Hkv, Dh, BH, nqt, so, scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv, Dh, BH, nqt, so, scale);
   return cudaGetLastError();
 }
 
@@ -650,13 +670,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 template <typename T>
 cudaError_t launch_dh(int Dh, const void* q, const void* k, const void* v, void* out, int B,
-                      int S, int H, int Hkv, Strides sq, Strides sk, Strides sv, Strides so,
+                      int Sq, int Sk, int H, int Hkv, Strides sq, Strides sk, Strides sv, Strides so,
                       cudaStream_t st) {
   switch (Dh) {
-    case 16: return launch_t<T, 16>(q, k, v, out, B, S, H, Hkv, sq, sk, sv, so, st);
-    case 32: return launch_t<T, 32>(q, k, v, out, B, S, H, Hkv, sq, sk, sv, so, st);
-    case 64: return launch_t<T, 64>(q, k, v, out, B, S, H, Hkv, sq, sk, sv, so, st);
-    case 128: return launch_t<T, 128>(q, k, v, out, B, S, H, Hkv, sq, sk, sv, so, st);
+    case 16: return launch_t<T, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, sq, sk, sv, so, st);
+    case 32: return launch_t<T, 32>(q, k, v, out, B, Sq, Sk, H, Hkv, sq, sk, sv, so, st);
+    case 64: return launch_t<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, sq, sk, sv, so, st);
+    case 128: return launch_t<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, sq, sk, sv, so, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -665,19 +685,20 @@ cudaError_t launch_dh(int Dh, const void* q, const void* k, const void* v, void*
 
 REPRO_EXPORT_ERROR_STRING
 
-// q, out (B, S, H, Dh); k, v (B, S, Hkv, Dh); one dtype for all four (f32 or
+// q, out (B, Sq, H, Dh); k, v (B, Sk, Hkv, Dh) with Sk >= Sq (the queries
+// sit at positions Sk - Sq .. Sk - 1); one dtype for all four (f32 or
 // bf16), head dim contiguous, other dims at the element strides given.
 // Dh in {16, 32, 64, 128}; H a multiple of Hkv. bf16 inputs also need
 // 16-byte aligned bases and strides of q, k, v (dims of size 1 excepted),
 // which the TMA copies require; out is written with 4-byte stores.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* out,
-                                 int dtype, int B, int S, int H, int Hkv, int Dh,
+                                 int dtype, int B, int Sq, int Sk, int H, int Hkv, int Dh,
                                  long long qsb, long long qss, long long qsh,
                                  long long ksb, long long kss, long long ksh,
                                  long long vsb, long long vss, long long vsh,
                                  long long osb, long long oss, long long osh, void* stream) {
-  if (B <= 0 || S <= 0) return cudaSuccess;
-  if (Hkv <= 0 || H % Hkv) {
+  if (B <= 0 || Sq <= 0) return cudaSuccess;
+  if (Hkv <= 0 || H % Hkv || Sk < Sq) {
     cudaGetLastError();
     return cudaErrorInvalidValue;
   }
@@ -685,11 +706,11 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kF32)
-    err = launch_dh<float>(Dh, q, k, v, out, B, S, H, Hkv, sq, sk, sv, so, st);
+    err = launch_dh<float>(Dh, q, k, v, out, B, Sq, Sk, H, Hkv, sq, sk, sv, so, st);
   else if (dtype == kBF16 && (Dh == 16 || Dh == 32 || Dh == 64))
-    err = tc::launch<64>(q, k, v, out, B, S, H, Hkv, Dh, sq, sk, sv, so, st);
+    err = tc::launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, Dh, sq, sk, sv, so, st);
   else if (dtype == kBF16 && Dh == 128)
-    err = tc::launch<128>(q, k, v, out, B, S, H, Hkv, Dh, sq, sk, sv, so, st);
+    err = tc::launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, Dh, sq, sk, sv, so, st);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) cudaGetLastError();  // clear a refusal so the next launch starts clean

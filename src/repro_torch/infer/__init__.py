@@ -1,8 +1,9 @@
 """Inference: the engine (prefill / decode over packed weights, slot-batched
-serving, self-speculative decoding), the continuous-batching scheduler, the
-request lifecycle and deterministic fault injection."""
+serving, self-speculative decoding), the prefix cache and chunked prefill,
+the continuous-batching scheduler, the request lifecycle and deterministic
+fault injection."""
 
-from repro_torch.infer.engine import Engine, GenerationResult
+from repro_torch.infer.engine import Engine, GenerationResult, PendingAdmission
 from repro_torch.infer.faults import FaultPlan, InjectedFault, StepClock
 from repro_torch.infer.lifecycle import (
     QueueFullError,
@@ -11,6 +12,7 @@ from repro_torch.infer.lifecycle import (
     TransitionError,
     latency_summary,
 )
+from repro_torch.infer.prefix_cache import PrefixCache, PrefixHandle, model_identity
 from repro_torch.infer.scheduler import Completion, DispatchError, Request, Scheduler
 from repro_torch.infer.speculative import SpecConfig
 
@@ -21,6 +23,9 @@ __all__ = [
     "FaultPlan",
     "GenerationResult",
     "InjectedFault",
+    "PendingAdmission",
+    "PrefixCache",
+    "PrefixHandle",
     "QueueFullError",
     "Request",
     "RequestLifecycle",
@@ -30,4 +35,5 @@ __all__ = [
     "StepClock",
     "TransitionError",
     "latency_summary",
+    "model_identity",
 ]

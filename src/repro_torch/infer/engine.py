@@ -17,8 +17,22 @@ later counterpart of the scan.
 Slot-batched serving (``init_slots`` / ``admit_slot`` / ``decode_slots`` /
 ``release_slot``): an ``n_slots``-row KV cache holds one request per row,
 each with its own position, budget, temperature and ``torch.Generator``.
-An admission is a whole-shot batch-1 prefill written straight into its
-slot's cache rows; a decode chunk is a step loop over the whole batch in
+An admission is ``begin_admission`` → ``advance_admission`` →
+``finish_admission`` (``admit_slot`` composes them): a whole-shot batch-1
+prefill written straight into its slot's cache rows when nothing is cached
+and nothing is chunked; otherwise (``infer/prefix_cache.py``) the longest
+cached prefix of the prompt is installed into a batch-1 cache of the
+admission's own, sized to the prompt, only the rest is prefilled there, in
+chunks the scheduler interleaves with decode chunks (``chunked=True``), and
+the prompt's rows are copied into the slot at finish. A pending admission
+never writes its slot's rows: the decode loop writes every inactive row at
+a frozen position. A warm or chunked admission gives the bits of the cold
+whole-shot one on the GPU: every row of a prompt chunk is computed as in
+the whole prompt (the kernels, ``utils.matmul_rows`` and the flash-attention
+kernel's ``q_start``); on the CPU the same tokens, the plain attention
+summing over another number of keys.
+
+A decode chunk is a step loop over the whole batch in
 which every row samples its own ``(1, V)`` logits row with its own
 generator, so a slot emits exactly the tokens a solo
 ``generate(prompt, max_new_tokens, temperature=..., seed=...)`` emits.
@@ -33,8 +47,14 @@ Self-speculative decoding (``generate(speculate=SpecConfig(...))``,
 the ``q_draft``-plane truncation of the same weights (:meth:`Engine.draft_params`)
 drafts γ tokens a chunk and one chunked forward of the full model verifies
 them. Greedy output equals plain greedy output token for token, because the
-verify gives each of its γ + 1 rows the bits of a decode step there.
-Chunked or prefix-cached admission is not ported.
+verify gives each of its γ + 1 rows the bits of a decode step there. The
+draft model's prefill is always whole-shot, into the slot's draft rows at
+``finish_admission``: the draft cache has no prefix blocks to reuse.
+
+Not ported: prefix caching and chunked prefill of ring-window and recurrent
+models (the ring guard and the recurrent boundary snapshots); the
+reference's power-of-two chunk buckets, which exist for XLA's compile
+cache (chunks here are dispatched at their exact length).
 """
 
 from __future__ import annotations
@@ -47,6 +67,7 @@ import torch
 
 from repro_torch.core.formats import format_names, get_format
 from repro_torch.core.qtensor import QuantizedTensor
+from repro_torch.infer.prefix_cache import PrefixCache, PrefixHandle, concat_rows, model_identity
 from repro_torch.infer.speculative import (
     SpecConfig,
     draft_seed,
@@ -57,6 +78,7 @@ from repro_torch.infer.speculative import (
 )
 from repro_torch.models import forward, fuse_decode_projections, init_cache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import gather_prefix_rows, install_prefix_rows
 from repro_torch.quant import truncate_params
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
@@ -80,6 +102,34 @@ class GenerationResult:
         if self.stop_positions is not None and self.stop_positions[b] >= 0:
             return new[: int(self.stop_positions[b]) + 1]
         return new
+
+
+@dataclasses.dataclass
+class PendingAdmission:
+    """One admission between :meth:`Engine.begin_admission` and
+    :meth:`Engine.finish_admission`. A ``whole`` admission (no cached prefix,
+    not chunked) has nothing to advance: its prefill runs at finish, straight
+    into the slot's rows. Otherwise :meth:`Engine.advance_admission` prefills
+    the prompt's uncached rows into ``cache1``, the admission's own batch-1
+    cache sized to the prompt, from ``pos`` on (the matched prefix's rows
+    installed before it)."""
+
+    prompt: torch.Tensor  # (1, plen) int64, on the engine's device
+    plen: int
+    max_new_tokens: int
+    temperature: float
+    seed: int
+    speculate: bool  # the request's opt-in (speculative slot batches)
+    whole: bool  # one whole-shot prefill into the slot at finish
+    handle: Optional[PrefixHandle] = None
+    pos: int = 0  # prompt tokens whose K/V rows are in cache1
+    cache1: Optional[dict] = None
+    logits1: Optional[torch.Tensor] = None  # (1, V) at the last prompt position
+    prefill_chunks: int = 0  # prefill dispatches (the lifecycle stamp)
+
+    @property
+    def done(self) -> bool:
+        return self.whole or self.logits1 is not None
 
 
 def stop_positions_for(new_tokens: np.ndarray, stop_tokens) -> np.ndarray:
@@ -121,16 +171,30 @@ class Engine:
         max_seq: int = 2048,
         fuse: bool = True,
         device="cuda",
+        prefix_cache: Optional[PrefixCache] = None,
     ):
         """``params`` are moved to ``device`` (default ``"cuda"``, which
         raises when no GPU is usable). ``fuse=False`` keeps the unfused
-        per-projection layout."""
+        per-projection layout.
+
+        ``prefix_cache`` (a :class:`~repro_torch.infer.prefix_cache.PrefixCache`)
+        turns on prompt-prefix KV reuse for slot admissions: the longest
+        committed prefix of a prompt is installed instead of recomputed, and
+        the prompt's blocks are committed back at finish. The cache is bound
+        to this engine's model identity."""
         self.cfg = cfg
         self.device = resolve_device(device)
         params = tree_map(lambda leaf: leaf.to(self.device), params)
         self.params = fuse_decode_projections(cfg, params) if fuse else params
         self.max_seq = max_seq
         self._draft_params: dict = {}  # q_draft -> truncated params
+        self.prefix_cache = prefix_cache
+        self._last_prefix_handle: Optional[PrefixHandle] = None
+        if prefix_cache is not None:
+            why = self._prefix_refusal()
+            if why:
+                raise ValueError(f"prefix_cache: {why}")
+            prefix_cache.bind(model_identity(cfg, self.params))
 
     def _make_cache(self, batch: int) -> dict:
         return init_cache(self.cfg, batch, self.max_seq, device=self.device)
@@ -209,7 +273,7 @@ class Engine:
     def prefill(self, tokens: torch.Tensor, cache: dict):
         """Prompt ``(B, S)`` → last-position logits ``(B, V)`` and the cache."""
         logits, cache = forward(
-            self.cfg, self.params, tokens=tokens, cache=cache, pos=0, logits_mode="last"
+            self.cfg, self.params, tokens=tokens, cache=cache, pos=0, logits_mode="last", prefill=True
         )
         return logits[:, -1], cache
 
@@ -290,7 +354,7 @@ class Engine:
         tokens = torch.as_tensor(pt, dtype=torch.long, device=self.device)
         logits, cache = self.prefill(tokens, self._make_cache(b))
         _, dcache = forward(self.cfg, draft, tokens=tokens, cache=self._make_cache(b), pos=0,
-                            logits_mode="last")
+                            logits_mode="last", prefill=True)
         gens = [None if greedy else _seeded(seed + i, self.device) for i in range(b)]
         dgens = [None if greedy else _seeded(draft_seed(seed + i), self.device) for i in range(b)]
         t0 = torch.argmax(logits, dim=-1)
@@ -326,6 +390,20 @@ class Engine:
         return new, stats
 
     # -- slot-batched serving API (infer/scheduler.py drives these) ---------
+
+    def _prefix_refusal(self) -> Optional[str]:
+        """Why this model cannot take a prefix cache or chunked prefill, or
+        None: the slot-serving gate, and the pieces of the ring-window and
+        recurrent families that are not ported."""
+        if getattr(self.cfg, "input_kind", "tokens") != "tokens" or getattr(self.cfg, "n_experts", 0):
+            return "needs a tokens-input, non-MoE model (the slot-batched serving gate)"
+        if has_ring_buffer(self.cfg):
+            return ("ring-window models need the ring guard (a prompt past the window "
+                    "bypasses the cache), not ported yet")
+        if has_recurrent_state(self.cfg):
+            return ("recurrent models need the recurrent boundary snapshots "
+                    "(layers.snapshot_recurrent / install_recurrent), not ported yet")
+        return None
 
     def init_slots(self, n_slots: int, speculate: Optional[SpecConfig] = None) -> dict:
         """Fresh slot-batched decode state: an ``n_slots``-row KV cache, the
@@ -377,6 +455,155 @@ class Engine:
         """Views of one slot's rows of the slot cache ``key`` (batch of one)."""
         return tree_map(lambda leaf: leaf[:, slot : slot + 1], slots[key])
 
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """True when chunked prefill (and a prefix cache) can serve this
+        model: the dense decoder; not the ring-window or recurrent families,
+        whose pieces are not ported (:meth:`_prefix_refusal`)."""
+        return self._prefix_refusal() is None
+
+    @torch.no_grad()
+    def begin_admission(
+        self,
+        prompt_tokens,
+        *,
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        seed: int = 0,
+        speculate: bool = True,
+        chunked: bool = False,
+    ) -> PendingAdmission:
+        """Start one slot admission: validate, consult the prefix cache and
+        install any matched prefix into the admission's own batch-1 cache.
+        Drive the result with :meth:`advance_admission` and install it with
+        :meth:`finish_admission` (or release it with :meth:`abort_admission`
+        on any failure or cancel in between). ``chunked=True`` lets the
+        scheduler advance it by a token budget a step."""
+        prompt = np.asarray(prompt_tokens).reshape(1, -1)
+        self._check_prompt(prompt, max_new_tokens)
+        if chunked and not self.supports_chunked_prefill:
+            raise ValueError(f"chunked prefill: {self._prefix_refusal()}")
+        plen = prompt.shape[1]
+        p = PendingAdmission(
+            prompt=torch.as_tensor(prompt, dtype=torch.long, device=self.device), plen=plen,
+            max_new_tokens=max_new_tokens, temperature=temperature, seed=seed, speculate=speculate,
+            whole=not chunked,
+        )
+        if self.prefix_cache is None:
+            return p
+        # at least the last prompt token prefills: decode needs its logits
+        p.handle = self.prefix_cache.begin(prompt[0], max_match=plen - 1, max_commit=plen)
+        try:
+            if p.handle.length:
+                p.whole = False
+                p.cache1 = init_cache(self.cfg, 1, plen, device=self.device)
+                install_prefix_rows(p.cache1, concat_rows([nd.rows for nd in p.handle.matched]))
+                p.pos = p.handle.length
+        except BaseException:
+            self.prefix_cache.abort(p.handle)
+            raise
+        return p
+
+    @torch.no_grad()
+    def advance_admission(self, pending: PendingAdmission, budget: Optional[int] = None) -> int:
+        """Prefill up to ``budget`` more prompt tokens (None: the rest) into
+        the admission's batch-1 cache, one forward of exactly that many
+        tokens at its position → the tokens consumed. A ``whole`` admission
+        consumes nothing here (its prefill runs at finish)."""
+        p = pending
+        if p.done:
+            return 0
+        n = p.plen - p.pos if budget is None else min(p.plen - p.pos, budget)
+        if n <= 0:
+            return 0
+        if p.cache1 is None:
+            p.cache1 = init_cache(self.cfg, 1, p.plen, device=self.device)
+        logits, _ = forward(self.cfg, self.params, tokens=p.prompt[:, p.pos : p.pos + n], cache=p.cache1,
+                            pos=p.pos, logits_mode="last", prefill=True)
+        p.pos += n
+        p.prefill_chunks += 1
+        if p.pos == p.plen:
+            p.logits1 = logits[:, -1]
+        return n
+
+    @torch.no_grad()
+    def finish_admission(self, slots: dict, slot: int, pending: PendingAdmission) -> dict:
+        """Install a finished admission into ``slot`` and commit the prompt's
+        new prefix blocks (copies of its rows) to the prefix cache.
+
+        A ``whole`` admission prefills here, straight into the slot's rows
+        (no batch-1 cache and no copy); rows past the prompt keep the
+        previous tenant's values, which are never read: decode writes row
+        ``pos`` before it attends rows ``<= pos``. Any other admission's rows
+        ``[0, plen)`` are copied from its batch-1 cache into the slot.
+
+        In a speculative batch (``init_slots(speculate=...)``) the draft
+        model prefills the whole prompt into the slot's draft-cache rows,
+        and the request's first token is sampled here as a plain decode's
+        first step samples it, left in ``slots["t_pend"][slot]`` and counted
+        against the budget (the caller emits it; a budget of one completes
+        here). A sampled row's draft generator is seeded ``draft_seed(seed)``.
+        ``speculate=False`` opts the request out: it commits one plain token
+        a chunk, the stream of a solo plain ``generate``."""
+        p = pending
+        if not p.done:
+            raise ValueError("admission is not finished: drive advance_admission until pending.done")
+        spec = slots.get("speculate")
+        if spec is not None:
+            self._check_spec_headroom(p.plen, p.max_new_tokens, spec)
+        rows = self._slot_cache(slots, slot)
+        if p.whole:
+            p.logits1, _ = self.prefill(p.prompt, rows)
+            p.prefill_chunks = 1
+            src = rows
+        else:
+            install_prefix_rows(rows, p.cache1)
+            src = p.cache1
+        h = p.handle
+        if h is not None and not h.closed and not h.rows:
+            h.rows = [gather_prefix_rows(src, s, e - s) for s, e in h.new_spans]
+            h.snaps = [None] * len(h.rows)
+        if spec is not None:
+            forward(self.cfg, self.draft_params(spec.q_draft), tokens=p.prompt,
+                    cache=self._slot_cache(slots, slot, "draft_cache"), pos=0, logits_mode="last", prefill=True)
+        greedy = p.temperature <= 0
+        gen = None if greedy else _seeded(p.seed, self.device)
+        slots["logits"][slot] = p.logits1[0]
+        slots["pos"][slot] = p.plen
+        slots["active"][slot] = True
+        slots["remaining"][slot] = p.max_new_tokens
+        slots["temperature"][slot] = p.temperature if not greedy else 1.0
+        slots["greedy"][slot] = greedy
+        slots["gens"][slot] = gen
+        if spec is not None:
+            t0 = torch.argmax(p.logits1[0])
+            if not greedy:
+                t0 = torch.multinomial(
+                    torch.softmax(p.logits1[0:1] / max(float(p.temperature), 1e-6), dim=-1), 1, generator=gen
+                )[0, 0]
+            slots["t_pend"][slot] = t0
+            slots["spec"][slot] = bool(p.speculate)
+            slots["draft_gens"][slot] = None if greedy else _seeded(draft_seed(p.seed), self.device)
+            slots["remaining"][slot] = p.max_new_tokens - 1
+            slots["active"][slot] = p.max_new_tokens > 1
+        if h is not None:
+            self.prefix_cache.complete(h)
+        self._last_prefix_handle = h
+        return slots
+
+    def abort_admission(self, pending: Optional[PendingAdmission]) -> None:
+        """Release an admission that will never finish (cancel, deadline, a
+        failed prefill): unpin its prefix handle without committing. Safe
+        with None and when called again."""
+        if pending is not None and pending.handle is not None:
+            self.prefix_cache.abort(pending.handle)
+
+    def take_prefix_handle(self) -> Optional[PrefixHandle]:
+        """Pop the (closed) prefix handle of the latest finished admission;
+        the scheduler reads the hit length off it for the lifecycle stamp."""
+        h, self._last_prefix_handle = self._last_prefix_handle, None
+        return h
+
     @torch.no_grad()
     def admit_slot(
         self,
@@ -389,57 +616,22 @@ class Engine:
         seed: int = 0,
         speculate: bool = True,
     ) -> dict:
-        """Prefill one request (batch of one, the whole prompt at once) and
-        install it into ``slot``: its KV rows, position, budget, sampling
-        parameters and a generator seeded with ``seed``. The slot then emits
-        the tokens a solo ``generate(prompt, max_new_tokens,
-        temperature=..., seed=...)`` emits.
-
-        The prefill writes its K/V rows straight into the slot's rows of the
-        slot cache (no batch-1 cache and no copy); rows past the prompt keep
-        the previous tenant's values, which are never read: decode writes row
-        ``pos`` before it attends rows ``<= pos``.
-
-        In a speculative batch (``init_slots(speculate=...)``) the draft
-        model prefills the slot's draft-cache rows too, and the request's
-        first token is sampled here as a plain decode's first step samples
-        it, left in ``slots["t_pend"][slot]`` and counted against the budget
-        (the caller emits it; a budget of one completes here). A sampled
-        row's draft generator is seeded ``draft_seed(seed)``.
-        ``speculate=False`` opts the request out: it commits one plain token
-        a chunk, the stream of a solo plain ``generate``. Outside a
-        speculative batch ``speculate`` is ignored."""
-        prompt = np.asarray(prompt_tokens).reshape(1, -1)
-        spec = slots.get("speculate")
-        self._check_prompt(prompt, max_new_tokens)
-        if spec is not None:
-            self._check_spec_headroom(prompt.shape[1], max_new_tokens, spec)
-        tokens = torch.as_tensor(prompt, dtype=torch.long, device=self.device)
-        logits1, _ = self.prefill(tokens, self._slot_cache(slots, slot))
-        if spec is not None:
-            forward(self.cfg, self.draft_params(spec.q_draft), tokens=tokens,
-                    cache=self._slot_cache(slots, slot, "draft_cache"), pos=0, logits_mode="last")
-        greedy = temperature <= 0
-        gen = None if greedy else _seeded(seed, self.device)
-        slots["logits"][slot] = logits1[0]
-        slots["pos"][slot] = prompt.shape[1]
-        slots["active"][slot] = True
-        slots["remaining"][slot] = max_new_tokens
-        slots["temperature"][slot] = temperature if not greedy else 1.0
-        slots["greedy"][slot] = greedy
-        slots["gens"][slot] = gen
-        if spec is not None:
-            t0 = torch.argmax(logits1[0])
-            if not greedy:
-                t0 = torch.multinomial(
-                    torch.softmax(logits1[0:1] / max(float(temperature), 1e-6), dim=-1), 1, generator=gen
-                )[0, 0]
-            slots["t_pend"][slot] = t0
-            slots["spec"][slot] = bool(speculate)
-            slots["draft_gens"][slot] = None if greedy else _seeded(draft_seed(seed), self.device)
-            slots["remaining"][slot] = max_new_tokens - 1
-            slots["active"][slot] = max_new_tokens > 1
-        return slots
+        """Prefill one request (batch of one) and install it into ``slot``:
+        its KV rows, position, budget, sampling parameters and a generator
+        seeded with ``seed``. The slot then emits the tokens a solo
+        ``generate(prompt, max_new_tokens, temperature=..., seed=...)``
+        emits. The synchronous composition of :meth:`begin_admission`,
+        :meth:`advance_admission` and :meth:`finish_admission` (see there for
+        the prefix cache and speculative batches); a failure on the way
+        releases the prefix handle."""
+        pending = self.begin_admission(prompt_tokens, max_new_tokens=max_new_tokens, temperature=temperature,
+                                       seed=seed, speculate=speculate)
+        try:
+            self.advance_admission(pending)
+            return self.finish_admission(slots, slot, pending)
+        except BaseException:
+            self.abort_admission(pending)
+            raise
 
     @torch.no_grad()
     def decode_slots(self, slots: dict, n_steps: int):

@@ -10,7 +10,9 @@ instead (Orca-style continuous batching):
 - the decode batch has ``n_slots`` **slots**; a free slot is filled by a
   batch-1 prefill of the next queued request, installed into the slot
   (``Engine.admit_slot``); on the GPU that prefill's attention runs on the
-  flash-attention kernel at the request's own prompt length;
+  flash-attention kernel at the request's own prompt length. With a prefix
+  cache on the engine (``Engine(prefix_cache=...)``) only the prompt's
+  uncached suffix prefills;
 - decode runs in **chunks** of ``chunk`` steps over the whole batch
   (``Engine.decode_slots``); per-slot active masks let requests finish
   mid-chunk without stalling neighbours;
@@ -56,10 +58,19 @@ token, so a budget-1 request completes at admission, and every request needs
 it commits one plain token a chunk, its solo plain ``generate``'s stream.
 Greedy and opted-out requests stay identical to their solo plain ``generate``.
 
-Not ported: chunked prefill (``prefill_chunk``, needs chunked admission),
-the prefix cache, and the span tracer and metrics registry (``tracer``,
-``metrics``, from ``repro.obs``). Each of those arguments raises when set,
-naming what is missing.
+**Chunked prefill** (``prefill_chunk``): a free slot claims a queued
+request (``Engine.begin_admission``: the prefix lookup and install), and
+every pending admission then prefills at most ``prefill_chunk`` prompt
+tokens a step (``Engine.advance_admission``), between decode chunks, so one
+long prompt never stalls the decode of the other slots; a finished one is
+installed in the same step (``Engine.finish_admission``). A pending
+admission can be cancelled or time out between its chunks, which releases
+its prefix handle; one whose chunks keep failing fails alone. The
+lifecycle record carries ``prefix_hit_tokens`` and ``prefill_chunks``.
+
+Not ported: the span tracer and metrics registry (``tracer``, ``metrics``,
+from ``repro.obs``). Each of those arguments raises when set, naming what
+is missing.
 """
 
 from __future__ import annotations
@@ -221,8 +232,6 @@ class Scheduler:
         metrics=None,
     ):
         for given, what in (
-            (prefill_chunk, "prefill_chunk needs chunked admission (Engine.begin_admission / "
-                            "advance_admission), not ported yet"),
             (tracer, "tracer needs the span tracer (repro.obs), not ported yet"),
             (metrics, "metrics needs the metrics registry (repro.obs), not ported yet"),
         ):
@@ -236,6 +245,15 @@ class Scheduler:
             raise ValueError("max_queue must be >= 1 (or None for unbounded)")
         if retries < 0:
             raise ValueError("retries must be >= 0")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(
+                    "prefill_chunk must be >= 1 (or None for whole-prompt admission instead of "
+                    "chunked admission)"
+                )
+            if not engine.supports_chunked_prefill:
+                raise ValueError(f"chunked prefill: {engine._prefix_refusal()}; use prefill_chunk=None")
+        self.prefill_chunk = prefill_chunk
         self.engine = engine
         self.n_slots = n_slots
         self.chunk = chunk
@@ -252,6 +270,8 @@ class Scheduler:
         self.slots = engine.init_slots(n_slots, speculate=speculate)
         self.queue: Deque[Request] = deque()
         self._tenants: List[Optional[_Tenant]] = [None] * n_slots
+        # chunked admissions in flight: slot -> (Request, PendingAdmission)
+        self._pending: Dict[int, tuple] = {}
         self.outcomes: Dict[int, RequestLifecycle] = {}
         self._pending_cancel: Dict[int, str] = {}
         self.decode_steps = 0  # total chunked decode steps executed
@@ -328,7 +348,7 @@ class Scheduler:
 
     @property
     def idle(self) -> bool:
-        return not self.queue and self.n_active == 0
+        return not self.queue and self.n_active == 0 and not self._pending
 
     @property
     def spec_accept_rate(self) -> float:
@@ -385,6 +405,16 @@ class Scheduler:
                 self.counters["cancelled"] += 1
                 self._terminal(self.outcomes[req.rid], RequestState.CANCELLED, reason)
         self.queue = keep
+        # chunked admissions cancel between their chunks: release the prefix
+        # handle and drop the pending state; the slot's rows were never
+        # written, so the slot is simply free again
+        for slot, (req, pending) in list(self._pending.items()):
+            reason = self._pending_cancel.pop(req.rid, None)
+            if reason is not None:
+                self.counters["cancelled"] += 1
+                self.engine.abort_admission(pending)
+                del self._pending[slot]
+                self._terminal(self.outcomes[req.rid], RequestState.CANCELLED, reason)
         for slot, tenant in enumerate(self._tenants):
             if tenant is None:
                 continue
@@ -419,6 +449,23 @@ class Scheduler:
                 self.counters["shed"] += 1
                 self._terminal(rec, RequestState.SHED, expired)
         self.queue = keep
+        # mid-prefill deadlines (a chunked admission spans steps); the TTFT
+        # deadline always applies: there is no first token yet
+        for slot, (req, pending) in list(self._pending.items()):
+            rec = self.outcomes[req.rid]
+            age = now - rec.submitted_at
+            expired = None
+            if req.deadline_s is not None and age > req.deadline_s:
+                expired = (f"deadline {req.deadline_s}s exceeded mid-prefill "
+                           f"({pending.pos}/{pending.plen} prompt tokens)")
+            elif req.ttft_deadline_s is not None and age > req.ttft_deadline_s:
+                expired = (f"TTFT deadline {req.ttft_deadline_s}s exceeded mid-prefill "
+                           f"({pending.pos}/{pending.plen} prompt tokens)")
+            if expired is not None:
+                self.counters["timed_out"] += 1
+                self.engine.abort_admission(pending)
+                del self._pending[slot]
+                self._terminal(rec, RequestState.TIMED_OUT, expired)
         for slot, tenant in enumerate(self._tenants):
             if tenant is None:
                 continue
@@ -509,13 +556,21 @@ class Scheduler:
             stopped=stopped,
         )
 
-    def _install_tenant(self, slot: int, req: Request) -> Optional[Completion]:
-        """After a successful admission: the DECODING transition and the
-        tenant; in spec mode also the first token, sampled at admission, which
-        completes a budget-1 request right here."""
+    def _note_prefix(self, rec: RequestLifecycle) -> None:
+        """Stamp the admission's prefix-cache hit onto its lifecycle record."""
+        h = self.engine.take_prefix_handle()
+        if h is not None:
+            rec.prefix_hit_tokens = h.length
+
+    def _install_tenant(self, slot: int, req: Request, prefill_chunks: int = 1) -> Optional[Completion]:
+        """After a successful admission: the DECODING transition, the prefix
+        and chunk stamps and the tenant; in spec mode also the first token,
+        sampled at admission, which completes a budget-1 request right
+        here."""
         rec = self.outcomes[req.rid]
-        rec.prefill_chunks = 1
+        rec.prefill_chunks = prefill_chunks
         rec.transition(RequestState.DECODING, self._clock())
+        self._note_prefix(rec)
         tenant = _Tenant(req, self.decode_steps)
         self._tenants[slot] = tenant
         if self.speculate is not None:
@@ -528,7 +583,10 @@ class Scheduler:
         """Fill free slots from the queue. A prefill that keeps failing
         fails only its request; the slot stays free for the next one. In
         spec mode a request done at admission (budget 1, or a stop token
-        first) is returned, and its slot refills in the same round."""
+        first) is returned, and its slot refills in the same round. With
+        ``prefill_chunk`` set, admission is chunked (:meth:`_admit_chunked`)."""
+        if self.prefill_chunk is not None:
+            return self._admit_chunked()
         done: List[Completion] = []
         for slot in range(self.n_slots):
             while self.queue and self._tenants[slot] is None:
@@ -560,6 +618,67 @@ class Scheduler:
                 c = self._install_tenant(slot, req)
                 if c is not None:
                     done.append(c)
+        return done
+
+    def _admit_chunked(self) -> List[Completion]:
+        """Chunked admission: free slots claim queued requests (prefix
+        lookup and install; the fault plan's prefill failure fires here),
+        then every pending admission prefills ``prefill_chunk`` more prompt
+        tokens. One that completes is installed in this same step; one that
+        keeps failing is FAILED alone, its prefix pins released."""
+        done: List[Completion] = []
+        for slot in range(self.n_slots):
+            if self._tenants[slot] is not None or slot in self._pending:
+                continue
+            if not self.queue:
+                break
+            req = self.queue.popleft()
+            rec = self.outcomes[req.rid]
+            rec.transition(RequestState.PREFILLING, self._clock())
+
+            def begin(req=req):
+                if self.faults is not None:
+                    self.faults.on_prefill(req.rid)
+                return self.engine.begin_admission(
+                    req.prompt, max_new_tokens=req.max_new_tokens, temperature=req.temperature,
+                    seed=req.seed, speculate=req.speculate is not False, chunked=True,
+                )
+
+            try:
+                pending = self._with_retry(begin, what=f"admission begin (request {req.rid})")
+            except DispatchError as e:
+                self.counters["failed"] += 1
+                self._terminal(rec, RequestState.FAILED, str(e))
+                continue
+            self._pending[slot] = (req, pending)
+        for slot, (req, pending) in sorted(self._pending.items()):
+
+            def fail(e: DispatchError, req=req, pending=pending, slot=slot) -> None:
+                self.engine.abort_admission(pending)
+                del self._pending[slot]
+                self.counters["failed"] += 1
+                self._terminal(self.outcomes[req.rid], RequestState.FAILED, str(e))
+
+            try:
+                self._with_retry(lambda pending=pending: self.engine.advance_admission(pending, self.prefill_chunk),
+                                 what=f"prefill chunk (request {req.rid})")
+            except DispatchError as e:
+                fail(e)
+                continue
+            if not pending.done:
+                continue
+            try:
+                self.slots = self._with_retry(
+                    lambda pending=pending, slot=slot: self.engine.finish_admission(self.slots, slot, pending),
+                    what=f"admission install (request {req.rid})",
+                )
+            except DispatchError as e:
+                fail(e)
+                continue
+            del self._pending[slot]
+            c = self._install_tenant(slot, req, pending.prefill_chunks)
+            if c is not None:
+                done.append(c)
         return done
 
     def _harvest(self, slot: int) -> Optional[Completion]:

@@ -50,10 +50,11 @@ KERNEL_WRAPPERS = (
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0 (and ``ternary_mm``'s
-    count of tensor-core calls)."""
+    count of tensor-core calls, ``flash_attention``'s of offset launches)."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
     ternary_mm.tc_launches = 0
+    flash_attention.offset_launches = 0
 
 
 def launch_counts() -> dict:

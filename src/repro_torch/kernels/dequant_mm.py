@@ -9,9 +9,9 @@ coalesced along o. :func:`dequant_mm` then runs a stock GEMM on the
 materialised weight (``torch.matmul`` in f32, as the reference's
 ``jnp.dot`` outside its ``pallas_call``): two dispatches and a dense-weight
 round trip through device memory, the overhead the one-pass kernels avoid.
-Told that its rows are one token each (a decode step), it runs that GEMM
-in fixed tiles of rows (:func:`~repro_torch.utils.matmul_rows`), so each
-row gets the bits of the row called alone.
+On the GPU it runs that GEMM in fixed tiles of rows (8 for a decode
+step's rows, :func:`~repro_torch.utils.matmul_rows`; ``PROMPT_TILE`` for a
+prompt's), so each row gets the bits of the row called alone.
 
 :func:`dequant_materialize` launches the kernel for CUDA tensors and runs
 :func:`dequant_materialize_plain` for CPU tensors.
@@ -28,7 +28,7 @@ import torch
 from repro_torch.core.formats import uniform_dequantize
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import DTYPE_CODES, validate, validate_planes
-from repro_torch.utils import matmul_rows
+from repro_torch.utils import PROMPT_TILE, matmul_row_tiles, matmul_rows
 
 
 def dequant_materialize_plain(
@@ -95,10 +95,14 @@ def dequant_mm(
     ``token_rows``: each row of x is one token of its own request (a decode
     step over B requests), so the GEMM runs as :func:`~repro_torch.utils.
     matmul_rows` runs such rows (one at a time on the CPU, in fixed tiles
-    on the GPU) and a row's result does not depend on B. A prompt's rows
-    (the default) are one product."""
+    of ``ROW_TILE`` on the GPU) and a row's result does not depend on B. A
+    prompt's rows (the default) are one product on the CPU and tiles of
+    ``PROMPT_TILE`` rows on the GPU, so a prompt row's result does not
+    depend on how the prompt was cut into chunks."""
     validate(x, packed, scales, g, scale_planes=2)
     w = dequant_materialize(packed, scales, g=g)
     if token_rows:
         return matmul_rows(x.to(torch.float32), w)
+    if x.is_cuda:
+        return matmul_row_tiles(x.to(torch.float32), w, PROMPT_TILE)
     return torch.matmul(x.to(torch.float32), w)

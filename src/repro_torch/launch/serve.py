@@ -31,10 +31,19 @@ baseline the scheduler is measured against.
 them; it prints the draft acceptance. It needs ``--q > 0`` and a
 truncation-capable format, and cannot be combined with ``--sequential``.
 
-``--tp``, the prefix cache (``--prefix-cache-mb``, ``--prefix-block``,
-``--shared-prefix-len``), chunked prefill (``--prefill-chunk``) and the
-tracing / profiling flags belong to subsystems that are not ported yet;
-each is refused with an error naming the missing piece.
+``--prefix-cache-mb MB`` attaches a prefix cache of that budget
+(``infer/prefix_cache.py``, blocks of ``--prefix-block`` tokens, default
+16): an admission installs the longest cached prefix of its prompt and
+prefills only the rest; the stats line reports hits, misses, commits,
+evictions and the bytes cached. ``--shared-prefix-len N`` gives every
+request the same first N prompt tokens (a shared system prompt, the
+workload the cache is for). ``--prefill-chunk N`` prefills at most N prompt
+tokens a scheduler step, between decode chunks. Tokens equal those of
+cold whole-shot admission. The cache and chunking drive the scheduler and
+cannot be combined with ``--sequential``.
+
+``--tp`` and the tracing / profiling flags belong to subsystems that are
+not ported yet; each is refused with an error naming the missing piece.
 """
 
 from __future__ import annotations
@@ -47,19 +56,30 @@ import numpy as np
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.formats import format_names, get_format
 from repro_torch.data import MarkovCorpus
-from repro_torch.infer import Engine, Request, Scheduler, SpecConfig
+from repro_torch.infer import Engine, PrefixCache, Request, Scheduler, SpecConfig
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import init_params, reduced
 from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
 
 
-def build_requests(cfg, n, prompt_len, gen, *, mixed_temperature=True, seed=3):
+def build_requests(cfg, n, prompt_len, gen, *, mixed_temperature=True, seed=3, shared_prefix_len=0):
     """``n`` requests with prompts from the Markov corpus; temperatures cycle
-    0, 1.0, 0.7 unless ``mixed_temperature`` is False (all greedy)."""
+    0, 1.0, 0.7 unless ``mixed_temperature`` is False (all greedy).
+    ``shared_prefix_len > 0`` gives every request the same first tokens (a
+    shared system prompt) followed by its own tail; the prompt length stays
+    ``prompt_len``."""
     corpus = MarkovCorpus(cfg.vocab, seed=seed)
+    if shared_prefix_len >= prompt_len:
+        raise ValueError(
+            f"shared_prefix_len ({shared_prefix_len}) must leave at least one per-request token "
+            f"(prompt_len={prompt_len})"
+        )
+    shared = corpus.sample(1, prompt_len, seed=99)[0, :shared_prefix_len]
     reqs = []
     for i in range(n):
         prompt = corpus.sample(1, prompt_len, seed=100 + i)[0, :prompt_len]
+        if shared_prefix_len:
+            prompt = np.concatenate([shared, prompt[shared_prefix_len:]])
         temp = [0.0, 1.0, 0.7][i % 3] if mixed_temperature else 0.0
         reqs.append(Request(prompt=prompt.astype(np.int32), max_new_tokens=gen,
                             temperature=temp, seed=10 + i))
@@ -74,13 +94,14 @@ def poisson_arrivals(n, rate, seed=0):
     return np.cumsum(rng.exponential(1.0 / rate, size=n))
 
 
-def drive_continuous(engine, reqs, arrivals, *, n_slots, chunk, speculate=None):
+def drive_continuous(engine, reqs, arrivals, *, n_slots, chunk, speculate=None, prefill_chunk=None):
     """Wall-clock serve loop: submit each request at its arrival offset,
     step the scheduler whenever there is work. Returns (scheduler,
     completions, makespan seconds); the scheduler carries the utilisation
     counters and the lifecycle summary. ``speculate`` (a SpecConfig)
-    serves speculatively."""
-    sched = Scheduler(engine, n_slots=n_slots, chunk=chunk, speculate=speculate)
+    serves speculatively, ``prefill_chunk`` prefills in chunks of that many
+    tokens."""
+    sched = Scheduler(engine, n_slots=n_slots, chunk=chunk, speculate=speculate, prefill_chunk=prefill_chunk)
     done = []
     t0 = time.perf_counter()
     i = 0
@@ -132,10 +153,18 @@ def main(argv=None) -> None:
                     help="serve with one generate call per request instead "
                          "of the continuous-batching scheduler (baseline)")
     ap.add_argument("--speculate", type=str, default=None, metavar="QD:GAMMA")
-    ap.add_argument("--prefix-cache-mb", type=int, default=0)
-    ap.add_argument("--prefix-block", type=int, default=None)
-    ap.add_argument("--prefill-chunk", type=int, default=0)
-    ap.add_argument("--shared-prefix-len", type=int, default=None)
+    ap.add_argument("--prefix-cache-mb", type=int, default=0,
+                    help="prefix-cache budget in MiB (0 = no cache): committed prompt prefixes "
+                         "are reused across requests")
+    ap.add_argument("--prefix-block", type=int, default=None,
+                    help="prefix-cache block in tokens (default 16): prefixes match and commit "
+                         "in whole blocks")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prompt tokens prefilled a scheduler step, interleaved with decode "
+                         "(0 = whole-shot)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="every request's prompt starts with the same tokens (a shared system "
+                         "prompt), the prefix-cache workload")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--trace-out", type=str, default=None, metavar="PATH")
     ap.add_argument("--profile-dir", type=str, default=None, metavar="DIR")
@@ -144,13 +173,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     missing = [
-        (args.prefix_block is not None, "--prefix-block needs the prefix cache (infer/prefix_cache.py), "
-                                        "not ported yet"),
-        (args.shared_prefix_len is not None, "--shared-prefix-len is the prefix cache's workload; the "
-                                             "prefix cache (infer/prefix_cache.py) is not ported yet"),
         (args.tp != 1, "--tp needs tensor parallelism (parallel/tp.py), not ported yet"),
-        (args.prefix_cache_mb, "--prefix-cache-mb needs the prefix cache (infer/prefix_cache.py), not ported yet"),
-        (args.prefill_chunk, "--prefill-chunk needs chunked prefill in the scheduler, not ported yet"),
         (args.trace_out, "--trace-out needs the span tracer (repro.obs), not ported yet"),
         (args.profile_dir, "--profile-dir needs the profiler hooks (repro.obs), not ported yet"),
     ]
@@ -175,6 +198,20 @@ def main(argv=None) -> None:
     if spec and args.sequential:
         ap.error("--speculate drives the continuous-batching scheduler; "
                  "it cannot be combined with --sequential")
+    if args.sequential and (args.prefix_cache_mb or args.prefill_chunk):
+        ap.error("--prefix-cache-mb (the prefix cache) and --prefill-chunk (chunked prefill) drive "
+                 "the scheduler; they cannot be combined with --sequential")
+    if args.prefix_cache_mb < 0:
+        ap.error("--prefix-cache-mb must be >= 0 (0 = no prefix cache)")
+    if args.prefill_chunk < 0:
+        ap.error("--prefill-chunk must be >= 0 (0 = whole-shot, no chunked prefill)")
+    if args.prefix_block is not None and not args.prefix_cache_mb:
+        ap.error("--prefix-block sets the prefix cache's block; it needs --prefix-cache-mb")
+    if args.prefix_block is not None and args.prefix_block < 1:
+        ap.error("--prefix-block must be >= 1")
+    if not 0 <= args.shared_prefix_len < args.prompt_len:
+        ap.error(f"--shared-prefix-len (the prefix cache's shared prompt) must lie in [0, "
+                 f"--prompt-len={args.prompt_len}): every request keeps at least one token of its own")
 
     # the reference launcher's reduced config (>=128-dim linears, so quantization bites)
     cfg = reduced(get_config(args.arch), d_model=256, n_kv_heads=4,
@@ -189,10 +226,14 @@ def main(argv=None) -> None:
         print(f"{args.format} q={args.q} g={args.g}: "
               f"{quantized_bytes(params)/2**20:.2f} MiB")
     headroom = spec.gamma + 1 if spec else 0
+    prefix_cache = None
+    if args.prefix_cache_mb:
+        prefix_cache = PrefixCache(block_tokens=args.prefix_block or 16, max_bytes=args.prefix_cache_mb << 20)
     engine = Engine(cfg, params, max_seq=args.prompt_len + args.gen + 8 + headroom,
-                    device=args.device)
+                    device=args.device, prefix_cache=prefix_cache)
     del params  # the engine holds the fused layout
-    reqs = build_requests(cfg, args.requests, args.prompt_len, args.gen)
+    reqs = build_requests(cfg, args.requests, args.prompt_len, args.gen,
+                          shared_prefix_len=args.shared_prefix_len)
     arrivals = poisson_arrivals(args.requests, args.rate, seed=1)
     total_new = sum(r.max_new_tokens for r in reqs)
 
@@ -204,7 +245,8 @@ def main(argv=None) -> None:
         sample = outs[0].tokens[0, args.prompt_len:]
     else:
         sched, done, dt = drive_continuous(engine, reqs, arrivals, n_slots=args.slots,
-                                           chunk=args.chunk, speculate=spec)
+                                           chunk=args.chunk, speculate=spec,
+                                           prefill_chunk=args.prefill_chunk or None)
         util = sched.steps_active / max(1, sched.decode_steps * sched.n_slots)
         tag, extra = "continuous", ""
         if spec:
@@ -216,6 +258,11 @@ def main(argv=None) -> None:
         print(f"[{tag}] {len(done)} requests, {total_new} tokens in "
               f"{dt:.2f}s ({total_new/dt:.1f} tok/s on {engine.device}, "
               f"{args.slots} slots, chunk={args.chunk}, slot utilisation {util:.0%}{extra})")
+        if prefix_cache is not None:
+            st = prefix_cache.stats()
+            print(f"prefix cache: {st['hits']} hits / {st['misses']} misses, {st['commits']} commits, "
+                  f"{st['evictions']} evictions, {st['cached_bytes'] / 2**20:.2f} MiB cached "
+                  f"({st['nodes']} blocks)")
         sample = done[0].new_tokens
     print("kernel launches:", launch_counts())
     print("sample:", sample)

@@ -1,12 +1,21 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``,
 for a dense decoder with an unwindowed KV cache in the compute dtype).
 
-Causal attention over the fresh sequence (train and prefill) goes through
-:func:`_causal`: on the GPU the hand-written flash-attention kernel
-(``kernels/flash_attn.py``), so the ``(S, S)`` logits never reach device
-memory; on the CPU, and under ``impl_mode("ref")``, the reference's rule:
-:func:`_sdpa` below :data:`LONG_SEQ_THRESHOLD` and the query-blocked
-:func:`_sdpa_qchunked` from it on. Decode attention over the cache is
+Causal attention of a prompt (train, prefill, and a prefill chunk or
+suffix at ``pos > 0``) goes through :func:`_causal`: on the GPU the
+hand-written flash-attention kernel (``kernels/flash_attn.py``), so the
+``(Sq, Sk)`` logits never reach device memory; on the CPU, and under
+``impl_mode("ref")``, the reference's rule: :func:`_sdpa` below
+:data:`LONG_SEQ_THRESHOLD` queries and the query-blocked
+:func:`_sdpa_qchunked` from it on. A prefill at ``pos == 0`` attends its
+fresh K/V; one at ``pos > 0`` first writes its rows into the cache, then
+attends the cache's rows ``[0, pos + s)`` with its queries at positions
+``pos .. pos + s - 1`` (the kernel's ``q_start``). The kernel gives a row
+the same bits either way, so a prompt prefilled in chunks, or after a
+cached prefix (``infer/prefix_cache.py``), gets the bits of the prompt
+prefilled whole. :func:`gather_prefix_rows` and
+:func:`install_prefix_rows` copy cache rows out to the prefix cache and
+back. Decode attention over the cache is
 :func:`_sdpa_decode`, the same function written so that a batch row's
 result does not depend on the batch (the reference has no kernel for it);
 a speculative verify (``attention(chunked=True)``) runs it once per chunk
@@ -39,7 +48,7 @@ from repro_torch.kernels.ops import current_impl_mode, linear, linear_fused
 from repro_torch.kernels.ref import NEG_INF, causal_mask
 from repro_torch.kernels.ref import sdpa as _sdpa
 from repro_torch.models.config import ModelConfig
-from repro_torch.utils import row_sum
+from repro_torch.utils import in_prompt_rows, row_sum, tree_map, tree_map_with_path
 
 Pos = Union[int, torch.Tensor]
 
@@ -119,34 +128,38 @@ Q_CHUNK = 2048  # query-block length for long-sequence causal attention
 LONG_SEQ_THRESHOLD = 8192
 
 
-def _sdpa_qchunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int = Q_CHUNK) -> torch.Tensor:
-    """Causal attention over query blocks of ``chunk`` rows: one
-    ``(B, H, chunk, S)`` block of f32 logits is live at a time instead of
-    ``(B, H, S, S)``. Falls back to one full :func:`_sdpa` when ``chunk``
-    does not divide S, as the reference does."""
-    b, s, h, dh = q.shape
+def _sdpa_qchunked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int = Q_CHUNK, q_start: int = 0
+) -> torch.Tensor:
+    """Causal attention over query blocks of ``chunk`` rows, the queries at
+    positions ``q_start ..`` over ``Sk = q_start + Sq`` keys: one
+    ``(B, H, chunk, Sk)`` block of f32 logits is live at a time instead of
+    ``(B, H, Sq, Sk)``. Falls back to one full :func:`_sdpa` when ``chunk``
+    does not divide Sq, as the reference does."""
+    s, sk = q.shape[1], k.shape[1]
     if s % chunk:
-        return _sdpa(q, k, v, causal_mask(s, s, device=q.device))
-    kpos = torch.arange(s, device=q.device)
+        return _sdpa(q, k, v, causal_mask(s, sk, device=q.device))
+    kpos = torch.arange(sk, device=q.device)
     outs = []
     for i in range(s // chunk):
-        qpos = i * chunk + torch.arange(chunk, device=q.device)
-        mask = (kpos[None, :] <= qpos[:, None])[None, None]  # (1, 1, chunk, S)
+        qpos = q_start + i * chunk + torch.arange(chunk, device=q.device)
+        mask = (kpos[None, :] <= qpos[:, None])[None, None]  # (1, 1, chunk, Sk)
         outs.append(_sdpa(q[:, i * chunk : (i + 1) * chunk], k, v, mask))
     return torch.cat(outs, dim=1)
 
 
-def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal attention over the fresh sequence: the flash-attention kernel
-    for a CUDA tensor unless ``impl_mode("ref")`` is in force; otherwise the
+def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_start: int = 0) -> torch.Tensor:
+    """Causal attention of queries at positions ``q_start .. q_start + Sq -
+    1`` over ``Sk = q_start + Sq`` keys: the flash-attention kernel for a
+    CUDA tensor unless ``impl_mode("ref")`` is in force; otherwise the
     reference's ``_causal`` rule (full :func:`_sdpa` below
-    :data:`LONG_SEQ_THRESHOLD`, :func:`_sdpa_qchunked` from it on)."""
+    :data:`LONG_SEQ_THRESHOLD` queries, :func:`_sdpa_qchunked` from it on)."""
     if q.is_cuda and current_impl_mode() != "ref":
-        return flash_attention(q, k, v)
+        return flash_attention(q, k, v, q_start)
     s = q.shape[1]
     if s >= LONG_SEQ_THRESHOLD:
-        return _sdpa_qchunked(q, k, v)
-    return _sdpa(q, k, v, causal_mask(s, s, device=q.device))
+        return _sdpa_qchunked(q, k, v, q_start=q_start)
+    return _sdpa(q, k, v, causal_mask(s, k.shape[1], device=q.device))
 
 
 def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: Pos) -> dict:
@@ -163,6 +176,31 @@ def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: Pos) -> dic
     p = int(pos)
     ck[:, p : p + s] = k.to(ck.dtype)
     cv[:, p : p + s] = v.to(cv.dtype)
+    return cache
+
+
+def gather_prefix_rows(cache: dict, start: int, n: int) -> dict:
+    """A copy of rows ``[start, start + n)`` of every K/V leaf of a model
+    cache (``(repeat, B, S_max, Hkv, Dh)`` → ``(repeat, B, n, Hkv, Dh)``),
+    in the cache's tree: a committed prefix block. A copy, never a view:
+    a view would keep the whole cache alive and change with its next
+    write."""
+    return tree_map(lambda leaf: leaf[:, :, start : start + n].clone(), cache)
+
+
+def install_prefix_rows(cache: dict, rows: dict) -> dict:
+    """Write gathered prefix rows (:func:`gather_prefix_rows`'s tree, ``L``
+    rows a leaf) into rows ``[0, L)`` of every K/V leaf of ``cache``, in
+    place; returns ``cache``."""
+
+    def write(path, leaf):
+        rw = rows
+        for key in path:
+            rw = rw[key]
+        leaf[:, :, : rw.shape[2]] = rw.to(leaf.dtype)
+        return leaf
+
+    tree_map_with_path(write, cache)
     return cache
 
 
@@ -206,7 +244,16 @@ def attention(
     """GQA self-attention. Returns (out, cache).
 
     train    cache=None                  causal attention over x
-    prefill  cache=empty, s > 1          as train, then writes the cache at pos
+    prefill  cache, s > 1                s prompt tokens at pos..pos+s-1: at
+                                         pos == 0 causal attention over x,
+                                         then the cache write; at pos > 0
+                                         the cache write first, then the
+                                         queries attend the cache's rows
+                                         [0, pos+s) (a prompt chunk, or the
+                                         suffix after a cached prefix);
+                                         s == 1 takes this path too inside
+                                         ``utils.prompt_rows`` (a one-token
+                                         prompt or last chunk)
     decode   cache=filled, s == 1        writes row pos, attends the cache;
                                          ``pos`` is a scalar or a (B,) tensor
     chunked  cache=filled, chunked=True  s fresh tokens at pos..pos+s-1 (a
@@ -230,10 +277,16 @@ def attention(
         out = _chunk_decode(q, cache, pos)
         y = linear(token_rows_view(out.reshape(b, s, cfg.q_dim)), p["wo"])
         return y.reshape(b, s, -1), cache
-    if cache is None or s > 1:
+    if cache is None:
         out = _causal(q, k, v)
-        if cache is not None:
-            cache = _cache_write(cache, k, v, pos)
+    elif s > 1 or in_prompt_rows():
+        start = int(pos)
+        if start == 0:
+            out = _causal(q, k, v)
+            cache = _cache_write(cache, k, v, 0)
+        else:
+            cache = _cache_write(cache, k, v, start)
+            out = _causal(q, cache["k"][:, : start + s], cache["v"][:, : start + s], q_start=start)
     else:
         cache = _cache_write(cache, k, v, pos)
         ck, cv = cache["k"], cache["v"]

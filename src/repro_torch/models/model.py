@@ -9,6 +9,10 @@ becomes a Python loop that takes layer ``l``'s views of the stacked leaves.
 One :func:`forward` serves train, prefill and decode:
   train    cache=None                      → logits (B, S, V)
   prefill  cache=init_cache(...), pos=0    → logits (B, 1, V) with "last"
+  chunk    cache rows [0, pos) filled, pos > 0, S > 1 → the next S prompt
+           tokens (a chunked prefill, or the suffix after a cached prefix):
+           logits (B, 1, V) with "last", the bits of the whole prompt's
+           prefill on the GPU (``layers.attention``)
   decode   cache=filled, pos=cur_len       → logits (B, 1, V)
   verify   cache=filled, pos, chunked_decode=True → logits (B, S, V)
 The cache is updated in place (``layers._cache_write``) and returned.
@@ -24,7 +28,7 @@ from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels.ops import linear
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import prompt_rows, resolve_device, tree_map
 
 ATTN_BLOCKS = ("attn",)
 
@@ -132,14 +136,26 @@ def forward(
     pos=None,
     logits_mode: str = "all",  # "all" | "last"
     chunked_decode: bool = False,
+    prefill: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the decoder on ``tokens (B, S)``. Returns (logits f32, cache).
 
     ``chunked_decode=True`` feeds S > 1 tokens mid-sequence against a
     filled cache at ``pos`` (a speculative verify): every position's logits
-    are those S single-token decode steps would give, bit for bit."""
+    are those S single-token decode steps would give, bit for bit.
+    ``prefill=True`` says the tokens are prompt tokens (a whole prompt at
+    pos 0, or a chunk or suffix at pos > 0), so a single token takes the
+    prefill attention as S > 1 tokens always do, not a decode step's: a
+    one-token last chunk then gets the bits it has in the whole prompt,
+    in the attention and in the dense products: one
+    :func:`~repro_torch.utils.prompt_rows` scope carries the flag to both."""
     if chunked_decode and cache is None:
         raise ValueError("chunked_decode needs a filled cache")
+    with prompt_rows(prefill):
+        return _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode)
+
+
+def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode):
     h = params["embed"][tokens].to(cfg.cdtype)
     b, s = tokens.shape
     if positions is None:

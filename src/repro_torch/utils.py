@@ -8,6 +8,7 @@ QuantizedTensor` containers, which count as one leaf each.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, List, Tuple
 
@@ -32,13 +33,44 @@ def resolve_device(device) -> torch.device:
 # a row's bits depend on its own values alone. A memory-bound product costs
 # about the same at 8 rows as at 1.
 ROW_TILE = 8
+# The same for a prompt's rows: a prompt prefilled whole, in chunks, or as
+# the suffix after a cached prefix must give each row the same bits, so its
+# rows also run in fixed tiles, wider ones because a prompt's product is
+# bound by operations (the width was picked on the card, ``chip_smoke.py``
+# phase 3, between 64 and 128).
+PROMPT_TILE = 128
+
+
+_PROMPT_ROWS = False  # set by prompt_rows()
+
+
+@contextlib.contextmanager
+def prompt_rows(on: bool = True):
+    """Within this scope every product's rows are a prompt's, whatever their
+    shape: a one-token prompt chunk (``(1, 1, k)``) then takes the prompt
+    tiles, as its row does in the whole prompt, not a decode step's tiles,
+    and the prefill attention (``models/model.py::forward(prefill=True)``,
+    ``models/layers.py::attention``). Not thread-safe (one
+    module-level setting, like ``kernels.ops.impl_mode``)."""
+    global _PROMPT_ROWS
+    prev, _PROMPT_ROWS = _PROMPT_ROWS, bool(on)
+    try:
+        yield
+    finally:
+        _PROMPT_ROWS = prev
+
+
+def in_prompt_rows() -> bool:
+    """Whether a :func:`prompt_rows` scope is in force."""
+    return _PROMPT_ROWS
 
 
 def token_rows(x: torch.Tensor) -> bool:
     """Whether each row of ``x (..., k)`` is one token of its own request:
     ``x`` is ``(B, k)``, or ``(B, 1, ..., 1, k)`` (a decode step over B
-    requests), as opposed to a prompt's ``(B, S, k)`` with S > 1."""
-    return math.prod(x.shape[1:-1]) == 1
+    requests), as opposed to a prompt's ``(B, S, k)`` with S > 1, or any
+    rows inside :func:`prompt_rows`."""
+    return not _PROMPT_ROWS and math.prod(x.shape[1:-1]) == 1
 
 
 def matmul_row_tiles(x: torch.Tensor, w: torch.Tensor, rows: int = ROW_TILE) -> torch.Tensor:
@@ -63,18 +95,18 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     - On the CPU each leading batch row is its own product.
     - On the GPU a call whose rows are one token each (:func:`token_rows`)
-      runs in tiles of ``ROW_TILE`` rows (:func:`matmul_row_tiles`); any
-      other call, a prompt's, is one product: an admission prefills one
-      request alone, as its solo ``generate`` does."""
+      runs in tiles of ``ROW_TILE`` rows (:func:`matmul_row_tiles`), any
+      other call, a prompt's, in tiles of ``PROMPT_TILE`` rows: a prompt
+      row then gets the same bits whether the prompt is prefilled whole or
+      in chunks, or after a cached prefix."""
     if x.dim() < 2 or x.shape[0] == 0:
         return torch.matmul(x, w)
     if not x.is_cuda:
         if x.shape[0] == 1:
             return torch.matmul(x, w)
         return torch.cat([torch.matmul(r[None], w) for r in x])
-    if not token_rows(x):
-        return torch.matmul(x, w)
-    y = matmul_row_tiles(x.reshape(x.shape[0], x.shape[-1]), w)
+    rows = ROW_TILE if token_rows(x) else PROMPT_TILE
+    y = matmul_row_tiles(x.reshape(-1, x.shape[-1]), w, rows)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 

@@ -805,3 +805,153 @@ def test_spec_slot_batches_match_solo_on_card(cuda, slots):
         if r.temperature == 0.0 or not r.speculate:
             solo = eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
             np.testing.assert_array_equal(done[r.rid].new_tokens, solo.tokens[0, r.prompt.size :])
+
+
+# -- prefix cache and chunked prefill on the card ------------------------------
+
+OFFSET_Q_STARTS = [0, 1, 100, 127, 128, 1000, 8000]
+OFFSET_SQ = [1, 7, 64, 129, 512]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq", OFFSET_SQ)
+@pytest.mark.parametrize("q_start", OFFSET_Q_STARTS)
+def test_flash_attention_offset_matches_plain_and_cold_rows(cuda, q_start, sq, dtype):
+    """K8's offset entry at llama3.2-3b's heads: queries at ``q_start ..``
+    over a KV cache view ``cache[:, :q_start + Sq]`` whose later rows hold
+    NaN (the key tiles past the chunk must come from the TMA's zero fill, or
+    the f32 kernel's bound, never the cache) against the plain version
+    (f32 2e-4; bf16 3e-2 and ``BF16_ROW_TOL`` a row); each row equal, bit for
+    bit, to the same row of one cold launch over the whole sequence; the same
+    bits on a rerun; the view read in place."""
+    H, Hkv, Dh = 24, 8, 128
+    sk = q_start + sq
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(q_start * 7 + sq)
+    q_all = torch.randn((1, sk, H, Dh), generator=gen, device=cuda).to(dtype)
+    cache = torch.full((2, 1, sk + 200, Hkv, Dh), float("nan"), device=cuda, dtype=dtype)
+    cache[:, :, :sk] = torch.randn((2, 1, sk, Hkv, Dh), generator=gen, device=cuda).to(dtype)
+    k, v = cache[0, :, :sk], cache[1, :, :sk]
+    q = q_all[:, q_start:]
+    flash_attention.copies = 0
+    reset_launch_counts()
+    got = flash_attention(q, k, v, q_start)
+    torch.cuda.synchronize()
+    assert flash_attention.copies == 0
+    assert flash_attention.launches == 1 and flash_attention.offset_launches == (1 if q_start else 0)
+    assert got.shape == (1, sq, H, Dh) and got.dtype == dtype and bool(torch.isfinite(got).all())
+    plain = flash_attention_plain(q, k, v, q_start)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert row_rel_err(got, plain) <= BF16_ROW_TOL
+    cold = flash_attention(q_all, k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, cold[:, q_start:], rtol=0, atol=0)
+    torch.testing.assert_close(flash_attention(q, k, v, q_start), got, rtol=0, atol=0)
+
+
+def test_prefill_chunk_reads_the_cache_in_place(cuda):
+    """A prompt chunk at pos > 0 hands K8 views of the layer's cache rows
+    (``cache[:, :pos + s]``), which its TMA reads without a copy."""
+    eng = _full_width_engine("bcq")
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, eng.cfg.vocab, (1, 40)), device=cuda)
+    cache = eng._make_cache(1)
+    forward(eng.cfg, eng.params, tokens=prompt[:, :17], cache=cache, pos=0, logits_mode="last")
+    flash_attention.copies = 0
+    reset_launch_counts()
+    forward(eng.cfg, eng.params, tokens=prompt[:, 17:], cache=cache, pos=17, logits_mode="last")
+    assert flash_attention.offset_launches == eng.cfg.n_layers and flash_attention.copies == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,o", [(3072, 3072), (3072, 16384), (8192, 3072)], ids=["wo", "w_gate_up", "w_down"])
+def test_prompt_rows_equal_in_any_chunk(cuda, k, o, dtype):
+    """A prompt's rows run in tiles of ``PROMPT_TILE`` (dense linears and the
+    ``dequant`` GEMM): the rows of a 544-row call equal the same rows in a
+    32-row call, bitwise, wherever the 32 rows start (tile-aligned or not)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(o + k)
+    x = torch.randn((1, 544, k), generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((k, o), generator=gen, device=cuda) / np.sqrt(k)).to(dtype)
+    full = matmul_rows(x, w)
+    torch.testing.assert_close(full, torch.matmul(x, w), rtol=2e-2, atol=2e-2)
+    packed, scales = format_planes("dequant", k, o, 4, 128, dtype, gen, cuda)
+    dfull = dequant_mm(x[0], packed, scales, g=128)
+    torch.testing.assert_close(dfull, dequant_mm_plain(x[0], packed, scales, g=128), rtol=TOL, atol=TOL)
+    for start in (0, 512, 500, 77):
+        part = x[:, start : start + 32]
+        torch.testing.assert_close(matmul_rows(part, w), full[:, start : start + 32], rtol=0, atol=0,
+                                   msg=f"dense rows {start}..")
+        torch.testing.assert_close(dequant_mm(part[0], packed, scales, g=128), dfull[start : start + 32],
+                                   rtol=0, atol=0, msg=f"dequant rows {start}..")
+
+
+@pytest.mark.parametrize("name", ["bcq_mm", "bcq_mm_fused", "lutgemm", "ternary_mm"])
+def test_quantized_kernels_rows_equal_at_prompt_widths(cuda, name):
+    """K1/K2, K3 and K4 (bf16: its tensor cores) at prompt widths: each row
+    of a 544-row call at ``wo`` equals the same row in a 32- or 128-row
+    call, wherever it starts, bitwise."""
+    k, o, q, g = 3072, 3072, 4, 128
+    fmt = "ternary" if name == "ternary_mm" else "bcq"
+    fn = {"bcq_mm": bcq_mm, "bcq_mm_fused": bcq_mm_fused, "lutgemm": lutgemm, "ternary_mm": ternary_mm}[name]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    packed, scales = format_planes(fmt, k, o, 2 if fmt == "ternary" else q, g, torch.bfloat16, gen, cuda)
+
+    def call(x):
+        if name == "bcq_mm_fused":
+            return torch.cat(fn(x, packed, scales, g=g, out_dims=(1024, 2048)), dim=-1)
+        return fn(x, packed, scales, g=g)
+
+    x = torch.randn((544, k), generator=gen, device=cuda).to(torch.bfloat16)
+    full = call(x)
+    for n, start in ((32, 0), (32, 512), (32, 77), (128, 0), (128, 300)):
+        torch.testing.assert_close(call(x[start : start + n]), full[start : start + n], rtol=0, atol=0,
+                                   msg=f"{name} rows {start}..{start + n}")
+
+
+def _admission(eng, prompt, chunk=None):
+    """One admission into a fresh 1-slot batch (in ``chunk``-token pieces,
+    or whole) → (its last-prompt-position logits, 4 greedy decode tokens)."""
+    slots = eng.init_slots(1)
+    p = eng.begin_admission(prompt, max_new_tokens=5, chunked=chunk is not None)
+    while not p.done:
+        eng.advance_admission(p, chunk)
+    eng.finish_admission(slots, 0, p)
+    logits = slots["logits"][0].clone()
+    toks, _, _ = eng.decode_slots(slots, 4)
+    return logits, toks[0]
+
+
+@pytest.mark.parametrize("fmt,mode", [("bcq", None), ("bcq", "lutgemm"), ("ternary", None), ("dense", None)],
+                         ids=["bcq", "bcq_lutgemm", "ternary", "dense"])
+def test_warm_and_chunked_equal_cold_on_card(cuda, fmt, mode):
+    """2 full-width layers, bf16: a warm admission (the 160-token shared
+    prefix installed from the cache, only the tail prefilled, at q_start =
+    160) and a chunked one (chunks of 48, so chunk starts straddle K8's
+    128-key tiles) give the last-position logits and the greedy tokens of
+    the cold whole-shot admission, bit for bit."""
+    from repro_torch.infer import PrefixCache
+
+    base = _full_width_engine(fmt)
+    cold = Engine(base.cfg, base.params, max_seq=256, fuse=False, device=cuda)
+    warm = Engine(base.cfg, base.params, max_seq=256, fuse=False, device=cuda,
+                  prefix_cache=PrefixCache(block_tokens=16, max_bytes=1 << 30))
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, base.cfg.vocab, 160)
+    prompts = [np.concatenate([shared, rng.integers(0, base.cfg.vocab, n)]).astype(np.int32) for n in (7, 30, 1)]
+    with impl_mode(mode):
+        for i, prompt in enumerate(prompts):
+            want_l, want_t = _admission(cold, prompt)
+            got_l, got_t = _admission(warm, prompt)  # the first prompt commits, the others hit
+            hit = warm.take_prefix_handle().length
+            assert hit == (0 if i == 0 else 160)
+            assert torch.equal(got_l, want_l), (i, "warm")
+            np.testing.assert_array_equal(got_t, want_t)
+            ch_l, ch_t = _admission(cold, prompt, chunk=48)
+            assert torch.equal(ch_l, want_l), (i, "chunked")
+            np.testing.assert_array_equal(ch_t, want_t)
+        again_l, _ = _admission(warm, prompts[0])  # now a hit of its own 160 + 0 tail blocks
+        assert torch.equal(again_l, _admission(cold, prompts[0])[0])
+    pc = warm.prefix_cache
+    assert pc.pinned == 0 and pc.counters["hits"] + pc.counters["misses"] == pc.counters["commits"]

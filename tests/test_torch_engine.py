@@ -218,13 +218,14 @@ def test_mixed_format_model_decodes():
     (["--sequential", "--trace-out", "t.json"], "tracer"),
     (["--sequential", "--profile-dir", "p"], "profiler"),
     (["--tp", "2"], "tensor parallelism"),
-    (["--prefill-chunk", "4"], "chunked prefill"),
+    pytest.param(["--prefill-chunk", "-1"], "chunked prefill", id="argv8-chunked prefill"),
     (["--sequential", "--prefix-block", "16"], "prefix cache"),
-    (["--sequential", "--shared-prefix-len", "4"], "prefix cache"),
+    pytest.param(["--sequential", "--shared-prefix-len", "16"], "prefix cache", id="argv10-prefix cache"),
 ])
 def test_serve_cli_refuses_unported_flags(capsys, argv, missing):
-    """Flags of subsystems not ported yet, and combinations the reference's
-    launcher refuses, exit with an argparse error naming the reason."""
+    """Flags of subsystems not ported yet, combinations the reference's
+    launcher refuses, and invalid prefix-cache / chunked-prefill values exit
+    with an argparse error naming the reason."""
     with pytest.raises(SystemExit) as e:
         serve.main(argv + ["--device", "cpu"])
     assert e.value.code == 2

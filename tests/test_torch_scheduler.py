@@ -177,7 +177,7 @@ def test_scheduler_validation():
 @pytest.mark.parametrize("kw,missing", [
     # speculation is ported; a speculate that is not a SpecConfig is refused
     (dict(speculate=object()), "speculative"),
-    (dict(prefill_chunk=4), "chunked admission"),
+    pytest.param(dict(prefill_chunk=0), "chunked admission", id="kw1-chunked admission"),
     (dict(tracer=object()), "span tracer"),
     (dict(metrics=object()), "metrics registry"),
 ])
