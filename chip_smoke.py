@@ -87,7 +87,18 @@ code is non-zero:
              Every prefill's attention runs on K8. Launch counts are set to
              0 just before each path's run and read just after; each path
              must launch its kernels the expected number of times and take
-             the ref oracle never. Each path's logits are then held against
+             the ref oracle never. Decode steps replay a captured graph,
+             whose launches the census adds once a replay from its capture's
+             counts. Every capture is dumped (``CUDAGraph.debug_dump``) and
+             its graph's kernel nodes must be, wrapper by wrapper, the
+             launches its capture counted (K1 and K2 together: one device
+             kernel; K4's tensor-core ones apart): ``inspect_captures``. A
+             traced rerun of each path's batched ``generate`` must have the
+             census of one such run, and its trace must show launches of
+             every kernel the census counted (the trace's counts are
+             reported, not held: the profiler drops records, and a call
+             wider than a row slab launches once a slab where the census
+             counts the call). Each path's logits are then held against
              the same engine under ``impl_mode("ref")``, and a reduced f32
              model per format against its oracle within the kernels'
              tolerance;
@@ -150,10 +161,35 @@ code is non-zero:
              (kernel, planes, rows, leaf) of K1/K2 that phase 3 did not
              check is checked, and each K8 (q_start, Sq) against its plain
              version and the rows of one cold launch;
-9. one JSON line listing every kernel, its launches (``spec_launches``: on
-             phase 7's runs; K8's ``offset_launches``: on phase 8's) and its
-             numbers;
-10. last line ``{"ok": true, "device": {...}}``.
+9. kernels  one JSON line listing every kernel, its launches
+             (``spec_launches``: on phase 7's runs; K8's ``offset_launches``:
+             on phase 8's) and its numbers, printed last but one;
+10. graphs   captured decode and the int8 cache, at 28 layers. Every
+             format's batched ``generate`` of phase 5 (and bcq under
+             ``impl_mode("lutgemm")``): 16 greedy decode steps replayed
+             from the engine's decode graph (``infer/graphs.py``) against
+             the eager loop, every step's logits bit for bit, then a sampled
+             ``generate`` with the graph and with ``scan=False``, tokens and
+             census equal; a traced rerun of each loop has its census and
+             its trace shows every counted kernel, as in phase 5; each
+             loop's wall, tok/s, device-busy share,
+             kernel-wrapper launches and traced device events a step, and
+             the graph's pool (the reserved memory its capture took, with
+             the allocator's cache emptied first: ``inspect_captures``).
+             Phase 6's 12 requests through 4 slots with the slot graph and
+             with the eager slot loop (``engine._EAGER_SLOT_STEPS``): tokens
+             and census equal, the same trace checks, wall, tok/s, TTFT and
+             busy share of each. Then the int8 cache (``kv_cache_dtype="int8"``): the
+             decode step's device time with the bf16 and the int8 cache at
+             B = 64 and 4, ``max_seq`` 2048 (graph replays, median of 7),
+             with the caches' and each capture's pool bytes; full-width int8 decode
+             logits within 5% (relative L2, the reference's bound) of the
+             bf16 cache's on the same tokens, prefill logits equal; greedy
+             speculative == plain and slot == solo (12 requests, greedy and
+             sampled) bit for bit; a warm prefix-cache admission and the
+             8192-token request in 8 chunks, each within 5% of its cold
+             whole-shot admission;
+11. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -176,10 +212,13 @@ import functools
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
+import weakref
 from pathlib import Path
 
 import torch
@@ -272,7 +311,107 @@ SAME_DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32))
 DTYPE_PAIRS = {"ternary_mm": SAME_DTYPES + ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))}
 # part of K8's device kernel names: bf16 on the tensor cores, f32 on the CUDA cores
 FLASH_TAGS = ("flash_tc_kernel", "flash_kernel")
+# part of the device kernel names each kernel wrapper launches, one kernel a
+# call: K1 and K2 launch one kernel, grouptable_kernel over BCQGroups, so a
+# trace holds their sum; K4 its tensor-core kernel or the group table over
+# TernaryGroups; K8 either of its two kernels
+TRACE_TAGS = {
+    ("bcq_mm", "bcq_mm_fused"): ("BCQGroups",),
+    ("lutgemm",): ("lutgemm_kernel",),
+    ("uniform_mm",): ("UniformGroups",),
+    ("dequant_materialize",): ("dequant_kernel",),
+    ("ternary_mm",): ("ternary_tc_kernel", "TernaryGroups"),
+    ("codebook_mm",): ("codebook_kernel",),
+    ("flash_attention",): FLASH_TAGS,
+}
 L2_BYTES = 50 * 2**20
+# phase 10: the decode step's device time with the bf16 and the int8 cache,
+# at these widths (the widest first) and this cache length; int8
+# logits within the reference's bound of the bf16 cache's
+INT8_BATCHES, INT8_MAX_SEQ = (64, 4), 2048
+INT8_REL_L2 = 5e-2  # tests/test_models.py::test_int8_kv_cache_decode_close_to_exact
+
+
+POOL_BYTES = weakref.WeakKeyDictionary()  # DecodeGraph → device memory its capture reserved
+GRAPH_NODES = weakref.WeakKeyDictionary()  # DecodeGraph → {wrapper group: kernel nodes in its CUDA graph}
+GRAPH_DIR = ROOT / "chiprun_out" / "graphs"  # a graph's DOT dump, kept where it disagrees
+
+
+def graph_kernel_nodes(dot):
+    """{wrapper group (``TRACE_TAGS``): kernel nodes} of a CUDA graph's DOT
+    dump (``cudaGraphDebugDotPrint``), each node statement counted once by
+    the kernel name it holds; K4's tensor-core nodes also apart."""
+    stmts = re.split(r'(?m)^(?=\s*"[^"\n]+"\s*\[)', dot)[1:]
+    nodes = {"+".join(group): sum(any(tag in st for tag in tags) for st in stmts)
+             for group, tags in TRACE_TAGS.items()}
+    nodes["ternary_mm on the tensor cores"] = sum("ternary_tc_kernel" in st for st in stmts)
+    return nodes
+
+
+def capture_counts(graph):
+    """{wrapper group: launches} a decode graph's capture counted (the counts
+    each replay adds), in ``graph_kernel_nodes``'s keys."""
+    from repro_torch.kernels import COUNTERS
+
+    delta = {(obj.__name__, attr): d for (obj, attr), d in zip(COUNTERS, graph.delta)}
+    out = {"+".join(group): sum(delta[(w, "launches")] for w in group) for group in TRACE_TAGS}
+    out["ternary_mm on the tensor cores"] = delta[("ternary_mm", "tc_launches")]
+    return out
+
+
+def inspect_captures():
+    """From here on every decode-graph capture (``infer/graphs.py``) is
+    checked and measured. Its CUDA graph is made in debug mode and dumped
+    (DOT): the kernel nodes it recorded must be, wrapper by wrapper, the
+    launches its capture counted, which every replay adds to the census
+    (a replay runs every node of its graph; at decode widths a call is one
+    launch, never a row slab's several). And ``POOL_BYTES`` records the
+    device memory the capture reserved: the allocator's cache emptied
+    first, reserved bytes after the capture less before it. Checks and
+    measurements of this script's, kept out of the serving path."""
+    from repro_torch.infer.graphs import DecodeGraph
+
+    real, Graph = DecodeGraph._capture, torch.cuda.CUDAGraph
+    kept = []  # whether the graph being captured keeps its cudaGraph_t (keep_graph)
+
+    def debug_graph():
+        try:
+            g = Graph(keep_graph=True)
+            kept.append(True)
+        except TypeError:  # a torch without keep_graph keeps it in debug mode
+            g = Graph()
+            kept.append(False)
+        g.enable_debug_mode()
+        return g
+
+    def inspected(graph):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        kept.clear()
+        torch.cuda.CUDAGraph = debug_graph
+        try:
+            real(graph)
+        finally:
+            torch.cuda.CUDAGraph = Graph
+        if kept[0]:
+            graph.graph.instantiate()
+        POOL_BYTES[graph] = torch.cuda.memory_reserved() - before
+        GRAPH_DIR.mkdir(parents=True, exist_ok=True)
+        path = GRAPH_DIR / f"graph-{id(graph):x}.dot"
+        with warnings.catch_warnings():  # debug_dump warns that it is a debugging call
+            warnings.simplefilter("ignore")
+            graph.graph.debug_dump(str(path))
+        if not path.is_file():
+            raise SystemExit(f"chip_smoke: CUDAGraph.debug_dump wrote no {path} (torch {torch.__version__})")
+        nodes, counted = graph_kernel_nodes(path.read_text()), capture_counts(graph)
+        if nodes != counted:
+            raise SystemExit(f"chip_smoke: a decode graph (B = {graph.batch}, impl mode {graph.mode}) recorded "
+                             f"kernel nodes {nodes}, its capture counted {counted} (dump: {path})")
+        path.unlink()
+        GRAPH_NODES[graph] = nodes
+
+    DecodeGraph._capture = inspected
 
 
 def log(*a):
@@ -1038,7 +1177,9 @@ def serve_bcq(cfg, params, prompts, reqs):
     small_model_check("bcq")
     summary = dict(tok_s=n_tok / t_batched, wall_s=t_batched, seq_tok_s=n_tok / t_seq,
                    lutgemm_tok_s=n_tok / t_lut, f32_oracle_rel=f32_rel,
-                   profile=profile_generate(engine, prompts, t_batched, "bcq"))
+                   profile=profile_generate(engine, prompts, t_batched, "bcq", dict(
+                       dict.fromkeys(counts, 0), bcq_mm=forwards * (2 * L + 1), bcq_mm_fused=forwards * 2 * L,
+                       flash_attention=L)))
     return {k: counts[k] for k in ("bcq_mm", "bcq_mm_fused", "lutgemm")}, summary, engine
 
 
@@ -1077,7 +1218,7 @@ def serve_format(cfg, params, prompts, fmt):
     check_logits(engine, prompts, fmt, (None,))
     small_model_check(fmt)
     summary = dict(tok_s=n_tok / dt, wall_s=dt, peak_gb=peak / 1e9, transient_gb=(peak - base) / 1e9,
-                   tc_launches=tc_launches, profile=profile_generate(engine, prompts, dt, fmt))
+                   tc_launches=tc_launches, profile=profile_generate(engine, prompts, dt, fmt, counts))
     return counts[kernel], res.tokens, summary, engine
 
 
@@ -1102,14 +1243,12 @@ def phase_main_path():
     from repro_torch.kernels import flash_attention
 
     flash_attention.copies = 0
-    counts, summary, bcq_engine = serve_bcq(cfg, params, prompts, reqs)
+    counts, summary, bcq = serve_bcq(cfg, params, prompts, reqs)
+    engines = {"bcq": bcq}  # every format's engine: phase 7 speculates on ternary, phase 10 replays all
     summaries = {"bcq": summary}
     tokens = {}
     for fmt, kernel in FORMAT_KERNEL.items():
-        counts[kernel], tokens[fmt], summaries[fmt], engine = serve_format(cfg, params, prompts, fmt)
-        if fmt == "ternary":
-            ternary_engine = engine  # phase 7 speculates on it
-        del engine
+        counts[kernel], tokens[fmt], summaries[fmt], engines[fmt] = serve_format(cfg, params, prompts, fmt)
     counts["ternary_mm_tc"] = summaries["ternary"]["tc_launches"]
     same = int((tokens["uniform"] == tokens["dequant"]).all(axis=1).sum())
     log(f"  greedy rows identical, uniform vs dequant: {same}/{PROMPTS} (reported, not asserted: "
@@ -1117,7 +1256,7 @@ def phase_main_path():
     log(f"  K8 inputs copied for the TMA's alignment on the main path: {flash_attention.copies}")
     if flash_attention.copies:
         raise SystemExit("chip_smoke: the model's q, k, v views did not reach K8 in place")
-    return counts, cfg, summaries, bcq_engine, ternary_engine, prompts
+    return counts, cfg, summaries, engines, prompts
 
 
 def serving_engine(engine, max_seq, prefix_cache=None):
@@ -1171,7 +1310,7 @@ def slot_vs_solo_logits(engine, reqs):
     return worst
 
 
-def device_profile(run, cross_check=False):
+def device_profile(run, cross_check=False, events=False):
     """Device busy time by kernel over ``run()``, traced with
     ``torch.profiler`` (CUDA activity only, which slows the host least) →
     (device ms, traced wall ms, {kernel: ms}). The device activities are
@@ -1181,7 +1320,9 @@ def device_profile(run, cross_check=False):
     speculative run. Without that attribute the sum falls back to
     ``key_averages()``; ``cross_check`` computes both and fails unless they
     agree within 0.1% plus a microsecond an event (the rounding of the
-    public sum)."""
+    public sum). ``events``: also return the trace's device events by name
+    ({kernel, copy or memset: how many ran}), which a CUDA graph's replay
+    shows one by one as an eager launch."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1192,38 +1333,72 @@ def device_profile(run, cross_check=False):
         traced_ms = (time.perf_counter() - t0) * 1e3
     fast = _trace_device_ms(prof)
     if fast is None or cross_check:
-        public = {}
+        public, public_n = {}, {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", 0.0)
             if us > 0:
                 public[ev.key] = public.get(ev.key, 0.0) + us / 1e3
+                public_n[ev.key] = public_n.get(ev.key, 0) + ev.count
         if fast is None:
-            return sum(public.values()), traced_ms, public
-        n_events, by_name = fast
-        a, b = sum(by_name.values()), sum(public.values())
-        log(f"  device_profile cross-check (torch {torch.__version__}): trace events {a:.3f} ms over {n_events} "
-            f"events, key_averages() {b:.3f} ms")
-        if abs(a - b) > 1e-3 * b + 1e-3 * n_events:
-            raise SystemExit(f"chip_smoke: the trace's device events sum to {a:.3f} ms, key_averages() to "
-                             f"{b:.3f} ms: the profiler's private event list changed meaning")
-    return sum(fast[1].values()), traced_ms, fast[1]
+            fast = (public_n, public)
+        else:
+            n_events, a, b = sum(fast[0].values()), sum(fast[1].values()), sum(public.values())
+            log(f"  device_profile cross-check (torch {torch.__version__}): trace events {a:.3f} ms over "
+                f"{n_events} events, key_averages() {b:.3f} ms")
+            if abs(a - b) > 1e-3 * b + 1e-3 * n_events:
+                raise SystemExit(f"chip_smoke: the trace's device events sum to {a:.3f} ms, key_averages() to "
+                                 f"{b:.3f} ms: the profiler's private event list changed meaning")
+    counts, by_name = fast
+    result = (sum(by_name.values()), traced_ms, by_name)
+    return (*result, counts) if events else result
 
 
 def _trace_device_ms(prof):
-    """(events, {kernel: ms}) of the trace's device activities, or None where
-    this torch has no ``kineto_results`` event list."""
+    """({kernel: events}, {kernel: ms}) of the trace's device activities, or
+    None where this torch has no ``kineto_results`` event list."""
     try:
         from torch.autograd import DeviceType
 
         events = prof.profiler.kineto_results.events()
     except (AttributeError, ImportError):
         return None
-    by_name, n = {}, 0
+    by_name, counts = {}, {}
     for ev in events:
         if ev.device_type() == DeviceType.CUDA:
             by_name[ev.name()] = by_name.get(ev.name(), 0.0) + ev.duration_ns() / 1e6
-            n += 1
-    return n, by_name
+            counts[ev.name()] = counts.get(ev.name(), 0) + 1
+    return counts, by_name
+
+
+def traced_launches(by_count):
+    """{kernel-wrapper group: device launches in a trace} (``TRACE_TAGS``)."""
+    return {"+".join(group): sum(n for name, n in by_count.items() if any(tag in name for tag in tags))
+            for group, tags in TRACE_TAGS.items()}
+
+
+def check_trace_census(label, by_count, counts, tc_launches=None):
+    """A run's launch census (``counts``: what the wrappers counted, each
+    graph replay adding its capture's counts, which ``inspect_captures``
+    holds to the graph's kernel nodes) beside the kernels its profiler trace
+    saw run on the card, wrapper by wrapper (K1 and K2 as one: they launch
+    one device kernel); with ``tc_launches``, K4's tensor-core launches too.
+    The two differ both ways. The profiler drops device records (on an H100
+    with torch 2.11, up to 43 of a run's ~1900 launches of one kernel, none
+    in most runs); and the wrappers count calls, while a call wider than a
+    row slab (``grouptable.Plan.slab_rows``: prompt rows of a long
+    admission) launches once a slab, so a serving run's trace holds ~280
+    K1/K2 launches more than its census. So this fails only where a wrapper
+    that counted launches has none in the trace → (traced launches, census
+    less traced)."""
+    traced = traced_launches(by_count)
+    census = {"+".join(group): sum(counts[w] for w in group) for group in TRACE_TAGS}
+    if tc_launches is not None:
+        traced["ternary_mm on the tensor cores"] = sum(n for name, n in by_count.items() if "ternary_tc_kernel" in name)
+        census["ternary_mm on the tensor cores"] = tc_launches
+    if any(census[k] and not traced[k] for k in census):
+        raise SystemExit(f"chip_smoke: [{label}] the trace holds no launch of a kernel the census counted: "
+                         f"traced {traced}, census {census}")
+    return traced, {k: census[k] - traced[k] for k in census if census[k] != traced[k]}
 
 
 def phase_serving(bcq_engine):
@@ -1448,23 +1623,31 @@ def small_model_check(fmt):
             raise SystemExit(f"chip_smoke: [{fmt}] reduced-model logits ({mode or 'auto'}) differ from the ref oracle")
 
 
-def profile_generate(engine, prompts, untraced_s, fmt):
-    """Device busy time by kernel over one batched ``generate``."""
-    device_ms, traced_ms, by_name = device_profile(lambda: engine.generate(prompts, NEW_TOKENS),
-                                                   cross_check=fmt == "bcq")
-    if not device_ms:
-        log(f"  [{fmt}] profile: torch.profiler recorded no device time; busy share not measured")
-        return None
+def profile_generate(engine, prompts, untraced_s, fmt, expect):
+    """Device busy time by kernel over one batched ``generate``, its decode
+    steps replays of the engine's graph (captured beforehand, outside the
+    trace). Its launch census must equal ``expect`` (one such ``generate``'s
+    counts) and the kernels the trace saw run (:func:`check_trace_census`)."""
+    from repro_torch.kernels import ternary_mm
+
+    engine.generate(prompts, 2)  # this width's graph under this impl mode, captured
+    (device_ms, traced_ms, by_name, by_count), _, counts, _ = run_counted(
+        lambda: device_profile(lambda: engine.generate(prompts, NEW_TOKENS), cross_check=fmt == "bcq", events=True))
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: [{fmt}] the traced generate's census {counts} != expected {expect}")
+    traced, missed = check_trace_census(f"{fmt} generate", by_count, counts, ternary_mm.tc_launches)
     ours_ms = sum(ms for name, ms in by_name.items() if PROFILE_TAG[fmt] in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"  [{fmt}] profile of one batched generate: device busy {device_ms:.2f} ms of "
         f"{traced_ms:.2f} ms traced wall ({device_ms / traced_ms:.1%}; untraced wall "
         f"{untraced_s * 1e3:.2f} ms, busy {device_ms / (untraced_s * 1e3):.1%} of it), the format's "
-        f"kernels {ours_ms:.2f} ms")
+        f"kernels {ours_ms:.2f} ms; kernel launches in the trace {({k: v for k, v in traced.items() if v})}, "
+        f"the census less these {missed or 0}")
     for name, ms in top:
         log(f"    {ms:9.3f} ms  {name[:100]}")
     return dict(device_ms=device_ms, traced_wall_ms=traced_ms, untraced_wall_ms=untraced_s * 1e3,
-                format_kernels_ms=ours_ms, top=[[name, ms] for name, ms in top])
+                format_kernels_ms=ours_ms, top=[[name, ms] for name, ms in top], traced_launches=traced,
+                census_less_traced=missed)
 
 
 def draft_shapes(gen, records):
@@ -2142,6 +2325,291 @@ def long_chunked(bcq_engine, whole, whole_logits, whole_tokens):
                 offset_launches=offset, tokens_equal=same_tok, logits_equal=same_log)
 
 
+# -- phase 10: captured decode and the int8 cache -----------------------------
+
+
+def decode_loop(engine, prompts, captured):
+    """Prefill ``prompts`` → a function that runs ``NEW_TOKENS`` greedy
+    decode steps from the prefill's logits, through the engine's decode graph
+    (``generate(scan=True)``'s) or eagerly into a fresh cache at scalar
+    positions (``scan=False``'s), and returns their ``(B, n, V)`` logits.
+    Run it again and it rewrites the same rows with the same values."""
+    tokens = torch.as_tensor(prompts, device=DEVICE).long()
+    b, s = tokens.shape
+    graph = engine._generate_graph(b) if captured else None
+    logits0, cache = engine.prefill(tokens, graph.cache if captured else engine._make_cache(b))
+
+    def loop():
+        logits, c, out = logits0, cache, []
+        for step in range(NEW_TOKENS):
+            tok = torch.argmax(logits, dim=-1)
+            if captured:
+                logits = graph(tok, s + step).clone()
+            else:
+                logits, c = engine.decode(tok[:, None], c, s + step)
+            out.append(logits)
+        return torch.stack(out, dim=1)
+
+    return loop
+
+
+def graph_path(engine, prompts, label, mode=None):
+    """One format path, captured against eager: every step's logits and the
+    sampled ``generate``'s tokens bit for bit, the census equal, and each
+    decode loop's wall, tok/s, device-busy share and launches a step."""
+    from repro_torch.kernels import impl_mode
+
+    from repro_torch.kernels import ternary_mm
+
+    n_tok = PROMPTS * NEW_TOKENS
+    out, traces = {}, {}
+    with impl_mode(mode):
+        for name, captured in (("eager", False), ("graph", True)):
+            loop = decode_loop(engine, prompts, captured)
+            if captured:  # the graph's warm-up and capture, where phase 5 did not make them
+                first = loop()
+            again, wall, counts, _ = run_counted(loop)
+            if captured and not torch.equal(first, again):
+                raise SystemExit(f"chip_smoke: [graphs] {label}: a rerun of the replayed loop changed its logits")
+            traced_loop = decode_loop(engine, prompts, captured)  # its prefill: outside the window
+            (device_ms, traced_ms, _, traces[name]), _, traced_counts, _ = run_counted(
+                lambda: device_profile(traced_loop, events=True))
+            if traced_counts != counts:
+                raise SystemExit(f"chip_smoke: [graphs] {label} {name}: the traced loop's census {traced_counts} "
+                                 f"!= the untraced loop's {counts}")
+            _, missed = check_trace_census(f"graphs, {label} {name}", traces[name], traced_counts,
+                                           ternary_mm.tc_launches)
+            out[name] = dict(logits=again, wall_s=wall, tok_s=n_tok / wall, device_ms=device_ms, census_less_traced=missed,
+                             busy_share=device_ms / (wall * 1e3), traced_wall_ms=traced_ms,
+                             launches_per_step=sum(counts.values()) / NEW_TOKENS,
+                             device_kernels_per_step=sum(traces[name].values()) / NEW_TOKENS)
+        logits_equal = torch.equal(out["graph"].pop("logits"), out["eager"].pop("logits"))
+        runs = {}
+        for name, scan in (("eager", False), ("graph", True)):
+            runs[name] = run_counted(lambda: engine.generate(prompts, NEW_TOKENS, temperature=0.8, seed=7, scan=scan))
+    tokens_equal = bool((runs["graph"][0].tokens == runs["eager"][0].tokens).all())
+    counts_equal = runs["graph"][2] == runs["eager"][2]
+    graph = engine._graphs[(PROMPTS, mode)]
+    e, g = out["eager"], out["graph"]
+    log(f"  [graphs] {label}: {NEW_TOKENS} decode steps at B = {PROMPTS}, eager {e['wall_s'] * 1e3:.2f} ms "
+        f"({e['tok_s']:.1f} tok/s, device {e['device_ms']:.2f} ms, busy {e['busy_share']:.1%}) | graph "
+        f"{g['wall_s'] * 1e3:.2f} ms ({g['tok_s']:.1f} tok/s, device {g['device_ms']:.2f} ms, busy "
+        f"{g['busy_share']:.1%}): {g['tok_s'] / e['tok_s']:.2f}x; a step: {g['launches_per_step']:.0f} kernel-wrapper "
+        f"launches (eager {e['launches_per_step']:.0f}), device events traced {g['device_kernels_per_step']} "
+        f"(eager {e['device_kernels_per_step']}); logits equal {logits_equal}, sampled generate tokens equal "
+        f"{tokens_equal}, census equal {counts_equal}; the graph's kernel nodes "
+        f"{({k: v for k, v in GRAPH_NODES[graph].items() if v})} (its capture's counts); the census less the "
+        f"traced launches {e['census_less_traced'] or 0} (eager), {g['census_less_traced'] or 0} (graph); pool "
+        f"{POOL_BYTES[graph] / 1e6:.1f} MB, workspace {graph.workspace.nbytes() / 1e6:.2f} MB, {graph.replays} replays")
+    if not (logits_equal and tokens_equal and counts_equal):
+        raise SystemExit(f"chip_smoke: [graphs] {label}: the replayed graph differs from the eager loop "
+                         f"(logits {logits_equal}, tokens {tokens_equal}, census {counts_equal}: "
+                         f"{runs['graph'][2]} vs {runs['eager'][2]})")
+    return dict(eager=e, graph=g, speedup=g["tok_s"] / e["tok_s"], pool_bytes=POOL_BYTES[graph],
+                workspace_bytes=graph.workspace.nbytes(), generate_wall_s={k: v[1] for k, v in runs.items()})
+
+
+def graph_serving(bcq_engine):
+    """Phase 6's 12 requests through 4 slots, the slot graph against the
+    eager slot loop: the same tokens at temperatures 0, 1.0 and 0.7, the same
+    census; wall, tok/s, TTFT and busy share of each."""
+    import numpy as np
+
+    from repro_torch.infer import engine as engine_mod
+    from repro_torch.launch.serve import drive_continuous
+
+    cfg = bcq_engine.cfg
+    n = len(SERVE_PROMPT_LENS)
+    engine = serving_engine(bcq_engine, max(SERVE_PROMPT_LENS) + NEW_TOKENS + 8)
+
+    def serve():
+        reqs = serve_requests(cfg, SERVE_PROMPT_LENS, NEW_TOKENS, 200)
+        sched, done, wall = drive_continuous(engine, reqs, np.zeros(n), n_slots=SERVE_SLOTS, chunk=SERVE_CHUNK)
+        by_rid = {c.rid: c.new_tokens for c in done}
+        return [by_rid[r.rid] for r in reqs], sched, wall
+
+    out, tokens, traces = {}, {}, {}
+    for name, eager in (("eager", True), ("graph", False)):
+        engine_mod._EAGER_SLOT_STEPS = eager
+        try:  # no warm-up: phase 6 ran these requests on the same weights
+            (toks, sched, wall), _, counts, _ = run_counted(serve)
+            (device_ms, traced_ms, _, traces[name]), _, traced_counts, _ = run_counted(
+                lambda: device_profile(serve, events=True))
+        finally:
+            engine_mod._EAGER_SLOT_STEPS = False
+        if traced_counts != counts:
+            raise SystemExit(f"chip_smoke: [graphs] continuous {name}: the traced run's census {traced_counts} "
+                             f"!= the untraced run's {counts}")
+        _, missed = check_trace_census(f"graphs, continuous {name}", traces[name], counts)
+        tokens[name] = toks
+        ttft = sched.summary()["ttft_s"]
+        pool = POOL_BYTES[sched.slots["graphs"][None]] if not eager else 0
+        out[name] = dict(wall_s=wall, tok_s=n * NEW_TOKENS / wall, ttft_s=ttft, device_ms=device_ms,
+                         busy_share=device_ms / (wall * 1e3), traced_wall_ms=traced_ms, counts=counts,
+                         decode_steps=sched.decode_steps, pool_bytes=pool, census_less_traced=missed,
+                         launches_per_forward=sum(counts.values()) / (n + sched.decode_steps))
+        log(f"  [graphs] continuous {name}: {wall:.3f}s, {n * NEW_TOKENS / wall:.1f} tok/s, TTFT p50 "
+            f"{ttft['p50']:.3f}s p95 {ttft['p95']:.3f}s, {sched.decode_steps} decode steps; traced rerun: device "
+            f"{device_ms:.2f} ms ({device_ms / (wall * 1e3):.1%} of the untraced wall); "
+            f"{out[name]['launches_per_forward']:.0f} kernel-wrapper launches a forward, the census less the traced "
+            f"launches {missed or 0}; pool {pool / 1e6:.1f} MB")
+    same = [bool(np.array_equal(a, b)) for a, b in zip(tokens["graph"], tokens["eager"])]
+    log(f"  [graphs] continuous: tokens equal, slot graph vs eager slot loop: {sum(same)}/{n} "
+        f"(temperatures 0, 1.0, 0.7); census equal {out['graph']['counts'] == out['eager']['counts']}; "
+        f"{out['graph']['tok_s'] / out['eager']['tok_s']:.2f}x tok/s")
+    if not all(same) or out["graph"]["counts"] != out["eager"]["counts"]:
+        raise SystemExit("chip_smoke: [graphs] the slot graph's tokens or census differ from the eager slot loop's")
+    return dict(out, speedup=out["graph"]["tok_s"] / out["eager"]["tok_s"])
+
+
+def rel_l2(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def int8_steps(bcq_engine):
+    """The decode step's device time with the bf16 and the int8 cache at
+    B = 64 and 4, ``max_seq`` 2048, as graph replays, median of 7; the
+    caches' resident bytes and each capture's pool (the engine keeps one
+    width's cache and graphs: the B = 4 ones replace the B = 64 ones)."""
+    from repro_torch.infer import Engine
+    from repro_torch.utils import tree_leaves
+
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        cfg = dataclasses.replace(bcq_engine.cfg, kv_cache_dtype=kv)
+        engine = Engine(cfg, bcq_engine.params, max_seq=INT8_MAX_SEQ, fuse=False, device="cuda")
+        for B in INT8_BATCHES:
+            graph = engine._generate_graph(B)
+            tok = torch.zeros((B,), dtype=torch.long, device=DEVICE)
+            pos = torch.full((B,), INT8_MAX_SEQ // 2, dtype=torch.long, device=DEVICE)
+            graph(tok, pos)  # warm-up
+            graph(tok, pos)  # capture, then a replay
+            ms = _median_event_ms(graph.graph.replay, 1, 7)
+            cache_bytes = sum(leaf.nbytes for leaf in tree_leaves(graph.cache))
+            out[(kv, B)] = dict(step_ms=ms, cache_bytes=cache_bytes, pool_bytes=POOL_BYTES[graph])
+        log(f"  [int8] {kv} cache, max_seq {INT8_MAX_SEQ}: " + "; ".join(
+            f"B = {B}: step {out[(kv, B)]['step_ms']:.3f} ms, cache {out[(kv, B)]['cache_bytes'] / 1e9:.3f} GB, "
+            f"pool {out[(kv, B)]['pool_bytes'] / 1e9:.3f} GB" for B in INT8_BATCHES)
+            + f"; then allocated: {torch.cuda.memory_allocated() / 1e9:.3f} GB (the weights, the last width's "
+              f"cache and graph)")
+        del engine, graph
+        torch.cuda.empty_cache()
+    for B in INT8_BATCHES:
+        a, b = out[("int8", B)], out[("bfloat16", B)]
+        log(f"  [int8] B = {B}: int8 step {a['step_ms'] / b['step_ms']:.2f}x the bf16 step, cache "
+            f"{a['cache_bytes'] / b['cache_bytes']:.3f}x")
+    return {f"{kv}/B={B}": v for (kv, B), v in out.items()}
+
+
+def int8_exactness(bcq_engine, prompts):
+    """The int8 cache at full width: decode logits within 5% (relative L2)
+    of the bf16 cache's on the same tokens; slot == solo and greedy
+    speculative == plain, bit for bit."""
+    import numpy as np
+
+    from repro_torch.infer import Engine, SpecConfig
+    from repro_torch.launch.serve import drive_continuous
+
+    cfg8 = dataclasses.replace(bcq_engine.cfg, kv_cache_dtype="int8")
+    eng8 = Engine(cfg8, bcq_engine.params, max_seq=bcq_engine.max_seq, fuse=False, device="cuda")
+    toks = torch.as_tensor(bcq_engine.generate(prompts, NEW_TOKENS).tokens, device=DEVICE).long()
+    runs = {}
+    for name, eng in (("bf16", bcq_engine), ("int8", eng8)):
+        l0, cache = eng.prefill(toks[:, :PROMPT_LEN], eng._make_cache(PROMPTS))
+        steps = []
+        for t in range(PROMPT_LEN, PROMPT_LEN + NEW_TOKENS - 1):
+            lg, cache = eng.decode(toks[:, t : t + 1], cache, t)
+            steps.append(lg)
+        runs[name] = (l0, steps)
+    worst = max(rel_l2(a, b) for a, b in zip(runs["int8"][1], runs["bf16"][1]))
+    prefill_same = torch.equal(runs["int8"][0], runs["bf16"][0])
+    log(f"  [int8] full-width decode logits against the bf16 cache (teacher-forced, {NEW_TOKENS - 1} steps): "
+        f"worst relative L2 {worst:.4f} (bound {INT8_REL_L2}); prefill logits equal {prefill_same}")
+    n_spec = NEW_TOKENS // 2  # random weights accept ~nothing: a chunk a token, the host's pace
+    spec = eng8.generate(prompts, n_spec, speculate=SpecConfig(SPEC_Q, SPEC_GAMMA))
+    plain = eng8.generate(prompts, n_spec)
+    spec_same = bool((spec.tokens == plain.tokens).all())
+    serving = serving_engine(eng8, max(SERVE_PROMPT_LENS) + NEW_TOKENS + 8)
+    reqs = serve_requests(cfg8, SERVE_PROMPT_LENS, NEW_TOKENS, 200)
+    (sched, done, wall), _, counts, _ = run_counted(lambda: drive_continuous(
+        serving, reqs, np.zeros(len(reqs)), n_slots=SERVE_SLOTS, chunk=SERVE_CHUNK))
+    by_rid = {c.rid: c.new_tokens for c in done}
+    same = [bool(np.array_equal(by_rid[r.rid], serving.generate(r.prompt[None], r.max_new_tokens,
+                                                                temperature=r.temperature, seed=r.seed)
+                                .tokens[0, r.prompt.size:])) for r in reqs]
+    greedy = [r.temperature == 0 for r in reqs]
+    log(f"  [int8] greedy speculative == plain ({SpecConfig(SPEC_Q, SPEC_GAMMA)}): {spec_same}; slot == solo "
+        f"through {SERVE_SLOTS} slots: greedy {sum(a for a, g in zip(same, greedy) if g)}/{sum(greedy)}, sampled "
+        f"{sum(a for a, g in zip(same, greedy) if not g)}/{len(reqs) - sum(greedy)}; continuous {wall:.3f}s, "
+        f"{len(reqs) * NEW_TOKENS / wall:.1f} tok/s")
+    if not (worst < INT8_REL_L2 and prefill_same and spec_same and all(same)):
+        raise SystemExit(f"chip_smoke: [int8] logits {worst:.4f} (bound {INT8_REL_L2}), prefill equal "
+                         f"{prefill_same}, spec == plain {spec_same}, slot == solo {sum(same)}/{len(reqs)}")
+    return dict(decode_rel_l2=worst, spec_equal=spec_same, slot_equal=sum(same), requests=len(reqs),
+                continuous_tok_s=len(reqs) * NEW_TOKENS / wall), eng8
+
+
+def admission_logits(engine, prompt, chunk=None):
+    """One admission (whole-shot, or in ``chunk``-token pieces) into a fresh
+    1-slot batch → its last-prompt logits and the pending admission."""
+    slots = engine.init_slots(1)
+    p = engine.begin_admission(prompt, max_new_tokens=1, chunked=chunk is not None)
+    while not p.done:
+        engine.advance_admission(p, chunk)
+    engine.finish_admission(slots, 0, p)
+    return slots["logits"][0].clone(), p
+
+
+def int8_admissions(eng8):
+    """Under int8 a warm or chunked admission attends dequantized rows where
+    the cold whole-shot one attends fresh rows: a warm prefix-cache admission
+    (phase 8's 512-token shared prompt) and the 8192-token request in 8
+    chunks, each within 5% (relative L2) of its cold whole-shot admission."""
+    from repro_torch.infer import PrefixCache
+    from repro_torch.models.layers import LONG_SEQ_THRESHOLD
+
+    cfg = eng8.cfg
+    reqs = prefix_requests(cfg)[:2]
+    cache = PrefixCache(block_tokens=PREFIX_BLOCK, max_bytes=PREFIX_CACHE_BYTES)
+    warm_eng = serving_engine(eng8, max(r.prompt.size for r in reqs) + NEW_TOKENS + 8, prefix_cache=cache)
+    cold, _ = admission_logits(warm_eng, reqs[0].prompt)  # a miss: commits the shared prompt's blocks
+    cold2, _ = admission_logits(serving_engine(eng8, warm_eng.max_seq), reqs[1].prompt)
+    warm, p = admission_logits(warm_eng, reqs[1].prompt)
+    warm_rel = rel_l2(warm, cold2)
+    (req,) = serve_requests(cfg, (LONG_SEQ_THRESHOLD,), LONG_NEW, 500)
+    long_eng = serving_engine(eng8, LONG_SEQ_THRESHOLD + LONG_NEW)
+    (whole, _), t_whole = timed(lambda: admission_logits(long_eng, req.prompt))
+    (chunked, pc), t_chunked = timed(lambda: admission_logits(long_eng, req.prompt, LONG_CHUNK))
+    long_rel = rel_l2(chunked, whole)
+    log(f"  [int8] warm admission (hit {p.handle.length} of {reqs[1].prompt.size} tokens) against cold whole-shot: "
+        f"relative L2 {warm_rel:.4f}; the {LONG_SEQ_THRESHOLD}-token prompt in {pc.prefill_chunks} chunks "
+        f"({t_chunked:.3f}s) against whole-shot ({t_whole:.3f}s): {long_rel:.4f} (bound {INT8_REL_L2})")
+    if not (p.handle.length >= PREFIX_LEN - PREFIX_BLOCK and warm_rel < INT8_REL_L2 and long_rel < INT8_REL_L2
+            and pc.prefill_chunks == LONG_SEQ_THRESHOLD // LONG_CHUNK):
+        raise SystemExit(f"chip_smoke: [int8] warm {warm_rel:.4f} (hit {p.handle.length}), chunked {long_rel:.4f} "
+                         f"({pc.prefill_chunks} chunks)")
+    return dict(warm_rel_l2=warm_rel, warm_hit=p.handle.length, long_rel_l2=long_rel, long_whole_s=t_whole,
+                long_chunked_s=t_chunked)
+
+
+def phase_graphs(engines, prompts):
+    """Phase 10 (module docstring) → summary."""
+    from repro_torch.kernels import flash_attention
+
+    out = {"paths": {}}
+    for fmt, engine in engines.items():
+        out["paths"][fmt] = graph_path(engine, prompts, fmt)
+    out["paths"]["bcq on lutgemm"] = graph_path(engines["bcq"], prompts, "bcq on lutgemm", "lutgemm")
+    out["continuous"] = graph_serving(engines["bcq"])
+    out["int8_steps"] = int8_steps(engines["bcq"])
+    out["int8"], eng8 = int8_exactness(engines["bcq"], prompts)
+    copies = flash_attention.copies
+    out["int8"].update(int8_admissions(eng8))
+    if flash_attention.copies != copies:
+        raise SystemExit("chip_smoke: [int8] a dequantized K/V view did not reach K8 in place")
+    return out
+
+
 def kernels_line(records, counts, n_layers, flash_records, spec_launches, flash_offsets, offset_launches):
     """Per kernel: its launches in its path's counted run and, in bf16 at the
     batched decode width, its time summed over one decode step's launches;
@@ -2211,7 +2679,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     walls = {"t": time.perf_counter()}
-    log("[1/9] card")
+    log("[1/10] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2220,7 +2688,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
     phase_wall(walls)
-    log("[2/9] build")
+    log("[2/10] build")
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
@@ -2238,7 +2706,7 @@ def main() -> int:
             log(f"    {line}")
 
     phase_wall(walls)
-    log("[3/9] kernels against their plain versions")
+    log("[3/10] kernels against their plain versions")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
@@ -2248,27 +2716,29 @@ def main() -> int:
     prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[4/9] flash_attention against its plain version")
+    log("[4/10] flash_attention against its plain version")
     flash_records, flash_offsets = phase_flash(gen)
 
     phase_wall(walls)
-    log("[5/9] main path, one run per format")
-    counts, cfg, summaries, bcq_engine, ternary_engine, prompts = phase_main_path()
+    log("[5/10] main path, one run per format")
+    inspect_captures()
+    counts, cfg, summaries, engines, prompts = phase_main_path()
+    bcq_engine, ternary_engine = engines["bcq"], engines["ternary"]
 
     phase_wall(walls)
-    log("[6/9] continuous serving and one long request")
+    log("[6/10] continuous serving and one long request")
     counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
     summaries["long"], long_logits, long_tokens = phase_long(bcq_engine)
 
     phase_wall(walls)
-    log("[7/9] self-speculative decoding")
+    log("[7/10] self-speculative decoding")
     summaries["speculative"], spec_launches = phase_speculative(bcq_engine, ternary_engine, prompts, serving,
                                                                 summaries["continuous"],
                                                                 checked_shapes(records + draft_records))
     del ternary_engine, serving
 
     phase_wall(walls)
-    log("[8/9] prefix cache and chunked prefill")
+    log("[8/10] prefix cache and chunked prefill")
     summaries["prefix"] = phase_prefix(bcq_engine, (summaries["long"], long_logits, long_tokens),
                                        records + draft_records, gen)
     offset_launches = (sum(summaries["prefix"][run]["offset_launches"] for run in ("cold wave", "warm wave"))
@@ -2276,9 +2746,15 @@ def main() -> int:
     del bcq_engine
 
     phase_wall(walls)
-    log("[9/9] kernels")
+    log("[9/10] kernels (the JSON line is printed last but one)")
     line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches, flash_offsets,
                         offset_launches)
+
+    phase_wall(walls)
+    log("[10/10] captured decode and the int8 cache")
+    summaries["graphs"] = phase_graphs(engines, prompts)
+    del engines
+    phase_wall(walls)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

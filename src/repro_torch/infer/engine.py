@@ -8,11 +8,19 @@ quantized linear reaches its format's hand-written kernel through
 ``ops.qmatmul`` on the GPU.
 
 The reference runs decode as one ``lax.scan`` (``scan=True``) or a host step
-loop (``scan=False``). Here both are a Python step loop over the same
-kernels: ``scan=True`` keeps the sampled tokens on the device and fetches
-them once at the end, ``scan=False`` fetches each token as it is sampled.
-They give bit-identical tokens. Capturing the loop as a CUDA graph is the
-later counterpart of the scan.
+loop (``scan=False``). Here ``scan=True`` replays one decode forward
+captured as a CUDA graph (``infer/graphs.py``) every step, into a cache the
+engine keeps for the last batch width it ran at and zeroes at the start of
+each call, and
+fetches the sampled tokens once at the end; ``scan=False`` runs each step's
+forward eagerly, into a fresh cache, and fetches each token as it is
+sampled. They give bit-identical tokens and logits. Sampling runs eagerly
+between replays in both. On the CPU the graph's step runs eagerly on its
+static buffers. ``decode_slots`` replays the graph of its slot width the
+same way; the eager slot loop stays reachable through the private
+``_EAGER_SLOT_STEPS`` switch below, for tests and the chip smoke, as the
+oracle a replay is held to. Prefill, admissions, speculative chunks and
+sampling stay eager.
 
 Slot-batched serving (``init_slots`` / ``admit_slot`` / ``decode_slots`` /
 ``release_slot``): an ``n_slots``-row KV cache holds one request per row,
@@ -67,6 +75,7 @@ import torch
 
 from repro_torch.core.formats import format_names, get_format
 from repro_torch.core.qtensor import QuantizedTensor
+from repro_torch.infer.graphs import DecodeGraph
 from repro_torch.infer.prefix_cache import PrefixCache, PrefixHandle, concat_rows, model_identity
 from repro_torch.infer.speculative import (
     SpecConfig,
@@ -76,11 +85,16 @@ from repro_torch.infer.speculative import (
     has_ring_buffer,
     spec_chunk,
 )
+from repro_torch.kernels import current_impl_mode
 from repro_torch.models import forward, fuse_decode_projections, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import gather_prefix_rows, install_prefix_rows
 from repro_torch.quant import truncate_params
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
+
+# True: decode_slots runs each step's forward eagerly instead of replaying a
+# captured graph (the oracle that tests and the chip smoke hold replays to).
+_EAGER_SLOT_STEPS = False
 
 
 @dataclasses.dataclass
@@ -188,6 +202,10 @@ class Engine:
         self.params = fuse_decode_projections(cfg, params) if fuse else params
         self.max_seq = max_seq
         self._draft_params: dict = {}  # q_draft -> truncated params
+        # generate(scan=True)'s cache and graphs, of one batch width (the last used)
+        self._caches: dict = {}  # batch width -> the cache generate(scan=True) reuses
+        self._graphs: dict = {}  # (batch width, impl mode) -> DecodeGraph over that cache
+        self._graph_pool = None  # the CUDA graph memory pool this engine's captures share
         self.prefix_cache = prefix_cache
         self._last_prefix_handle: Optional[PrefixHandle] = None
         if prefix_cache is not None:
@@ -198,6 +216,50 @@ class Engine:
 
     def _make_cache(self, batch: int) -> dict:
         return init_cache(self.cfg, batch, self.max_seq, device=self.device)
+
+    # -- captured decode steps (infer/graphs.py) -----------------------------
+
+    def _pool(self):
+        """The handle of the memory pool this engine's next capture shares."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _new_graph(self, cache: dict, batch: int) -> DecodeGraph:
+        return DecodeGraph(self.cfg, self.params, cache, batch,
+                           pool=self._pool if self.device.type == "cuda" else None)
+
+    def _generate_graph(self, batch: int) -> DecodeGraph:
+        """The decode graph of ``generate(scan=True)`` at this width and the
+        impl mode in force, over the engine's cache of that width, which is
+        zeroed here: each call starts from a fresh cache's state. The engine
+        keeps the cache and graphs of one width: a call at another width
+        drops them first, so a caller that varies the width holds one
+        ``max_seq`` cache and one width's graphs, not one per width. The
+        dropped graphs' pool goes back to the device at the allocator's next
+        ``empty_cache`` (each capture runs one), and later captures take a
+        new pool: a pool whose graphs are all gone is not shared again."""
+        if batch not in self._caches:
+            self._caches.clear()
+            self._graphs.clear()
+            self._graph_pool = None
+            self._caches[batch] = self._make_cache(batch)
+        for leaf in tree_leaves(self._caches[batch]):
+            leaf.zero_()
+        key = (batch, current_impl_mode())
+        if key not in self._graphs:
+            self._graphs[key] = self._new_graph(self._caches[batch], batch)
+        return self._graphs[key]
+
+    def _slot_graph(self, slots: dict) -> DecodeGraph:
+        """The decode graph of a slot batch under the impl mode in force,
+        kept in the slot state beside the cache it writes (a new
+        ``init_slots`` makes a new cache, and so a new capture)."""
+        graphs = slots.setdefault("graphs", {})
+        mode = current_impl_mode()
+        if mode not in graphs or not graphs[mode].uses(slots["cache"]):
+            graphs[mode] = self._new_graph(slots["cache"], len(slots["pos"]))
+        return graphs[mode]
 
     def _check_prompt(self, prompt: np.ndarray, n_new: int) -> None:
         s = prompt.shape[-1]
@@ -327,14 +389,18 @@ class Engine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
 
-        cache = self._make_cache(b)
+        graph = self._generate_graph(b) if scan else None
+        cache = graph.cache if scan else self._make_cache(b)
         tokens = torch.as_tensor(pt, dtype=torch.long, device=self.device)
         logits, cache = self.prefill(tokens, cache)
         steps = []
         for step in range(n_steps):
             tok = _sample(logits, gen, temperature, greedy)
             steps.append(tok if scan else tok.cpu().numpy())
-            logits, cache = self.decode(tok[:, None], cache, s + step)
+            if scan:
+                logits = graph(tok, s + step)
+            else:
+                logits, cache = self.decode(tok[:, None], cache, s + step)
         if scan:
             new = torch.stack(steps, dim=1).cpu().numpy() if steps else np.zeros((b, 0))
         else:
@@ -666,6 +732,7 @@ class Engine:
         remaining = slots["remaining"].copy()
         temps, greedy, gens = slots["temperature"], slots["greedy"], slots["gens"]
         cache, last = slots["cache"], self.max_seq - 1
+        graph = None if _EAGER_SLOT_STEPS else self._slot_graph(slots)
         toks_steps, act_steps = [], []
         for _ in range(n_steps):
             act = active.copy()
@@ -674,7 +741,10 @@ class Engine:
                 probs = torch.softmax(logits[b : b + 1] / max(float(temps[b]), 1e-6), dim=-1)
                 tok[b] = torch.multinomial(probs, 1, generator=gens[b])[0, 0]
             step_pos = torch.as_tensor(np.where(act, pos, np.minimum(pos, last)), device=self.device)
-            new_logits, cache = self.decode(tok[:, None], cache, step_pos)
+            if graph is None:
+                new_logits, cache = self.decode(tok[:, None], cache, step_pos)
+            else:
+                new_logits = graph(tok, step_pos)
             act_dev = torch.as_tensor(act, device=self.device)
             logits = torch.where(act_dev[:, None], new_logits, logits)
             toks_steps.append(torch.where(act_dev, tok, -1))

@@ -58,18 +58,49 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Kernel wrapper name → launches since the last reset."""
+    """Kernel wrapper name → launches since the last reset, each replay of a
+    captured CUDA graph included (:func:`add_counters`)."""
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
 
 
+# Every count the wrappers and the dispatch keep: (object, attribute).
+COUNTERS = (
+    *((fn, "launches") for fn in KERNEL_WRAPPERS),
+    (ternary_mm, "tc_launches"),
+    (flash_attention, "offset_launches"),
+    (qmatmul, "ref_calls"),
+)
+
+
+def counters() -> tuple:
+    """The values of :data:`COUNTERS`, in order."""
+    return tuple(getattr(obj, attr) for obj, attr in COUNTERS)
+
+
+def set_counters(values) -> None:
+    """Set :data:`COUNTERS` to ``values`` (:func:`counters`'s order)."""
+    for (obj, attr), v in zip(COUNTERS, values):
+        setattr(obj, attr, v)
+
+
+def add_counters(delta, times: int = 1) -> None:
+    """Add ``times`` × ``delta`` to :data:`COUNTERS`. A replay of a captured
+    CUDA graph runs no wrapper code, so ``infer/graphs.py`` records what a
+    capture counted and adds it once a replay."""
+    set_counters(v + times * d for v, d in zip(counters(), delta))
+
+
 __all__ = [
+    "COUNTERS",
     "KERNEL_WRAPPERS",
+    "add_counters",
     "bcq_mm",
     "bcq_mm_fused",
     "bcq_mm_plain",
     "bcq_mm_ref",
     "codebook_mm",
     "codebook_mm_plain",
+    "counters",
     "current_impl_mode",
     "dequant_materialize",
     "dequant_materialize_plain",
@@ -88,6 +119,7 @@ __all__ = [
     "quantized_matmul",
     "quantized_matmul_fused",
     "reset_launch_counts",
+    "set_counters",
     "ternary_mm",
     "ternary_mm_plain",
     "uniform_mm",

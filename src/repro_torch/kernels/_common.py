@@ -9,6 +9,7 @@ plus shapes, dtypes and devices, before a kernel ever sees the tensors.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -60,20 +61,62 @@ def split_chunk(kc: int, col_tiles: int, min_chunk: int = WARPS) -> int:
     return best[1]
 
 
-_WORKSPACE: dict = {}  # device → (f32 scratch, int32 tickets), grown on demand
+class Workspace:
+    """Scratch for a k-split's partial sums and its zeroed tickets (each
+    kernel resets every ticket it uses), kept per device and shared by the
+    split-k kernels; launches on one stream use them in turn. Grown on
+    demand, until :meth:`freeze`: a CUDA graph captured over this workspace
+    keeps its tensors' addresses, so from then on a call that needs more
+    raises instead of swapping them out (``infer/graphs.py`` sizes a graph's
+    workspace by a warm-up step at the graph's shapes, then freezes it)."""
+
+    def __init__(self):
+        self._bufs: dict = {}  # device → (f32 scratch, int32 tickets)
+        self.frozen = False
+
+    def get(self, device: torch.device, n_scratch: int, n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        scratch, tickets = self._bufs.get(device, (None, None))
+        grow_s = scratch is None or scratch.numel() < n_scratch
+        grow_t = tickets is None or tickets.numel() < n_tickets
+        if (grow_s or grow_t) and self.frozen:
+            raise RuntimeError(
+                f"the split-k workspace of a captured CUDA graph cannot grow (a call needs "
+                f"{n_scratch} scratch floats and {n_tickets} tickets; it holds "
+                f"{0 if scratch is None else scratch.numel()} and {0 if tickets is None else tickets.numel()})"
+            )
+        if grow_s:
+            scratch = torch.empty(max(1, n_scratch), dtype=torch.float32, device=device)
+        if grow_t:
+            tickets = torch.zeros(max(1, n_tickets), dtype=torch.int32, device=device)
+        self._bufs[device] = (scratch, tickets)
+        return scratch, tickets
+
+    def freeze(self) -> None:
+        self.frozen = True
+
+    def nbytes(self) -> int:
+        return sum(t.nbytes for pair in self._bufs.values() for t in pair)
+
+
+_WORKSPACE = Workspace()  # what eager launches use
+_ACTIVE: list = []  # the workspace of a graph being warmed up or captured, innermost last
+
+
+@contextlib.contextmanager
+def use_workspace(ws: Workspace):
+    """Within this scope the split-k kernels take ``ws`` instead of the
+    shared workspace (a graph's own, ``infer/graphs.py``)."""
+    _ACTIVE.append(ws)
+    try:
+        yield ws
+    finally:
+        _ACTIVE.pop()
 
 
 def _workspace(device: torch.device, n_scratch: int, n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scratch for a k-split's partial sums and its zeroed tickets (each
-    kernel resets every ticket it uses), kept per device and shared by the
-    split-k kernels. Launches on one stream use them in turn."""
-    scratch, tickets = _WORKSPACE.get(device, (None, None))
-    if scratch is None or scratch.numel() < n_scratch:
-        scratch = torch.empty(max(1, n_scratch), dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(max(1, n_tickets), dtype=torch.int32, device=device)
-    _WORKSPACE[device] = (scratch, tickets)
-    return scratch, tickets
+    """The split-k scratch and tickets of the :class:`Workspace` in force:
+    a graph's own inside :func:`use_workspace`, else the shared one."""
+    return (_ACTIVE[-1] if _ACTIVE else _WORKSPACE).get(device, n_scratch, n_tickets)
 
 
 def _check_dtype(name: str, t: torch.Tensor) -> None:

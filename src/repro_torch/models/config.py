@@ -17,6 +17,7 @@ import torch
 Stage = Tuple[Tuple[str, ...], int]
 
 PORTED_FAMILIES = ("dense",)
+KV_CACHE_DTYPES = ("bfloat16", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,11 +35,19 @@ class ModelConfig:
     rope_theta: float = 500_000.0
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    # "int8": K/V stored as int8 codes with one f32 scale per (token, head)
+    # (``models/layers.py::_kv_quantize``); "bfloat16": the cache in the
+    # compute dtype (``init_cache``'s ``dtype``)
+    kv_cache_dtype: str = "bfloat16"
 
     def __post_init__(self):
         if self.family not in PORTED_FAMILIES:
             raise ValueError(
                 f"family {self.family!r} is not ported yet; ported: {PORTED_FAMILIES}"
+            )
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                f"kv_cache_dtype {self.kv_cache_dtype!r}: expected one of {KV_CACHE_DTYPES}"
             )
         if self.d_head is None:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)

@@ -1,5 +1,6 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``,
-for a dense decoder with an unwindowed KV cache in the compute dtype).
+for a dense decoder with an unwindowed KV cache, in the compute dtype or as
+int8 codes with per-(token, head) scales).
 
 Causal attention of a prompt (train, prefill, and a prefill chunk or
 suffix at ``pos > 0``) goes through :func:`_causal`: on the GPU the
@@ -33,6 +34,18 @@ Unlike the reference's functional cache update, :func:`_cache_write` writes
 the new rows into the cache tensors in place and returns the same dict: the
 cache is the largest activation-side buffer and copying it per step would
 double its traffic.
+
+An int8 cache (``ModelConfig.kv_cache_dtype == "int8"``) stores each K/V
+vector as int8 codes and one f32 scale (:func:`_kv_quantize`, the
+reference's arithmetic); every read of cached rows (decode, the chunked
+verify, a prefill at ``pos > 0``) dequantizes them to the compute dtype
+first (:func:`_cache_kv`), in plain PyTorch, as the reference does in XLA.
+A prefill at ``pos == 0`` attends its fresh rows, not their codes.
+
+Positions: a scalar ``pos`` is read on the host
+(:func:`~repro_torch.utils.host_pos`, which raises under CUDA graph
+capture); a ``(B,)`` tensor stays on the device and gives a row the same
+bits, so a captured step (``infer/graphs.py``) takes that path.
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ from repro_torch.kernels.ops import current_impl_mode, linear, linear_fused
 from repro_torch.kernels.ref import NEG_INF, causal_mask
 from repro_torch.kernels.ref import sdpa as _sdpa
 from repro_torch.models.config import ModelConfig
-from repro_torch.utils import in_prompt_rows, row_sum, tree_map, tree_map_with_path
+from repro_torch.utils import host_pos, in_prompt_rows, row_sum, tree_map, tree_map_with_path
 
 Pos = Union[int, torch.Tensor]
 
@@ -91,7 +104,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     """Rotary embedding. x (B, S, H, Dh); positions (B, S)."""
     half = x.shape[-1] // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exps)
     angles = positions[..., None].to(torch.float32) * freqs  # (B, S, half)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -162,27 +175,61 @@ def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_start: int = 0)
     return _sdpa(q, k, v, causal_mask(s, k.shape[1], device=q.device))
 
 
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(..., Dh)`` → int8 codes ``(..., Dh)`` and f32 scales ``(...)``, one
+    per vector, in the reference's order (``_kv_quantize``): the scale is the
+    f32 absmax over Dh, the codes ``round(x / max(scale, 1e-8) * 127)``
+    (half to even, as ``jnp.round``) clipped to ±127."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1)
+    q = torch.round(xf / torch.clamp_min(scale, 1e-8)[..., None] * 127.0).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Codes and scales back to ``dtype``: ``(q * (scale / 127)).to(dtype)``
+    in f32, the reference's order."""
+    return (q.to(torch.float32) * (scale[..., None] / 127.0)).to(dtype)
+
+
+def _cache_kv(cache: dict, dtype, rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K/V rows ``[0, rows)`` (all of them when None) that attention
+    reads: views of the cache leaves, or for an int8 cache their
+    dequantization to ``dtype``."""
+    ck, cv = cache["k"][:, :rows], cache["v"][:, :rows]
+    if "k_scale" not in cache:
+        return ck, cv
+    return (_kv_dequantize(ck, cache["k_scale"][:, :rows], dtype),
+            _kv_dequantize(cv, cache["v_scale"][:, :rows], dtype))
+
+
 def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: Pos) -> dict:
     """Write ``s`` new K/V rows at absolute position ``pos`` (an int, a 0-d
-    tensor, or a (B,) tensor of per-row positions), in place."""
-    ck, cv = cache["k"], cache["v"]
+    tensor, or a (B,) tensor of per-row positions), in place; an int8
+    cache takes their codes and scales (:func:`_kv_quantize`)."""
+    new = {"k": k, "v": v}
+    if "k_scale" in cache:
+        new["k"], new["k_scale"] = _kv_quantize(k)
+        new["v"], new["v_scale"] = _kv_quantize(v)
     s = k.shape[1]
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        rows = torch.arange(ck.shape[0], device=ck.device)[:, None]
-        idx = pos.to(ck.device).long()[:, None] + torch.arange(s, device=ck.device)
-        ck[rows, idx] = k.to(ck.dtype)
-        cv[rows, idx] = v.to(cv.dtype)
+        dev = cache["k"].device
+        rows = torch.arange(cache["k"].shape[0], device=dev)[:, None]
+        idx = pos.to(dev).long()[:, None] + torch.arange(s, device=dev)
+        for name, val in new.items():
+            cache[name][rows, idx] = val.to(cache[name].dtype)
         return cache
-    p = int(pos)
-    ck[:, p : p + s] = k.to(ck.dtype)
-    cv[:, p : p + s] = v.to(cv.dtype)
+    p = host_pos(pos)
+    for name, val in new.items():
+        cache[name][:, p : p + s] = val.to(cache[name].dtype)
     return cache
 
 
 def gather_prefix_rows(cache: dict, start: int, n: int) -> dict:
-    """A copy of rows ``[start, start + n)`` of every K/V leaf of a model
-    cache (``(repeat, B, S_max, Hkv, Dh)`` → ``(repeat, B, n, Hkv, Dh)``),
-    in the cache's tree: a committed prefix block. A copy, never a view:
+    """A copy of rows ``[start, start + n)`` of every leaf of a model cache
+    (``(repeat, B, S_max, Hkv, Dh)`` → ``(repeat, B, n, Hkv, Dh)``; an int8
+    cache's scales ``(repeat, B, S_max, Hkv)`` alike), in the cache's tree:
+    a committed prefix block. A copy, never a view:
     a view would keep the whole cache alive and change with its next
     write."""
     return tree_map(lambda leaf: leaf[:, :, start : start + n].clone(), cache)
@@ -217,13 +264,13 @@ def _chunk_decode(q: torch.Tensor, cache: dict, pos: Pos) -> torch.Tensor:
     :func:`_sdpa_decode` call per chunk token, so each gets the bits of a
     single-token decode step at that position over the same cache. q
     (B, s, H, Dh) after the chunk's s K/V rows were written."""
-    ck, cv = cache["k"], cache["v"]
+    ck, cv = _cache_kv(cache, q.dtype)
     b, s = q.shape[:2]
     slot = torch.arange(ck.shape[1], device=q.device)
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         base = pos.to(q.device)[:, None]  # (B, 1)
     else:
-        base = torch.full((b, 1), int(pos), device=q.device)
+        base = torch.full((b, 1), host_pos(pos), device=q.device)
     outs = []
     for i in range(s):
         mask = (slot[None, :] <= base + i)[:, None, None, :]  # (B, 1, 1, S_max)
@@ -280,22 +327,22 @@ def attention(
     if cache is None:
         out = _causal(q, k, v)
     elif s > 1 or in_prompt_rows():
-        start = int(pos)
+        start = host_pos(pos)
         if start == 0:
             out = _causal(q, k, v)
             cache = _cache_write(cache, k, v, 0)
         else:
             cache = _cache_write(cache, k, v, start)
-            out = _causal(q, cache["k"][:, : start + s], cache["v"][:, : start + s], q_start=start)
+            out = _causal(q, *_cache_kv(cache, q.dtype, start + s), q_start=start)
     else:
         cache = _cache_write(cache, k, v, pos)
-        ck, cv = cache["k"], cache["v"]
+        ck, cv = _cache_kv(cache, x.dtype)
         slot = torch.arange(ck.shape[1], device=x.device)
         if isinstance(pos, torch.Tensor) and pos.dim() == 1:
             valid = slot[None, :] <= pos.to(x.device)[:, None]  # (B, S_max)
             mask = valid[:, None, None, :]
         else:
-            mask = (slot <= int(pos))[None, None, None, :]
+            mask = (slot <= host_pos(pos))[None, None, None, :]
         out = _sdpa_decode(q, ck, cv, mask)
     return linear(out.reshape(b, s, cfg.q_dim), p["wo"]), cache
 

@@ -28,7 +28,7 @@ from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels.ops import linear
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.utils import prompt_rows, resolve_device, tree_map
+from repro_torch.utils import host_pos, prompt_rows, resolve_device, tree_map
 
 ATTN_BLOCKS = ("attn",)
 
@@ -68,7 +68,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="cuda") -> dict:
     """Zeroed KV cache, stacked per stage like the params:
-    ``k``/``v`` of shape ``(repeat, B, s_max, Hkv, Dh)``."""
+    ``k``/``v`` of shape ``(repeat, B, s_max, Hkv, Dh)`` in ``dtype``
+    (default the compute dtype). With ``cfg.kv_cache_dtype == "int8"``
+    ``k``/``v`` are int8 codes and ``k_scale``/``v_scale`` their f32 scales,
+    ``(repeat, B, s_max, Hkv)``: one per (token, head), as the reference's
+    int8 cache holds them."""
     dev = resolve_device(device)
     dtype = dtype or cfg.cdtype
     shape = (batch, s_max, cfg.n_kv_heads, cfg.d_head)
@@ -76,6 +80,13 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="
     def block_cache(btype, repeat):
         if btype not in ATTN_BLOCKS:
             raise ValueError(f"block type {btype!r} is not ported yet")
+        if cfg.kv_cache_dtype == "int8":
+            return {
+                "k": torch.zeros((repeat, *shape), dtype=torch.int8, device=dev),
+                "v": torch.zeros((repeat, *shape), dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros((repeat, *shape[:-1]), dtype=torch.float32, device=dev),
+                "v_scale": torch.zeros((repeat, *shape[:-1]), dtype=torch.float32, device=dev),
+            }
         return {
             "k": torch.zeros((repeat, *shape), dtype=dtype, device=dev),
             "v": torch.zeros((repeat, *shape), dtype=dtype, device=dev),
@@ -164,7 +175,7 @@ def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_de
         elif isinstance(pos, torch.Tensor) and pos.dim() == 1:
             base = pos.to(device=h.device, dtype=torch.int32)[:, None]
         else:
-            base = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
+            base = torch.full((b, 1), host_pos(pos), dtype=torch.int32, device=h.device)
         positions = base + torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
 
     for si, (pattern, repeat) in enumerate(cfg.stages):

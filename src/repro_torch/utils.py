@@ -65,6 +65,27 @@ def in_prompt_rows() -> bool:
     return _PROMPT_ROWS
 
 
+def stream_capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph: never before
+    CUDA is initialized (nor in a CPU-only build, whose ``torch.cuda``
+    cannot be asked), which costs a flag's read."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
+def host_pos(pos) -> int:
+    """A scalar position (an int or a 0-d tensor) as a Python int. A CUDA
+    graph would keep the value read at capture, and every replay would write
+    and mask at that position without an error, so this raises while a
+    stream captures: a captured step takes its positions as a ``(B,)``
+    device tensor (``infer/graphs.py``)."""
+    if stream_capturing():
+        raise RuntimeError(
+            "a scalar position reached a step under CUDA graph capture; a captured "
+            "step takes its positions as a (B,) tensor"
+        )
+    return int(pos)
+
+
 def token_rows(x: torch.Tensor) -> bool:
     """Whether each row of ``x (..., k)`` is one token of its own request:
     ``x`` is ``(B, k)``, or ``(B, 1, ..., 1, k)`` (a decode step over B

@@ -21,6 +21,7 @@ probabilities. In bf16 each query row is also held to ``BF16_ROW_TOL``
 fall as 1/sqrt(S) below the absolute limit.
 """
 
+import dataclasses
 import functools
 import importlib
 
@@ -955,3 +956,182 @@ def test_warm_and_chunked_equal_cold_on_card(cuda, fmt, mode):
         assert torch.equal(again_l, _admission(cold, prompts[0])[0])
     pc = warm.prefix_cache
     assert pc.pinned == 0 and pc.counters["hits"] + pc.counters["misses"] == pc.counters["commits"]
+
+
+# -- captured decode steps and the int8 KV cache on the card -------------------
+
+GRAPH_FORMATS = ["dense", "bcq", "uniform", "dequant", "ternary", "codebook"]
+
+
+@functools.lru_cache(maxsize=None)
+def _cache_engine(fmt, kv):
+    """``_full_width_engine(fmt)``'s weights behind a cache of ``kv``."""
+    base = _full_width_engine(fmt)
+    cfg = dataclasses.replace(base.cfg, kv_cache_dtype=kv)
+    return Engine(cfg, base.params, max_seq=64, fuse=False, device="cuda")
+
+
+def _step_logits(eng, prompts, n, captured):
+    """Prefill, then ``n`` greedy steps: through the engine's decode graph,
+    or eagerly into a fresh cache at scalar positions → (B, n, V) logits."""
+    tokens = torch.as_tensor(prompts, device="cuda").long()
+    graph = eng._generate_graph(tokens.shape[0]) if captured else None
+    logits, cache = eng.prefill(tokens, graph.cache if captured else eng._make_cache(tokens.shape[0]))
+    out = []
+    for step in range(n):
+        tok = torch.argmax(logits, dim=-1)
+        if captured:
+            logits = graph(tok, tokens.shape[1] + step).clone()
+        else:
+            logits, cache = eng.decode(tok[:, None], cache, tokens.shape[1] + step)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("fmt,mode", [(f, None) for f in GRAPH_FORMATS] + [("bcq", "lutgemm")],
+                         ids=GRAPH_FORMATS + ["bcq_lutgemm"])
+def test_graph_generate_equals_eager_on_card(cuda, fmt, mode, kv):
+    """``generate`` (a replayed graph) and ``generate(scan=False)`` (the eager
+    loop): the same tokens and, step by step, the same logits, bit for bit;
+    the census counts the replays' launches as the eager loop's."""
+    eng = _cache_engine(fmt, kv)
+    prompts = np.random.default_rng(5).integers(0, eng.cfg.vocab, (4, 9))
+    with impl_mode(mode):
+        eager_l = _step_logits(eng, prompts, 6, False)
+        graph_l = _step_logits(eng, prompts, 6, True)
+        assert torch.equal(graph_l, eager_l)
+        reset_launch_counts()
+        eager = eng.generate(prompts, 7, temperature=0.8, seed=1, scan=False)
+        eager_counts = launch_counts()
+        reset_launch_counts()
+        graphed = eng.generate(prompts, 7, temperature=0.8, seed=1)
+        assert launch_counts() == eager_counts
+    np.testing.assert_array_equal(graphed.tokens, eager.tokens)
+    graph = eng._graphs[(4, mode)]
+    assert graph.graph is not None and graph.replays >= 6 + 5
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("fmt", ["bcq", "dequant", "dense"])
+def test_graph_slots_equal_the_eager_slot_loop_on_card(cuda, fmt, kv, monkeypatch):
+    """Ten requests (temperatures 0, 1.0, 0.7) through 4 slots: the slot
+    graph and the eager slot loop emit the same tokens and count the same
+    launches."""
+    from repro_torch.infer import engine as engine_mod
+
+    eng = _cache_engine(fmt, kv)
+
+    def run():
+        rng = np.random.default_rng(6)
+        reqs = [Request(prompt=rng.integers(0, eng.cfg.vocab, size=int(rng.integers(4, 30))).astype(np.int32),
+                        max_new_tokens=int(rng.integers(3, 14)), temperature=[0.0, 1.0, 0.7][i % 3], seed=i)
+                for i in range(10)]
+        reset_launch_counts()
+        sched = Scheduler(eng, n_slots=4, chunk=4)
+        for r in reqs:
+            sched.submit(r)
+        return {c.rid: c.new_tokens.tolist() for c in sched.run()}, launch_counts(), sched
+
+    graphed, counts, sched = run()
+    assert sched.slots["graphs"][None].replays > 0
+    monkeypatch.setattr(engine_mod, "_EAGER_SLOT_STEPS", True)
+    eager, eager_counts, _ = run()
+    assert graphed == eager and counts == eager_counts
+
+
+def test_graph_refuses_another_impl_mode_on_card(cuda):
+    eng = _cache_engine("bcq", "bfloat16")
+    prompts = np.random.default_rng(7).integers(0, eng.cfg.vocab, (2, 5))
+    eng.generate(prompts, 4)
+    graph = eng._graphs[(2, None)]
+    assert graph.graph is not None
+    with impl_mode("lutgemm"), pytest.raises(RuntimeError, match="impl_mode"):
+        graph(torch.zeros(2, dtype=torch.long, device=cuda), 5)
+    with impl_mode("lutgemm"):
+        eng.generate(prompts, 4)
+    assert eng._graphs[(2, "lutgemm")] is not graph
+
+
+def test_generate_keeps_one_width_on_card(cuda):
+    """An engine that ``generate``s at B = 8, then B = 1, then B = 8 holds one
+    width's cache and graphs at a time: at a switch the old width's cache and
+    graph are freed (nothing else holds them) and later captures take a new
+    pool, while a slot graph captured in the engine's first pool keeps
+    replaying; every run's tokens equal the eager loop's."""
+    import gc
+    import weakref
+
+    base = _cache_engine("bcq", "bfloat16")
+    eng = Engine(base.cfg, base.params, max_seq=256, fuse=False, device=cuda)
+    rng = np.random.default_rng(11)
+    prompts = rng.integers(0, eng.cfg.vocab, (8, 5))
+    reqs = [Request(prompt=rng.integers(0, eng.cfg.vocab, size=6).astype(np.int32), max_new_tokens=5,
+                    temperature=0.0, seed=i) for i in range(3)]
+
+    def serve():
+        sched = Scheduler(eng, n_slots=2, chunk=4)
+        for r in reqs:
+            sched.submit(r)
+        return {c.rid: c.new_tokens.tolist() for c in sched.run()}, sched
+
+    served, sched = serve()
+    held = []
+    for rows in (8, 1, 8):
+        got = eng.generate(prompts[:rows], 4)
+        np.testing.assert_array_equal(got.tokens, eng.generate(prompts[:rows], 4, scan=False).tokens)
+        assert list(eng._caches) == [rows] and {key[0] for key in eng._graphs} == {rows}
+        gc.collect()
+        assert all(ref() is None for ref in held)
+        (graph,) = eng._graphs.values()
+        assert graph.graph is not None
+        held = [weakref.ref(graph), weakref.ref(eng._caches[rows]["stages"][0]["b0"]["k"])]
+        del graph
+    assert sched.slots["graphs"][None].replays > 0
+    assert serve()[0] == served
+
+
+def test_graph_capture_failure_raises_on_card(cuda, monkeypatch):
+    """A step that cannot be captured (here a host read inside the decode
+    attention) makes ``generate`` raise at capture; nothing runs eagerly in
+    its place."""
+    from repro_torch.models import layers
+
+    eng = Engine(_cache_engine("dense", "bfloat16").cfg, _full_width_engine("dense").params, max_seq=64,
+                 fuse=False, device=cuda)
+    real = layers._sdpa_decode
+
+    def host_read(q, ck, cv, mask):
+        q.float().sum().item()
+        return real(q, ck, cv, mask)
+
+    monkeypatch.setattr(layers, "_sdpa_decode", host_read)
+    prompts = np.random.default_rng(8).integers(0, eng.cfg.vocab, (2, 5))
+    with pytest.raises(RuntimeError):
+        eng.generate(prompts, 4)
+    graph = eng._graphs[(2, None)]
+    assert graph.warmed and graph.graph is None and graph.replays == 0
+
+
+@pytest.mark.parametrize("fmt", ["bcq", "dense"])
+def test_int8_slots_and_speculation_exact_on_card(cuda, fmt):
+    """Under the int8 cache, at full widths: every greedy and sampled slot
+    request equals its solo ``generate`` bit for bit, and (bcq) greedy
+    speculative output equals plain output."""
+    eng = _cache_engine(fmt, "int8")
+    rng = np.random.default_rng(9)
+    reqs = [Request(prompt=rng.integers(0, eng.cfg.vocab, size=int(rng.integers(4, 30))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(3, 14)), temperature=[0.0, 1.0, 0.7][i % 3], seed=10 + i)
+            for i in range(7)]
+    sched = Scheduler(eng, n_slots=4, chunk=4)
+    for r in reqs:
+        sched.submit(r)
+    done = {c.rid: c for c in sched.run()}
+    for r in reqs:
+        solo = eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
+        np.testing.assert_array_equal(done[r.rid].new_tokens, solo.tokens[0, r.prompt.size :])
+    prompts = rng.integers(0, eng.cfg.vocab, (4, 8))
+    spec = SpecConfig(2, 4) if fmt == "bcq" else None
+    if spec is not None:
+        np.testing.assert_array_equal(eng.generate(prompts, 12, speculate=spec).tokens,
+                                      eng.generate(prompts, 12).tokens)

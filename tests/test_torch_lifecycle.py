@@ -31,7 +31,9 @@ from repro_torch.infer import (
     StepClock,
     TransitionError,
 )
+from repro_torch.infer import engine as engine_mod
 from repro_torch.infer import lifecycle
+from repro_torch.infer.graphs import DecodeGraph
 from repro_torch.models import init_params, reduced
 from repro_torch.quant import QuantPolicy, quantize_params
 import torch_helpers  # noqa: F401  (one torch thread per test worker)
@@ -331,28 +333,41 @@ def test_transient_decode_fault_is_invisible():
         np.testing.assert_array_equal(done[rids[k]].new_tokens, ref[rids_ref[k]].new_tokens)
 
 
-def test_decode_failure_midchunk_retry_is_exact(monkeypatch):
-    """A decode chunk that raises after some of its steps already ran (not
-    an injected fault before the dispatch, a failure inside it) leaves
-    positions, budgets, logits and generators as they were, so the retried
-    chunk emits what an undisturbed run emits."""
+def _midchunk_failure_retry_is_exact(monkeypatch, cls, name):
     eng = _engine(0)
     _, rids_ref, ref = _run(eng, _requests(4))
-    real, calls = Engine.decode, [0]
+    real, calls = getattr(cls, name), [0]
 
-    def flaky(self, tok, cache, pos):
+    def flaky(self, *args):
         calls[0] += 1
         if calls[0] == 5:  # the second step of the second chunk
             raise RuntimeError("device fault mid-chunk")
-        return real(self, tok, cache, pos)
+        return real(self, *args)
 
-    monkeypatch.setattr(Engine, "decode", flaky)
+    monkeypatch.setattr(cls, name, flaky)
     sched = Scheduler(eng, n_slots=2, chunk=3, retries=1, sleep=lambda s: None)
     rids = [sched.submit(r) for r in _requests(4)]
     done = {c.rid: c for c in sched.run()}
     assert sched.counters["retries"] == 1
     for k in range(4):
         np.testing.assert_array_equal(done[rids[k]].new_tokens, ref[rids_ref[k]].new_tokens)
+
+
+def test_decode_failure_midchunk_retry_is_exact(monkeypatch):
+    """A decode chunk that raises after some of its steps already ran (not
+    an injected fault before the dispatch, a failure inside it) leaves
+    positions, budgets, logits and generators as they were, so the retried
+    chunk emits what an undisturbed run emits. The step that fails is the
+    slot batch's decode graph (``infer/graphs.py``), which ``decode_slots``
+    calls every step."""
+    _midchunk_failure_retry_is_exact(monkeypatch, DecodeGraph, "__call__")
+
+
+def test_decode_failure_midchunk_retry_is_exact_eager(monkeypatch):
+    """The same failure in the eager slot loop (``engine._EAGER_SLOT_STEPS``),
+    whose steps call ``Engine.decode``."""
+    monkeypatch.setattr(engine_mod, "_EAGER_SLOT_STEPS", True)
+    _midchunk_failure_retry_is_exact(monkeypatch, Engine, "decode")
 
 
 def test_permanent_decode_fault_fails_active_completes_queued():

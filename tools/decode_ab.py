@@ -12,7 +12,11 @@ process builds the model from seed 0 on the card, quantizes it, prefills
 ``B`` prompts of 16 tokens into a cache of ``--max-seq`` rows and times 16
 decode steps (``Engine.decode``) after one untimed step, for each batch size;
 it also compares batch row 0's prefill and first decode logits with the same
-prompt run alone (batch invariance, max|Δ|). It prints one line per turn, a table of medians, and writes everything to
+prompt run alone (batch invariance, max|Δ|). It also times, at the first
+batch size, the eager host loops a caller meets: ``generate(...,
+scan=False)`` of 16 new tokens and ``generate(..., speculate=SpecConfig(2,
+4))`` of 8, 3 calls each after one untimed call. It
+prints one line per turn, a table of medians, and writes everything to
 ``chiprun_out/decode_ab.json``. Needs one CUDA GPU.
 """
 
@@ -29,6 +33,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PROMPT_LEN, STEPS = 16, 16
+GENERATE_KEYS = ("generate_eager", "spec_generate")
 
 
 def child(batches, max_seq) -> None:
@@ -67,6 +72,20 @@ def child(batches, max_seq) -> None:
                 row0 = [(prev[0] - solo0[0]).abs().max().item(), (logits[0] - solo1[0]).abs().max().item()]
         out[b] = {"steps_ms": steps[1:], "row0_vs_solo": row0}
         del cache, solo
+    from repro_torch.infer import SpecConfig
+
+    prompts = rng.integers(0, cfg.vocab, size=(batches[0], PROMPT_LEN))
+    calls = {"generate_eager": lambda: engine.generate(prompts, STEPS, scan=False),
+             "spec_generate": lambda: engine.generate(prompts, STEPS // 2, speculate=SpecConfig(2, 4))}
+    for name, call in calls.items():
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = walls[1:]
     print(json.dumps(out), flush=True)
 
 
@@ -97,18 +116,26 @@ def main() -> int:
         if res.returncode != 0:
             print(res.stderr[-3000:], file=sys.stderr)
             raise SystemExit(f"decode_ab: tree {name} failed")
-        got = {int(b): v for b, v in json.loads(res.stdout.strip().splitlines()[-1]).items()}
+        raw = json.loads(res.stdout.strip().splitlines()[-1])
+        walls = {key: raw.pop(key) for key in GENERATE_KEYS}
+        got = {int(b): v for b, v in raw.items()}
         steps = {b: v["steps_ms"] for b, v in got.items()}
-        runs.append({"tree": name, "steps_ms": steps, "row0_vs_solo": {b: v["row0_vs_solo"] for b, v in got.items()}})
+        runs.append({"tree": name, "steps_ms": steps, "row0_vs_solo": {b: v["row0_vs_solo"] for b, v in got.items()},
+                     "walls_s": walls})
         print(f"  {name:10s} " + "  ".join(
             f"B={b}: {statistics.median(v['steps_ms']):.2f} ms/step, row 0 vs alone: prefill logits "
-            f"{v['row0_vs_solo'][0]:.3e}, decode {v['row0_vs_solo'][1]:.3e}" for b, v in got.items()), flush=True)
+            f"{v['row0_vs_solo'][0]:.3e}, decode {v['row0_vs_solo'][1]:.3e}" for b, v in got.items())
+              + "".join(f"  {key} {statistics.median(w):.3f} s" for key, w in walls.items()), flush=True)
     table = {}
     for name, _ in trees:
         for b in args.batches:
             ms = statistics.median(x for r in runs if r["tree"] == name for x in r["steps_ms"][b])
             table[f"{name} B={b}"] = {"ms_per_step": ms, "tok_s": b * 1e3 / ms}
             print(f"{name:10s} B={b:<3d} median {ms:.2f} ms/step, {b * 1e3 / ms:.1f} tok/s", flush=True)
+        for key in GENERATE_KEYS:
+            s = statistics.median(x for r in runs if r["tree"] == name for x in r["walls_s"][key])
+            table[f"{name} {key}"] = {"wall_s": s}
+            print(f"{name:10s} {key} at B={args.batches[0]}: median {s:.3f} s", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "decode_ab.json").write_text(json.dumps(
