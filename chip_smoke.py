@@ -95,10 +95,10 @@ code is non-zero:
              kernel; K4's tensor-core ones apart): ``inspect_captures``. A
              traced rerun of each path's batched ``generate`` must have the
              census of one such run, and its trace must show launches of
-             every kernel the census counted (the trace's counts are
-             reported, not held: the profiler drops records, and a call
-             wider than a row slab launches once a slab where the census
-             counts the call). Each path's logits are then held against
+             every kernel the census counted and no more launches than it
+             (a trace is a lower bound: the profiler drops records; the
+             census counts one launch a row slab where a call is wider than
+             a slab, ``grouptable.Plan.slab_rows``). Each path's logits are then held against
              the same engine under ``impl_mode("ref")``, and a reduced f32
              model per format against its oracle within the kernels'
              tolerance;
@@ -108,7 +108,10 @@ code is non-zero:
              admission prefills through K8; greedy completions must equal a
              solo ``generate`` of each request, with the largest logit
              difference between a slot batch and solo forwards reported;
-             tok/s, TTFT p50/p95 and the device's busy share are reported.
+             tok/s, TTFT p50/p95 and the device's busy share are reported;
+             the launches expected count one a row slab of each prompt's
+             rows (``slab_launches``), and the profiled rerun's trace is
+             held to the census as in phase 5.
              Then one request of ``LONG_SEQ_THRESHOLD`` = 8192 prompt tokens
              and 8 new tokens through the scheduler: its prefill time and
              peak device memory above the resident weights and cache, against
@@ -189,7 +192,29 @@ code is non-zero:
              sampled) bit for bit; a warm prefix-cache admission and the
              8192-token request in 8 chunks, each within 5% of its cold
              whole-shot admission;
-11. last line ``{"ok": true, "device": {...}}``.
+11. session  the async serving session (``launch/server.py::ServeSession``,
+             driven in-process with asyncio: the card's machine has no
+             aiohttp) on the bcq model at 28 layers, phase 6's 12 requests,
+             4 slots, chunk 8, each session on a fresh slot state: observed
+             (tracer on the engine and the scheduler, metrics registry) and
+             unobserved, every stream bit for bit phase 6's solo
+             ``generate``, the decode chunks replaying the slot graph
+             captured on the pump thread, the launches as phase 6 expects
+             them; the observed session's Chrome trace valid with all 12
+             request lanes, ``counters_agree`` empty and the Prometheus
+             ``kernel_launches_total`` equal to the census. One request
+             cancelled at its first tokens (its budget 4x): the survivors
+             exact. A warmed session (its graph captured before) profiled
+             by ``torch.profiler`` started and stopped on the pump thread
+             (``ServeSession.call_on_pump``), its first 2 requests, 8 new
+             tokens each (a solo stream's first 8), the trace written to
+             ``chiprun_out/serve_profile.json`` (~25 MB): every
+             ``engine/*`` scope the run entered must be in it, and each
+             scope's count, host ms and device ms (kernels by the
+             correlation of their launch) are printed. Last, tok/s observed
+             against unobserved, 3 warmed runs each, alternating, medians
+             (printed, not bounded);
+12. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -216,6 +241,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 import weakref
@@ -332,7 +358,15 @@ INT8_BATCHES, INT8_MAX_SEQ = (64, 4), 2048
 INT8_REL_L2 = 5e-2  # tests/test_models.py::test_int8_kv_cache_decode_close_to_exact
 
 
+# phase 11: the serving session's runs (each on a fresh slot state, so each
+# captures its slot graph); the profiled window serves the first
+# SESSION_PROFILED requests, PROFILED_NEW tokens each (one decode chunk):
+# its Chrome trace holds ~2700 kernel events a decode step, ~0.8 KB each
+# (4 requests of 16 tokens wrote 66.2 MB)
+SESSION_OVERHEAD_RUNS, SESSION_PROFILED, PROFILED_NEW = 3, 2, SERVE_CHUNK
+SESSION_CANCEL = 3  # the request cancelled mid-flight (index into phase 6's 12)
 POOL_BYTES = weakref.WeakKeyDictionary()  # DecodeGraph → device memory its capture reserved
+CAPTURE_THREADS = weakref.WeakKeyDictionary()  # DecodeGraph → the thread that captured it
 GRAPH_NODES = weakref.WeakKeyDictionary()  # DecodeGraph → {wrapper group: kernel nodes in its CUDA graph}
 GRAPH_DIR = ROOT / "chiprun_out" / "graphs"  # a graph's DOT dump, kept where it disagrees
 
@@ -385,6 +419,7 @@ def inspect_captures():
         return g
 
     def inspected(graph):
+        CAPTURE_THREADS[graph] = threading.current_thread().name
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved()
@@ -1259,13 +1294,13 @@ def phase_main_path():
     return counts, cfg, summaries, engines, prompts
 
 
-def serving_engine(engine, max_seq, prefix_cache=None):
+def serving_engine(engine, max_seq, prefix_cache=None, tracer=None):
     """The bcq engine's fused weights behind another cache length (no copy),
-    with ``prefix_cache`` if given."""
+    with ``prefix_cache`` and ``tracer`` if given."""
     from repro_torch.infer import Engine
 
     return Engine(engine.cfg, engine.params, max_seq=max_seq, fuse=False, device="cuda",
-                  prefix_cache=prefix_cache)
+                  prefix_cache=prefix_cache, tracer=tracer)
 
 
 def serve_requests(cfg, lens, new_tokens, seed0):
@@ -1284,12 +1319,27 @@ def serve_requests(cfg, lens, new_tokens, seed0):
     ]
 
 
-def expect_forward_counts(counts, forwards, prefills, n_layers):
-    """Launch counts of the bcq path over ``forwards`` forwards, ``prefills``
-    of them prefills (each launching K8 once a layer)."""
+def slab_launches(leaf, rows, q=Q):
+    """K1/K2 launches of one call of ``rows`` rows at ``leaf``: one a row slab
+    (``grouptable.Plan.slab_rows``; decode widths take one)."""
+    from repro_torch.kernels import grouptable
+
+    k, o, _ = LEAVES[leaf]
+    return -(-rows // grouptable.plan("bcq", k, o, q, G, torch.bfloat16, torch.bfloat16).slab_rows(rows))
+
+
+def expect_forward_counts(counts, decode_steps, prompt_rows, n_layers, decode_rows=SERVE_SLOTS):
+    """Launch counts of the bcq path over ``decode_steps`` decode forwards of
+    ``decode_rows`` rows and one prefill of ``r`` rows for each ``r`` in
+    ``prompt_rows`` (its ``lm_head`` at its last row; K8 once a layer): each
+    call wider than a row slab launches once a slab (:func:`slab_launches`)."""
     expect = dict.fromkeys(counts, 0)
-    expect.update(bcq_mm=forwards * (2 * n_layers + 1), bcq_mm_fused=forwards * 2 * n_layers,
-                  flash_attention=prefills * n_layers)
+    forwards = [(decode_rows, decode_rows)] * decode_steps + [(r, 1) for r in prompt_rows]
+    expect.update(
+        bcq_mm=sum(n_layers * (slab_launches("wo", r) + slab_launches("w_down", r)) + slab_launches("lm_head", h)
+                   for r, h in forwards),
+        bcq_mm_fused=sum(n_layers * (slab_launches("wqkv", r) + slab_launches("w_gate_up", r)) for r, _ in forwards),
+        flash_attention=len(prompt_rows) * n_layers)
     return expect
 
 
@@ -1382,14 +1432,13 @@ def check_trace_census(label, by_count, counts, tc_launches=None):
     holds to the graph's kernel nodes) beside the kernels its profiler trace
     saw run on the card, wrapper by wrapper (K1 and K2 as one: they launch
     one device kernel); with ``tc_launches``, K4's tensor-core launches too.
-    The two differ both ways. The profiler drops device records (on an H100
-    with torch 2.11, up to 43 of a run's ~1900 launches of one kernel, none
-    in most runs); and the wrappers count calls, while a call wider than a
-    row slab (``grouptable.Plan.slab_rows``: prompt rows of a long
-    admission) launches once a slab, so a serving run's trace holds ~280
-    K1/K2 launches more than its census. So this fails only where a wrapper
-    that counted launches has none in the trace → (traced launches, census
-    less traced)."""
+    The census counts launches, one a row slab where a call is wider than a
+    slab (``grouptable.Plan.slab_rows``: prompt rows of a long admission).
+    The profiler drops device records (on an H100 with torch 2.11, up to 43
+    of a run's ~1900 launches of one kernel, none in most runs), so a trace
+    is a lower bound. This fails where a trace holds more launches of a
+    wrapper's kernel than the census counted, or none of one it counted →
+    (traced launches, census less traced)."""
     traced = traced_launches(by_count)
     census = {"+".join(group): sum(counts[w] for w in group) for group in TRACE_TAGS}
     if tc_launches is not None:
@@ -1397,6 +1446,9 @@ def check_trace_census(label, by_count, counts, tc_launches=None):
         census["ternary_mm on the tensor cores"] = tc_launches
     if any(census[k] and not traced[k] for k in census):
         raise SystemExit(f"chip_smoke: [{label}] the trace holds no launch of a kernel the census counted: "
+                         f"traced {traced}, census {census}")
+    if any(traced[k] > census[k] for k in census):
+        raise SystemExit(f"chip_smoke: [{label}] the trace holds more launches than the census counted: "
                          f"traced {traced}, census {census}")
     return traced, {k: census[k] - traced[k] for k in census if census[k] != traced[k]}
 
@@ -1430,7 +1482,7 @@ def phase_serving(bcq_engine):
         f"slot utilisation {util:.1%}, TTFT p50 {ttft['p50']:.3f}s p95 {ttft['p95']:.3f}s, "
         f"{sched.decode_steps} decode steps")
     log(f"  [continuous] launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
-    expect = expect_forward_counts(counts, n + sched.decode_steps, n, L)
+    expect = expect_forward_counts(counts, sched.decode_steps, [r.prompt.size for r in reqs], L)
     if counts != expect:
         raise SystemExit(f"chip_smoke: [continuous] launch counts {counts} != expected {expect}")
     if ref_calls:
@@ -1457,7 +1509,11 @@ def phase_serving(bcq_engine):
     if not all(a for a, g in zip(same, greedy) if g):
         raise SystemExit("chip_smoke: a greedy request served in a slot differs from its solo generate")
 
-    device_ms, traced_ms, by_name = device_profile(lambda: serve(300))
+    (device_ms, traced_ms, by_name, by_count), _, traced_counts, _ = run_counted(
+        lambda: device_profile(lambda: serve(300), events=True))
+    traced, missed = check_trace_census("continuous", by_count, traced_counts)
+    log(f"  [continuous] the traced run's launches by kernel {traced}; the census less the traced "
+        f"{missed or 0} (the profiler drops records: a trace is a lower bound)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     flash_ms = sum(ms for name, ms in by_name.items() if any(t in name for t in FLASH_TAGS))
     log(f"  [continuous] profile of a second run: device busy {device_ms:.2f} ms of {traced_ms:.2f} ms traced "
@@ -1469,7 +1525,7 @@ def phase_serving(bcq_engine):
                    tpot_s=summ["tpot_s"], decode_steps=sched.decode_steps, greedy_same=same,
                    max_logit_diff_slot_vs_solo=worst, solo_s=solo_s, device_ms=device_ms,
                    traced_wall_ms=traced_ms, busy_share=device_ms / (wall * 1e3), flash_ms=flash_ms,
-                   top=[[k, v] for k, v in top])
+                   top=[[k, v] for k, v in top], traced_launches=traced, census_less_traced=missed)
     return counts["flash_attention"], summary, dict(engine=engine, solos=solos)
 
 
@@ -1531,7 +1587,7 @@ def phase_long(bcq_engine):
         f"{prefill_s:.3f}s; peak device memory {peak / 1e9:.3f} GB above the resident {base / 1e9:.3f} GB "
         f"(weights and cache); _sdpa would need {logits_gb:.2f} GB of f32 logits per layer (computed, not run)")
     log(f"  [long] launches {json.dumps(counts)}, ref-oracle dispatches {ref_calls}")
-    expect = expect_forward_counts(counts, 1 + steps, 1, L)
+    expect = expect_forward_counts(counts, steps, [S], L, decode_rows=1)
     if counts != expect:
         raise SystemExit(f"chip_smoke: [long] launch counts {counts} != expected {expect}")
     if ref_calls:
@@ -2098,19 +2154,21 @@ def prefix_requests(cfg):
 
 
 def chunk_launches(sched, reqs, chunk):
-    """K8 launches a layer of a scheduler run's admissions, and those of them
-    at ``q_start > 0``: one per prefill dispatch (whole-shot: one; chunked:
-    ceil of the uncached rows over ``chunk``), offset unless it starts at 0."""
-    total = offset = 0
+    """The rows of each prefill dispatch of a scheduler run's admissions (one
+    K8 launch a layer each: whole-shot, the prompt; chunked, the uncached
+    rows in pieces of ``chunk``), and how many of them start at
+    ``q_start > 0`` (offset unless the dispatch starts at 0)."""
+    rows, offset = [], 0
     for r in reqs:
         rec = sched.outcomes[r.rid]
-        n = 1 if chunk is None else -(-(r.prompt.size - rec.prefix_hit_tokens) // chunk)
+        todo = r.prompt.size - rec.prefix_hit_tokens
+        n = 1 if chunk is None else -(-todo // chunk)
         if rec.prefill_chunks != n:
             raise SystemExit(f"chip_smoke: [prefix] request {r.rid} took {rec.prefill_chunks} prefill "
                              f"dispatches, not {n}")
-        total += n
+        rows += [todo] if chunk is None else [min(chunk, todo - i * chunk) for i in range(n)]
         offset += n if rec.prefix_hit_tokens else n - 1
-    return total, offset
+    return rows, offset
 
 
 def phase_prefix(bcq_engine, long_whole, records, gen):
@@ -2204,8 +2262,9 @@ def prefix_runs(bcq_engine, long_whole):
         summ = sched.summary()
         if len(done) != n or summ["by_state"] != {"finished": n}:
             raise SystemExit(f"chip_smoke: [prefix {name}] not every request finished: {summ['by_state']}")
-        dispatches, offsets = chunk_launches(sched, reqs, chunk)
-        expect = expect_forward_counts(counts, dispatches + sched.decode_steps, dispatches, L)
+        rows, offsets = chunk_launches(sched, reqs, chunk)
+        dispatches = len(rows)
+        expect = expect_forward_counts(counts, sched.decode_steps, rows, L)
         hit = [sched.outcomes[r.rid].prefix_hit_tokens for r in reqs]
         by_rid = {c.rid: c.new_tokens for c in done}
         runs[name] = dict(tokens=[by_rid[r.rid] for r in reqs], logits=[logits[prompt_key(r.prompt)] for r in reqs])
@@ -2610,6 +2669,238 @@ def phase_graphs(engines, prompts):
     return out
 
 
+# -- phase 11: the serving session and observability --------------------------
+
+
+def session_run(engine, reqs, *, observe, warm=False, cancel=None, profiler=None):
+    """``reqs`` through a 4-slot ``ServeSession`` on ``engine``, in-process
+    with asyncio and no sockets (the card's machine has no aiohttp); with
+    ``observe`` the session's tracer is the engine's. ``warm``: a short
+    request first, so the slot graph is captured before the window.
+    ``cancel``: the index of a request cancelled at its first tokens.
+    ``profiler``: started and stopped on the pump thread around the window →
+    (session, [(tokens, terminal event)] in request order, the window's wall
+    seconds, the tracer's events of the window)."""
+    import asyncio
+
+    from repro_torch.launch.server import ServeSession
+
+    async def run():
+        sess = ServeSession(engine, n_slots=SERVE_SLOTS, chunk=SERVE_CHUNK, observe=observe,
+                            tracer=engine.tracer if observe else None)
+        async with sess:
+            if warm:
+                (first,) = serve_requests(engine.cfg, (16,), 2, 900)
+                await (await sess.submit_stream(first)).drain()
+            if profiler is not None:
+                await sess.call_on_pump(profiler.start)
+            mark = len(sess.tracer.events()) if observe else 0
+            await sess.call_on_pump(torch.cuda.synchronize)
+            t0 = time.perf_counter()
+            streams = [await sess.submit_stream(dataclasses.replace(r, rid=None)) for r in reqs]
+            first, ended = [], None
+            if cancel is not None:
+                async for ev in streams[cancel]:
+                    if ev.kind == "tokens":
+                        first = ev.tokens
+                        break
+                    ended = ev if ev.terminal else None
+                streams[cancel].cancel("cancelled mid-flight by chip_smoke")
+            results = await asyncio.gather(*(st.drain() for st in streams))
+            if cancel is not None:
+                toks, last = results[cancel]
+                results[cancel] = (first + toks, ended or last)
+            wall = time.perf_counter() - t0
+            if profiler is not None:
+                await sess.call_on_pump(profiler.stop)
+            events = sess.tracer.events()[mark:] if observe else []
+        return sess, results, wall, events
+
+    return asyncio.run(asyncio.wait_for(run(), 600))
+
+
+def check_streams(label, reqs, results, solo, skip=()):
+    """Every stream (but ``skip``) finished with its solo ``generate``'s
+    tokens, bit for bit → how many."""
+    bad = [i for i, (r, (toks, last)) in enumerate(zip(reqs, results))
+           if i not in skip and (last.kind != "done" or toks != solo[i])]
+    if bad:
+        raise SystemExit(f"chip_smoke: [session {label}] requests {bad} differ from phase 6's solo generate "
+                         f"(or did not finish): {[results[i][1].to_json() for i in bad]}")
+    return len(reqs) - len(skip)
+
+
+def check_slot_graph(label, sess):
+    """The session's decode chunks replayed its slot graph, captured on the
+    pump thread."""
+    graph = sess.sched.slots["graphs"][None]
+    where = CAPTURE_THREADS.get(graph)
+    if graph.graph is None or graph.replays == 0 or where != "repro-serve-pump":
+        raise SystemExit(f"chip_smoke: [session {label}] slot graph captured {graph.graph is not None} on "
+                         f"{where!r}, {graph.replays} replays")
+    return graph.replays
+
+
+def scope_device_times(path):
+    """Per ``record_function`` range of a ``torch.profiler`` Chrome trace
+    whose name starts with ``engine/``: {name: (count, host ms, device ms)},
+    and the device ms no range claims. A device event (kernel, copy, set)
+    belongs to the innermost range, on the launching thread, around the
+    runtime call with its correlation id (for a graph replay, its
+    ``cudaGraphLaunch``)."""
+    events = json.loads(Path(path).read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    ranges, launch, device = collections.defaultdict(list), {}, []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        cat, corr = ev.get("cat", ""), (ev.get("args") or {}).get("correlation")
+        if cat == "user_annotation" and ev["name"].startswith("engine/"):
+            ranges[ev["tid"]].append((ev["ts"], ev["ts"] + ev["dur"], ev["name"]))
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launch[corr] = (ev["tid"], ev["ts"])
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((corr, ev["dur"]))
+    out = {}
+    for spans in ranges.values():
+        for t0, t1, name in spans:
+            c, host, dev = out.get(name, (0, 0.0, 0.0))
+            out[name] = (c + 1, host + (t1 - t0) / 1e3, dev)
+    unclaimed = 0.0
+    for corr, dur in device:
+        tid, ts = launch.get(corr, (None, None))
+        inside = [(t0, name) for t0, t1, name in ranges.get(tid, ()) if t0 <= ts <= t1] if tid is not None else []
+        if not inside:
+            unclaimed += dur / 1e3
+            continue
+        name = max(inside)[1]  # the innermost: the latest start
+        c, host, dev = out[name]
+        out[name] = (c, host, dev + dur / 1e3)
+    return out, unclaimed
+
+
+def phase_session(bcq_engine, solos):
+    """Phase 11 (module docstring): phase 6's 12 requests through the async
+    serving session, observed and not, cancelled mid-flight, profiled, and
+    timed observed against unobserved → summary."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, qmatmul
+    from repro_torch.obs import Tracer, parse_prometheus, validate_chrome_trace
+    from repro_torch.obs.metrics import counters_agree
+    from repro_torch.obs.trace import request_lifecycles
+
+    cfg = bcq_engine.cfg
+    L, n = cfg.n_layers, len(SERVE_PROMPT_LENS)
+    # phase 6's cache length: a decode row's sums run over all max_seq rows,
+    # so the solo tokens hold at this length (the cancelled request's 4x
+    # budget fits in it: 200 + 64 rows)
+    max_seq = max(SERVE_PROMPT_LENS) + NEW_TOKENS + 8
+    reqs = serve_requests(cfg, SERVE_PROMPT_LENS, NEW_TOKENS, 200)  # phase 6's
+    solo = [o.tokens[0, r.prompt.size:].tolist() for r, o in zip(reqs, solos)]
+
+    def engine(observe):
+        """A fresh engine on the bcq weights (no copy): each session makes
+        its slot state and captures its slot graph."""
+        return serving_engine(bcq_engine, max_seq, tracer=Tracer() if observe else None)
+
+    out = {}
+    for name, observe in (("observed", True), ("unobserved", False)):
+        eng = engine(observe)
+        (sess, results, wall, events), _, counts, ref_calls = run_counted(
+            lambda: session_run(eng, reqs, observe=observe))
+        same = check_streams(name, reqs, results, solo)
+        replays = check_slot_graph(name, sess)
+        expect = expect_forward_counts(counts, sess.sched.decode_steps, [r.prompt.size for r in reqs], L)
+        if counts != expect or ref_calls:
+            raise SystemExit(f"chip_smoke: [session {name}] launches {counts} != expected {expect}, or the ref "
+                             f"oracle took {ref_calls} dispatches")
+        out[name] = dict(wall_s=wall, tok_s=n * NEW_TOKENS / wall, equal_to_solo=same, replays=replays,
+                         decode_steps=sess.sched.decode_steps, launches=counts,
+                         ttft_s=sess.sched.summary()["ttft_s"])
+        log(f"  [session {name}] {n} requests, {SERVE_SLOTS} slots, chunk {SERVE_CHUNK}: streams == phase 6's solo "
+            f"generate {same}/{n} (temperatures 0, 1.0, 0.7); slot graph captured on the pump thread, {replays} "
+            f"replays; launches as expected {json.dumps(counts)}; {wall:.3f}s, {n * NEW_TOKENS / wall:.1f} tok/s")
+        if not observe:
+            continue
+        trace = sess.trace_json()
+        problems = validate_chrome_trace(trace)
+        lanes = request_lifecycles(trace)
+        missing = [last.rid for _, last in results if f"req:{last.rid}" not in lanes]
+        disagree = counters_agree(sess.registry, sess.sched.counters)
+        samples = parse_prometheus(sess.prometheus())
+        census = {ls["kernel"]: v for ls, v in samples["kernel_launches_total"]}
+        ref_scraped = samples["qmatmul_ref_calls_total"][0][1]
+        scopes = sorted({e[1] for e in events if e[3] == "engine"})
+        log(f"  [session observed] trace: {trace['otherData']['buffered']} events, {len(problems)} problems, "
+            f"{len(lanes)} request lanes ({len(missing)} missing); counters_agree: {disagree or 'empty'}; "
+            f"Prometheus kernel_launches_total {json.dumps(census)} (census {json.dumps(launch_counts())}); "
+            f"engine scopes {scopes}")
+        if problems or missing or disagree or census != launch_counts() or ref_scraped != qmatmul.ref_calls:
+            raise SystemExit(f"chip_smoke: [session observed] trace problems {problems[:3]}, lanes missing "
+                             f"{missing}, counters {disagree}, scrape {census} vs census {launch_counts()}")
+        out[name].update(trace_events=trace["otherData"]["buffered"], scopes=scopes,
+                         scraped_launches=census)
+
+    # one request cancelled at its first streamed tokens (its budget 4x, so
+    # the cancel lands mid-flight); the survivors are exact
+    creqs = list(reqs)
+    creqs[SESSION_CANCEL] = dataclasses.replace(reqs[SESSION_CANCEL], max_new_tokens=4 * NEW_TOKENS)
+    if creqs[SESSION_CANCEL].prompt.size + 4 * NEW_TOKENS > max_seq:
+        raise SystemExit(f"chip_smoke: [session cancel] request {SESSION_CANCEL}'s 4x budget does not fit max_seq")
+    sess, results, wall, _ = session_run(engine(True), creqs, observe=True, cancel=SESSION_CANCEL)
+    toks, last = results[SESSION_CANCEL]
+    same = check_streams("cancel", reqs, results, solo, skip=(SESSION_CANCEL,))
+    log(f"  [session cancel] request {SESSION_CANCEL} cancelled after {len(toks)} streamed tokens "
+        f"({last.kind}, {last.status}); survivors == solo generate {same}/{n - 1}")
+    if last.status != "cancelled" or sess.sched.counters["cancelled"] != 1:
+        raise SystemExit(f"chip_smoke: [session cancel] the cancelled request ended {last.to_json()}")
+    out["cancel"] = dict(streamed_before_cancel=len(toks), survivors_equal=same)
+
+    # the profile: a warmed session (its slot graph captured before the
+    # profiler starts), the profiler started and stopped on the pump thread
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass  # the profiler initialises on this thread, before it starts on the pump
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    preqs = [dataclasses.replace(r, max_new_tokens=PROFILED_NEW) for r in reqs[:SESSION_PROFILED]]
+    sess, results, wall, events = session_run(engine(True), preqs, observe=True, warm=True, profiler=prof)
+    check_streams("profiled", preqs, results, [t[:PROFILED_NEW] for t in solo])
+    path = ROOT / "chiprun_out" / "serve_profile.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    by_scope, unclaimed = scope_device_times(path)
+    entered = {e[1] for e in events if e[3] == "engine"}
+    log(f"  [session profile] {len(preqs)} requests ({[r.prompt.size for r in preqs]} prompt tokens, "
+        f"{PROFILED_NEW} new each) after a warm-up, {wall:.3f}s; {path.name} "
+        f"{path.stat().st_size / 1e6:.1f} MB; per engine scope (count, host ms, device ms):")
+    for name, (c, host, dev) in sorted(by_scope.items()):
+        log(f"    {name:24s} {c:5d} {host:10.2f} {dev:10.2f}")
+    log(f"    device ms claimed by no engine scope: {unclaimed:.2f}")
+    if not entered or entered - set(by_scope):
+        raise SystemExit(f"chip_smoke: [session profile] scopes entered {sorted(entered)}, in the profile "
+                         f"{sorted(by_scope)}")
+    out["profile"] = dict(wall_s=wall, requests=len(preqs), file_mb=path.stat().st_size / 1e6,
+                          scopes={k: dict(count=c, host_ms=h, device_ms=d) for k, (c, h, d) in by_scope.items()},
+                          unclaimed_device_ms=unclaimed)
+
+    # overhead: observed against unobserved, warmed, alternating; printed, not bounded
+    tok_s = {True: [], False: []}
+    for _ in range(SESSION_OVERHEAD_RUNS):
+        for observe in (True, False):
+            _, results, wall, _ = session_run(engine(observe), reqs, observe=observe, warm=True)
+            check_streams("overhead", reqs, results, solo)
+            tok_s[observe].append(n * NEW_TOKENS / wall)
+    med = {k: statistics.median(v) for k, v in tok_s.items()}
+    log(f"  [session overhead] tok/s observed {[round(v, 1) for v in tok_s[True]]} (median {med[True]:.1f}) "
+        f"against unobserved {[round(v, 1) for v in tok_s[False]]} (median {med[False]:.1f}): "
+        f"{med[True] / med[False]:.3f}x")
+    out["overhead"] = dict(observed_tok_s=tok_s[True], unobserved_tok_s=tok_s[False],
+                           ratio=med[True] / med[False])
+    return out
+
+
 def kernels_line(records, counts, n_layers, flash_records, spec_launches, flash_offsets, offset_launches):
     """Per kernel: its launches in its path's counted run and, in bf16 at the
     batched decode width, its time summed over one decode step's launches;
@@ -2679,7 +2970,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     walls = {"t": time.perf_counter()}
-    log("[1/10] card")
+    log("[1/11] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2688,7 +2979,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
     phase_wall(walls)
-    log("[2/10] build")
+    log("[2/11] build")
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
@@ -2706,7 +2997,7 @@ def main() -> int:
             log(f"    {line}")
 
     phase_wall(walls)
-    log("[3/10] kernels against their plain versions")
+    log("[3/11] kernels against their plain versions")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
@@ -2716,29 +3007,30 @@ def main() -> int:
     prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[4/10] flash_attention against its plain version")
+    log("[4/11] flash_attention against its plain version")
     flash_records, flash_offsets = phase_flash(gen)
 
     phase_wall(walls)
-    log("[5/10] main path, one run per format")
+    log("[5/11] main path, one run per format")
     inspect_captures()
     counts, cfg, summaries, engines, prompts = phase_main_path()
     bcq_engine, ternary_engine = engines["bcq"], engines["ternary"]
 
     phase_wall(walls)
-    log("[6/10] continuous serving and one long request")
+    log("[6/11] continuous serving and one long request")
     counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
     summaries["long"], long_logits, long_tokens = phase_long(bcq_engine)
 
     phase_wall(walls)
-    log("[7/10] self-speculative decoding")
+    log("[7/11] self-speculative decoding")
     summaries["speculative"], spec_launches = phase_speculative(bcq_engine, ternary_engine, prompts, serving,
                                                                 summaries["continuous"],
                                                                 checked_shapes(records + draft_records))
+    solos = serving["solos"]  # phase 11 holds its streams to them
     del ternary_engine, serving
 
     phase_wall(walls)
-    log("[8/10] prefix cache and chunked prefill")
+    log("[8/11] prefix cache and chunked prefill")
     summaries["prefix"] = phase_prefix(bcq_engine, (summaries["long"], long_logits, long_tokens),
                                        records + draft_records, gen)
     offset_launches = (sum(summaries["prefix"][run]["offset_launches"] for run in ("cold wave", "warm wave"))
@@ -2746,13 +3038,17 @@ def main() -> int:
     del bcq_engine
 
     phase_wall(walls)
-    log("[9/10] kernels (the JSON line is printed last but one)")
+    log("[9/11] kernels (the JSON line is printed last but one)")
     line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches, flash_offsets,
                         offset_launches)
 
     phase_wall(walls)
-    log("[10/10] captured decode and the int8 cache")
+    log("[10/11] captured decode and the int8 cache")
     summaries["graphs"] = phase_graphs(engines, prompts)
+
+    phase_wall(walls)
+    log("[11/11] serving session and observability")
+    summaries["session"] = phase_session(engines["bcq"], solos)
     del engines
     phase_wall(walls)
     out_dir = ROOT / "chiprun_out"

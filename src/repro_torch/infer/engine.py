@@ -59,6 +59,19 @@ verify gives each of its γ + 1 rows the bits of a decode step there. The
 draft model's prefill is always whole-shot, into the slot's draft rows at
 ``finish_admission``: the draft cache has no prefix blocks to reuse.
 
+Observability (``Engine(tracer=...)``, ``repro_torch.obs``): every
+dispatch of the host (``engine/prefill``, ``engine/prefill_chunk``,
+``engine/prefill_draft``, ``engine/prefix_install``, ``engine/admit``,
+``engine/scan_decode``, ``engine/step_decode``, ``engine/spec_chunks``,
+``engine/spec_generate``) runs in :meth:`Engine._obs_scope`: a tracer span
+on the ``engine`` lane and a ``torch.profiler.record_function`` range of
+the same name, so a profile says which host activity the device's kernels
+belong to. A scope is entered only outside a graph capture (a
+:class:`~repro_torch.infer.graphs.DecodeGraph`'s first calls warm up and
+capture inside the scope of the call that makes them) and adds no device
+sync: a span times the host call, including the sync its path already
+makes when it reads tokens back.
+
 Not ported: prefix caching and chunked prefill of ring-window and recurrent
 models (the ring guard and the recurrent boundary snapshots); the
 reference's power-of-two chunk buckets, which exist for XLA's compile
@@ -67,7 +80,9 @@ cache (chunks here are dispatched at their exact length).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -76,7 +91,7 @@ import torch
 from repro_torch.core.formats import format_names, get_format
 from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.infer.graphs import DecodeGraph
-from repro_torch.infer.prefix_cache import PrefixCache, PrefixHandle, concat_rows, model_identity
+from repro_torch.infer.prefix_cache import PrefixCache, PrefixHandle, check_observers, concat_rows, model_identity
 from repro_torch.infer.speculative import (
     SpecConfig,
     draft_seed,
@@ -186,17 +201,23 @@ class Engine:
         fuse: bool = True,
         device="cuda",
         prefix_cache: Optional[PrefixCache] = None,
+        tracer=None,
     ):
         """``params`` are moved to ``device`` (default ``"cuda"``, which
         raises when no GPU is usable). ``fuse=False`` keeps the unfused
         per-projection layout.
+
+        ``tracer`` (a :class:`repro_torch.obs.Tracer`) records a span around
+        every engine dispatch on the ``engine`` lane (module docstring).
 
         ``prefix_cache`` (a :class:`~repro_torch.infer.prefix_cache.PrefixCache`)
         turns on prompt-prefix KV reuse for slot admissions: the longest
         committed prefix of a prompt is installed instead of recomputed, and
         the prompt's blocks are committed back at finish. The cache is bound
         to this engine's model identity."""
+        check_observers(None, tracer, "Engine")
         self.cfg = cfg
+        self.tracer = tracer
         self.device = resolve_device(device)
         params = tree_map(lambda leaf: leaf.to(self.device), params)
         self.params = fuse_decode_projections(cfg, params) if fuse else params
@@ -217,6 +238,18 @@ class Engine:
     def _make_cache(self, batch: int) -> dict:
         return init_cache(self.cfg, batch, self.max_seq, device=self.device)
 
+    def _obs_scope(self, name: str, **args):
+        """The scope of one host dispatch: a tracer span on the ``engine``
+        lane (when a tracer is attached and enabled; a disabled or absent
+        one reads no clock) and a ``torch.profiler.record_function`` range,
+        which costs little without an active profiler. Never entered inside
+        a graph capture; adds no device sync."""
+        ctx = contextlib.ExitStack()
+        if self.tracer is not None and self.tracer.enabled:
+            ctx.enter_context(self.tracer.span(name, cat="engine", lane="engine", **args))
+        ctx.enter_context(torch.profiler.record_function(name))
+        return ctx
+
     # -- captured decode steps (infer/graphs.py) -----------------------------
 
     def _pool(self):
@@ -226,8 +259,13 @@ class Engine:
         return self._graph_pool
 
     def _new_graph(self, cache: dict, batch: int) -> DecodeGraph:
+        # the graph reaches the engine's pool through a weak reference: a
+        # bound method would make engine and graphs a reference cycle, which
+        # only the cycle collector frees, at whatever moment it runs, and a
+        # CUDA graph destroyed while another captures breaks that capture
+        engine = weakref.ref(self)
         return DecodeGraph(self.cfg, self.params, cache, batch,
-                           pool=self._pool if self.device.type == "cuda" else None)
+                           pool=(lambda: engine()._pool()) if self.device.type == "cuda" else None)
 
     def _generate_graph(self, batch: int) -> DecodeGraph:
         """The decode graph of ``generate(scan=True)`` at this width and the
@@ -392,19 +430,21 @@ class Engine:
         graph = self._generate_graph(b) if scan else None
         cache = graph.cache if scan else self._make_cache(b)
         tokens = torch.as_tensor(pt, dtype=torch.long, device=self.device)
-        logits, cache = self.prefill(tokens, cache)
+        with self._obs_scope("engine/prefill", prompt_len=s, batch=b):
+            logits, cache = self.prefill(tokens, cache)
         steps = []
-        for step in range(n_steps):
-            tok = _sample(logits, gen, temperature, greedy)
-            steps.append(tok if scan else tok.cpu().numpy())
+        with self._obs_scope("engine/scan_decode" if scan else "engine/step_decode", n_steps=n_steps, batch=b):
+            for step in range(n_steps):
+                tok = _sample(logits, gen, temperature, greedy)
+                steps.append(tok if scan else tok.cpu().numpy())
+                if scan:
+                    logits = graph(tok, s + step)
+                else:
+                    logits, cache = self.decode(tok[:, None], cache, s + step)
             if scan:
-                logits = graph(tok, s + step)
+                new = torch.stack(steps, dim=1).cpu().numpy() if steps else np.zeros((b, 0))
             else:
-                logits, cache = self.decode(tok[:, None], cache, s + step)
-        if scan:
-            new = torch.stack(steps, dim=1).cpu().numpy() if steps else np.zeros((b, 0))
-        else:
-            new = np.stack(steps, axis=1) if steps else np.zeros((b, 0))
+                new = np.stack(steps, axis=1) if steps else np.zeros((b, 0))
         out = np.concatenate([pt, new.astype(pt.dtype)], axis=1)
         stops = stop_positions_for(new, stop_tokens) if stop_tokens else None
         return GenerationResult(tokens=out, prompt_len=s, steps=n_steps, stop_positions=stops)
@@ -418,9 +458,11 @@ class Engine:
         greedy = temperature <= 0
         draft = self.draft_params(spec.q_draft)
         tokens = torch.as_tensor(pt, dtype=torch.long, device=self.device)
-        logits, cache = self.prefill(tokens, self._make_cache(b))
-        _, dcache = forward(self.cfg, draft, tokens=tokens, cache=self._make_cache(b), pos=0,
-                            logits_mode="last", prefill=True)
+        with self._obs_scope("engine/prefill", prompt_len=s, batch=b):
+            logits, cache = self.prefill(tokens, self._make_cache(b))
+        with self._obs_scope("engine/prefill_draft", prompt_len=s, batch=b, q_draft=spec.q_draft):
+            _, dcache = forward(self.cfg, draft, tokens=tokens, cache=self._make_cache(b), pos=0,
+                                logits_mode="last", prefill=True)
         gens = [None if greedy else _seeded(seed + i, self.device) for i in range(b)]
         dgens = [None if greedy else _seeded(draft_seed(seed + i), self.device) for i in range(b)]
         t0 = torch.argmax(logits, dim=-1)
@@ -436,20 +478,21 @@ class Engine:
         acc = prop = chunks = 0
         flags = dict(greedy=np.full((b,), greedy), temperature=np.full((b,), temperature if not greedy else 1.0),
                      spec_enabled=np.ones((b,), bool))
-        while n_steps and (emitted < n_steps).any():
-            active = emitted < n_steps
-            commit, n_keep, new_state = spec_chunk(
-                self.cfg, self.params, draft, state, gamma=spec.gamma, active=active,
-                gens=gens, draft_gens=dgens, **flags,
-            )
-            for i in np.flatnonzero(active):
-                rows[i].extend(commit[i, : n_keep[i]].tolist())
-            # acceptances past the n_steps cut are not counted
-            acc += int(np.minimum(n_keep - 1, n_steps - emitted)[active].sum())
-            prop += int(active.sum()) * spec.gamma
-            chunks += 1
-            emitted = np.where(active, emitted + n_keep, emitted)
-            state = freeze_inactive(new_state, state, active)
+        with self._obs_scope("engine/spec_generate", n_steps=n_steps, gamma=spec.gamma):
+            while n_steps and (emitted < n_steps).any():
+                active = emitted < n_steps
+                commit, n_keep, new_state = spec_chunk(
+                    self.cfg, self.params, draft, state, gamma=spec.gamma, active=active,
+                    gens=gens, draft_gens=dgens, **flags,
+                )
+                for i in np.flatnonzero(active):
+                    rows[i].extend(commit[i, : n_keep[i]].tolist())
+                # acceptances past the n_steps cut are not counted
+                acc += int(np.minimum(n_keep - 1, n_steps - emitted)[active].sum())
+                prop += int(active.sum()) * spec.gamma
+                chunks += 1
+                emitted = np.where(active, emitted + n_keep, emitted)
+                state = freeze_inactive(new_state, state, active)
         new = np.asarray([r[:n_steps] for r in rows], np.int64).reshape(b, n_steps)
         stats = {"accept_rate": acc / max(prop, 1), "accepted": acc, "proposed": prop, "chunks": chunks,
                  "q_draft": spec.q_draft, "gamma": spec.gamma}
@@ -562,8 +605,9 @@ class Engine:
         try:
             if p.handle.length:
                 p.whole = False
-                p.cache1 = init_cache(self.cfg, 1, plen, device=self.device)
-                install_prefix_rows(p.cache1, concat_rows([nd.rows for nd in p.handle.matched]))
+                with self._obs_scope("engine/prefix_install", hit_tokens=p.handle.length):
+                    p.cache1 = init_cache(self.cfg, 1, plen, device=self.device)
+                    install_prefix_rows(p.cache1, concat_rows([nd.rows for nd in p.handle.matched]))
                 p.pos = p.handle.length
         except BaseException:
             self.prefix_cache.abort(p.handle)
@@ -582,10 +626,11 @@ class Engine:
         n = p.plen - p.pos if budget is None else min(p.plen - p.pos, budget)
         if n <= 0:
             return 0
-        if p.cache1 is None:
-            p.cache1 = init_cache(self.cfg, 1, p.plen, device=self.device)
-        logits, _ = forward(self.cfg, self.params, tokens=p.prompt[:, p.pos : p.pos + n], cache=p.cache1,
-                            pos=p.pos, logits_mode="last", prefill=True)
+        with self._obs_scope("engine/prefill_chunk", pos=p.pos, n_tokens=n):
+            if p.cache1 is None:
+                p.cache1 = init_cache(self.cfg, 1, p.plen, device=self.device)
+            logits, _ = forward(self.cfg, self.params, tokens=p.prompt[:, p.pos : p.pos + n], cache=p.cache1,
+                                pos=p.pos, logits_mode="last", prefill=True)
         p.pos += n
         p.prefill_chunks += 1
         if p.pos == p.plen:
@@ -619,8 +664,23 @@ class Engine:
             self._check_spec_headroom(p.plen, p.max_new_tokens, spec)
         rows = self._slot_cache(slots, slot)
         if p.whole:
-            p.logits1, _ = self.prefill(p.prompt, rows)
+            with self._obs_scope("engine/prefill", prompt_len=p.plen):
+                p.logits1, _ = self.prefill(p.prompt, rows)
             p.prefill_chunks = 1
+        if spec is not None:
+            with self._obs_scope("engine/prefill_draft", prompt_len=p.plen, q_draft=spec.q_draft):
+                forward(self.cfg, self.draft_params(spec.q_draft), tokens=p.prompt,
+                        cache=self._slot_cache(slots, slot, "draft_cache"), pos=0, logits_mode="last",
+                        prefill=True)
+        with self._obs_scope("engine/admit", slot=slot, **({} if spec is None else {"spec": True})):
+            return self._install_admission(slots, slot, p, rows, spec)
+
+    def _install_admission(self, slots: dict, slot: int, p: PendingAdmission, rows: dict, spec) -> dict:
+        """The install half of :meth:`finish_admission`: the prompt's rows
+        into the slot (a whole admission prefilled them there), the prefix
+        blocks to commit, the slot's sampling state and, in a speculative
+        batch, its first token."""
+        if p.whole:
             src = rows
         else:
             install_prefix_rows(rows, p.cache1)
@@ -629,9 +689,6 @@ class Engine:
         if h is not None and not h.closed and not h.rows:
             h.rows = [gather_prefix_rows(src, s, e - s) for s, e in h.new_spans]
             h.snaps = [None] * len(h.rows)
-        if spec is not None:
-            forward(self.cfg, self.draft_params(spec.q_draft), tokens=p.prompt,
-                    cache=self._slot_cache(slots, slot, "draft_cache"), pos=0, logits_mode="last", prefill=True)
         greedy = p.temperature <= 0
         gen = None if greedy else _seeded(p.seed, self.device)
         slots["logits"][slot] = p.logits1[0]
@@ -720,7 +777,8 @@ class Engine:
         gens = [g for g in slots["gens"] if g is not None]
         saved = [g.get_state() for g in gens]
         try:
-            return self._decode_slots(slots, n_steps)
+            with self._obs_scope("engine/scan_decode", n_steps=n_steps):
+                return self._decode_slots(slots, n_steps)
         except BaseException:
             for g, st in zip(gens, saved):
                 g.set_state(st)
@@ -778,7 +836,8 @@ class Engine:
         gens = [g for g in slots["gens"] + slots["draft_gens"] if g is not None]
         saved = [g.get_state() for g in gens]
         try:
-            return self._spec_decode_slots(slots, n_chunks, spec)
+            with self._obs_scope("engine/spec_chunks", n_chunks=n_chunks, gamma=spec.gamma):
+                return self._spec_decode_slots(slots, n_chunks, spec)
         except BaseException:
             for g, st in zip(gens, saved):
                 g.set_state(st)

@@ -38,6 +38,7 @@ because the caller asked for the CPU.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Optional
 
 import torch
@@ -143,7 +144,11 @@ class DecodeGraph:
     def _capture(self) -> None:
         """Capture the step into the memory pool ``pool()`` names (a private
         one without ``pool``), taken now: the engine's pool may have changed
-        since this graph was made."""
+        since this graph was made. Dead reference cycles are collected first
+        (``torch.cuda.graph`` no longer does): one that holds a CUDA graph,
+        freed by a collection during this capture, would destroy that graph
+        mid-capture, and in the global capture mode that ends the capture."""
+        gc.collect()
         self.workspace.freeze()
         graph = torch.cuda.CUDAGraph()
         pool = self.pool() if self.pool is not None else None

@@ -42,9 +42,13 @@ tensors the engine gathers and installs.
 Not ported: the reference's ``pad_rows``, which zero-pads an install to a
 power-of-two row bucket so XLA compiles one install per bucket; an install
 here copies the exact rows. The recurrent boundary snapshots (``snap``) are
-carried as ``None``: the port has no recurrent family yet. ``metrics`` and
-``tracer`` (the reference's ``repro.obs`` hooks) stay ``None`` and
-:meth:`PrefixCache.attach` does nothing until that module is ported.
+carried as ``None``: the port has no recurrent family yet.
+
+Observability (``repro_torch.obs``): with a registry the counters are
+mirrored as ``prefix_<key>_total`` beside the cached-bytes, trie-size and
+pin gauges, and with a tracer each eviction is an ``evict`` instant on the
+scheduler lane; a scheduler hands the cache its own through
+:meth:`PrefixCache.attach` when none were given.
 """
 
 from __future__ import annotations
@@ -58,6 +62,18 @@ import torch
 
 from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.utils import tree_leaves, tree_map_with_path
+
+
+def check_observers(metrics, tracer, who: str) -> None:
+    """Refuse a ``metrics`` without a :class:`~repro_torch.obs.MetricsRegistry`'s
+    ``counter`` / ``gauge`` / ``histogram`` or a ``tracer`` without a
+    :class:`~repro_torch.obs.Tracer`'s ``span`` / ``instant`` / ``complete``
+    (None: off), before a hook would fail mid-run."""
+    for given, what, names in ((metrics, "metrics registry", ("counter", "gauge", "histogram")),
+                               (tracer, "span tracer", ("span", "instant", "complete"))):
+        if given is not None and not all(callable(getattr(given, n, None)) for n in names):
+            raise ValueError(f"{who}: metrics / tracer: a {what} needs {', '.join(names)} "
+                             f"(repro_torch.obs), got {type(given).__name__}")
 
 
 def model_identity(cfg, params) -> str:
@@ -140,29 +156,55 @@ class PrefixCache:
 
     ``block_tokens`` is the trie granularity (a prefix is reusable in
     multiples of it); ``max_bytes`` bounds the device bytes held by
-    committed blocks."""
+    committed blocks. ``metrics`` / ``tracer`` (a
+    :class:`~repro_torch.obs.MetricsRegistry` / :class:`~repro_torch.obs.Tracer`)
+    mirror the counters into ``prefix_<key>_total`` with cached-bytes and
+    trie-size gauges, and record ``evict`` instants; the scheduler attaches
+    its own through :meth:`attach` when none were given."""
 
     def __init__(self, *, block_tokens: int = 16, max_bytes: int = 64 << 20, metrics=None, tracer=None):
         if block_tokens < 1:
             raise ValueError(f"block_tokens must be >= 1, got {block_tokens}")
         if max_bytes < 1:
             raise ValueError(f"max_bytes must be >= 1, got {max_bytes}")
-        if metrics is not None or tracer is not None:
-            raise ValueError("metrics / tracer need the observability module (repro.obs), not ported yet")
+        check_observers(metrics, tracer, "PrefixCache")
         self.block_tokens = block_tokens
         self.max_bytes = max_bytes
-        self.metrics = None
-        self.tracer = None
+        self.metrics = metrics
+        self.tracer = tracer
         self._root = _Node(b"", None, None, {}, None, 0)
         self._nodes: List[_Node] = []  # every non-root node (small; scans are fine)
         self._bytes = 0
         self._tick = 0
         self._model_key: Optional[str] = None
         self.counters: Dict[str, int] = {"hits": 0, "misses": 0, "commits": 0, "aborts": 0, "evictions": 0}
+        if metrics is not None:
+            self._register_series()
+
+    # -- observability -------------------------------------------------------
 
     def attach(self, metrics=None, tracer=None) -> None:
-        """The reference adopts the scheduler's registry and tracer here;
-        without ``repro.obs`` in the port there is nothing to adopt."""
+        """Adopt a registry / tracer where none was given at construction
+        (the scheduler calls this, so serve and prefix metrics share one
+        exporter)."""
+        check_observers(metrics, tracer, "PrefixCache.attach")
+        if self.metrics is None and metrics is not None:
+            self.metrics = metrics
+            self._register_series()
+        if self.tracer is None and tracer is not None:
+            self.tracer = tracer
+
+    def _register_series(self) -> None:
+        for key in self.counters:
+            self.metrics.counter(f"prefix_{key}_total", f"prefix cache events: {key}")
+        self._set_gauges()
+
+    def _set_gauges(self) -> None:
+        if self.metrics is None:
+            return
+        self.metrics.gauge("prefix_cached_bytes", "device bytes held by committed blocks").set(self._bytes)
+        self.metrics.gauge("prefix_trie_nodes", "committed prefix blocks in the trie").set(len(self._nodes))
+        self.metrics.gauge("prefix_pinned_refs", "outstanding pins (in-flight admissions)").set(self.pinned)
 
     # -- identity ------------------------------------------------------------
 
@@ -256,6 +298,7 @@ class PrefixCache:
         self._unpin(handle)
         self._count("commits")
         self._evict_to_budget()
+        self._set_gauges()
 
     def abort(self, handle: PrefixHandle) -> None:
         """Unpin without committing (the admission failed or was cancelled
@@ -265,9 +308,12 @@ class PrefixCache:
         handle.closed = True
         self._unpin(handle)
         self._count("aborts")
+        self._set_gauges()
 
     def _count(self, key: str, n: int = 1) -> None:
         self.counters[key] += n
+        if self.metrics is not None:
+            self.metrics.counter(f"prefix_{key}_total").inc(n)
 
     def _unpin(self, handle: PrefixHandle) -> None:
         for n in handle.matched:
@@ -285,6 +331,12 @@ class PrefixCache:
         self._bytes -= node.nbytes
         node.rows = node.snap = None  # drop the device references now
         self._count("evictions")
+        if self.tracer is not None and self.tracer.enabled:
+            self.tracer.instant(
+                "evict", cat="prefix", lane="scheduler",
+                args={"block_end": node.end, "nbytes": node.nbytes, "cached_bytes": self._bytes,
+                      "nodes": len(self._nodes)},
+            )
 
     def _evict_to_budget(self) -> None:
         while self._bytes > self.max_bytes:
@@ -298,3 +350,4 @@ class PrefixCache:
         hook; also how the tests evict mid-flight)."""
         self.max_bytes = max_bytes
         self._evict_to_budget()
+        self._set_gauges()

@@ -68,13 +68,21 @@ admission can be cancelled or time out between its chunks, which releases
 its prefix handle; one whose chunks keep failing fails alone. The
 lifecycle record carries ``prefix_hit_tokens`` and ``prefill_chunks``.
 
-Not ported: the span tracer and metrics registry (``tracer``, ``metrics``,
-from ``repro.obs``). Each of those arguments raises when set, naming what
-is missing.
+**Observability** (``tracer`` / ``metrics``, ``repro_torch.obs``): every
+``counters`` increment is mirrored as ``serve_<key>_total`` (with
+``serve_submitted_total``, ``serve_finished_total``, ``serve_tokens_total``,
+``serve_decode_chunks_total``, queue and slot gauges and TTFT / TPOT / e2e
+histograms), and the tracer records a ``decode_chunk`` span a dispatch, a
+request's lifecycle on its ``req:<rid>`` lane, and ``retry``,
+``nan_quarantine``, ``reject_queue_full``, ``cache_hit`` and
+``spec_verify`` instants. The hooks run between engine dispatches, and
+the spans read the tracer's clock, never the scheduler's, so tracing moves
+neither tokens nor deadlines.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -91,6 +99,7 @@ from repro_torch.infer.lifecycle import (
     RequestState,
     latency_summary,
 )
+from repro_torch.infer.prefix_cache import check_observers
 from repro_torch.infer.speculative import SpecConfig
 
 
@@ -206,6 +215,9 @@ class Scheduler:
       request's newly visible (post-truncation) tokens.
     - ``on_event(record)``: fired at every terminal transition with the
       request's :class:`RequestLifecycle` (partial tokens attached).
+    - ``tracer`` / ``metrics``: a :class:`~repro_torch.obs.Tracer` and a
+      :class:`~repro_torch.obs.MetricsRegistry` (module docstring); the
+      engine's prefix cache adopts them unless it has its own.
 
     Single-threaded: drive ``submit`` / ``step`` / ``run`` from one thread.
     :meth:`cancel` only flags; the flag applies at the next chunk boundary.
@@ -231,12 +243,7 @@ class Scheduler:
         tracer=None,
         metrics=None,
     ):
-        for given, what in (
-            (tracer, "tracer needs the span tracer (repro.obs), not ported yet"),
-            (metrics, "metrics needs the metrics registry (repro.obs), not ported yet"),
-        ):
-            if given is not None:
-                raise ValueError(what)
+        check_observers(metrics, tracer, "Scheduler")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if chunk < 1:
@@ -291,6 +298,65 @@ class Scheduler:
         self._chunk_ordinal = 0  # decode dispatches over the lifetime
         self._rid_counter = itertools.count()
         self._used_rids = set()  # rids ever seen by this scheduler
+        self.tracer = tracer
+        self.metrics = metrics
+        if engine.prefix_cache is not None:
+            # prefix metrics and evict instants share the serve exporter
+            # unless the cache has its own
+            engine.prefix_cache.attach(metrics=metrics, tracer=tracer)
+        if metrics is not None:
+            metrics.gauge("serve_slot_capacity", "configured decode-batch slots").set(n_slots)
+            # the zero-valued series, so a scrape before traffic (and
+            # counters_agree) sees every family
+            for key in self.counters:
+                metrics.counter(f"serve_{key}_total", f"requests/events: {key}")
+            metrics.counter("serve_submitted_total", "submit() calls incl. queue-full rejections")
+            metrics.counter("serve_finished_total", "requests that reached FINISHED")
+            metrics.counter("serve_tokens_total", "committed output tokens")
+            metrics.counter("serve_decode_chunks_total", "decode/speculative chunk dispatches")
+
+    def _count(self, key: str, n: int = 1) -> None:
+        """The one place ``counters`` increments happen: the host-side dict
+        and the exported ``serve_<key>_total`` series move together."""
+        self.counters[key] += n
+        if self.metrics is not None:
+            self.metrics.counter(f"serve_{key}_total").inc(n)
+
+    def _observe_gauges(self) -> None:
+        if self.metrics is None:
+            return
+        active = self.n_active
+        self.metrics.gauge("serve_queue_depth", "requests waiting for admission").set(len(self.queue))
+        self.metrics.gauge("serve_active_slots", "slots with a live tenant").set(active)
+        self.metrics.gauge("serve_batch_efficiency",
+                           "active slots / capacity at the last chunk boundary").set(active / self.n_slots)
+        if self.speculate is not None and self.chunk_rows:
+            self.metrics.gauge("serve_spec_accept_rate",
+                               "estimated draft-token acceptance rate").set(self.spec_accept_rate)
+
+    def _trace_lifecycle(self, rec: RequestLifecycle) -> None:
+        """Replay one terminal record as spans on its ``req:<rid>`` lane.
+        Every timestamp comes from the record (the scheduler's own lifecycle
+        stamps), so tracing takes no clock readings here."""
+        lane = f"req:{rec.rid}"
+        # QUEUED from submit to the first transition, then each history
+        # entry to the next; the terminal entry is an instant with the reason
+        t_prev, name_prev = rec.submitted_at, "queued"
+        for state, at in rec.history:
+            self.tracer.complete(name_prev, t_prev, at, cat="lifecycle", lane=lane, args={"rid": rec.rid})
+            t_prev, name_prev = at, state.value
+        self.tracer.instant(rec.state.value, ts=rec.finished_at, cat="lifecycle", lane=lane,
+                            args={"rid": rec.rid, "reason": rec.reason, "n_tokens": rec.n_tokens})
+
+    def _observe_latency(self, rec: RequestLifecycle) -> None:
+        """Terminal-time latency histograms (a record turns terminal once)."""
+        if rec.ttft is not None:
+            self.metrics.histogram("serve_ttft_seconds", "submit -> first token").observe(rec.ttft)
+        if rec.tpot is not None:
+            self.metrics.histogram("serve_tpot_seconds", "mean time per token after the first").observe(rec.tpot)
+        if rec.finished_at is not None:
+            self.metrics.histogram("serve_e2e_seconds", "submit -> terminal state").observe(
+                rec.finished_at - rec.submitted_at)
 
     # -- queue ---------------------------------------------------------------
 
@@ -310,10 +376,18 @@ class Scheduler:
                 f"[{req.prompt.min()}, {req.prompt.max()}] — out-of-range ids "
                 f"index garbage embedding rows"
             )
+        if self.metrics is not None:
+            # counted after validation, before the queue-full check: finished
+            # + cancelled + timed_out + shed + failed + rejected_queue_full ==
+            # submitted (a ValueError above is a malformed call, not a request)
+            self.metrics.counter("serve_submitted_total").inc()
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             # a loud reject with its reason: the caller decides whether to
             # retry, and the queue never grows without bound
-            self.counters["rejected_queue_full"] += 1
+            self._count("rejected_queue_full")
+            if self.tracer is not None:
+                self.tracer.instant("reject_queue_full", cat="admission", lane="scheduler",
+                                    args={"queued": len(self.queue)})
             raise QueueFullError(
                 f"admission queue full ({self.max_queue} waiting): request "
                 f"rejected — resubmit later, shrink the burst, or raise max_queue"
@@ -328,8 +402,13 @@ class Scheduler:
                 "Request or an explicit unique rid)"
             )
         self._used_rids.add(req.rid)
-        self.outcomes[req.rid] = RequestLifecycle(rid=req.rid, submitted_at=self._clock())
+        rec = RequestLifecycle(rid=req.rid, submitted_at=self._clock())
+        self.outcomes[req.rid] = rec
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.instant("submit", ts=rec.submitted_at, cat="lifecycle", lane=f"req:{req.rid}",
+                                args={"rid": req.rid, "prompt_len": plen, "max_new_tokens": req.max_new_tokens})
+        self._observe_gauges()
         return req.rid
 
     def cancel(self, rid: int, reason: str = "cancelled by client") -> bool:
@@ -381,6 +460,10 @@ class Scheduler:
         rec.transition(state, self._clock(), reason)
         rec.new_tokens = np.asarray(tokens or [], np.int32)
         rec.n_tokens = int(rec.new_tokens.size)
+        if self.tracer is not None:
+            self._trace_lifecycle(rec)
+        if self.metrics is not None:
+            self._observe_latency(rec)
         if self.on_event is not None:
             self.on_event(rec)
 
@@ -402,7 +485,7 @@ class Scheduler:
             if reason is None:
                 keep.append(req)
             else:
-                self.counters["cancelled"] += 1
+                self._count("cancelled")
                 self._terminal(self.outcomes[req.rid], RequestState.CANCELLED, reason)
         self.queue = keep
         # chunked admissions cancel between their chunks: release the prefix
@@ -411,7 +494,7 @@ class Scheduler:
         for slot, (req, pending) in list(self._pending.items()):
             reason = self._pending_cancel.pop(req.rid, None)
             if reason is not None:
-                self.counters["cancelled"] += 1
+                self._count("cancelled")
                 self.engine.abort_admission(pending)
                 del self._pending[slot]
                 self._terminal(self.outcomes[req.rid], RequestState.CANCELLED, reason)
@@ -420,7 +503,7 @@ class Scheduler:
                 continue
             reason = self._pending_cancel.pop(tenant.req.rid, None)
             if reason is not None:
-                self.counters["cancelled"] += 1
+                self._count("cancelled")
                 self._evict(slot, RequestState.CANCELLED, reason)
         self._pending_cancel.clear()  # unknown or raced rids: nothing to do
 
@@ -446,7 +529,7 @@ class Scheduler:
             if expired is None:
                 keep.append(req)
             else:
-                self.counters["shed"] += 1
+                self._count("shed")
                 self._terminal(rec, RequestState.SHED, expired)
         self.queue = keep
         # mid-prefill deadlines (a chunked admission spans steps); the TTFT
@@ -462,7 +545,7 @@ class Scheduler:
                 expired = (f"TTFT deadline {req.ttft_deadline_s}s exceeded mid-prefill "
                            f"({pending.pos}/{pending.plen} prompt tokens)")
             if expired is not None:
-                self.counters["timed_out"] += 1
+                self._count("timed_out")
                 self.engine.abort_admission(pending)
                 del self._pending[slot]
                 self._terminal(rec, RequestState.TIMED_OUT, expired)
@@ -473,7 +556,7 @@ class Scheduler:
             rec = self.outcomes[req.rid]
             age = now - rec.submitted_at
             if req.deadline_s is not None and age > req.deadline_s:
-                self.counters["timed_out"] += 1
+                self._count("timed_out")
                 self._evict(
                     slot,
                     RequestState.TIMED_OUT,
@@ -484,7 +567,7 @@ class Scheduler:
                 and rec.first_token_at is None
                 and age > req.ttft_deadline_s
             ):
-                self.counters["timed_out"] += 1
+                self._count("timed_out")
                 self._evict(
                     slot,
                     RequestState.TIMED_OUT,
@@ -504,7 +587,10 @@ class Scheduler:
             except Exception as e:  # noqa: BLE001 — retry, then re-raise below
                 last = e
                 if attempt < self.retries:
-                    self.counters["retries"] += 1
+                    self._count("retries")
+                    if self.tracer is not None:
+                        self.tracer.instant("retry", cat="fault", lane="scheduler",
+                                            args={"what": what, "attempt": attempt + 1, "error": repr(e)})
                     self._sleep(delay)
                     delay *= 2
         raise DispatchError(f"{what} failed after {self.retries + 1} attempt(s): {last!r}") from last
@@ -528,6 +614,8 @@ class Scheduler:
                 rec.first_token_at = self._clock()
             tenant.emitted.extend(new)
             rec.n_tokens = len(tenant.emitted)
+            if self.metrics is not None:
+                self.metrics.counter("serve_tokens_total").inc(len(new))
             if self.on_tokens is not None:
                 self.on_tokens(tenant.req.rid, list(new))
         return stopped
@@ -538,8 +626,10 @@ class Scheduler:
         tenant = self._tenants[slot]
         assert tenant is not None
         if stopped:
-            self.counters["stopped_early"] += 1
+            self._count("stopped_early")
             self.slots = self.engine.release_slot(self.slots, slot)
+        if self.metrics is not None:
+            self.metrics.counter("serve_finished_total").inc()
         self._terminal(
             self.outcomes[tenant.req.rid],
             RequestState.FINISHED,
@@ -556,11 +646,16 @@ class Scheduler:
             stopped=stopped,
         )
 
-    def _note_prefix(self, rec: RequestLifecycle) -> None:
-        """Stamp the admission's prefix-cache hit onto its lifecycle record."""
+    def _note_prefix(self, rec: RequestLifecycle, prompt_len: int) -> None:
+        """Stamp the admission's prefix-cache hit onto its lifecycle record,
+        and trace a hit as a ``cache_hit`` instant."""
         h = self.engine.take_prefix_handle()
-        if h is not None:
-            rec.prefix_hit_tokens = h.length
+        if h is None:
+            return
+        rec.prefix_hit_tokens = h.length
+        if h.length and self.tracer is not None:
+            self.tracer.instant("cache_hit", cat="prefix", lane="scheduler",
+                                args={"rid": rec.rid, "hit_tokens": h.length, "prompt_len": prompt_len})
 
     def _install_tenant(self, slot: int, req: Request, prefill_chunks: int = 1) -> Optional[Completion]:
         """After a successful admission: the DECODING transition, the prefix
@@ -570,7 +665,7 @@ class Scheduler:
         rec = self.outcomes[req.rid]
         rec.prefill_chunks = prefill_chunks
         rec.transition(RequestState.DECODING, self._clock())
-        self._note_prefix(rec)
+        self._note_prefix(rec, int(req.prompt.size))
         tenant = _Tenant(req, self.decode_steps)
         self._tenants[slot] = tenant
         if self.speculate is not None:
@@ -612,7 +707,7 @@ class Scheduler:
                         dispatch, what=f"admission prefill (request {req.rid})"
                     )
                 except DispatchError as e:
-                    self.counters["failed"] += 1
+                    self._count("failed")
                     self._terminal(rec, RequestState.FAILED, str(e))
                     continue  # the slot is still free: try the next request
                 c = self._install_tenant(slot, req)
@@ -647,7 +742,7 @@ class Scheduler:
             try:
                 pending = self._with_retry(begin, what=f"admission begin (request {req.rid})")
             except DispatchError as e:
-                self.counters["failed"] += 1
+                self._count("failed")
                 self._terminal(rec, RequestState.FAILED, str(e))
                 continue
             self._pending[slot] = (req, pending)
@@ -656,7 +751,7 @@ class Scheduler:
             def fail(e: DispatchError, req=req, pending=pending, slot=slot) -> None:
                 self.engine.abort_admission(pending)
                 del self._pending[slot]
-                self.counters["failed"] += 1
+                self._count("failed")
                 self._terminal(self.outcomes[req.rid], RequestState.FAILED, str(e))
 
             try:
@@ -708,11 +803,11 @@ class Scheduler:
         try:
             return self._with_retry(dispatch, what=f"decode chunk {ordinal}")
         except DispatchError as e:
-            self.counters["decode_dispatch_failures"] += 1
+            self._count("decode_dispatch_failures")
             for slot, tenant in enumerate(self._tenants):
                 if tenant is None:
                     continue
-                self.counters["failed"] += 1
+                self._count("failed")
                 self._terminal(
                     self.outcomes[tenant.req.rid], RequestState.FAILED, str(e),
                     tokens=tenant.emitted,
@@ -736,8 +831,11 @@ class Scheduler:
         finite = self.engine.finite_logit_rows(self.slots)
         for slot in occupied:
             if not finite[slot]:
-                self.counters["nan_quarantined"] += 1
-                self.counters["failed"] += 1
+                self._count("nan_quarantined")
+                self._count("failed")
+                if self.tracer is not None:
+                    self.tracer.instant("nan_quarantine", cat="fault", lane="scheduler",
+                                        args={"slot": slot, "rid": self._tenants[slot].req.rid})
                 self._evict(
                     slot,
                     RequestState.FAILED,
@@ -752,15 +850,34 @@ class Scheduler:
         self._enforce_deadlines()
         done.extend(self._admit_free_slots())
         if self.n_active == 0:
+            self._observe_gauges()
             return done
-        res = self._dispatch_decode()
-        if res is None:
-            return done
-        toks, valid, self.slots = res
-        self.decode_steps += self.chunk
-        if self.speculate is not None:
-            self.chunk_rows += self.n_active * self.chunk
-        self.steps_active += int(valid.sum())
+        # the span covers the dispatch and the host fetch of its tokens (the
+        # sync point), so it is the chunk's wall; it reads the tracer's
+        # clock, never the scheduler's, so tracing cannot move a deadline
+        span = contextlib.nullcontext() if self.tracer is None else self.tracer.span(
+            "decode_chunk", cat="scheduler", lane="scheduler", ordinal=self._chunk_ordinal,
+            active=self.n_active, chunk=self.chunk, spec=self.speculate is not None)
+        with span as sp:
+            res = self._dispatch_decode()
+            if self.metrics is not None:
+                self.metrics.counter("serve_decode_chunks_total").inc()
+            if res is None:
+                self._observe_gauges()
+                return done
+            toks, valid, self.slots = res
+            self.decode_steps += self.chunk
+            if self.speculate is not None:
+                self.chunk_rows += self.n_active * self.chunk
+            committed = int(valid.sum())
+            self.steps_active += committed
+            if sp is not None:
+                sp.annotate(tokens=committed)
+        if self.speculate is not None and self.tracer is not None:
+            self._trace_spec_subchunks(valid)
+        if self.metrics is not None:
+            self.metrics.histogram("serve_chunk_commit_tokens", "tokens committed per decode chunk",
+                                   buckets=tuple(float(2**i) for i in range(10))).observe(committed)
         for slot, tenant in enumerate(self._tenants):
             if tenant is None:
                 continue
@@ -772,7 +889,30 @@ class Scheduler:
                 if c is not None:
                     done.append(c)
         self._inject_and_guard_nan()
+        self._observe_gauges()
         return done
+
+    def _trace_spec_subchunks(self, valid: np.ndarray) -> None:
+        """Per row and speculative sub-chunk, how many drafted tokens the
+        verify kept and how many rolled back, as ``spec_verify`` instants on
+        the request's lane, read off the host's valid mask (each sub-chunk
+        row: γ draft places, then the bonus or correction token). Their
+        device time is in the chunk span and in ``torch.profiler``'s
+        ``engine/spec_chunks`` range."""
+        gamma = self.speculate.gamma
+        ordinal = self._chunk_ordinal - 1
+        for slot, tenant in enumerate(self._tenants):
+            if tenant is None or tenant.req.speculate is False:
+                continue  # plain rows have no draft to account for
+            sub = valid[slot].reshape(self.chunk, gamma + 1)
+            for j in range(self.chunk):
+                committed = int(sub[j].sum())
+                if committed == 0:
+                    continue  # the row went inactive before this sub-chunk
+                accepted = max(0, committed - 1)
+                self.tracer.instant("spec_verify", cat="speculative", lane=f"req:{tenant.req.rid}",
+                                    args={"chunk": ordinal, "sub": j, "drafted": gamma, "accepted": accepted,
+                                          "rolled_back": gamma - accepted})
 
     def run(self, max_chunks: int = 100_000) -> List[Completion]:
         """Drain the queue; completions in finish order. Requests that end

@@ -90,6 +90,31 @@ def add_counters(delta, times: int = 1) -> None:
     set_counters(v + times * d for v, d in zip(counters(), delta))
 
 
+# The Prometheus family each counter of :data:`COUNTERS` is exported as.
+_CENSUS_FAMILIES = {
+    "launches": ("kernel_launches_total", "kernel launches since the last reset_launch_counts()"),
+    "tc_launches": ("kernel_tc_launches_total", "of them, ternary_mm launches on the tensor cores"),
+    "offset_launches": ("kernel_offset_launches_total", "of them, flash_attention launches at q_start > 0"),
+    "ref_calls": ("qmatmul_ref_calls_total", "qmatmul dispatches that took the ref oracle"),
+}
+
+
+def census_families() -> list:
+    """The launch census as metric families for a
+    :meth:`repro_torch.obs.MetricsRegistry.add_collector` collector, read
+    when a scrape asks: ``[(name, "counter", help, [(labels, value), ...])]``,
+    each kernel wrapper labelled ``kernel=<name>``. Every replay of a
+    captured graph is in it (:func:`add_counters`), which a counter bumped
+    inside the wrappers would miss; and reading it costs the hot path
+    nothing."""
+    families: dict = {}
+    for (obj, attr), value in zip(COUNTERS, counters()):
+        name, help_ = _CENSUS_FAMILIES[attr]
+        labels = {} if obj is qmatmul else {"kernel": obj.__name__}
+        families.setdefault(name, (name, "counter", help_, []))[3].append((labels, value))
+    return list(families.values())
+
+
 __all__ = [
     "COUNTERS",
     "KERNEL_WRAPPERS",
@@ -98,6 +123,7 @@ __all__ = [
     "bcq_mm_fused",
     "bcq_mm_plain",
     "bcq_mm_ref",
+    "census_families",
     "codebook_mm",
     "codebook_mm_plain",
     "counters",

@@ -11,9 +11,9 @@ up by each weight's q-bit code; x · w is accumulated in f32 and the
 k-split's partial sums are added in a fixed order.
 
 :func:`bcq_mm` launches the kernel for CUDA tensors and runs
-:func:`bcq_mm_plain` for CPU tensors. ``bcq_mm.launches`` counts calls that
-launched the kernel: one a call, also where a call wider than a row slab
-(``grouptable.Plan.slab_rows``, prefill widths) makes several launches.
+:func:`bcq_mm_plain` for CPU tensors. ``bcq_mm.launches`` counts kernel
+launches: one a call at decode widths, one a row slab where a call is wider
+than a slab (``grouptable.Plan.slab_rows``, prefill widths).
 """
 
 from __future__ import annotations
@@ -51,8 +51,8 @@ def bcq_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: in
     validate(x, packed, scales, g)
     if not x.is_cuda:
         return bcq_mm_plain(x, packed, scales, g=g)
-    out = grouptable.launch("bcq", x, packed, scales, g)
-    bcq_mm.launches += 1
+    out, n = grouptable.launch("bcq", x, packed, scales, g)
+    bcq_mm.launches += n
     return out
 
 

@@ -8,8 +8,8 @@ output dim (the projections' boundaries need not fall on a block's 128
 columns), and the ``(B, Σo_i)`` result is split into N views by
 ``out_dims``. The activation is read once for all N projections.
 
-``bcq_mm_fused.launches`` counts its own calls that launched the kernel,
-apart from ``bcq_mm``'s: one a call, as ``bcq_mm.launches`` does.
+``bcq_mm_fused.launches`` counts its own kernel launches, apart from
+``bcq_mm``'s: one a row slab, as ``bcq_mm.launches`` does.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def bcq_mm_fused(
     validate(x, packed, scales, g)
     if not x.is_cuda:
         return split_outputs(bcq_mm_plain(x, packed, scales, g=g), out_dims)
-    y = grouptable.launch("bcq", x, packed, scales, g)
-    bcq_mm_fused.launches += 1
+    y, n = grouptable.launch("bcq", x, packed, scales, g)
+    bcq_mm_fused.launches += n
     return split_outputs(y, out_dims)
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -189,17 +189,18 @@ def _entry(kind: str):
     return lib, fn
 
 
-def launch(kind: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, g: int) -> torch.Tensor:
-    """``csrc/<kind>_mm.cu`` on validated CUDA inputs → ``(B, o)`` f32, on
-    PyTorch's current stream: one launch for each row slab
-    (:meth:`Plan.slab_rows`), one for the whole call at decode widths.
-    Counts nothing; the public wrappers count calls."""
+def launch(kind: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+           g: int) -> Tuple[torch.Tensor, int]:
+    """``csrc/<kind>_mm.cu`` on validated CUDA inputs → (``(B, o)`` f32, the
+    launches made), on PyTorch's current stream: one launch for each row
+    slab (:meth:`Plan.slab_rows`), one for the whole call at decode widths.
+    Counts nothing itself; the public wrappers add the launches it returns."""
     x, packed, scales = x.contiguous(), packed.contiguous(), scales.contiguous()
     B, k = x.shape
     q, _, o = packed.shape
     out = torch.empty((B, o), dtype=torch.float32, device=x.device)
     if B == 0:
-        return out
+        return out, 0
     pl = plan(kind, k, o, q, g, x.dtype, scales.dtype)
     slab = pl.slab_rows(B)
     lib, fn = _entry(kind)
@@ -214,7 +215,7 @@ def launch(kind: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tenso
                 xs.shape[0], k, o, q, g, *pl.args(), stream,
             )
             _build.check(lib, rc, f"{kind}_mm launch")
-    return out
+    return out, -(-B // slab)
 
 
 def table_plain(kind: str, scales: torch.Tensor, q: int) -> torch.Tensor:

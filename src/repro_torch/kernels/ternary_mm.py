@@ -11,7 +11,7 @@ alone, never by B, so a slot batch and a solo decode take the same one:
   its sign and mask bits into a bf16 A fragment in registers, exact, so the
   tensor cores sum the plain version's own terms. :func:`tc_plan` makes its
   host-side choices (the k-split, stages, shared memory) from (k, o, g)
-  alone. ``ternary_mm.tc_launches`` counts the calls that took this path.
+  alone. ``ternary_mm.tc_launches`` counts this path's launches.
 - any other pair (f32 x, or f32 alpha): the CUDA cores, on the group-table
   skeleton of K1/K5 (:mod:`repro_torch.kernels.grouptable`, format
   ``"ternary"``), the 2-bit code ``sign | mask << 1`` looking up
@@ -20,9 +20,9 @@ alone, never by B, so a slot batch and a solo decode take the same one:
 The packed tensor carries exactly 2 planes (sign, mask) and the scales one
 ``alpha`` plane; anything else is refused. :func:`ternary_mm` launches a
 kernel for CUDA tensors (or raises) and runs :func:`ternary_mm_plain` for
-CPU tensors. ``ternary_mm.launches`` counts calls that launched a kernel,
-on either path (one a call, also where a call wider than a row slab makes
-several launches). :func:`fragment_plain` is the A-fragment decode in plain
+CPU tensors. ``ternary_mm.launches`` counts kernel launches on either
+path: one a call at decode widths, one a row slab where a call is wider
+than a slab. :func:`fragment_plain` is the A-fragment decode in plain
 PyTorch, for the tests.
 """
 
@@ -31,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -145,9 +145,10 @@ def _tc_entry():
     return lib, fn
 
 
-def _launch_tc(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, g: int) -> torch.Tensor:
-    """The tensor-core kernel on validated bf16 CUDA inputs → ``(B, o)`` f32,
-    on PyTorch's current stream: one launch for each row slab."""
+def _launch_tc(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, g: int) -> Tuple[torch.Tensor, int]:
+    """The tensor-core kernel on validated bf16 CUDA inputs → (``(B, o)``
+    f32, the launches made), on PyTorch's current stream: one launch for
+    each row slab."""
     x, packed, scales = x.contiguous(), packed.contiguous(), scales.contiguous()
     if x.data_ptr() % 16:  # the kernel reads x in 16-byte pieces
         x = x.clone()
@@ -155,7 +156,7 @@ def _launch_tc(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, g: i
     o = packed.shape[-1]
     out = torch.empty((B, o), dtype=torch.float32, device=x.device)
     if B == 0:
-        return out
+        return out, 0
     pl = tc_plan(k, o, g)
     slab = pl.slab_rows(B)
     lib, fn = _tc_entry()
@@ -167,7 +168,7 @@ def _launch_tc(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, g: i
             rc = fn(xs.data_ptr(), packed.data_ptr(), scales.data_ptr(), ys.data_ptr(), scratch.data_ptr(),
                     tickets.data_ptr(), xs.shape[0], k, o, g, *pl.args(), stream)
             _build.check(lib, rc, "ternary_tc launch")
-    return out
+    return out, -(-B // slab)
 
 
 def ternary_mm_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int) -> torch.Tensor:
@@ -192,16 +193,16 @@ def ternary_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g
     if not x.is_cuda:
         return ternary_mm_plain(x, packed, scales, g=g)
     if x.dtype == torch.bfloat16 and scales.dtype == torch.bfloat16:
-        out = _launch_tc(x, packed, scales, g)
-        ternary_mm.tc_launches += 1
+        out, n = _launch_tc(x, packed, scales, g)
+        ternary_mm.tc_launches += n
     else:
-        out = grouptable.launch("ternary", x, packed, scales, g)
-    ternary_mm.launches += 1
+        out, n = grouptable.launch("ternary", x, packed, scales, g)
+    ternary_mm.launches += n
     return out
 
 
 ternary_mm.launches = 0
-ternary_mm.tc_launches = 0  # of them, calls on the tensor-core path
+ternary_mm.tc_launches = 0  # of them, launches on the tensor-core path
 
 
 def _spread4(n: torch.Tensor) -> torch.Tensor:

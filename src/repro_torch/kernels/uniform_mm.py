@@ -12,8 +12,7 @@ device memory.
 
 :func:`uniform_mm` launches the kernel for CUDA tensors and runs
 :func:`uniform_mm_plain` for CPU tensors. ``uniform_mm.launches`` counts
-calls that launched the kernel: one a call, also where a call wider than a
-row slab makes several launches.
+kernel launches: one a row slab (``grouptable.Plan.slab_rows``).
 """
 
 from __future__ import annotations
@@ -39,8 +38,8 @@ def uniform_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g
     validate(x, packed, scales, g, scale_planes=2)
     if not x.is_cuda:
         return uniform_mm_plain(x, packed, scales, g=g)
-    out = grouptable.launch("uniform", x, packed, scales, g)
-    uniform_mm.launches += 1
+    out, n = grouptable.launch("uniform", x, packed, scales, g)
+    uniform_mm.launches += n
     return out
 
 

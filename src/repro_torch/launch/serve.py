@@ -42,16 +42,30 @@ tokens a scheduler step, between decode chunks. Tokens equal those of
 cold whole-shot admission. The cache and chunking drive the scheduler and
 cannot be combined with ``--sequential``.
 
-``--tp`` and the tracing / profiling flags belong to subsystems that are
-not ported yet; each is refused with an error naming the missing piece.
+``--trace-out PATH`` instruments the run with ``repro_torch.obs``: a span
+tracer on the engine and the scheduler and a metrics registry; it writes
+the Chrome / Perfetto trace-event JSON to PATH and prints the counters.
+Spans time the host. ``--profile-dir DIR`` wraps the serve loop in
+``torch.profiler.profile`` (CPU and, on the GPU, CUDA activity) and writes
+its Chrome trace into DIR, where the engine's ``record_function`` ranges
+(``engine/prefill``, ``engine/scan_decode``, ...) label the device's
+kernels. :func:`pareto_arrivals` gives heavy-tailed arrivals at the mean
+rate of :func:`poisson_arrivals`, for benchmarks.
+
+``--tp`` belongs to tensor parallelism, which is not ported yet; it is
+refused with an error naming the missing piece.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.formats import format_names, get_format
@@ -59,6 +73,7 @@ from repro_torch.data import MarkovCorpus
 from repro_torch.infer import Engine, PrefixCache, Request, Scheduler, SpecConfig
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import init_params, reduced
+from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
 
 
@@ -94,14 +109,33 @@ def poisson_arrivals(n, rate, seed=0):
     return np.cumsum(rng.exponential(1.0 / rate, size=n))
 
 
-def drive_continuous(engine, reqs, arrivals, *, n_slots, chunk, speculate=None, prefill_chunk=None):
+def pareto_arrivals(n, rate, alpha=1.5, seed=0):
+    """Heavy-tailed (Lomax / Pareto-II) interarrivals with the mean rate of
+    :func:`poisson_arrivals` but bursty clumps and long gaps: the tail
+    regime where TTFT percentiles, queue bounds and deadline shedding
+    matter. ``alpha`` is the tail index (smaller: heavier), > 1 for a finite
+    mean; the Lomax mean is scale / (alpha - 1), so scale = (alpha - 1) /
+    rate. The reference's draws at the same seed, bit for bit."""
+    if rate <= 0:
+        return np.zeros(n)
+    if alpha <= 1:
+        raise ValueError(f"alpha must be > 1 for a finite mean, got {alpha}")
+    rng = np.random.default_rng(seed)
+    scale = (alpha - 1.0) / rate
+    return np.cumsum(rng.pareto(alpha, size=n) * scale)
+
+
+def drive_continuous(engine, reqs, arrivals, *, n_slots, chunk, speculate=None, prefill_chunk=None,
+                     tracer=None, metrics=None):
     """Wall-clock serve loop: submit each request at its arrival offset,
     step the scheduler whenever there is work. Returns (scheduler,
     completions, makespan seconds); the scheduler carries the utilisation
     counters and the lifecycle summary. ``speculate`` (a SpecConfig)
     serves speculatively, ``prefill_chunk`` prefills in chunks of that many
-    tokens."""
-    sched = Scheduler(engine, n_slots=n_slots, chunk=chunk, speculate=speculate, prefill_chunk=prefill_chunk)
+    tokens; ``tracer`` / ``metrics`` (``repro_torch.obs``) instrument the
+    scheduler."""
+    sched = Scheduler(engine, n_slots=n_slots, chunk=chunk, speculate=speculate, prefill_chunk=prefill_chunk,
+                      tracer=tracer, metrics=metrics)
     done = []
     t0 = time.perf_counter()
     i = 0
@@ -166,20 +200,25 @@ def main(argv=None) -> None:
                     help="every request's prompt starts with the same tokens (a shared system "
                          "prompt), the prefix-cache workload")
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--trace-out", type=str, default=None, metavar="PATH")
-    ap.add_argument("--profile-dir", type=str, default=None, metavar="DIR")
+    ap.add_argument("--trace-out", type=str, default=None, metavar="PATH",
+                    help="instrument the run with the span tracer and metrics registry "
+                         "(repro_torch.obs), write a Chrome/Perfetto trace here and print the "
+                         "counters; host-side spans only (--profile-dir: device time)")
+    ap.add_argument("--profile-dir", type=str, default=None, metavar="DIR",
+                    help="wrap the serve loop in torch.profiler (CPU and CUDA activity) and write "
+                         "its Chrome trace into DIR; off by default, profiling is never free")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: the GPU)")
     args = ap.parse_args(argv)
 
-    missing = [
-        (args.tp != 1, "--tp needs tensor parallelism (parallel/tp.py), not ported yet"),
-        (args.trace_out, "--trace-out needs the span tracer (repro.obs), not ported yet"),
-        (args.profile_dir, "--profile-dir needs the profiler hooks (repro.obs), not ported yet"),
-    ]
-    for bad, msg in missing:
-        if bad:
-            ap.error(msg)
+    if args.tp != 1:
+        ap.error("--tp needs tensor parallelism (parallel/tp.py), not ported yet")
+    # refuse unwritable outputs now, not after the serve run
+    if args.trace_out and not os.path.isdir(os.path.dirname(os.path.abspath(args.trace_out))):
+        ap.error(f"--trace-out: the span tracer's trace would go to {args.trace_out!r}, whose "
+                 f"directory does not exist")
+    if args.profile_dir and os.path.exists(args.profile_dir) and not os.path.isdir(args.profile_dir):
+        ap.error(f"--profile-dir: the profiler's trace directory {args.profile_dir!r} is a file")
     if args.slots < 1 or args.chunk < 1:
         ap.error("--slots and --chunk must be >= 1")
     spec = None
@@ -229,24 +268,37 @@ def main(argv=None) -> None:
     prefix_cache = None
     if args.prefix_cache_mb:
         prefix_cache = PrefixCache(block_tokens=args.prefix_block or 16, max_bytes=args.prefix_cache_mb << 20)
+    tracer = registry = None
+    if args.trace_out:
+        tracer, registry = Tracer(), MetricsRegistry()
     engine = Engine(cfg, params, max_seq=args.prompt_len + args.gen + 8 + headroom,
-                    device=args.device, prefix_cache=prefix_cache)
+                    device=args.device, prefix_cache=prefix_cache, tracer=tracer)
     del params  # the engine holds the fused layout
     reqs = build_requests(cfg, args.requests, args.prompt_len, args.gen,
                           shared_prefix_len=args.shared_prefix_len)
     arrivals = poisson_arrivals(args.requests, args.rate, seed=1)
     total_new = sum(r.max_new_tokens for r in reqs)
 
+    profiler = contextlib.nullcontext()
+    if args.profile_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if engine.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+
     reset_launch_counts()
     if args.sequential:
-        outs, dt = drive_sequential(engine, reqs, arrivals)
+        with profiler:
+            outs, dt = drive_sequential(engine, reqs, arrivals)
         print(f"[sequential] {len(outs)} requests, {total_new} tokens in "
               f"{dt:.2f}s ({total_new/dt:.1f} tok/s on {engine.device})")
         sample = outs[0].tokens[0, args.prompt_len:]
     else:
-        sched, done, dt = drive_continuous(engine, reqs, arrivals, n_slots=args.slots,
-                                           chunk=args.chunk, speculate=spec,
-                                           prefill_chunk=args.prefill_chunk or None)
+        with profiler:
+            sched, done, dt = drive_continuous(engine, reqs, arrivals, n_slots=args.slots,
+                                               chunk=args.chunk, speculate=spec,
+                                               prefill_chunk=args.prefill_chunk or None,
+                                               tracer=tracer, metrics=registry)
         util = sched.steps_active / max(1, sched.decode_steps * sched.n_slots)
         tag, extra = "continuous", ""
         if spec:
@@ -266,6 +318,21 @@ def main(argv=None) -> None:
         sample = done[0].new_tokens
     print("kernel launches:", launch_counts())
     print("sample:", sample)
+    if args.profile_dir:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        path = os.path.join(args.profile_dir, "serve_profile.json")
+        profiler.export_chrome_trace(path)
+        print(f"profile: {path} (torch.profiler Chrome trace; open in ui.perfetto.dev)")
+    if tracer is not None:
+        with open(args.trace_out, "w") as f:
+            json.dump(tracer.to_chrome(), f)
+        st = tracer.stats()
+        print(f"trace: {args.trace_out} ({st['buffered']} events, {st['evicted']} evicted) — "
+              f"open in ui.perfetto.dev")
+        if not args.sequential:
+            counters = {name: sum(s["value"] for s in fam["series"])
+                        for name, fam in registry.snapshot().items() if fam["type"] == "counter"}
+            print("metrics:", json.dumps(counters, sort_keys=True))
 
 
 if __name__ == "__main__":

@@ -455,7 +455,7 @@ def test_grouptable_rows_equal_solo(cuda, name, k, o, q, g, B):
 def test_grouptable_rows_equal_solo_across_row_slabs(cuda, monkeypatch, name):
     """A call wider than a row slab launches once a slab (the scratch cap
     lowered here to 8 rows a slab at ``wo``): each row equals the row alone,
-    bit for bit, and the call counts once."""
+    bit for bit, and the call counts one launch a slab (3 for 21 rows)."""
     gt = importlib.import_module("repro_torch.kernels.grouptable")
     k, o, q, g = 3072, 3072, 4, 128
     p = gt.plan("uniform" if name == "uniform_mm" else "bcq", k, o, q, g, torch.bfloat16, torch.bfloat16)
@@ -467,7 +467,7 @@ def test_grouptable_rows_equal_solo_across_row_slabs(cuda, monkeypatch, name):
         x, packed, scales = grouptable_inputs(name, 21, k, o, q, g, dtype, gen, cuda)
         reset_launch_counts()
         full = grouptable_call(name, x, packed, scales, g)
-        assert launch_counts()[name] == 1
+        assert launch_counts()[name] == 3
         plain = uniform_mm_plain if name == "uniform_mm" else bcq_mm_plain
         torch.testing.assert_close(full, plain(x, packed, scales, g=g), rtol=TOL, atol=TOL)
         for r in range(21):
@@ -608,7 +608,7 @@ def test_ternary_rows_equal_solo_across_row_slabs(cuda, monkeypatch, dtype):
     """A call wider than a row slab launches once a slab (the scratch cap
     lowered here: 32-row slabs on the tensor cores, 8 on the group-table
     path, at ``wo``): each row equals the row alone, bit for bit, and the
-    call counts once."""
+    call counts one launch a slab (3 on either path)."""
     gt = importlib.import_module("repro_torch.kernels.grouptable")
     tm = importlib.import_module("repro_torch.kernels.ternary_mm")
     k, o, g = 3072, 3072, 128
@@ -622,8 +622,8 @@ def test_ternary_rows_equal_solo_across_row_slabs(cuda, monkeypatch, dtype):
     x, packed, scales = ternary_inputs(B, k, o, g, dtype, dtype, gen, cuda)
     reset_launch_counts()
     full = ternary_mm(x, packed, scales, g=g)
-    assert launch_counts()["ternary_mm"] == 1
-    assert ternary_mm.tc_launches == (1 if dtype == torch.bfloat16 else 0)
+    assert launch_counts()["ternary_mm"] == 3
+    assert ternary_mm.tc_launches == (3 if dtype == torch.bfloat16 else 0)
     torch.testing.assert_close(full, ternary_mm_plain(x, packed, scales, g=g), rtol=TOL, atol=TOL)
     for r in range(B):
         torch.testing.assert_close(ternary_mm(x[r : r + 1], packed, scales, g=g), full[r : r + 1],
@@ -1135,3 +1135,158 @@ def test_int8_slots_and_speculation_exact_on_card(cuda, fmt):
     if spec is not None:
         np.testing.assert_array_equal(eng.generate(prompts, 12, speculate=spec).tokens,
                                       eng.generate(prompts, 12).tokens)
+
+
+# -- the serving session and the launch census on the card ---------------------
+
+
+def _session_streams(eng, reqs, *, observe, tracer=None, arrive_every=0.0):
+    """``reqs`` through a 4-slot ``ServeSession`` on ``eng`` (asyncio, no
+    sockets); with ``arrive_every`` the requests arrive that many seconds
+    apart while the first ones are served → (session, [tokens], [terminal
+    events])."""
+    import asyncio
+
+    from repro_torch.launch.server import ServeSession
+
+    async def run():
+        sess = ServeSession(eng, n_slots=4, chunk=4, observe=observe, tracer=tracer)
+        async with sess:
+            streams = []
+            for r in reqs:
+                streams.append(await sess.submit_stream(dataclasses.replace(r, rid=None)))
+                await asyncio.sleep(arrive_every)
+            out = await asyncio.gather(*(s.drain() for s in streams))
+        return sess, [toks for toks, _ in out], [last for _, last in out]
+
+    return asyncio.run(asyncio.wait_for(run(), 300))
+
+
+def _session_requests(vocab, n=10, seed=8):
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(0, vocab, size=int(rng.integers(4, 30))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(3, 14)), temperature=[0.0, 1.0, 0.7][i % 3], seed=i)
+            for i in range(n)]
+
+
+def test_session_captures_on_the_pump_thread_while_requests_arrive(cuda, monkeypatch):
+    """A ServeSession's first decode chunk warms up and captures its slot
+    graph on the pump thread while the event loop keeps submitting requests
+    (one every 20 ms); every stream, greedy and sampled, equals the
+    request's solo ``generate`` bit for bit, and the chunks replay the
+    graph."""
+    import threading
+
+    from repro_torch.infer.graphs import DecodeGraph
+
+    threads = []
+    real = DecodeGraph._capture
+
+    def capture(graph):
+        threads.append(threading.current_thread().name)
+        real(graph)
+
+    monkeypatch.setattr(DecodeGraph, "_capture", capture)
+    base = _full_width_engine("bcq")
+    eng = Engine(base.cfg, base.params, max_seq=64, fuse=False, device=cuda)
+    reqs = _session_requests(eng.cfg.vocab)
+    sess, streams, lasts = _session_streams(eng, reqs, observe=False, arrive_every=0.02)
+    assert threads == ["repro-serve-pump"]
+    assert sess.sched.slots["graphs"][None].replays > 0
+    assert [e.kind for e in lasts] == ["done"] * len(reqs)
+    for r, toks in zip(reqs, streams):
+        solo = eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
+        assert toks == solo.tokens[0, r.prompt.size:].tolist()
+
+
+def test_instrumented_session_equals_uninstrumented_on_card(cuda):
+    """A session with a tracer on the engine and the scheduler and a
+    metrics registry streams the tokens of a session with neither, bit for
+    bit; its trace is valid and its counters agree with the scheduler's."""
+    from repro_torch.obs import Tracer, validate_chrome_trace
+    from repro_torch.obs.metrics import counters_agree
+
+    base = _full_width_engine("bcq")
+    tracer = Tracer()
+    traced = Engine(base.cfg, base.params, max_seq=64, fuse=False, device=cuda, tracer=tracer)
+    plain = Engine(base.cfg, base.params, max_seq=64, fuse=False, device=cuda)
+    reqs = _session_requests(base.cfg.vocab, seed=9)
+    sess, observed, _ = _session_streams(traced, reqs, observe=True, tracer=tracer)
+    dark, unobserved, _ = _session_streams(plain, reqs, observe=False)
+    assert observed == unobserved and dark.tracer is None
+    assert validate_chrome_trace(sess.trace_json()) == []
+    assert counters_agree(sess.registry, sess.sched.counters) == []
+    assert {"engine/prefill", "engine/admit", "engine/scan_decode"} <= {e[1] for e in tracer.events()}
+
+
+def test_calls_wider_than_a_slab_count_a_launch_a_slab_on_card(cuda):
+    """The census counts launches: a K1 call and a K4 call (group-table and
+    tensor-core paths) 8 rows wider than their row slab at ``wo`` launch
+    twice and add 2 to ``launches`` (K4's tensor-core count too); each is
+    held to its plain version."""
+    gt = importlib.import_module("repro_torch.kernels.grouptable")
+    tm = importlib.import_module("repro_torch.kernels.ternary_mm")
+    k, o, g = 3072, 3072, 128
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    slab = gt.plan("bcq", k, o, 4, g, bf16, bf16).slab_rows(1 << 20)
+    x, packed, scales = grouptable_inputs("bcq_mm", slab + 8, k, o, 4, g, bf16, gen, cuda)
+    reset_launch_counts()
+    y = bcq_mm(x, packed, scales, g=g)
+    assert launch_counts()["bcq_mm"] == 2
+    torch.testing.assert_close(y, bcq_mm_plain(x, packed, scales, g=g), rtol=TOL, atol=TOL)
+    for dtype, slab in ((f32, gt.plan("ternary", k, o, 2, g, f32, f32).slab_rows(1 << 20)),
+                        (bf16, tm.tc_plan(k, o, g).slab_rows(1 << 20))):
+        x, packed, scales = ternary_inputs(slab + 8, k, o, g, dtype, dtype, gen, cuda)
+        reset_launch_counts()
+        y = ternary_mm(x, packed, scales, g=g)
+        assert launch_counts()["ternary_mm"] == 2
+        assert ternary_mm.tc_launches == (2 if dtype == bf16 else 0)
+        torch.testing.assert_close(y, ternary_mm_plain(x, packed, scales, g=g), rtol=TOL, atol=TOL)
+
+
+def test_prometheus_census_equals_launch_counts_on_card(cuda):
+    """After a session on the card, the scrape's ``kernel_launches_total``
+    (and its tensor-core, offset and ref-oracle kin) equals the census,
+    replays of the slot graph included."""
+    from repro_torch.kernels import qmatmul
+    from repro_torch.obs import parse_prometheus
+
+    base = _full_width_engine("ternary")
+    eng = Engine(base.cfg, base.params, max_seq=64, fuse=False, device=cuda)
+    reset_launch_counts()
+    sess, _, lasts = _session_streams(eng, _session_requests(eng.cfg.vocab, n=6, seed=10), observe=True)
+    assert [e.kind for e in lasts] == ["done"] * 6
+    samples = parse_prometheus(sess.prometheus())
+    counts = launch_counts()
+    assert {ls["kernel"]: v for ls, v in samples["kernel_launches_total"]} == counts
+    assert counts["ternary_mm"] > 0 and counts["flash_attention"] > 0
+    assert samples["kernel_tc_launches_total"] == [({"kernel": "ternary_mm"}, float(ternary_mm.tc_launches))]
+    assert samples["kernel_offset_launches_total"] == [
+        ({"kernel": "flash_attention"}, float(flash_attention.offset_launches))]
+    assert samples["qmatmul_ref_calls_total"] == [({}, float(qmatmul.ref_calls))]
+    assert sess.sched.slots["graphs"][None].replays > 0
+
+
+def test_engine_with_graphs_is_freed_without_the_cycle_collector_on_card(cuda):
+    """An engine whose ``generate`` captured a decode graph is freed when its
+    last reference goes, with the cycle collector off: no reference cycle
+    keeps a CUDA graph alive until a collection that might run during
+    another capture (which a graph destroyed mid-capture would break)."""
+    import gc
+    import weakref
+
+    base = _full_width_engine("bcq")
+    gc.collect()
+    gc.disable()
+    try:
+        eng = Engine(base.cfg, base.params, max_seq=64, fuse=False, device=cuda)
+        eng.generate(np.random.default_rng(12).integers(0, eng.cfg.vocab, (2, 5)), 4)
+        graph = weakref.ref(eng._graphs[(2, None)])
+        assert graph().graph is not None
+        engine = weakref.ref(eng)
+        del eng
+        assert engine() is None and graph() is None
+    finally:
+        gc.enable()

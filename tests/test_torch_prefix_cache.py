@@ -17,10 +17,9 @@ helpers and the ``pos > 0`` prefill, the offset attention's plain version,
 cancel / deadline / failure of a pending chunked admission, refusals and
 the CLI.
 
-Not mirrored: the TP rows of the reference grid, the recurrent and ring
-cases and the metrics / trace test (the port has no tensor parallelism,
-recurrent or ring families, or ``repro.obs`` yet; the engine refuses those
-families, held below).
+Not mirrored: the TP rows of the reference grid and the recurrent and ring
+cases (the port has no tensor parallelism or recurrent or ring families
+yet; the engine refuses those families, held below).
 """
 
 import dataclasses
@@ -369,6 +368,30 @@ def test_mid_flight_eviction_survivor_identity():
     _, cold_done = _run(_cold_engine("dense"), cold)
     _assert_same_tokens(reqs, done, cold, cold_done, "mid-flight eviction")
     _assert_accounting_clean(warm.prefix_cache)
+
+
+def test_metrics_and_trace_instrumentation():
+    """Counters mirror into the registry in lockstep, gauges track bytes and
+    trie size, and cache_hit / evict instants land on the scheduler lane
+    (the scheduler hands the cache its registry and tracer)."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+
+    warm = _warm_engine("dense", block_tokens=4)
+    metrics, tracer = MetricsRegistry(), Tracer()
+    _run(warm, _shared_prefix_requests(5), metrics=metrics, tracer=tracer)
+    _run(warm, _shared_prefix_requests(5), metrics=metrics, tracer=tracer)
+    pc = warm.prefix_cache
+    snap = metrics.snapshot()
+    for key, host in pc.counters.items():
+        assert sum(s["value"] for s in snap[f"prefix_{key}_total"]["series"]) == host, key
+    assert snap["prefix_cached_bytes"]["series"][0]["value"] == pc.cached_bytes
+    assert snap["prefix_trie_nodes"]["series"][0]["value"] == pc.n_nodes
+    assert snap["prefix_pinned_refs"]["series"][0]["value"] == 0
+    hits = [e for e in tracer.events() if e[1] == "cache_hit"]
+    assert hits and all(e[3] == "scheduler" for e in hits)
+    pc.evict_to(0)
+    assert "evict" in [e["name"] for e in tracer.to_chrome()["traceEvents"]]
+    assert metrics.gauge("prefix_cached_bytes").value == 0 == pc.cached_bytes
 
 
 def test_prefix_hit_tokens_stamped_on_lifecycle():

@@ -175,7 +175,8 @@ def test_scheduler_validation():
 
 
 @pytest.mark.parametrize("kw,missing", [
-    # speculation is ported; a speculate that is not a SpecConfig is refused
+    # speculation, chunked admission and the obs hooks are ported: what is
+    # refused is a value that is not theirs (ids kept from the refusals)
     (dict(speculate=object()), "speculative"),
     pytest.param(dict(prefill_chunk=0), "chunked admission", id="kw1-chunked admission"),
     (dict(tracer=object()), "span tracer"),
