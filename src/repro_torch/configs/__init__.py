@@ -1,5 +1,6 @@
 """Published model configs (counterpart of ``repro/configs``; the dense
-decoders only, the family the port runs so far).
+decoders and the hybrid recurrentgemma-9b, the families the port runs so
+far).
 
 ``get_config(arch_id)`` resolves the ``--arch`` flag. Each module defines
 ``CONFIG`` at the published shape; reduced variants come from
@@ -15,6 +16,7 @@ _ARCHS = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "minitron-4b": "minitron_4b",
     "starcoder2-7b": "starcoder2_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "gpt3-175b": "gpt3_175b",  # the paper's own estimation target (§IV)
 }
 

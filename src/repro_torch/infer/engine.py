@@ -72,10 +72,23 @@ capture inside the scope of the call that makes them) and adds no device
 sync: a span times the host call, including the sync its path already
 makes when it reads tokens back.
 
-Not ported: prefix caching and chunked prefill of ring-window and recurrent
-models (the ring guard and the recurrent boundary snapshots); the
-reference's power-of-two chunk buckets, which exist for XLA's compile
-cache (chunks here are dispatched at their exact length).
+The hybrid family (``local_attn`` ring caches, ``rglru`` recurrent state):
+every path above serves it. Its state is not positional, so an admission
+overwrites the whole slot row (recurrent state and ring rows), speculation
+rolls rejected tokens back (``infer/speculative.py``), and the prefix
+cache takes two guards of the reference's: the **ring guard** (a prompt
+past ``min(max_seq, window)`` wrapped the ring during its prefill, so its
+rows are not at their positions: it neither matches nor commits) and the
+**recurrent boundary snapshots** (a committing prefill collects the
+per-token recurrent state, ``forward(collect_states=True)``, and each
+committed block carries the state at its end, which a hit installs). A
+warm admission's batch-1 cache takes the slot cache's ring length, so its
+rows copy into the slot's at their slots. Chunked prefill stays refused
+for ring and recurrent models, as the reference refuses it
+(:meth:`Engine._chunk_refusal`).
+
+Not ported: the reference's power-of-two chunk buckets, which exist for
+XLA's compile cache (chunks here are dispatched at their exact length).
 """
 
 from __future__ import annotations
@@ -103,9 +116,20 @@ from repro_torch.infer.speculative import (
 from repro_torch.kernels import current_impl_mode
 from repro_torch.models import forward, fuse_decode_projections, init_cache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import gather_prefix_rows, install_prefix_rows
+from repro_torch.infer.speculative import select_recurrent_target
+from repro_torch.models.layers import (
+    gather_prefix_rows,
+    install_prefix_rows,
+    install_recurrent,
+    snapshot_recurrent,
+)
 from repro_torch.quant import truncate_params
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
+
+# Why chunked prefill refuses ring-buffer and recurrent models (the reference's reason).
+CHUNK_REFUSAL = ("unsupported for ring-buffer and recurrent architectures, as in the reference "
+                 "(Engine.supports_chunked_prefill): ring buffers wrap pad writes onto live rows "
+                 "and recurrent state folds pad tokens irreversibly")
 
 # True: decode_slots runs each step's forward eagerly instead of replaying a
 # captured graph (the oracle that tests and the chip smoke hold replays to).
@@ -140,8 +164,13 @@ class PendingAdmission:
     not chunked) has nothing to advance: its prefill runs at finish, straight
     into the slot's rows. Otherwise :meth:`Engine.advance_admission` prefills
     the prompt's uncached rows into ``cache1``, the admission's own batch-1
-    cache sized to the prompt, from ``pos`` on (the matched prefix's rows
-    installed before it)."""
+    cache sized to the prompt (a ring: the slot cache's ring length), from
+    ``pos`` on (the matched prefix's rows and, for a recurrent model, its
+    boundary state installed before it). ``collect``: a recurrent model
+    whose prompt commits new blocks: each prefill dispatch collects its
+    per-token recurrent state into ``segments`` as ``(start position,
+    forward(collect_states=True)'s tree)``, from which finish takes each
+    block's boundary snapshot."""
 
     prompt: torch.Tensor  # (1, plen) int64, on the engine's device
     plen: int
@@ -155,6 +184,8 @@ class PendingAdmission:
     cache1: Optional[dict] = None
     logits1: Optional[torch.Tensor] = None  # (1, V) at the last prompt position
     prefill_chunks: int = 0  # prefill dispatches (the lifecycle stamp)
+    collect: bool = False
+    segments: list = dataclasses.field(default_factory=list)
 
     @property
     def done(self) -> bool:
@@ -229,6 +260,10 @@ class Engine:
         self._graph_pool = None  # the CUDA graph memory pool this engine's captures share
         self.prefix_cache = prefix_cache
         self._last_prefix_handle: Optional[PrefixHandle] = None
+        self._has_ring = has_ring_buffer(cfg)
+        self._has_recurrent = has_recurrent_state(cfg)
+        # the slot caches' ring length (init_cache's min(s_max, window))
+        self._ring_rows = min(max_seq, cfg.window)
         if prefix_cache is not None:
             why = self._prefix_refusal()
             if why:
@@ -333,8 +368,8 @@ class Engine:
 
     def _validate_spec(self, spec: SpecConfig) -> None:
         """Refuse what speculation cannot serve exactly: formats without a
-        nested draft, non-token inputs, MoE, and the ring-window and
-        recurrent families, whose rollback is not ported."""
+        nested draft, non-token inputs, MoE, and a chunk of γ + 1 tokens
+        that would not fit in a ring (the reference's rule)."""
         if not isinstance(spec, SpecConfig):
             raise ValueError(f"speculative decoding needs a SpecConfig, got {spec!r}")
         bad = sorted({
@@ -355,11 +390,10 @@ class Engine:
                 "speculative decoding does not support MoE models: shared expert "
                 "capacity couples the verified chunk's tokens"
             )
-        if has_ring_buffer(self.cfg) or has_recurrent_state(self.cfg):
+        if self._has_ring and spec.gamma + 1 >= self._ring_rows:
             raise ValueError(
-                "speculative decoding of ring-window or recurrent models needs the "
-                "cache rollback (speculative.snapshot_rows / restore_rows / "
-                "select_recurrent_*), not ported yet"
+                f"gamma={spec.gamma} too large for the ring-buffer window "
+                f"{self._ring_rows} (need gamma+1 < window)"
             )
 
     def _check_spec_headroom(self, plen: int, n_new: int, spec: SpecConfig) -> None:
@@ -501,18 +535,20 @@ class Engine:
     # -- slot-batched serving API (infer/scheduler.py drives these) ---------
 
     def _prefix_refusal(self) -> Optional[str]:
-        """Why this model cannot take a prefix cache or chunked prefill, or
-        None: the slot-serving gate, and the pieces of the ring-window and
-        recurrent families that are not ported."""
+        """Why this model cannot take a prefix cache, or None: the
+        slot-serving gate (tokens input, no MoE)."""
         if getattr(self.cfg, "input_kind", "tokens") != "tokens" or getattr(self.cfg, "n_experts", 0):
             return "needs a tokens-input, non-MoE model (the slot-batched serving gate)"
-        if has_ring_buffer(self.cfg):
-            return ("ring-window models need the ring guard (a prompt past the window "
-                    "bypasses the cache), not ported yet")
-        if has_recurrent_state(self.cfg):
-            return ("recurrent models need the recurrent boundary snapshots "
-                    "(layers.snapshot_recurrent / install_recurrent), not ported yet")
         return None
+
+    def _chunk_refusal(self) -> Optional[str]:
+        """Why this model cannot take chunked prefill, or None: the prefix
+        cache's gate, and the reference's refusal of ring-buffer and
+        recurrent architectures (``supports_chunked_prefill``)."""
+        why = self._prefix_refusal()
+        if why is None and (self._has_ring or self._has_recurrent):
+            why = CHUNK_REFUSAL
+        return why
 
     def init_slots(self, n_slots: int, speculate: Optional[SpecConfig] = None) -> dict:
         """Fresh slot-batched decode state: an ``n_slots``-row KV cache, the
@@ -566,10 +602,15 @@ class Engine:
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """True when chunked prefill (and a prefix cache) can serve this
-        model: the dense decoder; not the ring-window or recurrent families,
-        whose pieces are not ported (:meth:`_prefix_refusal`)."""
-        return self._prefix_refusal() is None
+        """True when chunked prefill can serve this model: the dense
+        decoder; not ring-buffer or recurrent architectures
+        (:meth:`_chunk_refusal`)."""
+        return self._chunk_refusal() is None
+
+    def _admission_cache(self, plen: int) -> dict:
+        """A warm admission's batch-1 cache: ``plen`` rows, a ring the slot
+        cache's length (its rows then copy into the slot's at their slots)."""
+        return init_cache(self.cfg, 1, plen, device=self.device, ring=self._ring_rows)
 
     @torch.no_grad()
     def begin_admission(
@@ -591,7 +632,7 @@ class Engine:
         prompt = np.asarray(prompt_tokens).reshape(1, -1)
         self._check_prompt(prompt, max_new_tokens)
         if chunked and not self.supports_chunked_prefill:
-            raise ValueError(f"chunked prefill: {self._prefix_refusal()}")
+            raise ValueError(f"chunked prefill: {self._chunk_refusal()}")
         plen = prompt.shape[1]
         p = PendingAdmission(
             prompt=torch.as_tensor(prompt, dtype=torch.long, device=self.device), plen=plen,
@@ -600,14 +641,24 @@ class Engine:
         )
         if self.prefix_cache is None:
             return p
-        # at least the last prompt token prefills: decode needs its logits
-        p.handle = self.prefix_cache.begin(prompt[0], max_match=plen - 1, max_commit=plen)
+        # at least the last prompt token prefills: decode needs its logits.
+        # The ring guard: a prompt past the ring wraps it during its prefill,
+        # so its rows are not at their positions: no match, no commit.
+        wrapped = self._has_ring and plen > self._ring_rows
+        p.handle = self.prefix_cache.begin(prompt[0], max_match=0 if wrapped else plen - 1,
+                                           max_commit=0 if wrapped else plen)
         try:
+            p.collect = self._has_recurrent and bool(p.handle.new_spans)
             if p.handle.length:
                 p.whole = False
                 with self._obs_scope("engine/prefix_install", hit_tokens=p.handle.length):
-                    p.cache1 = init_cache(self.cfg, 1, plen, device=self.device)
+                    p.cache1 = self._admission_cache(plen)
                     install_prefix_rows(p.cache1, concat_rows([nd.rows for nd in p.handle.matched]))
+                    if self._has_recurrent:
+                        snap = p.handle.matched[-1].snap
+                        if snap is None:
+                            raise RuntimeError("a recurrent prefix block was committed without its boundary state")
+                        install_recurrent(p.cache1, snap)
                 p.pos = p.handle.length
         except BaseException:
             self.prefix_cache.abort(p.handle)
@@ -628,14 +679,25 @@ class Engine:
             return 0
         with self._obs_scope("engine/prefill_chunk", pos=p.pos, n_tokens=n):
             if p.cache1 is None:
-                p.cache1 = init_cache(self.cfg, 1, p.plen, device=self.device)
-            logits, _ = forward(self.cfg, self.params, tokens=p.prompt[:, p.pos : p.pos + n], cache=p.cache1,
-                                pos=p.pos, logits_mode="last", prefill=True)
+                p.cache1 = self._admission_cache(p.plen)
+            logits = self._prefill_at(p, p.prompt[:, p.pos : p.pos + n], p.cache1, p.pos)
         p.pos += n
         p.prefill_chunks += 1
         if p.pos == p.plen:
             p.logits1 = logits[:, -1]
         return n
+
+    def _prefill_at(self, p: PendingAdmission, tokens: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
+        """One prefill dispatch of an admission → logits (1, 1, V). A
+        collecting admission keeps the dispatch's per-token recurrent state
+        (``p.segments``) and installs the state after its last token."""
+        logits, tree = forward(self.cfg, self.params, tokens=tokens, cache=cache, pos=pos, logits_mode="last",
+                               prefill=True, collect_states=p.collect)
+        if p.collect:
+            p.segments.append((pos, tree))
+            last = torch.full((1,), tokens.shape[1] - 1, device=self.device)
+            install_recurrent(cache, select_recurrent_target(tree, last))
+        return logits
 
     @torch.no_grad()
     def finish_admission(self, slots: dict, slot: int, pending: PendingAdmission) -> dict:
@@ -665,15 +727,37 @@ class Engine:
         rows = self._slot_cache(slots, slot)
         if p.whole:
             with self._obs_scope("engine/prefill", prompt_len=p.plen):
-                p.logits1, _ = self.prefill(p.prompt, rows)
+                self._clear_row(rows)
+                p.logits1 = self._prefill_at(p, p.prompt, rows, 0)[:, -1]
             p.prefill_chunks = 1
         if spec is not None:
             with self._obs_scope("engine/prefill_draft", prompt_len=p.plen, q_draft=spec.q_draft):
-                forward(self.cfg, self.draft_params(spec.q_draft), tokens=p.prompt,
-                        cache=self._slot_cache(slots, slot, "draft_cache"), pos=0, logits_mode="last",
-                        prefill=True)
+                drows = self._slot_cache(slots, slot, "draft_cache")
+                self._clear_row(drows)
+                forward(self.cfg, self.draft_params(spec.q_draft), tokens=p.prompt, cache=drows, pos=0,
+                        logits_mode="last", prefill=True)
         with self._obs_scope("engine/admit", slot=slot, **({} if spec is None else {"spec": True})):
             return self._install_admission(slots, slot, p, rows, spec)
+
+    def _clear_row(self, rows: dict) -> None:
+        """Zero one slot's rows before a whole-shot prefill into them, when
+        its state is not positional: the previous tenant's recurrent state
+        would seed the new prompt's (a fresh prefill starts from zeros), and
+        its ring rows are cleared with it. A linear cache needs nothing:
+        decode writes a row before it attends it."""
+        if self._has_recurrent or self._has_ring:
+            for leaf in tree_leaves(rows):
+                leaf.zero_()
+
+    def _boundary_snaps(self, p: PendingAdmission, spans) -> list:
+        """Per committed block (start, end): the recurrent state after its
+        last token, from the collecting dispatch that consumed it."""
+        snaps = []
+        for _, e in spans:
+            st, tree = next(seg for seg in reversed(p.segments) if seg[0] < e)
+            idx = torch.full((1,), e - 1 - st, device=self.device)
+            snaps.append(snapshot_recurrent(select_recurrent_target(tree, idx)))
+        return snaps
 
     def _install_admission(self, slots: dict, slot: int, p: PendingAdmission, rows: dict, spec) -> dict:
         """The install half of :meth:`finish_admission`: the prompt's rows
@@ -684,11 +768,13 @@ class Engine:
             src = rows
         else:
             install_prefix_rows(rows, p.cache1)
+            install_recurrent(rows, p.cache1)
             src = p.cache1
         h = p.handle
         if h is not None and not h.closed and not h.rows:
             h.rows = [gather_prefix_rows(src, s, e - s) for s, e in h.new_spans]
-            h.snaps = [None] * len(h.rows)
+            h.snaps = self._boundary_snaps(p, h.new_spans) if p.collect else [None] * len(h.rows)
+        p.segments = []
         greedy = p.temperature <= 0
         gen = None if greedy else _seeded(p.seed, self.device)
         slots["logits"][slot] = p.logits1[0]

@@ -14,7 +14,8 @@ Structure
   child edge key is the block's raw token bytes, so lookup is exact (no
   hash-collision false sharing) and O(plen / block_tokens).
 - A node owns its block's cache rows: ``{"k", "v"}`` of shape
-  ``(repeat, 1, block_tokens, Hkv, Dh)`` per stage block, gathered by
+  ``(repeat, 1, block_tokens, Hkv, Dh)`` per attention block (``{}`` for a
+  recurrent one), gathered by
   :func:`repro_torch.models.layers.gather_prefix_rows` as a **copy** of the
   batch-1 cache's rows. A view would keep the whole cache alive, make
   ``nbytes`` understate what the block holds, and let a later write into
@@ -41,8 +42,10 @@ tensors the engine gathers and installs.
 
 Not ported: the reference's ``pad_rows``, which zero-pads an install to a
 power-of-two row bucket so XLA compiles one install per bucket; an install
-here copies the exact rows. The recurrent boundary snapshots (``snap``) are
-carried as ``None``: the port has no recurrent family yet.
+here copies the exact rows. A block of a recurrent model (the hybrid
+family) also carries ``snap``, the recurrent state after its last token
+(``layers.snapshot_recurrent``), which a hit on it installs; other models
+carry ``None``.
 
 Observability (``repro_torch.obs``): with a registry the counters are
 mirrored as ``prefix_<key>_total`` beside the cached-bytes, trie-size and

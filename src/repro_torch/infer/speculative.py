@@ -19,11 +19,18 @@ matmuls read ``q'/q`` of the planes. One chunk:
   or bonus token is committed, so every chunk emits 1..γ + 1 tokens and
   greedy output equals plain greedy output token for token.
 
-The port's caches are linear, so a rejected suffix needs no row restore:
-the rewound position masks those rows, and they are written again before
-anything reads them. Ring windows and recurrent state need the reference's
-``snapshot_rows`` / ``restore_rows`` / ``select_recurrent_*``, which come
-with those model families; the engine refuses such a config until then.
+- **rollback**: rejected tokens leave both models' caches under the
+  cache-rewind contract (``models/layers.py``). A linear cache needs no
+  row restore: the rewound position masks the rejected rows, and they are
+  written again before anything reads them. A ring (``local_attn``) loses
+  live rows to the chunk's writes once it has wrapped, so the chunk
+  snapshots the rows it will write (:func:`snapshot_rows`) and puts the
+  rejected ones back (:func:`restore_rows`). Recurrent state (``rglru``)
+  folds every token irreversibly, so the verify runs with
+  ``collect_states=True`` and the draft keeps a copy of its state after
+  each step (:func:`_recurrent_only`); the rollback installs the state at
+  the commit index (:func:`select_recurrent_target`,
+  :func:`select_recurrent_draft`) into the caches' own tensors, in place.
 
 Sampling draws from per-row ``torch.Generator``s, as the slot API does. A
 row's commit generator is the one its plain decode would use: a row that does
@@ -44,6 +51,14 @@ import torch
 
 from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    POSITIONAL_CACHE_LEAVES,
+    RECURRENT_CACHE_LEAVES,
+    install_recurrent,
+    select_leaves,
+    walk_pairs,
+)
+from repro_torch.utils import tree_map_with_path
 
 # The draft generator of a request seeded ``s`` is seeded ``s ^ DRAFT_SEED_XOR``
 # (the reference's draft-key rule, ``PRNGKey(seed ^ 0x5BEC)``).
@@ -103,6 +118,99 @@ def has_ring_buffer(cfg: ModelConfig) -> bool:
     return any(bt == "local_attn" for pattern, _ in cfg.stages for bt in pattern)
 
 
+# ---------------------------------------------------------------------------
+# cache rewind primitives (the contract's leaf names live in models/layers.py)
+# ---------------------------------------------------------------------------
+
+
+def _row_index(pos, n: int, rows: int, device) -> torch.Tensor:
+    """(B, n) slots ``(pos + j) % rows`` of the n rows a chunk writes."""
+    base = torch.as_tensor(pos, device=device).long()
+    return (base[:, None] + torch.arange(n, device=device)) % rows
+
+
+def snapshot_rows(cache: dict, pos, n: int) -> dict:
+    """Copies of the ``n`` rows a chunk at per-row positions ``pos`` (B,)
+    will write (modulo the ring length for a ring) of every POSITIONAL leaf
+    (``(repeat, B, rows, ...)`` → ``(repeat, B, n, ...)``), in the cache's
+    tree without its recurrent leaves."""
+
+    def take(leaf):
+        idx = _row_index(pos, n, leaf.shape[2], leaf.device)
+        return leaf[:, torch.arange(leaf.shape[1], device=leaf.device)[:, None], idx]
+
+    return select_leaves(cache, POSITIONAL_CACHE_LEAVES, take)
+
+
+def restore_rows(cache: dict, snap: dict, pos, n: int, keep) -> dict:
+    """Roll rejected rows back, in place: row ``pos + j`` keeps its fresh
+    write iff ``j < keep`` (per row), else its :func:`snapshot_rows` content
+    returns. On a ring this puts back the live rows the rejected writes
+    overwrote; on a linear cache it leaves the rows as if the rejected
+    suffix had never been decoded. Returns ``cache``."""
+
+    def write(name, leaf, sn):
+        b = leaf.shape[1]
+        idx = _row_index(pos, n, leaf.shape[2], leaf.device)
+        rows = torch.arange(b, device=leaf.device)[:, None]
+        kp = torch.as_tensor(keep, device=leaf.device)
+        m = (torch.arange(n, device=leaf.device)[None, :] < kp[:, None]).reshape(1, b, n, *(1,) * (leaf.dim() - 3))
+        leaf[:, rows, idx] = torch.where(m, leaf[:, rows, idx], sn)
+
+    walk_pairs(cache, snap, write)
+    return cache
+
+
+def select_recurrent_target(verify_cache: dict, idx) -> dict:
+    """The per-step recurrent states at each row's commit index ``idx``
+    (B,): ``verify_cache`` came from a ``collect_states=True`` forward, its
+    recurrent leaves ``(repeat, S, B, ...)`` stacks (entry t: the state after
+    chunk token t). Returns the cache's tree with those leaves ``(repeat,
+    B, ...)``; positional leaves pass through."""
+
+    def visit(path, leaf):
+        if path[-1] not in RECURRENT_CACHE_LEAVES:
+            return leaf
+        ix = torch.as_tensor(idx, device=leaf.device).long()
+        b = leaf.shape[2]
+        return leaf[:, ix, torch.arange(b, device=leaf.device)]
+
+    return tree_map_with_path(visit, verify_cache)
+
+
+def select_recurrent_draft(cache: dict, stacks: dict, idx) -> dict:
+    """The same selection on the draft side, whose states were copied after
+    each draft step: the recurrent leaves of ``stacks`` are ``(S, repeat,
+    B, ...)`` (step axis first); positional leaves come from ``cache``."""
+
+    def visit(path, leaf):
+        if path[-1] not in RECURRENT_CACHE_LEAVES:
+            return leaf
+        st = _at(stacks, path)
+        ix = torch.as_tensor(idx, device=st.device).long()
+        return st[ix, :, torch.arange(st.shape[2], device=st.device)].transpose(0, 1)
+
+    return tree_map_with_path(visit, cache)
+
+
+def _recurrent_only(cache: dict) -> dict:
+    """Copies of the recurrent leaves (the cache's tree without its
+    positional leaves): the per-step state the draft side keeps."""
+    return select_leaves(cache, RECURRENT_CACHE_LEAVES, torch.clone)
+
+
+def _stack_trees(trees) -> dict:
+    """Per-step trees of one structure → one tree of ``(S, ...)`` stacks."""
+    return tree_map_with_path(
+        lambda path, _: torch.stack([_at(t, path) for t in trees]), trees[0])
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def freeze_inactive(new_state: dict, old_state: dict, active: np.ndarray) -> dict:
     """Inactive rows keep their pre-chunk pending token, position and carried
     logits. Caches are not frozen: an inactive row's writes land at or past
@@ -143,9 +251,9 @@ def spec_chunk(
     """One speculative chunk over the whole batch.
 
     ``state``: ``{"t_pend" (B,) int64 tensor, "pos" (B,) int64 numpy,
-    "cache", "draft_cache", "logits" (B, V)}``; caches are written in
-    place. An inactive row runs at a position clamped so its γ + 1 writes
-    stay inside the cache.
+    "cache", "draft_cache", "logits" (B, V)}``; caches are written and
+    rolled back in place. An inactive row runs at a position clamped so its
+    γ + 1 writes stay inside a linear cache (a ring wraps them).
 
     Returns ``(commit (B, γ+1), n_keep (B,), new_state)`` (numpy int64):
     row ``b`` committed ``commit[b, :n_keep[b]]``, the accepted proposals and
@@ -159,17 +267,24 @@ def spec_chunk(
     dev = t_pend.device
     b = t_pend.shape[0]
     n_tok = gamma + 1
-    last = cache["stages"][0]["b0"]["k"].shape[2] - n_tok  # the last start whose writes fit
-    run_pos = torch.as_tensor(np.where(active, pos, np.minimum(pos, last)), device=dev)
+    collect, ring = has_recurrent_state(cfg), has_ring_buffer(cfg)
+    linear_rows = [blk["k"].shape[2] for pattern, stage in zip((p for p, _ in cfg.stages), cache["stages"])
+                   for bt, blk in zip(pattern, stage.values()) if bt == "attn"]
+    # an inactive row's start, clamped so its writes fit a linear cache (a ring wraps)
+    run = np.where(active, pos, np.minimum(pos, min(linear_rows) - n_tok)) if linear_rows else pos
+    run_pos = torch.as_tensor(run, device=dev)
     sampled = np.flatnonzero(active & ~greedy)
     spec_sampled = [i for i in sampled if spec_enabled[i]]
 
     # -- draft: gamma + 1 single-token steps of the truncated model
-    tok, props, q_logits = t_pend, [], []
+    dsnap = snapshot_rows(dcache, run_pos, n_tok) if ring else None  # the rows the chunk will write
+    tok, props, q_logits, dstates = t_pend, [], [], []
     for j in range(n_tok):
         lg, dcache = forward(
             cfg, draft_params, tokens=tok[:, None], cache=dcache, pos=run_pos + j, logits_mode="last"
         )
+        if collect:
+            dstates.append(_recurrent_only(dcache))  # the state after step j
         if j == gamma:  # this step only writes d_gamma's K/V rows
             break
         lg = lg[:, -1]
@@ -183,8 +298,10 @@ def spec_chunk(
 
     # -- verify: one chunked forward of the target over [t_pend, d_1..d_gamma]
     verify = torch.cat([t_pend[:, None], drafts], dim=1)
-    p_logits, cache = forward(
-        cfg, params, tokens=verify, cache=cache, pos=run_pos, logits_mode="all", chunked_decode=True
+    snap = snapshot_rows(cache, run_pos, n_tok) if ring else None
+    p_logits, vcache = forward(
+        cfg, params, tokens=verify, cache=cache, pos=run_pos, logits_mode="all", chunked_decode=True,
+        collect_states=collect,
     )  # (B, gamma + 1, V); [:, i] = the target's step logits at pos + i
 
     # -- accept: prefix match (greedy rows) / rejection sampling (sampled rows)
@@ -220,6 +337,14 @@ def spec_chunk(
     commit = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
     commit[rows, n_acc_dev] = t_next
     n_keep = n_acc + 1
+
+    # -- rollback: the recurrent state at the commit index, the ring's rejected rows
+    if collect:
+        install_recurrent(cache, select_recurrent_target(vcache, n_acc_dev))
+        install_recurrent(dcache, select_recurrent_draft(dcache, _stack_trees(dstates), n_acc_dev))
+    if ring:
+        restore_rows(cache, snap, run_pos, n_tok, n_acc_dev + 1)
+        restore_rows(dcache, dsnap, run_pos, n_tok, n_acc_dev + 1)
     new_state = dict(
         state,
         t_pend=t_next,

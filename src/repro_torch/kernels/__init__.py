@@ -10,6 +10,7 @@ versions, and the quantized-matmul dispatch.
 - ``ternary_mm.py``   ternary matmul from sign + mask planes (tensor cores for bf16)
 - ``codebook_mm.py``  codebook matmul, centroid tables in shared memory
 - ``flash_attn.py``   causal GQA attention with an online softmax (prefill)
+- ``rglru_scan.py``   the RG-LRU recurrence over a sequence (the hybrid family)
 - ``_build.py``       nvcc build of ``csrc/*.cu`` at first use, ctypes loading
 - ``_common.py``      wrapper checks, the split-k launch shape and workspace
 - ``ops.py``          ``qmatmul`` format dispatch, ``linear``, ``impl_mode``
@@ -39,12 +40,13 @@ from repro_torch.kernels.ops import (
     quantized_matmul_fused,
 )
 from repro_torch.kernels.ref import bcq_mm_ref, lutgemm_tablewise_ref
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 from repro_torch.kernels.ternary_mm import ternary_mm, ternary_mm_plain
 from repro_torch.kernels.uniform_mm import uniform_mm, uniform_mm_plain
 
 KERNEL_WRAPPERS = (
     bcq_mm, bcq_mm_fused, lutgemm, uniform_mm, dequant_materialize, ternary_mm, codebook_mm,
-    flash_attention,
+    flash_attention, rglru_scan,
 )
 
 
@@ -145,6 +147,8 @@ __all__ = [
     "quantized_matmul",
     "quantized_matmul_fused",
     "reset_launch_counts",
+    "rglru_scan",
+    "rglru_scan_plain",
     "set_counters",
     "ternary_mm",
     "ternary_mm_plain",

@@ -79,8 +79,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
-def causal_mask(sq: int, sk: int, device=None) -> torch.Tensor:
-    """(1, 1, sq, sk) boolean causal mask (query i sees keys <= i + sk - sq)."""
+def causal_mask(sq: int, sk: int, window: int = 0, device=None) -> torch.Tensor:
+    """(1, 1, sq, sk) boolean causal mask (query i sees keys <= i + sk - sq);
+    ``window > 0`` restricts it to a local band of that many keys."""
     qi = torch.arange(sq, device=device)[:, None] + (sk - sq)
     ki = torch.arange(sk, device=device)[None, :]
-    return (ki <= qi)[None, None]
+    m = ki <= qi
+    if window:
+        m &= ki > qi - window
+    return m[None, None]

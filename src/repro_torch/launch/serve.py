@@ -52,6 +52,12 @@ its Chrome trace into DIR, where the engine's ``record_function`` ranges
 kernels. :func:`pareto_arrivals` gives heavy-tailed arrivals at the mean
 rate of :func:`poisson_arrivals`, for benchmarks.
 
+``--arch recurrentgemma-9b`` serves the hybrid family (RG-LRU blocks and
+local attention on a ring cache; reduced: 5 layers, window 16) through
+every path above but chunked prefill, which the reference refuses for ring
+and recurrent models too: ``--prefill-chunk`` is then an argparse error
+naming its reason; a prompt past the window bypasses the prefix cache.
+
 ``--tp`` belongs to tensor parallelism, which is not ported yet; it is
 refused with an error naming the missing piece.
 """
@@ -71,6 +77,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.formats import format_names, get_format
 from repro_torch.data import MarkovCorpus
 from repro_torch.infer import Engine, PrefixCache, Request, Scheduler, SpecConfig
+from repro_torch.infer.engine import CHUNK_REFUSAL
+from repro_torch.infer.speculative import has_recurrent_state, has_ring_buffer
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import init_params, reduced
 from repro_torch.obs import MetricsRegistry, Tracer
@@ -244,6 +252,9 @@ def main(argv=None) -> None:
         ap.error("--prefix-cache-mb must be >= 0 (0 = no prefix cache)")
     if args.prefill_chunk < 0:
         ap.error("--prefill-chunk must be >= 0 (0 = whole-shot, no chunked prefill)")
+    arch_cfg = get_config(args.arch)
+    if args.prefill_chunk and (has_ring_buffer(arch_cfg) or has_recurrent_state(arch_cfg)):
+        ap.error(f"--prefill-chunk: chunked prefill of {args.arch} is {CHUNK_REFUSAL}")
     if args.prefix_block is not None and not args.prefix_cache_mb:
         ap.error("--prefix-block sets the prefix cache's block; it needs --prefix-cache-mb")
     if args.prefix_block is not None and args.prefix_block < 1:
@@ -253,8 +264,7 @@ def main(argv=None) -> None:
                  f"--prompt-len={args.prompt_len}): every request keeps at least one token of its own")
 
     # the reference launcher's reduced config (>=128-dim linears, so quantization bites)
-    cfg = reduced(get_config(args.arch), d_model=256, n_kv_heads=4,
-                  d_ff=512 if get_config(args.arch).d_ff else 0)
+    cfg = reduced(arch_cfg, d_model=256, n_kv_heads=4, d_ff=512 if arch_cfg.d_ff else 0)
     params = init_params(cfg, seed=0, device=args.device)
     print(f"dense bytes: {quantized_bytes(params)/2**20:.2f} MiB")
     if args.q:

@@ -246,6 +246,10 @@ class ServeSession:
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         # rid -> (asyncio queue, overflowed flag holder)
         self._streams: Dict[int, "asyncio.Queue[StreamEvent]"] = {}
+        # rid -> events posted by the pump that the loop has not queued yet
+        # (the buffer bound counts them: under load the loop lags the pump)
+        self._in_flight: Dict[int, int] = {}
+        self._in_flight_lock = threading.Lock()
         self._rids = itertools.count()
         self.counters = {"overflow_cancelled": 0, "rejected": 0}
         if self.registry is not None:
@@ -372,9 +376,11 @@ class ServeSession:
         q = self._streams.get(rid)
         if q is None or self._loop is None:
             return
+        with self._in_flight_lock:
+            unread = q.qsize() + self._in_flight.get(rid, 0)
         if ev.terminal:
             self._streams.pop(rid, None)
-        elif q.qsize() >= self._max_buffer:
+        elif unread >= self._max_buffer:
             # slow client: its buffer is full. Cancel the request rather than
             # grow host memory; the terminal event will still be delivered
             # (terminal events bypass the bound — the stream is closing).
@@ -390,7 +396,18 @@ class ServeSession:
                 f"events unread)",
             )
             return
-        self._loop.call_soon_threadsafe(q.put_nowait, ev)
+        with self._in_flight_lock:
+            self._in_flight[rid] = self._in_flight.get(rid, 0) + 1
+        self._loop.call_soon_threadsafe(self._deliver, rid, q, ev)
+
+    def _deliver(self, rid: int, q: "asyncio.Queue[StreamEvent]", ev: StreamEvent) -> None:
+        """Event loop: queue one posted event, then stop counting it in
+        flight (queued first, so the pump never sees it in neither)."""
+        q.put_nowait(ev)
+        with self._in_flight_lock:
+            n = self._in_flight.pop(rid) - 1
+            if n:
+                self._in_flight[rid] = n
 
     def _on_tokens(self, rid: int, tokens: List[int]) -> None:
         if self._faults is not None:

@@ -1,10 +1,17 @@
-"""Model configuration (counterpart of ``repro/models/config.py``; only the
-dense decoder family is ported so far).
+"""Model configuration (counterpart of ``repro/models/config.py``; the dense
+and hybrid families are ported so far).
 
 A model is a stack of stages; each stage is ``(pattern, repeat)``: a tuple
 of block types applied in order, repeated ``repeat`` times with its
-parameters stacked on a leading axis. The dense family is
-``(("attn",), n_layers)``.
+parameters stacked on a leading axis. The stages are derived as the
+reference derives them:
+
+  dense    [("attn",) x L]
+  hybrid   [("rglru", "rglru", "local_attn") x L // 3, ("rglru",) * (L % 3) x 1]
+
+``rglru`` is Griffin's recurrent block (``models/recurrent.py``),
+``local_attn`` attention over a window of ``window`` positions whose KV
+cache is a ring of ``min(max_seq, window)`` rows (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +23,14 @@ import torch
 
 Stage = Tuple[Tuple[str, ...], int]
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "hybrid")
+# What each family the reference has and the port does not still needs.
+MISSING = {
+    "ssm": "the xLSTM cells (mlstm, slstm in models/recurrent.py)",
+    "moe": "the MoE blocks (models/moe.py)",
+    "vlm": "cross-attention and the image-embedding inputs",
+    "audio": "the frame-embedding inputs",
+}
 KV_CACHE_DTYPES = ("bfloat16", "int8")
 
 
@@ -33,6 +47,10 @@ class ModelConfig:
     d_head: Optional[int] = None  # default d_model // n_heads
     stages: Optional[Tuple[Stage, ...]] = None  # derived if None
     rope_theta: float = 500_000.0
+    window: int = 2048  # local attention window (hybrid family)
+    # hybrid (RG-LRU)
+    lru_width: Optional[int] = None  # defaults to d_model
+    conv_width: int = 4
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     # "int8": K/V stored as int8 codes with one f32 scale per (token, head)
@@ -42,8 +60,9 @@ class ModelConfig:
 
     def __post_init__(self):
         if self.family not in PORTED_FAMILIES:
+            why = MISSING.get(self.family, "an unknown family")
             raise ValueError(
-                f"family {self.family!r} is not ported yet; ported: {PORTED_FAMILIES}"
+                f"family {self.family!r} is not ported yet (it needs {why}); ported: {PORTED_FAMILIES}"
             )
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(
@@ -51,8 +70,21 @@ class ModelConfig:
             )
         if self.d_head is None:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        if self.lru_width is None:
+            object.__setattr__(self, "lru_width", self.d_model)
         if self.stages is None:
-            object.__setattr__(self, "stages", ((("attn",), self.n_layers),))
+            object.__setattr__(self, "stages", self._derive_stages())
+
+    def _derive_stages(self) -> Tuple[Stage, ...]:
+        L = self.n_layers
+        if self.family == "hybrid":
+            # Griffin 1:2: repeat (rglru, rglru, local_attn); the remainder rglru
+            full, rem = divmod(L, 3)
+            stages: list = [(("rglru", "rglru", "local_attn"), full)]
+            if rem:
+                stages.append((("rglru",) * rem, 1))
+            return tuple(stages)
+        return ((("attn",), L),)
 
     @property
     def pdtype(self) -> torch.dtype:
@@ -70,19 +102,39 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.d_head
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: no full-attention block anywhere."""
+        return all(
+            b in ("rglru", "local_attn", "mlstm", "slstm")
+            for pattern, _ in self.stages
+            for b in pattern
+        )
+
+    def block_counts(self) -> dict:
+        """Block type → how many layers of it the model has."""
+        counts: dict = {}
+        for pattern, repeat in self.stages:
+            for b in pattern:
+                counts[b] = counts.get(b, 0) + repeat
+        return counts
+
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """A tiny same-family config for CPU smoke tests (the reference's sizes)."""
+    """A tiny same-family config for CPU smoke tests (the reference's sizes:
+    5 layers for the hybrid family, 2 otherwise; window 16, lru_width 64)."""
     base = dict(
         name=cfg.name + "-smoke",
         family=cfg.family,
-        n_layers=2,
+        n_layers={"hybrid": 5}.get(cfg.family, 2),
         d_model=64,
         n_heads=4,
         n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),
         d_ff=128 if cfg.d_ff else 0,
         vocab=256,
         rope_theta=cfg.rope_theta,
+        window=16,
+        lru_width=64,
         param_dtype="float32",
         compute_dtype="float32",
     )

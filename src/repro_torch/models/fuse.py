@@ -21,7 +21,7 @@ from repro_torch.core.formats import get_format
 from repro_torch.core.qtensor import QuantizedTensor, fuse_tensors
 from repro_torch.models.config import ModelConfig
 
-_FUSABLE_ATTN = ("attn",)
+_FUSABLE_ATTN = ("attn", "local_attn")
 
 
 def _fuse_leaves(leaves: Sequence) -> Optional[object]:

@@ -1,6 +1,7 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``,
-for a dense decoder with an unwindowed KV cache, in the compute dtype or as
-int8 codes with per-(token, head) scales).
+for the dense decoder's unwindowed KV cache and the hybrid family's local
+attention on a ring cache, each in the compute dtype or as int8 codes with
+per-(token, head) scales).
 
 Causal attention of a prompt (train, prefill, and a prefill chunk or
 suffix at ``pos > 0``) goes through :func:`_causal`: on the GPU the
@@ -42,6 +43,33 @@ verify, a prefill at ``pos > 0``) dequantizes them to the compute dtype
 first (:func:`_cache_kv`), in plain PyTorch, as the reference does in XLA.
 A prefill at ``pos == 0`` attends its fresh rows, not their codes.
 
+Local attention (``attention(window=W)``, the hybrid family's
+``local_attn`` block): a query at position p sees the keys at positions
+(p - W, p]. Its cache is a ring of ``s_max = min(max_seq, W)`` rows, row
+``pos % s_max`` holding position pos (:func:`_ring_positions` says which
+position a slot holds after a number of writes; a prefill longer than the
+ring keeps its last ``s_max`` rows, rolled into their slots). Decode
+attends the whole ring in slot order under the band mask, through
+:func:`_sdpa_decode`, so a row's bits do not depend on the batch. A
+speculative verify gives each token the keys a decode step at its position
+sees, in the same order: the rows the chunk's later tokens overwrote are
+put back in their slots for it (:func:`_chunk_decode`). A prefill attends
+in blocks of :data:`LOCAL_Q_BLOCK` queries aligned to absolute positions,
+each block one fixed-shape :func:`_sdpa` over the keys its band can reach
+(:func:`_local_prefill`), so a prompt row gets the same bits whether the
+prompt is prefilled whole or as the suffix after a cached prefix. None of
+this takes the flash-attention kernel, which has no window and stops at
+Dh = 128 (the reference computes local attention in plain XLA too);
+training (no cache) runs the reference's :func:`_local_attention_chunked`.
+
+The cache-rewind contract (the reference's, ``repro/models/layers.py``):
+every cache leaf is POSITIONAL (``k``, ``v`` and the int8 scales: rows at
+absolute positions, or ring slots) or RECURRENT (``h``, ``conv``: state
+that folds every token irreversibly, ``models/recurrent.py``). The prefix
+cache gathers and installs positional rows (:func:`gather_prefix_rows`,
+:func:`install_prefix_rows`) and snapshots recurrent state at block
+boundaries (:func:`snapshot_recurrent`, :func:`install_recurrent`).
+
 Positions: a scalar ``pos`` is read on the host
 (:func:`~repro_torch.utils.host_pos`, which raises under CUDA graph
 capture); a ``(B,)`` tensor stays on the device and gives a row the same
@@ -61,9 +89,43 @@ from repro_torch.kernels.ops import current_impl_mode, linear, linear_fused
 from repro_torch.kernels.ref import NEG_INF, causal_mask
 from repro_torch.kernels.ref import sdpa as _sdpa
 from repro_torch.models.config import ModelConfig
-from repro_torch.utils import host_pos, in_prompt_rows, row_sum, tree_map, tree_map_with_path
+from repro_torch.utils import ROW_SUM_WIDTH, host_pos, in_prompt_rows, row_sum, tree_map, tree_map_with_path
 
 Pos = Union[int, torch.Tensor]
+
+POSITIONAL_CACHE_LEAVES = frozenset({"k", "v", "k_scale", "v_scale"})
+RECURRENT_CACHE_LEAVES = frozenset({"h", "conv"})
+
+
+def select_leaves(tree, names, fn=lambda leaf: leaf):
+    """The subtree of ``tree`` whose leaves are named in ``names`` (a leaf's
+    name is its dict key), each passed through ``fn``; other leaves are
+    dropped, containers kept (a block without such leaves maps to ``{}``)."""
+    if isinstance(tree, dict):
+        out = {}
+        for key, v in tree.items():
+            if isinstance(v, (dict, tuple, list)):
+                out[key] = select_leaves(v, names, fn)
+            elif key in names:
+                out[key] = fn(v)
+        return out
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(select_leaves(v, names, fn) for v in tree)
+    raise TypeError(f"select_leaves: a bare leaf has no name ({type(tree).__name__})")
+
+
+def walk_pairs(dst, src, fn) -> None:
+    """``fn(name, dst_leaf, src_leaf)`` for every leaf of ``src`` (a subtree
+    of ``dst``'s structure, e.g. :func:`select_leaves`'s)."""
+    if isinstance(src, dict):
+        for key, v in src.items():
+            if isinstance(v, (dict, tuple, list)):
+                walk_pairs(dst[key], v, fn)
+            else:
+                fn(key, dst[key], v)
+    else:
+        for d, v in zip(dst, src):
+            walk_pairs(d, v, fn)
 
 
 def _dense_init(gen: torch.Generator, shape, k: int, dtype, device) -> torch.Tensor:
@@ -117,24 +179,45 @@ def _sdpa_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, mask: torc
     """Decode attention of one new query row per batch row over the cache:
     the function of :func:`_sdpa` (f32 logits, probabilities rounded to V's
     dtype, f32 weighted sum), with each of the two products written as an
-    elementwise product and a sum over its last axis. A batch row's result
-    then does not depend on how many rows share the call: the library's
-    batched GEMM behind ``einsum`` picks its algorithm, and so its order of
-    summation, by the batch count, and a slot batch must decode each request
-    exactly as a batch of one does (``infer/scheduler.py``). Each product
-    writes and reads B·H·S_max·Dh f32 elements, G times the cache rows it
-    reads. q (B,1,H,Dh); ck, cv (B,S_max,Hkv,Dh); mask (B or 1,1,1,S_max).
+    elementwise product and a sum in stages of 32 (the logits' over Dh with
+    :func:`~repro_torch.utils.row_sum`, the values' over S_max with
+    :func:`_rows_sum`). A batch row's result then does not depend on how
+    many rows share the call: the library's batched GEMM behind ``einsum``
+    picks its algorithm, and so its order of summation, by the batch count,
+    and so does torch's plain ``sum`` over a long axis (S_max = 2048 rows:
+    2 of 4 batch rows differed from the row alone on the card), and a slot
+    batch must decode each request exactly as a batch of one does
+    (``infer/scheduler.py``). Each product writes and reads B·H·S_max·Dh f32
+    elements, G times the cache rows it reads. q (B,1,H,Dh); ck, cv
+    (B,S_max,Hkv,Dh); mask (B or 1,1,1,S_max).
     """
     b, _, h, dh = q.shape
     hkv = ck.shape[2]
     qg = q.reshape(b, hkv, h // hkv, 1, dh).to(torch.float32)
     keys = ck.permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, S_max, Dh)
-    logits = (qg * keys).sum(-1) / math.sqrt(dh)  # (B, Hkv, G, S_max)
+    logits = row_sum(qg * keys)[..., 0] / math.sqrt(dh)  # (B, Hkv, G, S_max)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(cv.dtype).to(torch.float32)
-    vals = cv.permute(0, 2, 3, 1)[:, :, None]  # (B, Hkv, 1, Dh, S_max)
-    out = (probs[:, :, :, None, :] * vals).sum(-1)  # (B, Hkv, G, Dh)
+    vals = cv.permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, S_max, Dh)
+    out = _rows_sum(probs[..., None] * vals)  # (B, Hkv, G, Dh)
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def _rows_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(-2)`` of ``(..., S, D)`` in stages of
+    :data:`~repro_torch.utils.ROW_SUM_WIDTH` rows (zero-padded): each stage
+    sums 32 rows of D contiguous values for every output, which torch's CUDA
+    reduction does in one order at any number of outputs (B 1..64 at
+    llama3.2-3b's and recurrentgemma-9b's heads, S_max 536..3040, on the
+    card; ``tests/test_torch_cuda.py::test_decode_attention_rows_equal_solo_on_card``),
+    in 0.76-0.84x the time of :func:`~repro_torch.utils.row_sum` over a
+    transposed copy (``tools/decode_attention_probe.py``)."""
+    while x.shape[-2] > 1:
+        pad = -x.shape[-2] % ROW_SUM_WIDTH
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        x = x.reshape(*x.shape[:-2], -1, ROW_SUM_WIDTH, x.shape[-1]).sum(-2)
+    return x[..., 0, :]
 
 
 Q_CHUNK = 2048  # query-block length for long-sequence causal attention
@@ -175,6 +258,100 @@ def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_start: int = 0)
     return _sdpa(q, k, v, causal_mask(s, k.shape[1], device=q.device))
 
 
+def _local_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> torch.Tensor:
+    """Exact sliding-window causal attention in O(S·window) (the reference's
+    training path): the sequence in window-sized chunks, each attending
+    itself and the previous chunk under a banded causal mask. q, k, v
+    (B, S, H or Hkv, Dh); a ragged S is padded at the end."""
+    b, s, h, dh = q.shape
+    w = window
+    if s <= w:
+        return _sdpa(q, k, v, causal_mask(s, s, w, device=q.device))
+    if s % w:
+        pad = w - s % w  # padded keys are "future" for every real query: masked
+        padded = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v)]
+        return _local_attention_chunked(*padded, window)[:, :s]
+    nc, hkv = s // w, k.shape[2]
+    g = h // hkv
+    qc = q.reshape(b, nc, w, hkv, g, dh).to(torch.float32)
+    kc = k.reshape(b, nc, w, hkv, dh)
+    vc = v.reshape(b, nc, w, hkv, dh)
+    kprev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)  # zeros before chunk 0
+    vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    kk = torch.cat([kprev, kc], dim=2)  # (b, nc, 2w, hkv, dh)
+    vv = torch.cat([vprev, vc], dim=2)
+    qi = torch.arange(w, device=q.device)[:, None] + w  # a query's position in the 2w keys
+    ki = torch.arange(2 * w, device=q.device)[None, :]
+    mask = (ki <= qi) & (ki > qi - w)  # (w, 2w)
+    first = torch.arange(nc, device=q.device) == 0
+    # chunk 0 must not see the zero-padded "previous" keys
+    mask_c = mask[None] & ~(first[:, None, None] & (ki < w)[None])  # (nc, w, 2w)
+    logits = torch.einsum("bnqhgd,bnkhd->bnhgqk", qc, kk.to(torch.float32)) / math.sqrt(dh)
+    logits = torch.where(mask_c[None, :, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnhgqk,bnkhd->bnqhgd", probs.to(vv.dtype).to(torch.float32), vv.to(torch.float32))
+    return out.reshape(b, s, h, dh).to(q.dtype)
+
+
+# Queries of one block of the local-attention prefill (:func:`_local_prefill`).
+LOCAL_Q_BLOCK = 128
+
+
+def _local_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, q_start: int = 0) -> torch.Tensor:
+    """Sliding-window causal attention of the queries at positions
+    ``q_start .. q_start + s - 1`` over the keys at positions ``0 ..
+    q_start + s - 1``. q (B, s, H, Dh); k, v (B, q_start + s, Hkv, Dh).
+
+    The queries run in blocks of :data:`LOCAL_Q_BLOCK` aligned to absolute
+    positions (block j holds positions jC .. jC + C - 1, zero queries where
+    the call has none), each against the W + C - 1 keys its band can reach
+    (zero keys before position 0 or past the last, masked), as one
+    :func:`_sdpa` call of the same shape for every block of every call. A
+    row of such a product depends on its own query and keys only, so a
+    prompt row gets the same bits in the whole prompt and in a suffix
+    prefilled after a cached prefix (``q_start > 0``)."""
+    b, s, h, dh = q.shape
+    c, w = LOCAL_Q_BLOCK, window
+    span = w + c - 1
+    end = q_start + s
+    first, last = q_start // c, -(-end // c)
+    # keys: position p at index p + w - 1; zeros before 0 and up to the last block's end
+    kpad = k.new_zeros((b, w - 1 + last * c, *k.shape[2:]))
+    vpad = v.new_zeros((b, w - 1 + last * c, *v.shape[2:]))
+    kpad[:, w - 1 : w - 1 + end] = k[:, :end]
+    vpad[:, w - 1 : w - 1 + end] = v[:, :end]
+    qpad = q.new_zeros((b, (last - first) * c, h, dh))
+    qpad[:, q_start - first * c : q_start - first * c + s] = q
+    r = torch.arange(c, device=q.device)[:, None]
+    j = torch.arange(span, device=q.device)[None, :]
+    band = (j >= r) & (j < r + w)  # key j of block-local query r: position jC - w + 1 + j
+    outs = []
+    for blk in range(first, last):
+        kpos = blk * c - w + 1 + j
+        mask = (band & (kpos >= 0))[None, None]
+        lo = (blk - first) * c
+        outs.append(_sdpa(qpad[:, lo : lo + c], kpad[:, blk * c : blk * c + span],
+                          vpad[:, blk * c : blk * c + span], mask))
+    out = torch.cat(outs, dim=1)
+    return out[:, q_start - first * c : q_start - first * c + s]
+
+
+def _ring_positions(slot: torch.Tensor, total, s_max: int) -> torch.Tensor:
+    """The absolute position each ring slot holds after ``total`` writes
+    (negative: never written)."""
+    r = total % s_max
+    base = total - r
+    return torch.where(slot < r, base + slot, base - s_max + slot)
+
+
+def _ring_mask(slot: torch.Tensor, pos, s_max: int, window: int) -> torch.Tensor:
+    """Which ring slots a query at position ``pos`` (an int or a (B, 1)
+    tensor) attends after its own write: written, at or before it, and
+    inside its band."""
+    stored = _ring_positions(slot, pos + 1, s_max)
+    return (stored >= 0) & (stored <= pos) & (stored > pos - window)
+
+
 def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(..., Dh)`` → int8 codes ``(..., Dh)`` and f32 scales ``(...)``, one
     per vector, in the reference's order (``_kv_quantize``): the scale is the
@@ -203,51 +380,92 @@ def _cache_kv(cache: dict, dtype, rows: Optional[int] = None) -> Tuple[torch.Ten
             _kv_dequantize(cv, cache["v_scale"][:, :rows], dtype))
 
 
-def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: Pos) -> dict:
+def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: Pos, window: int = 0) -> dict:
     """Write ``s`` new K/V rows at absolute position ``pos`` (an int, a 0-d
     tensor, or a (B,) tensor of per-row positions), in place; an int8
-    cache takes their codes and scales (:func:`_kv_quantize`)."""
+    cache takes their codes and scales (:func:`_kv_quantize`).
+
+    ``window > 0``: the cache is a ring of ``s_max`` rows and position p
+    goes to slot ``p % s_max``; a write of ``s >= s_max`` rows (a prefill
+    longer than the ring) keeps the last ``s_max``, rolled into their
+    slots, as the reference does."""
     new = {"k": k, "v": v}
     if "k_scale" in cache:
         new["k"], new["k_scale"] = _kv_quantize(k)
         new["v"], new["v_scale"] = _kv_quantize(v)
-    s = k.shape[1]
+    s, s_max = k.shape[1], cache["k"].shape[1]
+    dev = cache["k"].device
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        dev = cache["k"].device
+        if window and s >= s_max:
+            raise ValueError(f"per-row ring writes need s ({s}) < the ring's {s_max} rows")
         rows = torch.arange(cache["k"].shape[0], device=dev)[:, None]
         idx = pos.to(dev).long()[:, None] + torch.arange(s, device=dev)
+        if window:
+            idx = idx % s_max
         for name, val in new.items():
             cache[name][rows, idx] = val.to(cache[name].dtype)
         return cache
     p = host_pos(pos)
+    if window and s >= s_max:
+        base = (p + s - s_max) % s_max  # the slot of the first kept row
+        for name, val in new.items():
+            cache[name][:] = torch.roll(val[:, s - s_max :], base, dims=1).to(cache[name].dtype)
+        return cache
+    if window and (p % s_max) + s > s_max:
+        idx = (p + torch.arange(s, device=dev)) % s_max
+        for name, val in new.items():
+            cache[name][:, idx] = val.to(cache[name].dtype)
+        return cache
+    if window:
+        p %= s_max
     for name, val in new.items():
         cache[name][:, p : p + s] = val.to(cache[name].dtype)
     return cache
 
 
 def gather_prefix_rows(cache: dict, start: int, n: int) -> dict:
-    """A copy of rows ``[start, start + n)`` of every leaf of a model cache
-    (``(repeat, B, S_max, Hkv, Dh)`` → ``(repeat, B, n, Hkv, Dh)``; an int8
-    cache's scales ``(repeat, B, S_max, Hkv)`` alike), in the cache's tree:
-    a committed prefix block. A copy, never a view:
-    a view would keep the whole cache alive and change with its next
-    write."""
-    return tree_map(lambda leaf: leaf[:, :, start : start + n].clone(), cache)
+    """A copy of rows ``[start, start + n)`` of every POSITIONAL leaf of a
+    model cache (``(repeat, B, S_max, Hkv, Dh)`` → ``(repeat, B, n, Hkv,
+    Dh)``; an int8 cache's scales ``(repeat, B, S_max, Hkv)`` alike), in
+    the cache's tree without its recurrent leaves: a committed prefix
+    block. A copy, never a view: a view would keep the whole cache alive and
+    change with its next write. On a ring the caller keeps ``start + n``
+    within the ring (the engine's ring guard), so rows sit at their
+    positions."""
+    return select_leaves(cache, POSITIONAL_CACHE_LEAVES, lambda leaf: leaf[:, :, start : start + n].clone())
 
 
 def install_prefix_rows(cache: dict, rows: dict) -> dict:
     """Write gathered prefix rows (:func:`gather_prefix_rows`'s tree, ``L``
-    rows a leaf) into rows ``[0, L)`` of every K/V leaf of ``cache``, in
-    place; returns ``cache``."""
+    rows a leaf; or a whole cache, whose recurrent leaves are skipped) into
+    rows ``[0, L)`` of every positional leaf of ``cache``, in place;
+    returns ``cache``."""
 
-    def write(path, leaf):
-        rw = rows
-        for key in path:
-            rw = rw[key]
-        leaf[:, :, : rw.shape[2]] = rw.to(leaf.dtype)
-        return leaf
+    def write(name, leaf, rw):
+        if name in POSITIONAL_CACHE_LEAVES:
+            leaf[:, :, : rw.shape[2]] = rw.to(leaf.dtype)
 
-    tree_map_with_path(write, cache)
+    walk_pairs(cache, rows, write)
+    return cache
+
+
+def snapshot_recurrent(cache: dict) -> dict:
+    """A copy of the RECURRENT leaves of ``cache`` (its tree without the
+    positional leaves): the boundary state a committed prefix block
+    carries."""
+    return select_leaves(cache, RECURRENT_CACHE_LEAVES, torch.clone)
+
+
+def install_recurrent(cache: dict, snap: dict) -> dict:
+    """Overwrite the recurrent leaves of ``cache`` in place from a snapshot
+    (:func:`snapshot_recurrent`'s tree, or a whole cache whose positional
+    leaves are skipped); returns ``cache``."""
+
+    def write(name, leaf, sn):
+        if name in RECURRENT_CACHE_LEAVES and sn is not leaf:
+            leaf.copy_(sn)
+
+    walk_pairs(cache, snap, write)
     return cache
 
 
@@ -258,24 +476,58 @@ def token_rows_view(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, 1, x.shape[-1])
 
 
-def _chunk_decode(q: torch.Tensor, cache: dict, pos: Pos) -> torch.Tensor:
+def _chunk_decode(q: torch.Tensor, cache: dict, pos: Pos, window: int = 0,
+                  before: Optional[dict] = None) -> torch.Tensor:
     """Chunked decode (a speculative verify): query ``i`` of ``s`` attends
     the cache at position ``pos + i`` under its own mask, through one
     :func:`_sdpa_decode` call per chunk token, so each gets the bits of a
     single-token decode step at that position over the same cache. q
-    (B, s, H, Dh) after the chunk's s K/V rows were written."""
-    ck, cv = _cache_kv(cache, q.dtype)
+    (B, s, H, Dh) after the chunk's s K/V rows were written.
+
+    On a ring (``window > 0``) a later token's write may have overwritten
+    a row an earlier token attends: ``before`` holds the rows the chunk's
+    writes replaced (``(B, s, ...)`` a leaf, token j's at slot ``(pos + j)
+    % s_max``), and query ``i`` sees them back in their slots for every
+    ``j > i``, the ring a decode step at ``pos + i`` reads, in slot order."""
     b, s = q.shape[:2]
-    slot = torch.arange(ck.shape[1], device=q.device)
+    s_max = cache["k"].shape[1]
+    slot = torch.arange(s_max, device=q.device)
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         base = pos.to(q.device)[:, None]  # (B, 1)
     else:
         base = torch.full((b, 1), host_pos(pos), device=q.device)
     outs = []
     for i in range(s):
-        mask = (slot[None, :] <= base + i)[:, None, None, :]  # (B, 1, 1, S_max)
-        outs.append(_sdpa_decode(q[:, i : i + 1], ck, cv, mask))
+        view = cache
+        if window and i < s - 1:
+            view = {}
+            rows = torch.arange(b, device=q.device)[:, None]
+            idx = (base + torch.arange(i + 1, s, device=q.device)) % s_max  # (B, s - i - 1)
+            for name, leaf in cache.items():
+                restored = leaf.clone()
+                restored[rows, idx] = before[name][:, i + 1 :]
+                view[name] = restored
+        ck, cv = _cache_kv(view, q.dtype)
+        if window:
+            mask = _ring_mask(slot[None, :], base + i, s_max, window)
+        else:
+            mask = slot[None, :] <= base + i
+        outs.append(_sdpa_decode(q[:, i : i + 1], ck, cv, mask[:, None, None, :]))  # (B, 1, 1, S_max)
     return torch.cat(outs, dim=1)
+
+
+def _gather_rows(cache: dict, pos: Pos, s: int) -> dict:
+    """The rows at ring slots ``(pos + j) % s_max``, j < s, of every leaf of
+    one layer's cache: ``(B, s, ...)`` copies."""
+    leaf0 = cache["k"]
+    b, s_max, dev = leaf0.shape[0], leaf0.shape[1], leaf0.device
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        base = pos.to(dev).long()[:, None]
+    else:
+        base = torch.full((b, 1), host_pos(pos), device=dev)
+    idx = (base + torch.arange(s, device=dev)) % s_max
+    rows = torch.arange(b, device=dev)[:, None]
+    return {name: leaf[rows, idx] for name, leaf in cache.items()}
 
 
 def attention(
@@ -286,9 +538,11 @@ def attention(
     *,
     cache: Optional[dict] = None,
     pos: Optional[Pos] = None,
+    window: int = 0,
     chunked: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """GQA self-attention. Returns (out, cache).
+    """GQA self-attention; ``window > 0`` is local attention over a ring
+    cache (module docstring). Returns (out, cache).
 
     train    cache=None                  causal attention over x
     prefill  cache, s > 1                s prompt tokens at pos..pos+s-1: at
@@ -320,29 +574,39 @@ def attention(
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
 
     if chunked:
-        cache = _cache_write(cache, k, v, pos)
-        out = _chunk_decode(q, cache, pos)
+        before = _gather_rows(cache, pos, s) if window else None
+        cache = _cache_write(cache, k, v, pos, window)
+        out = _chunk_decode(q, cache, pos, window, before)
         y = linear(token_rows_view(out.reshape(b, s, cfg.q_dim)), p["wo"])
         return y.reshape(b, s, -1), cache
     if cache is None:
-        out = _causal(q, k, v)
+        out = _local_attention_chunked(q, k, v, window) if window else _causal(q, k, v)
     elif s > 1 or in_prompt_rows():
         start = host_pos(pos)
+        if window and start and start + s > cache["k"].shape[1]:
+            raise ValueError(
+                f"a prefill at pos {start} of {s} tokens passes the ring's {cache['k'].shape[1]} rows; "
+                "a prompt that wraps the ring prefills whole from pos 0"
+            )
         if start == 0:
-            out = _causal(q, k, v)
-            cache = _cache_write(cache, k, v, 0)
+            out = _local_prefill(q, k, v, window) if window else _causal(q, k, v)
+            cache = _cache_write(cache, k, v, 0, window)
         else:
-            cache = _cache_write(cache, k, v, start)
-            out = _causal(q, *_cache_kv(cache, q.dtype, start + s), q_start=start)
+            cache = _cache_write(cache, k, v, start, window)
+            ck, cv = _cache_kv(cache, q.dtype, start + s)
+            out = _local_prefill(q, ck, cv, window, start) if window else _causal(q, ck, cv, q_start=start)
     else:
-        cache = _cache_write(cache, k, v, pos)
+        cache = _cache_write(cache, k, v, pos, window)
         ck, cv = _cache_kv(cache, x.dtype)
         slot = torch.arange(ck.shape[1], device=x.device)
         if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-            valid = slot[None, :] <= pos.to(x.device)[:, None]  # (B, S_max)
+            pb = pos.to(x.device)[:, None]  # (B, 1)
+            valid = _ring_mask(slot[None, :], pb, ck.shape[1], window) if window else slot[None, :] <= pb
             mask = valid[:, None, None, :]
         else:
-            mask = (slot <= host_pos(pos))[None, None, None, :]
+            pp = host_pos(pos)
+            valid = _ring_mask(slot, pp, ck.shape[1], window) if window else slot <= pp
+            mask = valid[None, None, None, :]
         out = _sdpa_decode(q, ck, cv, mask)
     return linear(out.reshape(b, s, cfg.q_dim), p["wo"]), cache
 

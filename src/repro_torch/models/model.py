@@ -1,5 +1,5 @@
-"""Model assembly: init / forward for the dense decoder (counterpart of
-``repro/models/model.py``).
+"""Model assembly: init / forward for the dense decoder and the hybrid
+family (counterpart of ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``{"stages": ({"b0": block}, ...),
 "final_norm", "lm_head", "embed"}`` with each block's leaves stacked over the
@@ -15,7 +15,16 @@ One :func:`forward` serves train, prefill and decode:
            prefill on the GPU (``layers.attention``)
   decode   cache=filled, pos=cur_len       → logits (B, 1, V)
   verify   cache=filled, pos, chunked_decode=True → logits (B, S, V)
-The cache is updated in place (``layers._cache_write``) and returned.
+The cache is updated in place (``layers._cache_write``, and the recurrent
+state by ``recurrent.rglru_block``) and returned. ``collect_states=True``
+(a speculative verify, or a prefill whose recurrent boundary states the
+prefix cache commits) leaves the recurrent leaves as they were and returns,
+in their place, their per-token stacks ``(repeat, S, B, ...)``, the
+reference's layout; the positional leaves are the live cache's, written.
+
+Block types: ``attn`` (dense), ``local_attn`` (attention over a window on a
+ring cache of ``min(s_max, window)`` rows) and ``rglru`` (Griffin's
+recurrent block, whose state is ``h`` (B, W) f32 and ``conv`` (B, K-1, W)).
 """
 
 from __future__ import annotations
@@ -27,22 +36,30 @@ import torch
 from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels.ops import linear
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils import host_pos, prompt_rows, resolve_device, tree_map
 
-ATTN_BLOCKS = ("attn",)
+ATTN_BLOCKS = ("attn", "local_attn")
+BLOCKS = ATTN_BLOCKS + ("rglru",)
+
+
+def _check_block(btype: str) -> None:
+    if btype not in BLOCKS:
+        raise ValueError(f"block type {btype!r} is not ported yet; ported: {BLOCKS}")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, btype: str, repeat: int, device) -> dict:
-    if btype not in ATTN_BLOCKS:
-        raise ValueError(f"block type {btype!r} is not ported yet")
+    _check_block(btype)
     d, lead = cfg.d_model, (repeat,)
-    return {
-        "ln1": torch.ones((*lead, d), dtype=cfg.pdtype, device=device),
-        "attn": L.init_attention(gen, cfg, lead, device),
-        "ln2": torch.ones((*lead, d), dtype=cfg.pdtype, device=device),
-        "mlp": L.init_mlp(gen, cfg, lead, device),
-    }
+    p = {"ln1": torch.ones((*lead, d), dtype=cfg.pdtype, device=device)}
+    if btype == "rglru":
+        p["mix"] = R.init_rglru(gen, cfg, lead, device)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, lead, device)
+    p["ln2"] = torch.ones((*lead, d), dtype=cfg.pdtype, device=device)
+    p["mlp"] = L.init_mlp(gen, cfg, lead, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
@@ -66,20 +83,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     }
 
 
-def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="cuda") -> dict:
-    """Zeroed KV cache, stacked per stage like the params:
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="cuda",
+               ring: Optional[int] = None) -> dict:
+    """Zeroed decoding state, stacked per stage like the params:
     ``k``/``v`` of shape ``(repeat, B, s_max, Hkv, Dh)`` in ``dtype``
     (default the compute dtype). With ``cfg.kv_cache_dtype == "int8"``
     ``k``/``v`` are int8 codes and ``k_scale``/``v_scale`` their f32 scales,
     ``(repeat, B, s_max, Hkv)``: one per (token, head), as the reference's
-    int8 cache holds them."""
+    int8 cache holds them. A ``local_attn`` block's rows are a ring of
+    ``min(s_max, window)`` (or ``ring``, when given: a batch-1 admission
+    cache takes its slot cache's ring length, since a ring's slot layout
+    depends on its length); an ``rglru`` block holds ``h`` ``(repeat, B,
+    W)`` f32 and ``conv`` ``(repeat, B, K-1, W)`` in ``dtype``."""
     dev = resolve_device(device)
     dtype = dtype or cfg.cdtype
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.d_head)
 
     def block_cache(btype, repeat):
-        if btype not in ATTN_BLOCKS:
-            raise ValueError(f"block type {btype!r} is not ported yet")
+        _check_block(btype)
+        if btype == "rglru":
+            w = cfg.lru_width
+            return {
+                "h": torch.zeros((repeat, batch, w), dtype=torch.float32, device=dev),
+                "conv": torch.zeros((repeat, batch, cfg.conv_width - 1, w), dtype=dtype, device=dev),
+            }
+        rows = s_max
+        if btype == "local_attn":
+            rows = ring if ring is not None else min(s_max, cfg.window)
+        shape = (batch, rows, cfg.n_kv_heads, cfg.d_head)
         if cfg.kv_cache_dtype == "int8":
             return {
                 "k": torch.zeros((repeat, *shape), dtype=torch.int8, device=dev),
@@ -121,15 +151,21 @@ def apply_block(
     pos,
     *,
     chunked: bool = False,
+    collect: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One pre-norm decoder block → (h, cache). ``chunked``: the block's
     tokens are a chunked decode (``layers.attention``), and the MLP sees
-    them as token rows."""
-    if btype not in ATTN_BLOCKS:
-        raise ValueError(f"block type {btype!r} is not ported yet")
-    r, cache = L.attention(
-        p["attn"], cfg, L.rmsnorm(p["ln1"], h), positions, cache=cache, pos=pos, chunked=chunked
-    )
+    them as token rows. ``collect``: an ``rglru`` block returns its
+    per-token state stacks instead of the cache (``recurrent.rglru_block``)."""
+    _check_block(btype)
+    if btype == "rglru":
+        r, cache = R.rglru_block(p["mix"], cfg, L.rmsnorm(p["ln1"], h), cache, collect=collect, chunked=chunked)
+    else:
+        window = cfg.window if btype == "local_attn" else 0
+        r, cache = L.attention(
+            p["attn"], cfg, L.rmsnorm(p["ln1"], h), positions, cache=cache, pos=pos, window=window,
+            chunked=chunked,
+        )
     h = h + r
     x = L.rmsnorm(p["ln2"], h)
     if chunked:
@@ -148,6 +184,7 @@ def forward(
     logits_mode: str = "all",  # "all" | "last"
     chunked_decode: bool = False,
     prefill: bool = False,
+    collect_states: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the decoder on ``tokens (B, S)``. Returns (logits f32, cache).
 
@@ -159,14 +196,21 @@ def forward(
     prefill attention as S > 1 tokens always do, not a decode step's: a
     one-token last chunk then gets the bits it has in the whole prompt,
     in the attention and in the dense products: one
-    :func:`~repro_torch.utils.prompt_rows` scope carries the flag to both."""
+    :func:`~repro_torch.utils.prompt_rows` scope carries the flag to both.
+
+    ``collect_states=True`` returns, in place of the cache, its tree with
+    every recurrent leaf replaced by its per-token stack ``(repeat, S, B,
+    ...)`` (entry t: the state after token t); the live cache's recurrent
+    leaves keep their values, its positional ones are written."""
     if chunked_decode and cache is None:
         raise ValueError("chunked_decode needs a filled cache")
+    if collect_states and cache is None:
+        raise ValueError("collect_states needs a decoding state")
     with prompt_rows(prefill):
-        return _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode)
+        return _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode, collect_states)
 
 
-def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode):
+def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode, collect=False):
     h = params["embed"][tokens].to(cfg.cdtype)
     b, s = tokens.shape
     if positions is None:
@@ -178,6 +222,7 @@ def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_de
             base = torch.full((b, 1), host_pos(pos), dtype=torch.int32, device=h.device)
         positions = base + torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
 
+    stacks = {}  # (stage, block key) → per layer, the collected state stacks
     for si, (pattern, repeat) in enumerate(cfg.stages):
         stage_p = params["stages"][si]
         stage_c = None if cache is None else cache["stages"][si]
@@ -185,10 +230,21 @@ def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_de
             for bi, btype in enumerate(pattern):
                 key = f"b{bi}"
                 c_in = None if stage_c is None else layer_slice(stage_c[key], l)
-                h, _ = apply_block(
+                coll = collect and btype == "rglru"
+                h, c_out = apply_block(
                     layer_slice(stage_p[key], l), cfg, btype, h, positions, c_in, pos,
-                    chunked=chunked_decode,
+                    chunked=chunked_decode, collect=coll,
                 )
+                if coll:
+                    stacks.setdefault((si, key), []).append(c_out)
+    if stacks:
+        cache = {"stages": tuple(
+            {key: ({**blk, **{name: torch.stack([c[name] for c in stacks[(si, key)]])
+                              for name in stacks[(si, key)][0]}}
+                   if (si, key) in stacks else blk)
+             for key, blk in stage.items()}
+            for si, stage in enumerate(cache["stages"])
+        )}
 
     h = L.rmsnorm(params["final_norm"], h)
     if logits_mode == "last":

@@ -50,6 +50,8 @@ from repro_torch.kernels import (
     lutgemm,
     lutgemm_plain,
     reset_launch_counts,
+    rglru_scan,
+    rglru_scan_plain,
     ternary_mm,
     ternary_mm_plain,
     uniform_mm,
@@ -137,7 +139,7 @@ def test_kernels_match_plain(cuda, B, k, o, q, g, dtype):
         torch.testing.assert_close(fn(x, fp, fs, g=g), got, rtol=0, atol=0, msg=fmt)
     assert launch_counts() == {
         "bcq_mm": 1, "bcq_mm_fused": 1, "lutgemm": 1, "uniform_mm": 2,
-        "dequant_materialize": 4, "ternary_mm": 2, "codebook_mm": 2, "flash_attention": 0,
+        "dequant_materialize": 4, "ternary_mm": 2, "codebook_mm": 2, "flash_attention": 0, "rglru_scan": 0,
     }
     torch.testing.assert_close(bcq_mm(x, packed, scales, g=g), bcq_mm(x, packed, scales, g=g), rtol=0, atol=0)
     torch.testing.assert_close(lutgemm(x, packed, scales, g=g), lutgemm(x, packed, scales, g=g), rtol=0, atol=0)
@@ -151,7 +153,7 @@ def test_kernels_raise_on_mixed_devices(cuda):
             fn(x, packed, torch.ones((s, 4, 128)), g=64)
     with pytest.raises(ValueError, match="devices"):
         dequant_materialize(packed.to(cuda), torch.ones((2, 4, 128)), g=64)
-    assert len(KERNEL_WRAPPERS) == 8
+    assert len(KERNEL_WRAPPERS) == 9
 
 
 @pytest.mark.parametrize("fmt", ["uniform", "dequant", "ternary", "codebook"])
@@ -1290,3 +1292,196 @@ def test_engine_with_graphs_is_freed_without_the_cycle_collector_on_card(cuda):
         assert engine() is None and graph() is None
     finally:
         gc.enable()
+
+
+# -- the hybrid family on the card: K9 and recurrentgemma's serving paths -----
+
+
+@pytest.mark.parametrize("H,Hkv,Dh,S", [(16, 1, 256, 2048), (16, 1, 256, 3040), (24, 8, 128, 2048), (24, 8, 128, 536)],
+                         ids=["rg9b_ring", "rg9b_long", "llama_2048", "llama_536"])
+def test_decode_attention_rows_equal_solo_on_card(cuda, H, Hkv, Dh, S):
+    """``layers._sdpa_decode`` gives each batch row the bits of the row alone
+    at every B, over long caches too: its sums run in fixed 32-wide stages
+    (``utils.row_sum``). A plain ``sum`` over S_max = 2048 made 2 of 4 rows
+    differ on the card, which broke slot == solo on recurrentgemma-9b's
+    2048-row ring (``chip_smoke.py`` phase 12)."""
+    from repro_torch.models.layers import _sdpa_decode
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S + Dh)
+    q = torch.randn((64, 1, H, Dh), generator=gen, device=cuda).bfloat16()
+    ck = torch.randn((64, S, Hkv, Dh), generator=gen, device=cuda).bfloat16()
+    cv = torch.randn((64, S, Hkv, Dh), generator=gen, device=cuda).bfloat16()
+    pos = torch.randint(S // 2, S, (64,), generator=gen, device=cuda)
+    mask = (torch.arange(S, device=cuda)[None] <= pos[:, None])[:, None, None, :]
+    alone = torch.cat([_sdpa_decode(q[i : i + 1], ck[i : i + 1], cv[i : i + 1], mask[i : i + 1]) for i in range(64)])
+    for n in (2, 4, 8, 16, 64):
+        assert torch.equal(_sdpa_decode(q[:n], ck[:n], cv[:n], mask[:n]), alone[:n]), n
+
+RGLRU_SHAPES = [  # (B, S, W): a decode step, a verify, a prompt, ragged W, many rows
+    (1, 1, 4096), (4, 1, 4096), (64, 1, 4096), (4, 20, 4096), (1, 3000, 4096),
+    (3, 7, 300), (2, 513, 1000), (5, 0, 256),
+]
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_SHAPES)
+def test_rglru_scan_equals_plain_bit_for_bit_on_card(cuda, B, S, W):
+    """K9 against its plain loop, bit for bit (the product and the sum are
+    rounded apart, as two torch ops round them), and a scan of S tokens
+    equals S calls at S = 1, the decode step's."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B * 31 + S + W)
+    a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.2 + 0.8
+    g = torch.randn((B, S, W), generator=gen, device=cuda) * 0.1
+    h0 = torch.randn((B, W), generator=gen, device=cuda)
+    want_hs, want_last = rglru_scan_plain(a, g, h0)
+    reset_launch_counts()
+    hs, last = rglru_scan(a, g, h0)
+    assert launch_counts()["rglru_scan"] == 1
+    assert torch.equal(hs, want_hs) and torch.equal(last, want_last)
+    h, steps = h0, []
+    for t in range(min(S, 24)):
+        step_hs, h = rglru_scan(a[:, t : t + 1], g[:, t : t + 1], h)
+        steps.append(step_hs)
+    if steps:
+        assert torch.equal(torch.cat(steps, dim=1), hs[:, : len(steps)])
+
+
+def test_rglru_scan_refuses_what_it_does_not_take(cuda):
+    a = torch.rand((2, 3, 8), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(a.bfloat16(), a.bfloat16(), torch.zeros((2, 8), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="devices|is on"):
+        rglru_scan(a, a, torch.zeros((2, 8)))
+    with pytest.raises(ValueError, match=r"\(B, S, W\)"):
+        rglru_scan(a, a, torch.zeros((3, 8), device=cuda))
+
+
+HYBRID = dict(d_model=512, n_heads=2, n_kv_heads=1, lru_width=512, d_ff=1024, vocab=4096,
+              param_dtype="bfloat16", compute_dtype="bfloat16")  # Dh 256 and one KV head, as the 9B
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid_engine(kv="bfloat16", prefix=False):
+    """A reduced recurrentgemma (5 layers, window 16) in bf16 with its
+    linears in bcq (q = 4, g = 128), behind a cache of ``kv``."""
+    from repro_torch.infer import PrefixCache
+
+    cfg = reduced(get_config("recurrentgemma-9b"), **HYBRID, kv_cache_dtype=kv)
+    params = _hybrid_params()
+    pc = PrefixCache(block_tokens=4, max_bytes=1 << 28) if prefix else None
+    return Engine(cfg, params, max_seq=96, device="cuda", prefix_cache=pc)
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid_params():
+    cfg = reduced(get_config("recurrentgemma-9b"), **HYBRID)
+    params = init_params(cfg, seed=0, device="cuda")
+    return quantize_params(params, QuantPolicy(q=4, g=128, iters=2), device="cuda")
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_hybrid_graph_generate_equals_eager_on_card(cuda, kv):
+    """The hybrid decode step captured and replayed (ring slots and masks
+    from the (B,) positions on the device, the recurrent state written in
+    place) against the eager loop: the same logits step by step and the
+    same tokens past the window, bit for bit; the census counts K9 once an
+    rglru layer a step, K8 never."""
+    eng = _hybrid_engine(kv)
+    prompts = np.random.default_rng(5).integers(0, eng.cfg.vocab, (4, 21))  # wraps the 16-row ring
+    eager_l = _step_logits(eng, prompts, 20, False)
+    graph_l = _step_logits(eng, prompts, 20, True)
+    assert torch.equal(graph_l, eager_l)
+    reset_launch_counts()
+    eager = eng.generate(prompts, 20, temperature=0.8, seed=1, scan=False)
+    eager_counts = launch_counts()
+    reset_launch_counts()
+    graphed = eng.generate(prompts, 20, temperature=0.8, seed=1)
+    assert launch_counts() == eager_counts
+    n_rglru = eng.cfg.block_counts()["rglru"]
+    assert eager_counts["rglru_scan"] == n_rglru * 21 and eager_counts["flash_attention"] == 0  # prefill + 20 steps
+    np.testing.assert_array_equal(graphed.tokens, eager.tokens)
+
+
+def test_hybrid_verify_equals_step_decode_on_card(cuda):
+    """A verify of 5 tokens on a wrapped ring gives each position the bits
+    of a decode step there: each token sees the rows later tokens
+    overwrote back in their slots, and K9 scans the 5 tokens as 5 steps."""
+    eng = _hybrid_engine()
+    cfg = eng.cfg
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 30)), device=cuda)
+    chunk = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 5)), device=cuda)
+    pos = torch.tensor([30, 30, 30, 30], device=cuda)
+    _, c_chunk = eng.prefill(prompt, eng._make_cache(4))
+    _, c_step = eng.prefill(prompt, eng._make_cache(4))
+    got, _ = forward(cfg, eng.params, tokens=chunk, cache=c_chunk, pos=pos, logits_mode="all", chunked_decode=True)
+    steps = []
+    for t in range(5):
+        lg, c_step = eng.decode(chunk[:, t : t + 1], c_step, pos + t)
+        steps.append(lg)
+    assert torch.equal(got, torch.stack(steps, dim=1))
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_hybrid_slots_and_speculation_exact_on_card(cuda, kv):
+    """Nine requests, prompts of 4..40 tokens (most wrap the ring), through
+    3 slots: the slot graph and the eager slot loop give every request its
+    solo ``generate``'s tokens; greedy speculation (q' = 2 and the all-
+    accepting q' = q) equals plain greedy, in ``generate`` and through
+    speculative slots, on prompts that wrap the ring."""
+    from repro_torch.infer import engine as engine_mod
+
+    eng = _hybrid_engine(kv)
+    rng = np.random.default_rng(6)
+    reqs = [Request(prompt=rng.integers(0, eng.cfg.vocab, size=int(rng.integers(4, 40))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(3, 20)), temperature=[0.0, 1.0, 0.7][i % 3], seed=i, rid=i)
+            for i in range(9)]
+    solo = {r.rid: eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature,
+                                seed=r.seed).tokens[0, r.prompt.size :] for r in reqs}
+    for eager in (False, True):
+        engine_mod._EAGER_SLOT_STEPS = eager
+        try:
+            sched = Scheduler(eng, n_slots=3, chunk=4)
+            for r in reqs:
+                sched.submit(r)
+            for c in sched.run():
+                np.testing.assert_array_equal(c.new_tokens, solo[c.rid])
+        finally:
+            engine_mod._EAGER_SLOT_STEPS = False
+    prompts = rng.integers(0, eng.cfg.vocab, (4, 24))
+    plain = eng.generate(prompts, 16)
+    for q_draft in (2, 4):
+        spec = eng.generate(prompts, 16, speculate=SpecConfig(q_draft, 4))
+        np.testing.assert_array_equal(spec.tokens, plain.tokens)
+        if q_draft == 4:
+            assert spec.spec_stats["accept_rate"] == 1.0
+    sched = Scheduler(eng, n_slots=3, chunk=2, speculate=SpecConfig(2, 4))
+    for r in reqs:
+        sched.submit(dataclasses.replace(r, speculate=r.temperature == 0.0))
+    for c in sched.run():
+        np.testing.assert_array_equal(c.new_tokens, solo[c.rid])
+
+
+def test_hybrid_warm_equals_cold_on_card(cuda):
+    """A warm admission on the hybrid (the shared prefix's rows and its
+    boundary recurrent state installed, the tail prefilled at pos > 0) gives
+    the cold admission's last-prompt logits and tokens bit for bit; a
+    prompt past the ring neither matches nor commits."""
+    cold = _hybrid_engine()
+    warm = _hybrid_engine(prefix=True)
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, cold.cfg.vocab, 8)
+    prompts = [np.concatenate([shared, rng.integers(0, cold.cfg.vocab, n)]).astype(np.int32) for n in (3, 6, 1)]
+    for i, prompt in enumerate(prompts):
+        want_l, want_t = _admission(cold, prompt)
+        got_l, got_t = _admission(warm, prompt)
+        assert warm.take_prefix_handle().length == (0 if i == 0 else 8)
+        assert torch.equal(got_l, want_l), i
+        np.testing.assert_array_equal(got_t, want_t)
+    long = rng.integers(0, cold.cfg.vocab, 30).astype(np.int32)
+    for _ in range(2):
+        got_l, _ = _admission(warm, long)
+        h = warm.take_prefix_handle()
+        assert h.length == 0 and not h.new_spans
+        assert torch.equal(got_l, _admission(cold, long)[0])

@@ -530,14 +530,16 @@ def test_failed_chunk_aborts_its_handle(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("block,missing", [("rglru", "recurrent boundary snapshots"),
-                                           ("local_attn", "ring guard")])
+@pytest.mark.parametrize("block,missing", [("rglru", "recurrent"), ("local_attn", "ring-buffer")],
+                         ids=["rglru-recurrent boundary snapshots", "local_attn-ring guard"])
 def test_prefix_cache_and_chunking_refused_on_unported_families(block, missing):
+    """Ring-window and recurrent models take a prefix cache (the ring guard
+    and the recurrent boundary snapshots are ported; ``test_torch_hybrid.py``
+    holds them), but chunked prefill stays refused for them, with the
+    reference's reason (``Engine.supports_chunked_prefill``)."""
     cfg = dataclasses.replace(_cfg(), stages=(((block,), _cfg().n_layers),))
-    with pytest.raises(ValueError, match=missing):
-        Engine(cfg, _params("dense"), max_seq=MAX_SEQ, device="cpu", prefix_cache=PrefixCache())
-    eng = Engine(cfg, _params("dense"), max_seq=MAX_SEQ, device="cpu")
-    assert not eng.supports_chunked_prefill
+    eng = Engine(cfg, _params("dense"), max_seq=MAX_SEQ, device="cpu", prefix_cache=PrefixCache())
+    assert eng.prefix_cache is not None and not eng.supports_chunked_prefill
     with pytest.raises(ValueError, match=missing):
         Scheduler(eng, n_slots=2, chunk=2, prefill_chunk=4)
     with pytest.raises(ValueError, match="chunked prefill"):

@@ -178,6 +178,34 @@ def test_session_invalid_request_rejected_not_fatal():
     assert last.kind == "done" and len(toks) == 4
 
 
+def test_session_slow_client_bound_counts_events_in_flight(monkeypatch):
+    """An event loop that lags the pump thread (a loaded host): events the
+    pump posted and the loop has not queued yet count against the buffer,
+    so the request is cancelled with at most ``max_buffer`` token events
+    delivered, as with a prompt loop."""
+    import time
+
+    real = ServeSession._deliver
+
+    def lagging(self, rid, q, ev):
+        time.sleep(0.02)  # the loop is busy; the pump keeps posting
+        real(self, rid, q, ev)
+
+    monkeypatch.setattr(ServeSession, "_deliver", lagging)
+    eng = _engine()
+
+    async def run():
+        async with ServeSession(eng, n_slots=1, chunk=1, max_buffer=2) as sess:
+            stream = await sess.submit_stream(Request(prompt=_prompt(4), max_new_tokens=40))
+            await _await_true(lambda: sess.counters["overflow_cancelled"] >= 1)
+            toks, last = await stream.drain()
+        return toks, last
+
+    toks, last = _go(run())
+    assert last.kind == "error" and last.status == "cancelled"
+    assert len(toks) <= 2
+
+
 def test_session_slow_client_overflow_cancelled():
     eng = _engine()
 

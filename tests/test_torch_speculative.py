@@ -357,14 +357,17 @@ def test_spec_validation(models):
     with pytest.raises(ValueError, match="truncation-capable"):
         Scheduler(uni, n_slots=2, speculate=SpecConfig(2, 2))
 
-    # a ring-window model needs the rollback that comes with that family
-    ring = _port_engine(models, "dense")
-    ring.cfg = dataclasses.replace(ring.cfg, stages=((("local_attn",), 2),))
-    with pytest.raises(ValueError, match="restore_rows"):
-        ring.generate(prompts, 2, speculate=SpecConfig(2, 2))
-    ring.cfg = dataclasses.replace(ring.cfg, stages=((("rglru",), 2),))
-    with pytest.raises(ValueError, match="recurrent"):
-        ring.generate(prompts, 2, speculate=SpecConfig(2, 2))
+    # ring-window and recurrent models speculate (their rollback is ported,
+    # tests/test_torch_hybrid.py); a ring needs gamma + 1 < its length
+    base = _port_engine(models, "dense")
+    for block in ("local_attn", "rglru"):
+        eng2 = Engine(dataclasses.replace(base.cfg, stages=(((block,), 2),), window=2), base.params, max_seq=32,
+                      fuse=False, device="cpu")
+        if block == "local_attn":
+            with pytest.raises(ValueError, match="need gamma\\+1 < window"):
+                eng2.generate(prompts, 2, speculate=SpecConfig(2, 2))
+        else:
+            eng2._validate_spec(SpecConfig(2, 2))
 
     # the scheduler keeps gamma + 1 rows of headroom
     sched = Scheduler(_port_engine(models, "bcq_q4", max_seq=16), n_slots=1, speculate=SpecConfig(2, 4))
