@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py    # full llama3.2-3b (28 layers, every format), then full recurrentgemma-9b
+    python3 chip_smoke.py    # full llama3.2-3b (28 layers, every format), full recurrentgemma-9b, full xlstm-125m
 
 Phases, each printed on lines of its own; any failure raises and the exit
 code is non-zero:
@@ -119,7 +119,9 @@ code is non-zero:
              and its greedy tokens against the same request under
              ``impl_mode("ref")`` (``_sdpa_qchunked`` at this length);
 7. spec      self-speculative decoding (``SpecConfig(2, 4)``; ternary
-             ``(1, 4)``) at full width and depth: a batched ``generate`` (4
+             ``(1, 4)``) at full width and the first ``SPEC_LAYERS`` = 8 of
+             the 28 layers (views of phase 5's weights, ``depth_view``: the
+             smoke's time budget): a batched ``generate`` (4
              prompts of 16 tokens, 16 new) on the bcq model, on it under
              ``impl_mode("lutgemm")`` and on the ternary model must give the
              plain greedy tokens; each run's launches, counted by (kernel,
@@ -132,9 +134,10 @@ code is non-zero:
              planes (``SpecConfig(4, 4)``: the draft is the target) and must
              accept every proposal, so the verify's rows 1..γ, the
              multi-token commit and the draft cache's continuity are
-             exercised at full depth. Then phase 6's 12 requests through a speculative 4-slot
+             exercised at that depth. Then phase 6's 12 requests through a speculative 4-slot
              scheduler, the temperature-1.0 requests opted out: every greedy
-             and opted-out request must equal its solo plain ``generate``,
+             and opted-out request must equal its solo plain ``generate`` at
+             the same depth,
              with the launches predicted the same way. Each run prints its
              acceptance, chunks, tok/s and TTFT beside the plain run's, and
              the device-busy share of a profiled second run; the device time
@@ -166,7 +169,8 @@ code is non-zero:
              version and the rows of one cold launch;
 9. kernels  one JSON line listing every kernel, its launches
              (``spec_launches``: on phase 7's runs; K8's ``offset_launches``:
-             on phase 8's; K9's on phase 12's main path) and its numbers,
+             on phase 8's; K9's on phase 12's main path, K10's and K11's on
+             phase 13's) and its numbers,
              printed last but one;
 10. graphs   captured decode and the int8 cache, at 28 layers. Every
              format's batched ``generate`` of phase 5 (and bcq under
@@ -245,7 +249,30 @@ code is non-zero:
              ``lutgemm`` at full width and 5 layers: one batched
              ``generate`` each, launches counted, logits within 3e-2 of
              the ref path. K9 joins the kernels line;
-13. last line ``{"ok": true, "device": {...}}``.
+13. xlstm    xlstm-125m (the ssm family: 6 mLSTM and 6 sLSTM cells, d_model
+             768, 4 heads, mLSTM Dh 384, sLSTM Dh 192, no MLP) at full width
+             and all 12 layers, random weights from seed 0, bcq on the card.
+             K10 (``mlstm_scan``) and K11 (``slstm_scan``) against their
+             plain loops within 2e-4 at (B, S) = (4, 1), (4, 5), (1, 3000),
+             (64, 1), the same bits on a rerun, a scan of S <= 5 equal to
+             S single steps, timed by graph replay beside their bounds. The
+             main path: a batched ``generate`` (4 × 16 + 32) in a counted
+             window, K1 67, K10 6 and K11 6 launches a forward, K2, K8 and
+             the oracle never; captured against eager (logits, sampled
+             tokens, census bit for bit; the graph's kernel nodes K1 67, K10
+             6, K11 6), each loop profiled; logits against the ref path as
+             in phase 12. A 3000-token prompt and 32 new tokens (prefill
+             time, decode tok/s, peak memory, 8 forced steps against the ref
+             path); 8 requests (16..2600 tokens) on 4 slots == solo;
+             ``SpecConfig(2, 4)`` greedy == plain and ``SpecConfig(4, 4)``
+             accepting every proposal; a 512-token shared prompt cold then
+             warm against a prefix cache of boundary states, tokens and
+             last-prompt logits bit for bit. Then uniform, ternary,
+             codebook, dequant and bcq on ``lutgemm`` at full width and
+             depth, launches counted, logits against the ref path; every
+             (kernel, planes, rows, leaf) of K1-K7 the phase launched is
+             held to its plain version. K10 and K11 join the kernels line;
+14. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -383,6 +410,8 @@ TRACE_TAGS = {
     ("codebook_mm",): ("codebook_kernel",),
     ("flash_attention",): FLASH_TAGS,
     ("rglru_scan",): ("rglru_scan_kernel",),
+    ("mlstm_scan",): ("mlstm_scan_kernel",),
+    ("slstm_scan",): ("slstm_scan_kernel",),
 }
 L2_BYTES = 50 * 2**20
 # phase 10: the decode step's device time with the bf16 and the int8 cache,
@@ -1848,16 +1877,17 @@ class _Counted:
 
 @contextlib.contextmanager
 def kernel_census(by_leaf=False):
-    """Count every K1, K2, K3 and K4 call by (kernel, planes, rows) while the
-    block runs (``by_leaf``: by (kernel, planes, rows, k, o)): the formats'
-    ``matvec`` imports the wrapper at each call, so the module attribute
-    patched here sees them all."""
+    """Count every K1-K5 and K7 call, and K6's pipeline ``dequant_mm`` as
+    ``dequant_materialize``, by (kernel, planes, rows) while the block runs
+    (``by_leaf``: by (kernel, planes, rows, k, o)): the formats' ``matvec``
+    imports the wrapper at each call, so the module attribute patched here
+    sees them all."""
     seen = collections.Counter()
     patched = []
-    for name in ("bcq_mm", "bcq_mm_fused", "lutgemm", "ternary_mm"):
+    for name in ("bcq_mm", "bcq_mm_fused", "lutgemm", "ternary_mm", "uniform_mm", "codebook_mm", "dequant_mm"):
         mod = importlib.import_module(f"repro_torch.kernels.{name}")
         fn = getattr(mod, name)
-        setattr(mod, name, _Counted(fn, name, seen, by_leaf))
+        setattr(mod, name, _Counted(fn, "dequant_materialize" if name == "dequant_mm" else name, seen, by_leaf))
         patched.append((mod, name, fn))
     try:
         yield seen
@@ -1897,7 +1927,7 @@ def check_launched(label, seen, attn, records, gen, leaf_of=None):
     rerun) → records. ``leaf_of``: {(k, o): (leaf, fused out_dims)} of the
     model's packed linears (default llama3.2-3b's ``LEAVES``)."""
     if not seen or attn is not None and not attn:
-        raise SystemExit(f"chip_smoke: [{label}] the census saw no launches (K1-K4: {len(seen)}, K8: "
+        raise SystemExit(f"chip_smoke: [{label}] the census saw no launches (K1-K7: {len(seen)}, K8: "
                          f"{None if attn is None else len(attn)})")
     done = {(r["kernel"], r["q"], r["B"], r["k"], r["o"]) for r in records if r["leaf"] != "sweep" and is_bf16(r)}
     leaf_of = leaf_of or {(k, o): (leaf, dims) for leaf, (k, o, dims) in LEAVES.items()}
@@ -1913,7 +1943,7 @@ def check_launched(label, seen, attn, records, gen, leaf_of=None):
     bad = [r for r in recs + flash if not r["ok"]]
     rows = sorted({r["B"] for r in recs})
     log(f"  [{label}] launched shapes held to their plain versions: {len(set(seen))} (kernel, planes, rows, leaf) "
-        f"of K1-K4, {len(set(seen) - done)} of them not checked in phase 3 and checked now (rows {rows}); "
+        f"of K1-K7, {len(set(seen) - done)} of them not checked in phase 3 and checked now (rows {rows}); "
         f"{len(flash)} K8 (B, q_start, Sq) shapes (q_start {sorted({r['q_start'] for r in flash})}, Sq "
         f"{sorted({r['Sq'] for r in flash})}), largest K8 error {max((r['max_abs_err'] for r in flash), default=0):.2e}"
         f": {len(bad)} disagree")
@@ -2128,9 +2158,39 @@ def spec_serving(serving, plain_summary, checked):
                 launches=counts)
 
 
+SPEC_LAYERS = 8  # phase 7's depth: the first 8 of llama3.2-3b's 28 layers (the smoke's time budget)
+
+
+def depth_view(engine, n_layers):
+    """The first ``n_layers`` layers of a dense-decoder engine as an engine
+    of their own: views of its stacked (fused) weights, no copy."""
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.infer import Engine
+    from repro_torch.utils import tree_map
+
+    def head(leaf):
+        if isinstance(leaf, QuantizedTensor):
+            return leaf.replace(packed=leaf.packed[:n_layers], scales=leaf.scales[:n_layers])
+        return leaf[:n_layers]
+
+    cfg = dataclasses.replace(engine.cfg, n_layers=n_layers, stages=None)
+    params = dict(engine.params, stages=tuple(tree_map(head, stage) for stage in engine.params["stages"]))
+    return Engine(cfg, params, max_seq=engine.max_seq, fuse=False, device="cuda")
+
+
+def spec_serving_view(bcq_engine, serving):
+    """Phase 6's serving engine and solo ``generate``s, again at the depth
+    of ``bcq_engine`` (a :func:`depth_view`), for phase 7's speculative
+    scheduler."""
+    engine = serving_engine(bcq_engine, serving["engine"].max_seq)
+    reqs = serve_requests(engine.cfg, SERVE_PROMPT_LENS, NEW_TOKENS, 200)
+    solos = [engine.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed) for r in reqs]
+    return dict(engine=engine, solos=solos)
+
+
 def phase_speculative(bcq_engine, ternary_engine, prompts, serving, plain_continuous, checked):
-    """Self-speculative decoding at full width and depth (module docstring,
-    phase 7) → (summary, launches summed over its runs)."""
+    """Self-speculative decoding at full width and ``SPEC_LAYERS`` layers
+    (module docstring, phase 7) → (summary, launches summed over its runs)."""
     out, launches, took = {}, collections.Counter(), {}
     for path, engine in (("bcq", bcq_engine), ("bcq lutgemm", bcq_engine), ("ternary", ternary_engine),
                          ("bcq q'=q", bcq_engine)):
@@ -3078,18 +3138,12 @@ def hybrid_long(engine, rng):
                 resident_gb=base / 1e9, logits=dist, k8=counts["flash_attention"])
 
 
-def hybrid_logits_check(engine, label, run, mode=None):
-    """The hybrid's logits against the ref path. ``run(engine, mode)`` →
-    logits under ``impl_mode(mode)``. Two bf16 paths of this model sit ~5%
-    of max|logit| apart at any prompt length, each 4-7% from the f32-weight
-    oracle on an H100 (``tools/hybrid_logits_probe.py``), so the comparison
-    is adjudicated as the llama watch item is (ROADMAP Queue 3): the same
-    packed weights in an f32-compute engine give the oracle (its ref path:
-    every weight dequantized to f32) and the kernel path in f32, which must
-    agree within
-    ``LOGITS_REL_TOL``; the bf16 kernel path must be within it of the bf16
-    ref path, or of the oracle, or no farther from the oracle than the ref
-    path is → {distances}."""
+def logits_distances(engine, run, mode=None):
+    """``run(engine, mode)`` → logits under ``impl_mode(mode)``; the kernel
+    path's and the ref path's logits, and the same packed weights in an
+    f32-compute engine: its ref path (every weight dequantized to f32) is the
+    oracle, its kernel path the f32-compute kernel path → {distances, each
+    max|d| / max|.|; top-1 agreement of the bf16 paths}."""
     from repro_torch.infer import Engine
 
     rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()  # noqa: E731
@@ -3098,17 +3152,47 @@ def hybrid_logits_check(engine, label, run, mode=None):
                    fuse=False, device="cuda")
     oracle, k32 = run(eng32, "ref"), run(eng32, mode)
     del eng32
-    d = dict(kernel_ref=rel(k, r), kernel_oracle=rel(k, oracle), ref_oracle=rel(r, oracle),
-             kernel_oracle_f32=rel(k32, oracle),
-             top1_kernel_ref=(k.argmax(-1) == r.argmax(-1)).float().mean().item())
-    ok = d["kernel_oracle_f32"] <= LOGITS_REL_TOL and (
-        d["kernel_ref"] <= LOGITS_REL_TOL or d["kernel_oracle"] <= max(LOGITS_REL_TOL, d["ref_oracle"]))
+    return dict(kernel_ref=rel(k, r), kernel_oracle=rel(k, oracle), ref_oracle=rel(r, oracle),
+                kernel_oracle_f32=rel(k32, oracle), top1_kernel_ref=(k.argmax(-1) == r.argmax(-1)).float().mean().item(),
+                finite=bool(torch.isfinite(k).all()))
+
+
+def log_logits(label, d, ok, gate):
     log(f"  [{label}] logits, max|d| / max|.|: bf16 kernel vs bf16 ref {d['kernel_ref']:.3e} (top-1 agreement "
         f"{d['top1_kernel_ref']:.3f}); against the f32-weight oracle: bf16 kernel {d['kernel_oracle']:.3e}, bf16 ref "
-        f"{d['ref_oracle']:.3e}, f32-compute kernel {d['kernel_oracle_f32']:.3e} (tol {LOGITS_REL_TOL:g}): "
-        f"{'ok' if ok else 'FAIL'}")
-    if not (ok and torch.isfinite(k).all()):
+        f"{d['ref_oracle']:.3e}, f32-compute kernel {d['kernel_oracle_f32']:.3e} (tol {LOGITS_REL_TOL:g}; gate: "
+        f"{gate}): {'ok' if ok else 'FAIL'}")
+    if not (ok and d["finite"]):
         raise SystemExit(f"chip_smoke: [{label}] logits against the ref path and the f32-weight oracle: {d}")
+
+
+def hybrid_logits_check(engine, label, run, mode=None):
+    """The hybrid's logits against the ref path (:func:`logits_distances`).
+    Two bf16 paths of this model sit ~5% of max|logit| apart at any prompt
+    length, each 4-7% from the f32-weight oracle on an H100
+    (``tools/hybrid_logits_probe.py``), so the comparison is adjudicated as
+    the llama watch item is (ROADMAP Queue 3): the f32-compute kernel path
+    must be within ``LOGITS_REL_TOL`` of the oracle, and the bf16 kernel
+    path within it of the bf16 ref path, or of the oracle, or no farther
+    from the oracle than the bf16 ref path is → {distances}."""
+    d = logits_distances(engine, run, mode)
+    ok = d["kernel_oracle_f32"] <= LOGITS_REL_TOL and (
+        d["kernel_ref"] <= LOGITS_REL_TOL or d["kernel_oracle"] <= max(LOGITS_REL_TOL, d["ref_oracle"]))
+    log_logits(label, d, ok, "f32-compute kernel vs oracle, and bf16 kernel vs bf16 ref or oracle")
+    return d
+
+
+def xlstm_logits_check(engine, label, run, mode=None):
+    """xlstm-125m's logits gate is the f32-compute arm alone: the
+    f32-compute kernel path within ``LOGITS_REL_TOL`` of the f32-weight
+    oracle (:func:`logits_distances`). Its two bf16 paths each sit 4-7% of
+    max|logit| from the oracle, and which of them is nearer varies with the
+    format (on an H100 uniform's bf16 kernel path was 5.96e-2 from it and its
+    bf16 ref path 5.74e-2), so the bf16 distances are reported, not gated;
+    the bf16 kernels themselves are held to their plain versions shape by
+    shape (:func:`check_launched`) → {distances}."""
+    d = logits_distances(engine, run, mode)
+    log_logits(label, d, d["kernel_oracle_f32"] <= LOGITS_REL_TOL, "f32-compute kernel vs oracle; bf16 reported")
     return d
 
 
@@ -3309,6 +3393,369 @@ def phase_hybrid(gen, records):
     return summary, k9, counts
 
 
+# -- phase 13: the ssm family (xlstm-125m) -------------------------------------
+
+XLSTM = "xlstm-125m"
+K10 = ("mlstm_scan", "csrc/mlstm_scan.cu", "src/repro/models/recurrent.py:293")
+K11 = ("slstm_scan", "csrc/slstm_scan.cu", "src/repro/models/recurrent.py:383")
+XLSTM_SCAN_SHAPES = ((4, 1), (4, 5), (1, 3000), (64, 1))  # (B, S): decode steps, a verify, a long prompt, many rows
+XLSTM_NEW = 32  # the batched generate's and the long request's new tokens
+XLSTM_LONG = 3000
+XLSTM_FORCED = 8  # teacher-forced decode steps held to the ref path
+XLSTM_SLOT_LENS, XLSTM_SLOT_NEW = (16, 2600, 100, 700, 40, 1500, 300, 64), 16
+XLSTM_SPEC = (2, 4)
+# speculative runs' new tokens: the first from the prefill, then six chunks of γ + 1 and two tokens, so
+# the run ends inside a chunk (a draft equal to the target must show accepted == committable)
+XLSTM_SPEC_NEW = 1 + 6 * (XLSTM_SPEC[1] + 1) + 2
+XLSTM_PREFIX_TAILS = (16, 64, 23, 40, 31, 57)
+XLSTM_PREFIX_BYTES = 2 << 30  # ~14.2 MB of mLSTM state a block boundary: 32 blocks of the shared prompt and the tails'
+
+
+def xlstm_leaves(cfg):
+    """{(k, o): (leaf, None)} of xlstm-125m's packed linears."""
+    from repro_torch.models.recurrent import mlstm_dims
+
+    d, inner = cfg.d_model, mlstm_dims(cfg)[0]
+    return {(d, inner): ("w_up/w_z", None), (inner, inner): ("wq/wk/wv", None), (inner, d): ("w_down", None),
+            (d, d): ("slstm w_z/w_i/w_f/w_o/w_out", None), (d, cfg.vocab): ("lm_head", None)}
+
+
+def xlstm_forward_counts(cfg):
+    """Launches of one forward: every packed leaf once (6 + 5 a cell pair,
+    the LM head once), K10 and K11 once a layer of their cell."""
+    n = cfg.block_counts()
+    return {"linears": 6 * n["mlstm"] + 5 * n["slstm"] + 1, "mlstm_scan": n["mlstm"], "slstm_scan": n["slstm"]}
+
+
+def _scan_record(name, B, S, width, equal, same, steps_equal, err, ms, plain_ms, nbytes, ops):
+    bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / PEAK_OPS[torch.float32] * 1e3
+    r = dict(B=B, S=S, Dh=width, ok=equal and same and steps_equal, same_bits=same, scan_equals_steps=steps_equal,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+             bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes)
+    log(f"  [{name}] B={B} S={S} Dh={width}: err {err:.2e} (tol {KERNEL_TOL:g}), rerun same bits {same}, scan == "
+        f"steps {steps_equal}; {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.1f} us, {plain_ms / ms:.1f}x), bound "
+        f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, {ops / 1e9:.3f} GFLOP "
+        f"f32 at 67 TFLOP/s): {ms / r['bound_ms']:.2f}x the bound{'' if r['ok'] else '  FAIL'}")
+    return r
+
+
+def check_xlstm_scans(gen, cfg):
+    """K10 and K11 against their plain loops at ``XLSTM_SCAN_SHAPES`` and
+    xlstm-125m's heads (mLSTM Dh 384, sLSTM Dh 192, R in bf16): within
+    ``KERNEL_TOL``, the same bits on a rerun, a scan of S ≤ 5 tokens equal
+    to S single steps; kernel and plain times by graph replay (median of
+    7; the plain loop at S = 3000 once a replay, 3 replays) beside the bound
+    → (K10 records, K11 records)."""
+    from repro_torch.kernels import mlstm_scan, mlstm_scan_plain, slstm_scan, slstm_scan_plain
+    from repro_torch.kernels.mlstm_scan import scale_for
+    from repro_torch.models.recurrent import mlstm_dims
+
+    NH, dm, ds = cfg.n_heads, mlstm_dims(cfg)[1], cfg.d_model // cfg.n_heads
+    sc = scale_for(dm)
+    k10, k11 = [], []
+    for B, S in XLSTM_SCAN_SHAPES:
+        xs = [torch.randn((B, S, NH, dm), generator=gen, device=DEVICE) for _ in range(3)]
+        xs += [torch.randn((B, S, NH), generator=gen, device=DEVICE),
+               torch.nn.functional.logsigmoid(torch.randn((B, S, NH), generator=gen, device=DEVICE) + 2.0)]
+        state = [torch.randn((B, NH, dm, dm), generator=gen, device=DEVICE) * 0.1,
+                 torch.randn((B, NH, dm), generator=gen, device=DEVICE), torch.randn((B, NH), generator=gen, device=DEVICE)]
+        st, ps, again = ([t.clone() for t in state] for _ in range(3))
+        h, _ = mlstm_scan(*xs, *st, sc)
+        ph, _ = mlstm_scan_plain(*xs, *ps, sc)
+        h2, _ = mlstm_scan(*xs, *again, sc)
+        err = max((h - ph).abs().max().item(), *((a - b).abs().max().item() for a, b in zip(st, ps)))
+        equal = all(torch.allclose(a, b, rtol=KERNEL_TOL, atol=KERNEL_TOL) for a, b in zip([h, *st], [ph, *ps]))
+        same = bool(torch.equal(h, h2) and all(torch.equal(a, b) for a, b in zip(st, again)))
+        steps_equal = True
+        if S <= 5:
+            step_st = [t.clone() for t in state]
+            hs = [mlstm_scan(*(x[:, t : t + 1] for x in xs), *step_st, sc)[0] for t in range(S)]
+            steps_equal = bool(torch.equal(torch.cat(hs, dim=1), h)
+                               and all(torch.equal(a, b) for a, b in zip(step_st, st)))
+        ms = time_ms(lambda: mlstm_scan(*xs, *st, sc), [()])
+        long = S > 64
+        plain_ms = time_ms(lambda: mlstm_scan_plain(*xs, *ps, sc), [()], inner=1 if long else None, reps=3 if long else 7)
+        nbytes = (4 * B * S * NH * dm + 2 * B * S * NH + 2 * B * NH * (dm * dm + dm + 1)) * 4
+        k10.append(_scan_record("K10 mlstm_scan", B, S, dm, equal, same, steps_equal, err, ms, plain_ms, nbytes,
+                                4.0 * dm * dm * B * S * NH))
+        pre = [torch.randn((B, S, NH, ds), generator=gen, device=DEVICE) for _ in range(4)]
+        r = [(torch.randn((NH, ds, ds), generator=gen, device=DEVICE) / math.sqrt(ds)).to(cfg.pdtype) for _ in range(4)]
+        state = [torch.randn((B, NH, ds), generator=gen, device=DEVICE) for _ in range(4)]
+        state[2] = state[2].abs() + 0.5
+        st, ps, again = ([t.clone() for t in state] for _ in range(3))
+        hs, _ = slstm_scan(pre, r, st)
+        phs, _ = slstm_scan_plain(pre, r, ps)
+        hs2, _ = slstm_scan(pre, r, again)
+        err = max((hs - phs).abs().max().item(), *((a - b).abs().max().item() for a, b in zip(st, ps)))
+        equal = all(torch.allclose(a, b, rtol=KERNEL_TOL, atol=KERNEL_TOL) for a, b in zip([hs, *st], [phs, *ps]))
+        same = bool(torch.equal(hs, hs2) and all(torch.equal(a, b) for a, b in zip(st, again)))
+        steps_equal = True
+        if S <= 5:
+            step_st = [t.clone() for t in state]
+            outs = [slstm_scan([p[:, t : t + 1] for p in pre], r, step_st)[0] for t in range(S)]
+            steps_equal = bool(torch.equal(torch.cat(outs, dim=1), hs)
+                               and all(torch.equal(a, b) for a, b in zip(step_st, st)))
+        ms = time_ms(lambda: slstm_scan(pre, r, st), [()])
+        plain_ms = time_ms(lambda: slstm_scan_plain(pre, r, ps), [()], inner=1 if long else None, reps=3 if long else 7)
+        nbytes = (5 * B * S * NH * ds + 8 * B * NH * ds) * 4 + 4 * NH * ds * ds * r[0].element_size()
+        k11.append(_scan_record("K11 slstm_scan", B, S, ds, equal, same, steps_equal, err, ms, plain_ms, nbytes,
+                                8.0 * ds * ds * B * S * NH))
+    bad = [r for r in k10 + k11 if not r["ok"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: [xlstm] K10 / K11 differ from their plain versions: {bad}")
+    return k10, k11
+
+
+def xlstm_main(engine, prompts):
+    """The phase's main path: a batched ``generate`` in a counted window, the
+    census held to the model's cells, then captured against eager, the
+    graph's kernel nodes its counted launches → (counts, summary)."""
+    from repro_torch.kernels import ternary_mm
+
+    cfg = engine.cfg
+    per = xlstm_forward_counts(cfg)
+    engine.generate(prompts, 2)  # the graph's warm-up and capture
+    res, dt, counts, ref_calls = run_counted(lambda: engine.generate(prompts, XLSTM_NEW))
+    forwards = 1 + XLSTM_NEW
+    expect = dict.fromkeys(counts, 0)
+    expect.update(bcq_mm=forwards * per["linears"], mlstm_scan=forwards * per["mlstm_scan"],
+                  slstm_scan=forwards * per["slstm_scan"])
+    log(f"  [xlstm] main path: generate batched ({len(prompts)}x{prompts.shape[1]} + {XLSTM_NEW}, replayed graph) "
+        f"{dt:.3f}s, {len(prompts) * XLSTM_NEW / dt:.1f} tok/s; launches {json.dumps(counts)} (expected "
+        f"{json.dumps(expect)}), ref-oracle dispatches {ref_calls}")
+    if counts != expect or ref_calls or ternary_mm.tc_launches:
+        raise SystemExit(f"chip_smoke: [xlstm] main path launches {counts} != {expect} (ref {ref_calls})")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise SystemExit("chip_smoke: [xlstm] bad generated tokens")
+    graph_l = decode_loop(engine, prompts, True, XLSTM_NEW)()
+    eager_l = decode_loop(engine, prompts, False, XLSTM_NEW)()
+    runs = {name: run_counted(lambda s=scan: engine.generate(prompts, XLSTM_NEW, temperature=0.8, seed=7, scan=s))
+            for name, scan in (("eager", False), ("graph", True))}
+    same = dict(logits=bool(torch.equal(graph_l, eager_l)),
+                tokens=bool((runs["graph"][0].tokens == runs["eager"][0].tokens).all()),
+                census=runs["graph"][2] == runs["eager"][2])
+    graph = engine._graphs[(len(prompts), None)]
+    nodes = {k: v for k, v in GRAPH_NODES[graph].items() if v}
+    want_nodes = {"bcq_mm+bcq_mm_fused": per["linears"], "mlstm_scan": per["mlstm_scan"],
+                  "slstm_scan": per["slstm_scan"]}
+    tok_s = {name: len(prompts) * XLSTM_NEW / runs[name][1] for name in runs}
+    loop = {"graph": lambda: engine.generate(prompts, XLSTM_NEW), "eager":
+            lambda: engine.generate(prompts, XLSTM_NEW, scan=False)}
+    prof = {}
+    for name, run in loop.items():
+        _, wall, _, _ = run_counted(run)
+        device_ms, _, by_name = device_profile(run)
+        groups = collections.Counter()
+        for k, v in by_name.items():
+            groups["K1" if "BCQGroups" in k else "K10" if "mlstm_scan" in k else "K11" if "slstm_scan" in k
+                   else "other"] += v
+        prof[name] = dict(wall_s=wall, device_ms=device_ms, busy=device_ms / (wall * 1e3),
+                          by_part={k: round(v, 3) for k, v in groups.items()})
+    step_ms = prof["graph"]["device_ms"] / forwards
+    log(f"  [xlstm] captured against eager ({XLSTM_NEW} steps at B = {len(prompts)}): logits equal {same['logits']}, "
+        f"sampled tokens equal {same['tokens']}, census equal {same['census']}; tok/s eager {tok_s['eager']:.1f}, "
+        f"graph {tok_s['graph']:.1f}; the graph's kernel nodes {nodes} (expected {want_nodes}), pool "
+        f"{POOL_BYTES[graph] / 1e6:.1f} MB; device busy: graph {prof['graph']['device_ms']:.2f} ms "
+        f"({prof['graph']['busy']:.1%}, by part {prof['graph']['by_part']}), eager {prof['eager']['device_ms']:.2f} "
+        f"ms ({prof['eager']['busy']:.1%}, by part {prof['eager']['by_part']}); ~{step_ms:.3f} device ms a forward")
+    if not all(same.values()) or nodes != want_nodes:
+        raise SystemExit(f"chip_smoke: [xlstm] the replayed graph differs from the eager loop or its nodes from "
+                         f"the prediction: {same}, {nodes}")
+    dist = xlstm_logits_check(engine, "xlstm main path, prefill + 1 step",
+                              lambda eng, mode: step_logits(eng, prompts, mode))
+    return counts, dict(wall_s=dt, tok_s=tok_s, same=same, nodes=nodes, pool_bytes=POOL_BYTES[graph],
+                        profile=prof, device_ms_per_forward=step_ms, logits=dist)
+
+
+def xlstm_long(engine, rng):
+    """A ``XLSTM_LONG``-token prompt and ``XLSTM_NEW`` new tokens: prefill
+    time, decode tok/s, peak memory above the weights; ``XLSTM_FORCED``
+    teacher-forced steps against the ref path."""
+    prompt = rng.integers(0, engine.cfg.vocab, XLSTM_LONG).astype(np.int32)
+    tokens = torch.as_tensor(prompt[None], device=DEVICE).long()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (_, _), prefill_s, pre_counts, _ = run_counted(lambda: engine.prefill(tokens, engine._make_cache(1)))
+    res, wall, counts, ref_calls = run_counted(lambda: engine.generate(prompt[None], XLSTM_NEW))
+    peak = torch.cuda.max_memory_allocated() - base
+    decode_s = wall - prefill_s
+    log(f"  [xlstm long] {XLSTM_LONG}-token prompt + {XLSTM_NEW}: prefill {prefill_s:.3f}s (K10 "
+        f"{pre_counts['mlstm_scan']}, K11 {pre_counts['slstm_scan']} launches), generate {wall:.3f}s (decode "
+        f"~{XLSTM_NEW / decode_s:.1f} tok/s at B = 1), peak {peak / 1e9:.3f} GB above the resident {base / 1e9:.3f} GB; "
+        f"ref-oracle dispatches {ref_calls}")
+    if ref_calls or counts["flash_attention"]:
+        raise SystemExit(f"chip_smoke: [xlstm long] ref {ref_calls}, K8 {counts['flash_attention']}")
+    forced = res.tokens[0, XLSTM_LONG : XLSTM_LONG + XLSTM_FORCED]
+    dist = xlstm_logits_check(engine, f"xlstm long, {XLSTM_FORCED} forced steps",
+                              lambda eng, mode: forced_logits(eng, prompt, forced, mode))
+    return dict(prefill_s=prefill_s, wall_s=wall, decode_tok_s=XLSTM_NEW / decode_s, peak_gb=peak / 1e9,
+                resident_gb=base / 1e9, logits=dist)
+
+
+def xlstm_slots_and_spec(engine, rng, prompts):
+    """Slots: ``XLSTM_SLOT_LENS`` requests on 4 slots == solo (each slot
+    reused after a tenant: its state reset to the initial values);
+    ``SpecConfig(2, 4)`` greedy == plain on the main path's prompts, and
+    ``SpecConfig(4, 4)`` (the draft is the target) accepts every proposal
+    before the cut."""
+    from repro_torch.infer import SpecConfig
+
+    reqs = hybrid_requests(engine.cfg, XLSTM_SLOT_LENS, XLSTM_SLOT_NEW, 600)
+    t0 = synced_clock()
+    solo = hybrid_solo(engine, reqs)
+    t1 = synced_clock()
+    got = hybrid_serve(engine, reqs, SERVE_SLOTS)
+    t2 = synced_clock()
+    equal = sum(got[r.rid] == solo[r.rid] for r in reqs)
+    n_tok = len(reqs) * XLSTM_SLOT_NEW
+    log(f"  [xlstm slots] {len(reqs)} requests (prompts {list(XLSTM_SLOT_LENS)}, {XLSTM_SLOT_NEW} new, temperatures "
+        f"0, 1.0, 0.7) on {SERVE_SLOTS} slots: == solo generate {equal}/{len(reqs)}; {n_tok / (t2 - t1):.1f} tok/s "
+        f"continuous, {n_tok / (t1 - t0):.1f} one at a time")
+    if equal != len(reqs):
+        raise SystemExit("chip_smoke: [xlstm] a slot's tokens differ from its solo generate")
+    plain, plain_s, _, _ = run_counted(lambda: engine.generate(prompts, XLSTM_SPEC_NEW))
+    out = {}
+    for q_draft in (XLSTM_SPEC[0], Q):
+        spec, spec_s, counts, _ = run_counted(
+            lambda: engine.generate(prompts, XLSTM_SPEC_NEW, speculate=SpecConfig(q_draft, XLSTM_SPEC[1])))
+        same = bool((spec.tokens == plain.tokens).all())
+        st = spec.spec_stats
+        log(f"  [xlstm spec] SpecConfig({q_draft}, {XLSTM_SPEC[1]}) on {len(prompts)}x{prompts.shape[1]} + "
+            f"{XLSTM_SPEC_NEW}: greedy == plain {same}; acceptance {st['accept_rate']:.3f} ({st['accepted']}/"
+            f"{st['proposed']}, {st['committable']} of them before the cut, {st['chunks']} chunks); {spec_s:.3f}s "
+            f"(plain {plain_s:.3f}s); K10 {counts['mlstm_scan']}, K11 {counts['slstm_scan']}")
+        if not same or (q_draft == Q and st["accepted"] != st["committable"]):
+            raise SystemExit(f"chip_smoke: [xlstm spec] q'={q_draft}: speculative greedy differs from plain, or "
+                             f"a draft equal to the target had a proposal rejected")
+        out[f"q{q_draft}"] = dict(equal=same, spec_stats=st, wall_s=spec_s)
+    return dict(slots_equal=equal, slot_tok_s=n_tok / (t2 - t1), solo_tok_s=n_tok / (t1 - t0), spec=out,
+                plain_s=plain_s)
+
+
+def xlstm_prefix(engine, rng):
+    """A wave of requests sharing a 512-token prompt, cold then warm, against
+    one prefix cache holding each block's boundary state: tokens and
+    last-prompt logits equal bit for bit, every warm request a hit."""
+    from repro_torch.infer import PrefixCache
+
+    cfg = engine.cfg
+    pc = PrefixCache(block_tokens=PREFIX_BLOCK, max_bytes=XLSTM_PREFIX_BYTES)
+    eng = serving_engine(engine, engine.max_seq, prefix_cache=pc)
+    shared = rng.integers(0, cfg.vocab, PREFIX_LEN)
+    reqs = hybrid_requests(cfg, XLSTM_PREFIX_TAILS, XLSTM_SLOT_NEW, 700)
+    for r in reqs:
+        r.prompt = np.concatenate([shared, r.prompt]).astype(np.int32)
+    waves, logits, walls = [], [], []
+    for _ in range(2):
+        seen = record_admissions(eng)
+        t0 = synced_clock()
+        waves.append(hybrid_serve(eng, reqs, SERVE_SLOTS))
+        walls.append(synced_clock() - t0)
+        del eng.finish_admission
+        logits.append(seen)
+    same_tokens = waves[0] == waves[1]
+    same_logits = all(torch.equal(logits[0][k], logits[1][k]) for k in logits[0])
+    snap_mb = sum(n.nbytes for n in pc._nodes) / 1e6
+    log(f"  [xlstm prefix] {len(reqs)} requests sharing {PREFIX_LEN} tokens (+ tails {list(XLSTM_PREFIX_TAILS)}), "
+        f"cold {walls[0]:.3f}s then warm {walls[1]:.3f}s: tokens equal {same_tokens}, last-prompt logits equal "
+        f"{same_logits}; hits {pc.counters['hits']}, misses {pc.counters['misses']}, commits {pc.counters['commits']}, "
+        f"{len(pc._nodes)} blocks with their boundary states, {snap_mb:.1f} MB")
+    if not (same_tokens and same_logits and pc.counters["hits"] >= len(reqs) and pc.pinned == 0):
+        raise SystemExit("chip_smoke: [xlstm prefix] warm != cold, or a warm request missed")
+    return dict(cold_s=walls[0], warm_s=walls[1], counters=dict(pc.counters), blocks=len(pc._nodes), mb=snap_mb)
+
+
+def xlstm_formats(cfg, params, prompts):
+    """The other formats (and bcq on the paper's LUT kernel) at full width
+    and depth: one batched ``generate`` each, launches counted, logits
+    against the ref path; every launched (kernel, planes, rows, leaf) is
+    kept for :func:`check_launched` → (summary, census)."""
+    from repro_torch.kernels import impl_mode
+
+    per = xlstm_forward_counts(cfg)
+    out, seen_all = {}, collections.Counter()
+    for fmt, mode in (("uniform", None), ("ternary", None), ("codebook", None), ("dequant", None),
+                      ("bcq", "lutgemm")):
+        engine = quantized_engine(cfg, params, fmt, PROMPT_LEN + NEW_TOKENS + 8)
+        kernel = mode or FORMAT_KERNEL[fmt]
+        with impl_mode(mode), kernel_census(by_leaf=True) as seen:
+            engine.generate(prompts, 2)
+            res, dt, counts, ref_calls = run_counted(lambda: engine.generate(prompts, NEW_TOKENS))
+        seen_all.update(seen)
+        want = (1 + NEW_TOKENS) * per["linears"]
+        rel = xlstm_logits_check(engine, f"xlstm {fmt}{' on ' + mode if mode else ''}, prefill + 1 step",
+                                 lambda eng, m: step_logits(eng, prompts, m), mode)
+        log(f"  [xlstm {fmt}{' on ' + mode if mode else ''}] generate batched: {dt:.3f}s; {kernel} {counts[kernel]} "
+            f"launches (expected {want}), K10 {counts['mlstm_scan']}, K11 {counts['slstm_scan']}, ref-oracle "
+            f"dispatches {ref_calls}")
+        if (counts[kernel] != want or ref_calls or counts["mlstm_scan"] != (1 + NEW_TOKENS) * per["mlstm_scan"]
+                or counts["slstm_scan"] != (1 + NEW_TOKENS) * per["slstm_scan"]):
+            raise SystemExit(f"chip_smoke: [xlstm {fmt}] launches {counts}, expected {want} of {kernel}")
+        out[fmt + ("_" + mode if mode else "")] = dict(wall_s=dt, logits=rel, launches=counts[kernel])
+        del engine
+    return out, seen_all
+
+
+def phase_xlstm(gen, records):
+    """Phase 13 (module docstring) → (summary, K10 records, K11 records, the main path's counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant import quantized_bytes
+
+    cfg = get_config(XLSTM)
+    k10, k11 = check_xlstm_scans(gen, cfg)
+    log(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}, mLSTM inner "
+        f"{int(cfg.d_model * cfg.mlstm_proj_factor)}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, layers {cfg.n_layers} "
+        f"{cfg.block_counts()}, {cfg.param_dtype}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  init {time.perf_counter() - t0:.1f}s ({quantized_bytes(params) / 1e9:.3f} GB dense)")
+    engine = quantized_engine(cfg, params, "bcq", XLSTM_LONG + XLSTM_NEW + 8)
+    rng = np.random.default_rng(13)
+    prompts = rng.integers(0, cfg.vocab, (PROMPTS, PROMPT_LEN))
+    summary, walls = {}, {}
+    with kernel_census(by_leaf=True) as seen:
+        t = time.perf_counter()
+        counts, summary["main"] = xlstm_main(engine, prompts)
+        walls["main"] = time.perf_counter() - t
+        for name, fn in (("long", lambda: xlstm_long(engine, rng)),
+                         ("slots_spec", lambda: xlstm_slots_and_spec(engine, rng, prompts)),
+                         ("prefix", lambda: xlstm_prefix(engine, rng))):
+            t = time.perf_counter()
+            summary[name] = fn()
+            walls[name] = time.perf_counter() - t
+    del engine
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    summary["formats"], seen_formats = xlstm_formats(cfg, params, prompts)
+    walls["formats"] = time.perf_counter() - t
+    del params
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    seen.update(seen_formats)
+    summary["checked"] = len(check_launched("xlstm", seen, None, records, gen, xlstm_leaves(cfg)))
+    walls["checked"] = time.perf_counter() - t
+    summary["walls"] = walls
+    log(f"  [xlstm] phase wall by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return summary, k10, k11, counts
+
+
+def scan_line(kernel, recs, counts, n_layers):
+    """A scan kernel's entry of the kernels line (K10, K11): its launches on
+    phase 13's main path; time, plain time and bound summed over one decode
+    step's launches at B = 4 (one a layer of its cell), the other shapes
+    beside them."""
+    (step,) = [r for r in recs if (r["B"], r["S"]) == (PROMPTS, 1)]
+    name, src, replaces = kernel
+    return dict(name=name, route="cuda", source=f"src/repro_torch/{src}", replaces=replaces,
+                launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in recs),
+                ms=step["ms"] * n_layers, plain_ms=step["plain_ms"] * n_layers, bound_ms=step["bound_ms"] * n_layers,
+                bound_by=step["bound_by"], library_ms=None,
+                shapes=[{k: r[k] for k in ("B", "S", "Dh", "ms", "plain_ms", "bound_ms", "bound_by")} for r in recs])
+
+
 def k9_line(k9, counts, n_rglru):
     """K9's entry of the kernels line: its launches on phase 12's main path;
     times, plain time and bound summed over one decode step's launches at
@@ -3391,7 +3838,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     walls = {"t": time.perf_counter()}
-    log("[1/12] card")
+    log("[1/13] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3400,7 +3847,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
     phase_wall(walls)
-    log("[2/12] build")
+    log("[2/13] build")
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
@@ -3418,7 +3865,7 @@ def main() -> int:
             log(f"    {line}")
 
     phase_wall(walls)
-    log("[3/12] kernels against their plain versions")
+    log("[3/13] kernels against their plain versions")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
@@ -3428,30 +3875,33 @@ def main() -> int:
     prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[4/12] flash_attention against its plain version")
+    log("[4/13] flash_attention against its plain version")
     flash_records, flash_offsets = phase_flash(gen)
 
     phase_wall(walls)
-    log("[5/12] main path, one run per format")
+    log("[5/13] main path, one run per format")
     inspect_captures()
     counts, cfg, summaries, engines, prompts = phase_main_path()
     bcq_engine, ternary_engine = engines["bcq"], engines["ternary"]
 
     phase_wall(walls)
-    log("[6/12] continuous serving and one long request")
+    log("[6/13] continuous serving and one long request")
     counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
     summaries["long"], long_logits, long_tokens = phase_long(bcq_engine)
 
     phase_wall(walls)
-    log("[7/12] self-speculative decoding")
-    summaries["speculative"], spec_launches = phase_speculative(bcq_engine, ternary_engine, prompts, serving,
+    log(f"[7/13] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
+    spec_bcq = depth_view(bcq_engine, SPEC_LAYERS)
+    summaries["speculative"], spec_launches = phase_speculative(spec_bcq, depth_view(ternary_engine, SPEC_LAYERS),
+                                                                prompts, spec_serving_view(spec_bcq, serving),
                                                                 summaries["continuous"],
                                                                 checked_shapes(records + draft_records))
+    del spec_bcq
     solos = serving["solos"]  # phase 11 holds its streams to them
     del ternary_engine, serving
 
     phase_wall(walls)
-    log("[8/12] prefix cache and chunked prefill")
+    log("[8/13] prefix cache and chunked prefill")
     summaries["prefix"] = phase_prefix(bcq_engine, (summaries["long"], long_logits, long_tokens),
                                        records + draft_records, gen)
     offset_launches = (sum(summaries["prefix"][run]["offset_launches"] for run in ("cold wave", "warm wave"))
@@ -3459,27 +3909,36 @@ def main() -> int:
     del bcq_engine
 
     phase_wall(walls)
-    log("[9/12] kernels (the JSON line is printed last but one)")
+    log("[9/13] kernels (the JSON line is printed last but one)")
     line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches, flash_offsets,
                         offset_launches)
 
     phase_wall(walls)
-    log("[10/12] captured decode and the int8 cache")
+    log("[10/13] captured decode and the int8 cache")
     summaries["graphs"] = phase_graphs(engines, prompts)
 
     phase_wall(walls)
-    log("[11/12] serving session and observability")
+    log("[11/13] serving session and observability")
     summaries["session"] = phase_session(engines["bcq"], solos)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[12/12] the hybrid family: recurrentgemma-9b at full width and depth")
+    log("[12/13] the hybrid family: recurrentgemma-9b at full width and depth")
     summaries["hybrid"], k9_records, hybrid_counts = phase_hybrid(gen, records + draft_records)
     from repro_torch.configs import get_config
 
     line["kernels"].append(k9_line(k9_records, hybrid_counts, get_config(HYBRID).block_counts()["rglru"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_wall(walls)
+    log("[13/13] the ssm family: xlstm-125m at full width and depth")
+    summaries["xlstm"], k10_records, k11_records, xlstm_counts = phase_xlstm(gen, records + draft_records)
+    n_cells = get_config(XLSTM).block_counts()
+    line["kernels"].append(scan_line(K10, k10_records, xlstm_counts, n_cells["mlstm"]))
+    line["kernels"].append(scan_line(K11, k11_records, xlstm_counts, n_cells["slstm"]))
     phase_wall(walls)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3488,7 +3947,8 @@ def main() -> int:
          "steps": {path: {B: path_step(records, names, B, cfg.n_layers) for B in (1, PROMPTS, PROMPTS * PROMPT_LEN)}
                    for path, names in STEP_PATHS.items()},
          "table_limit": limit_records, "dense_rows": dense_rows, "prompt_tiles": prompt_tiles,
-         "flash_offsets": flash_offsets,
+         "flash_offsets": flash_offsets, "k9_records": k9_records, "k10_records": k10_records,
+         "k11_records": k11_records,
          "draft_records": draft_records, "draft_steps": draft_steps,
          "paths": summaries, **line},
         indent=1))

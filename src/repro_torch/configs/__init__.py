@@ -1,6 +1,6 @@
 """Published model configs (counterpart of ``repro/configs``; the dense
-decoders and the hybrid recurrentgemma-9b, the families the port runs so
-far).
+decoders, the hybrid recurrentgemma-9b and the ssm xlstm-125m, the families
+the port runs so far).
 
 ``get_config(arch_id)`` resolves the ``--arch`` flag. Each module defines
 ``CONFIG`` at the published shape; reduced variants come from
@@ -17,6 +17,7 @@ _ARCHS = {
     "minitron-4b": "minitron_4b",
     "starcoder2-7b": "starcoder2_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-125m": "xlstm_125m",
     "gpt3-175b": "gpt3_175b",  # the paper's own estimation target (§IV)
 }
 

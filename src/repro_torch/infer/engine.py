@@ -87,6 +87,14 @@ rows copy into the slot's at their slots. Chunked prefill stays refused
 for ring and recurrent models, as the reference refuses it
 (:meth:`Engine._chunk_refusal`).
 
+The ssm family (the xLSTM cells ``mlstm`` / ``slstm``) takes the same
+paths. Its state does not start at zeros (``m = -inf``, the sLSTM's ``n =
+1e-6``), so every reset of a cache (``generate``'s, a slot's before a
+whole-shot admission) writes ``init_cache``'s values
+(``models.reset_cache``); and an mLSTM layer's state is a matrix a head,
+so a committing prefill collects only the states the prefix cache takes
+(the new blocks' ends) and its own last one, not one a token.
+
 Not ported: the reference's power-of-two chunk buckets, which exist for
 XLA's compile cache (chunks here are dispatched at their exact length).
 """
@@ -114,7 +122,7 @@ from repro_torch.infer.speculative import (
     spec_chunk,
 )
 from repro_torch.kernels import current_impl_mode
-from repro_torch.models import forward, fuse_decode_projections, init_cache
+from repro_torch.models import forward, fuse_decode_projections, init_cache, reset_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.infer.speculative import select_recurrent_target
 from repro_torch.models.layers import (
@@ -145,7 +153,13 @@ class GenerationResult:
     # (-1 = none); set when generate(stop_tokens=...) was given
     stop_positions: Optional[np.ndarray] = None
     # generate(speculate=...): accept_rate, accepted, proposed, chunks,
-    # q_draft, gamma
+    # q_draft, gamma, as the reference counts them, and committable.
+    # ``proposed`` is gamma for each active row of each chunk, proposals past
+    # the n_steps cut included; ``accepted`` counts only acceptances committed
+    # before the cut; ``committable`` counts the proposals that fell before
+    # the cut, so a draft equal to the target shows accepted == committable
+    # whatever n_steps, and accepted == proposed only when the run ends on a
+    # chunk boundary
     spec_stats: Optional[dict] = None
 
     def generated(self, b: int = 0) -> np.ndarray:
@@ -168,9 +182,12 @@ class PendingAdmission:
     ``pos`` on (the matched prefix's rows and, for a recurrent model, its
     boundary state installed before it). ``collect``: a recurrent model
     whose prompt commits new blocks: each prefill dispatch collects its
-    per-token recurrent state into ``segments`` as ``(start position,
-    forward(collect_states=True)'s tree)``, from which finish takes each
-    block's boundary snapshot."""
+    recurrent state after the new blocks' last tokens that it consumes and
+    after its own last token into ``segments`` as ``(start position, the
+    collected steps (dispatch-relative), forward(collect_states=steps)'s
+    tree)``, from which finish takes each block's boundary snapshot (only
+    those steps: an mLSTM layer's state is a matrix a head, 14.2 MB a token
+    at xlstm-125m's width)."""
 
     prompt: torch.Tensor  # (1, plen) int64, on the engine's device
     plen: int
@@ -317,8 +334,7 @@ class Engine:
             self._graphs.clear()
             self._graph_pool = None
             self._caches[batch] = self._make_cache(batch)
-        for leaf in tree_leaves(self._caches[batch]):
-            leaf.zero_()
+        reset_cache(self.cfg, self._caches[batch])
         key = (batch, current_impl_mode())
         if key not in self._graphs:
             self._graphs[key] = self._new_graph(self._caches[batch], batch)
@@ -438,7 +454,8 @@ class Engine:
         output follows the target's distribution by rejection sampling, from
         per-row generators (row ``b`` seeded ``seed + b``, its draft stream
         ``draft_seed(seed + b)``), so its stream is not the plain path's.
-        ``GenerationResult.spec_stats`` reports the acceptance.
+        ``GenerationResult.spec_stats`` reports the acceptance (its comment
+        says what each count holds past the ``n_steps`` cut).
 
         ``stop_tokens`` (token ids) marks each row's first stop: decode still
         runs all ``n_steps``, the result records the stop positions and
@@ -509,7 +526,7 @@ class Engine:
         state = {"t_pend": t0, "pos": np.full((b,), s, np.int64), "cache": cache, "draft_cache": dcache,
                  "logits": logits}
         emitted = np.ones((b,), np.int64)
-        acc = prop = chunks = 0
+        acc = prop = fit = chunks = 0
         flags = dict(greedy=np.full((b,), greedy), temperature=np.full((b,), temperature if not greedy else 1.0),
                      spec_enabled=np.ones((b,), bool))
         with self._obs_scope("engine/spec_generate", n_steps=n_steps, gamma=spec.gamma):
@@ -524,12 +541,13 @@ class Engine:
                 # acceptances past the n_steps cut are not counted
                 acc += int(np.minimum(n_keep - 1, n_steps - emitted)[active].sum())
                 prop += int(active.sum()) * spec.gamma
+                fit += int(np.minimum(spec.gamma, n_steps - emitted)[active].sum())
                 chunks += 1
                 emitted = np.where(active, emitted + n_keep, emitted)
                 state = freeze_inactive(new_state, state, active)
         new = np.asarray([r[:n_steps] for r in rows], np.int64).reshape(b, n_steps)
         stats = {"accept_rate": acc / max(prop, 1), "accepted": acc, "proposed": prop, "chunks": chunks,
-                 "q_draft": spec.q_draft, "gamma": spec.gamma}
+                 "q_draft": spec.q_draft, "gamma": spec.gamma, "committable": fit}
         return new, stats
 
     # -- slot-batched serving API (infer/scheduler.py drives these) ---------
@@ -689,13 +707,19 @@ class Engine:
 
     def _prefill_at(self, p: PendingAdmission, tokens: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
         """One prefill dispatch of an admission → logits (1, 1, V). A
-        collecting admission keeps the dispatch's per-token recurrent state
-        (``p.segments``) and installs the state after its last token."""
-        logits, tree = forward(self.cfg, self.params, tokens=tokens, cache=cache, pos=pos, logits_mode="last",
-                               prefill=True, collect_states=p.collect)
+        collecting admission keeps the dispatch's recurrent state after each
+        new block's last token and after its own (``p.segments``) and
+        installs the state after its last token."""
+        n = tokens.shape[1]
+        steps = False
         if p.collect:
-            p.segments.append((pos, tree))
-            last = torch.full((1,), tokens.shape[1] - 1, device=self.device)
+            ends = {e - 1 - pos for _, e in p.handle.new_spans if pos < e <= pos + n}
+            steps = tuple(sorted(ends | {n - 1}))
+        logits, tree = forward(self.cfg, self.params, tokens=tokens, cache=cache, pos=pos, logits_mode="last",
+                               prefill=True, collect_states=steps)
+        if p.collect:
+            p.segments.append((pos, steps, tree))
+            last = torch.full((1,), len(steps) - 1, device=self.device)
             install_recurrent(cache, select_recurrent_target(tree, last))
         return logits
 
@@ -740,22 +764,23 @@ class Engine:
             return self._install_admission(slots, slot, p, rows, spec)
 
     def _clear_row(self, rows: dict) -> None:
-        """Zero one slot's rows before a whole-shot prefill into them, when
-        its state is not positional: the previous tenant's recurrent state
-        would seed the new prompt's (a fresh prefill starts from zeros), and
-        its ring rows are cleared with it. A linear cache needs nothing:
-        decode writes a row before it attends it."""
+        """Reset one slot's rows to a fresh cache's values before a
+        whole-shot prefill into them, when its state is not positional: the
+        previous tenant's recurrent state would seed the new prompt's (a
+        fresh prefill starts from ``init_cache``'s state: zeros, and the
+        xLSTM cells' ``m = -inf`` and sLSTM ``n = 1e-6``), and its ring rows
+        are cleared with it. A linear cache needs nothing: decode writes a
+        row before it attends it."""
         if self._has_recurrent or self._has_ring:
-            for leaf in tree_leaves(rows):
-                leaf.zero_()
+            reset_cache(self.cfg, rows)
 
     def _boundary_snaps(self, p: PendingAdmission, spans) -> list:
         """Per committed block (start, end): the recurrent state after its
         last token, from the collecting dispatch that consumed it."""
         snaps = []
         for _, e in spans:
-            st, tree = next(seg for seg in reversed(p.segments) if seg[0] < e)
-            idx = torch.full((1,), e - 1 - st, device=self.device)
+            st, steps, tree = next(seg for seg in reversed(p.segments) if seg[0] < e)
+            idx = torch.full((1,), steps.index(e - 1 - st), device=self.device)
             snaps.append(snapshot_recurrent(select_recurrent_target(tree, idx)))
         return snaps
 

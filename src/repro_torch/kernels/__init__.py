@@ -11,6 +11,8 @@ versions, and the quantized-matmul dispatch.
 - ``codebook_mm.py``  codebook matmul, centroid tables in shared memory
 - ``flash_attn.py``   causal GQA attention with an online softmax (prefill)
 - ``rglru_scan.py``   the RG-LRU recurrence over a sequence (the hybrid family)
+- ``mlstm_scan.py``   the mLSTM matrix-memory recurrence (the ssm family)
+- ``slstm_scan.py``   the sLSTM scalar-memory recurrence (the ssm family)
 - ``_build.py``       nvcc build of ``csrc/*.cu`` at first use, ctypes loading
 - ``_common.py``      wrapper checks, the split-k launch shape and workspace
 - ``ops.py``          ``qmatmul`` format dispatch, ``linear``, ``impl_mode``
@@ -30,6 +32,7 @@ from repro_torch.kernels.dequant_mm import (
 )
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_plain
 from repro_torch.kernels.lutgemm import lutgemm, lutgemm_plain
+from repro_torch.kernels.mlstm_scan import mlstm_scan, mlstm_scan_plain
 from repro_torch.kernels.ops import (
     current_impl_mode,
     impl_mode,
@@ -41,12 +44,13 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.kernels.ref import bcq_mm_ref, lutgemm_tablewise_ref
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain
 from repro_torch.kernels.ternary_mm import ternary_mm, ternary_mm_plain
 from repro_torch.kernels.uniform_mm import uniform_mm, uniform_mm_plain
 
 KERNEL_WRAPPERS = (
     bcq_mm, bcq_mm_fused, lutgemm, uniform_mm, dequant_materialize, ternary_mm, codebook_mm,
-    flash_attention, rglru_scan,
+    flash_attention, rglru_scan, mlstm_scan, slstm_scan,
 )
 
 
@@ -143,6 +147,8 @@ __all__ = [
     "lutgemm",
     "lutgemm_plain",
     "lutgemm_tablewise_ref",
+    "mlstm_scan",
+    "mlstm_scan_plain",
     "qmatmul",
     "quantized_matmul",
     "quantized_matmul_fused",
@@ -150,6 +156,8 @@ __all__ = [
     "rglru_scan",
     "rglru_scan_plain",
     "set_counters",
+    "slstm_scan",
+    "slstm_scan_plain",
     "ternary_mm",
     "ternary_mm_plain",
     "uniform_mm",

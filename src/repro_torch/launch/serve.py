@@ -57,6 +57,9 @@ local attention on a ring cache; reduced: 5 layers, window 16) through
 every path above but chunked prefill, which the reference refuses for ring
 and recurrent models too: ``--prefill-chunk`` is then an argparse error
 naming its reason; a prompt past the window bypasses the prefix cache.
+``--arch xlstm-125m`` serves the ssm family (mLSTM and sLSTM cells;
+reduced: 2 layers) the same way, with the same refusal of
+``--prefill-chunk``.
 
 ``--tp`` belongs to tensor parallelism, which is not ported yet; it is
 refused with an error naming the missing piece.

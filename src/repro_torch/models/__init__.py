@@ -1,9 +1,9 @@
-"""Decoder models (the dense family so far)."""
+"""Decoder models (the dense, hybrid and ssm families)."""
 
 from repro_torch.models.config import ModelConfig, reduced
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.fuse import fuse_decode_projections
-from repro_torch.models.model import forward, init_cache, init_params
+from repro_torch.models.model import forward, init_cache, init_params, reset_cache
 
 __all__ = [
     "ModelConfig",
@@ -13,4 +13,5 @@ __all__ = [
     "init_params",
     "params_from_numpy",
     "reduced",
+    "reset_cache",
 ]

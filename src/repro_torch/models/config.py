@@ -1,5 +1,5 @@
-"""Model configuration (counterpart of ``repro/models/config.py``; the dense
-and hybrid families are ported so far).
+"""Model configuration (counterpart of ``repro/models/config.py``; the dense,
+hybrid and ssm families are ported so far).
 
 A model is a stack of stages; each stage is ``(pattern, repeat)``: a tuple
 of block types applied in order, repeated ``repeat`` times with its
@@ -8,10 +8,12 @@ reference derives them:
 
   dense    [("attn",) x L]
   hybrid   [("rglru", "rglru", "local_attn") x L // 3, ("rglru",) * (L % 3) x 1]
+  ssm      [("mlstm", "slstm") x L // 2]   (L even)
 
 ``rglru`` is Griffin's recurrent block (``models/recurrent.py``),
 ``local_attn`` attention over a window of ``window`` positions whose KV
 cache is a ring of ``min(max_seq, window)`` rows (``models/layers.py``).
+``mlstm`` and ``slstm`` are the xLSTM cells (``models/recurrent.py``).
 """
 
 from __future__ import annotations
@@ -23,10 +25,9 @@ import torch
 
 Stage = Tuple[Tuple[str, ...], int]
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 # What each family the reference has and the port does not still needs.
 MISSING = {
-    "ssm": "the xLSTM cells (mlstm, slstm in models/recurrent.py)",
     "moe": "the MoE blocks (models/moe.py)",
     "vlm": "cross-attention and the image-embedding inputs",
     "audio": "the frame-embedding inputs",
@@ -51,6 +52,8 @@ class ModelConfig:
     # hybrid (RG-LRU)
     lru_width: Optional[int] = None  # defaults to d_model
     conv_width: int = 4
+    # ssm (xLSTM): the mLSTM block's inner width is d_model * this
+    mlstm_proj_factor: float = 2.0
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     # "int8": K/V stored as int8 codes with one f32 scale per (token, head)
@@ -84,6 +87,10 @@ class ModelConfig:
             if rem:
                 stages.append((("rglru",) * rem, 1))
             return tuple(stages)
+        if self.family == "ssm":
+            if L % 2:
+                raise ValueError("ssm family expects even layer count")
+            return ((("mlstm", "slstm"), L // 2),)
         return ((("attn",), L),)
 
     @property
@@ -122,11 +129,12 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the reference's sizes:
-    5 layers for the hybrid family, 2 otherwise; window 16, lru_width 64)."""
+    5 layers for the hybrid family, 2 otherwise, the ssm family's two
+    cells included; window 16, lru_width 64)."""
     base = dict(
         name=cfg.name + "-smoke",
         family=cfg.family,
-        n_layers={"hybrid": 5}.get(cfg.family, 2),
+        n_layers={"hybrid": 5, "ssm": 2}.get(cfg.family, 2),
         d_model=64,
         n_heads=4,
         n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),

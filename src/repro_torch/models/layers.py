@@ -64,8 +64,11 @@ training (no cache) runs the reference's :func:`_local_attention_chunked`.
 
 The cache-rewind contract (the reference's, ``repro/models/layers.py``):
 every cache leaf is POSITIONAL (``k``, ``v`` and the int8 scales: rows at
-absolute positions, or ring slots) or RECURRENT (``h``, ``conv``: state
-that folds every token irreversibly, ``models/recurrent.py``). The prefix
+absolute positions, or ring slots) or RECURRENT (``h``, ``conv`` of the
+RG-LRU; ``c``, ``n``, ``m`` of the mLSTM and ``h``, ``c``, ``n``, ``m`` of
+the sLSTM: state that folds every token irreversibly,
+``models/recurrent.py``). A name means the same kind in every block, and
+everything keyed by leaf name works whatever the leaf's shape. The prefix
 cache gathers and installs positional rows (:func:`gather_prefix_rows`,
 :func:`install_prefix_rows`) and snapshots recurrent state at block
 boundaries (:func:`snapshot_recurrent`, :func:`install_recurrent`).
@@ -94,7 +97,7 @@ from repro_torch.utils import ROW_SUM_WIDTH, host_pos, in_prompt_rows, row_sum, 
 Pos = Union[int, torch.Tensor]
 
 POSITIONAL_CACHE_LEAVES = frozenset({"k", "v", "k_scale", "v_scale"})
-RECURRENT_CACHE_LEAVES = frozenset({"h", "conv"})
+RECURRENT_CACHE_LEAVES = frozenset({"h", "conv", "c", "n", "m"})
 
 
 def select_leaves(tree, names, fn=lambda leaf: leaf):

@@ -1,5 +1,5 @@
-"""Model assembly: init / forward for the dense decoder and the hybrid
-family (counterpart of ``repro/models/model.py``).
+"""Model assembly: init / forward for the dense decoder, the hybrid family
+and the ssm family (counterpart of ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``{"stages": ({"b0": block}, ...),
 "final_norm", "lm_head", "embed"}`` with each block's leaves stacked over the
@@ -16,15 +16,23 @@ One :func:`forward` serves train, prefill and decode:
   decode   cache=filled, pos=cur_len       → logits (B, 1, V)
   verify   cache=filled, pos, chunked_decode=True → logits (B, S, V)
 The cache is updated in place (``layers._cache_write``, and the recurrent
-state by ``recurrent.rglru_block``) and returned. ``collect_states=True``
-(a speculative verify, or a prefill whose recurrent boundary states the
-prefix cache commits) leaves the recurrent leaves as they were and returns,
-in their place, their per-token stacks ``(repeat, S, B, ...)``, the
-reference's layout; the positional leaves are the live cache's, written.
+state by the blocks of ``models/recurrent.py``) and returned.
+``collect_states=True`` (a speculative verify) leaves the recurrent leaves
+as they were and returns, in their place, their per-token stacks
+``(repeat, S, B, ...)``, the reference's layout; the positional leaves are
+the live cache's, written. ``collect_states`` may also name step indices (a
+prefill whose recurrent boundary states the prefix cache commits): the
+stacks then hold the states after those steps only, ``(repeat, S', B,
+...)``, since an mLSTM layer's state is a (Dh × Dh) matrix a head.
 
 Block types: ``attn`` (dense), ``local_attn`` (attention over a window on a
-ring cache of ``min(s_max, window)`` rows) and ``rglru`` (Griffin's
-recurrent block, whose state is ``h`` (B, W) f32 and ``conv`` (B, K-1, W)).
+ring cache of ``min(s_max, window)`` rows), ``rglru`` (Griffin's recurrent
+block, whose state is ``h`` (B, W) f32 and ``conv`` (B, K-1, W)), and the
+xLSTM cells ``mlstm`` (state ``c`` (B, NH, Dh, Dh), ``n``, ``m``) and
+``slstm`` (``h``, ``c``, ``n``, ``m``, each (B, NH, Dh)), which hold no MLP:
+the block is ``h + cell(rmsnorm(h))``. Their state starts at ``m = -inf``
+(and the sLSTM's ``n = 1e-6``), not at zeros: :func:`reset_cache` puts any
+cache back to :func:`init_cache`'s values.
 """
 
 from __future__ import annotations
@@ -41,7 +49,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.utils import host_pos, prompt_rows, resolve_device, tree_map
 
 ATTN_BLOCKS = ("attn", "local_attn")
-BLOCKS = ATTN_BLOCKS + ("rglru",)
+XLSTM_BLOCKS = ("mlstm", "slstm")
+RECURRENT_BLOCKS = ("rglru",) + XLSTM_BLOCKS
+BLOCKS = ATTN_BLOCKS + RECURRENT_BLOCKS
+_CELLS = {"rglru": R.rglru_block, "mlstm": R.mlstm_block, "slstm": R.slstm_block}
 
 
 def _check_block(btype: str) -> None:
@@ -53,6 +64,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, btype: str, repeat: int, 
     _check_block(btype)
     d, lead = cfg.d_model, (repeat,)
     p = {"ln1": torch.ones((*lead, d), dtype=cfg.pdtype, device=device)}
+    if btype in XLSTM_BLOCKS:  # the cell carries its own projections: no MLP
+        p["mix"] = (R.init_mlstm if btype == "mlstm" else R.init_slstm)(gen, cfg, lead, device)
+        return p
     if btype == "rglru":
         p["mix"] = R.init_rglru(gen, cfg, lead, device)
     else:
@@ -94,12 +108,16 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="
     ``min(s_max, window)`` (or ``ring``, when given: a batch-1 admission
     cache takes its slot cache's ring length, since a ring's slot layout
     depends on its length); an ``rglru`` block holds ``h`` ``(repeat, B,
-    W)`` f32 and ``conv`` ``(repeat, B, K-1, W)`` in ``dtype``."""
+    W)`` f32 and ``conv`` ``(repeat, B, K-1, W)`` in ``dtype``; an xLSTM
+    block its f32 state at the reference's initial values
+    (``recurrent.init_state``)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.cdtype
 
     def block_cache(btype, repeat):
         _check_block(btype)
+        if btype in XLSTM_BLOCKS:
+            return R.init_state(cfg, btype, batch, (repeat,), dev)
         if btype == "rglru":
             w = cfg.lru_width
             return {
@@ -130,6 +148,18 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="
     }
 
 
+def reset_cache(cfg: ModelConfig, cache: dict) -> dict:
+    """Put every leaf of ``cache`` (a whole cache, or a tree of views of its
+    rows, e.g. one slot's) back to :func:`init_cache`'s values, in place:
+    zeros, and the xLSTM cells' initial ``m`` and ``n``
+    (``recurrent.INITIAL_VALUES``). Returns ``cache``."""
+    for (pattern, _), stage in zip(cfg.stages, cache["stages"]):
+        for bi, btype in enumerate(pattern):
+            for name, leaf in stage[f"b{bi}"].items():
+                leaf.fill_(R.initial_value(btype, name))
+    return cache
+
+
 def layer_slice(tree, l: int):
     """Layer ``l``'s views of a stacked block tree (no copies)."""
 
@@ -155,11 +185,14 @@ def apply_block(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One pre-norm decoder block → (h, cache). ``chunked``: the block's
     tokens are a chunked decode (``layers.attention``), and the MLP sees
-    them as token rows. ``collect``: an ``rglru`` block returns its
-    per-token state stacks instead of the cache (``recurrent.rglru_block``)."""
+    them as token rows. ``collect`` (True, or step indices): a recurrent
+    block returns its state stacks instead of the cache
+    (``models/recurrent.py``). An xLSTM block has no MLP."""
     _check_block(btype)
-    if btype == "rglru":
-        r, cache = R.rglru_block(p["mix"], cfg, L.rmsnorm(p["ln1"], h), cache, collect=collect, chunked=chunked)
+    if btype in RECURRENT_BLOCKS:
+        r, cache = _CELLS[btype](p["mix"], cfg, L.rmsnorm(p["ln1"], h), cache, collect=collect, chunked=chunked)
+        if btype in XLSTM_BLOCKS:
+            return h + r, cache
     else:
         window = cfg.window if btype == "local_attn" else 0
         r, cache = L.attention(
@@ -201,10 +234,13 @@ def forward(
     ``collect_states=True`` returns, in place of the cache, its tree with
     every recurrent leaf replaced by its per-token stack ``(repeat, S, B,
     ...)`` (entry t: the state after token t); the live cache's recurrent
-    leaves keep their values, its positional ones are written."""
+    leaves keep their values, its positional ones are written. Step indices
+    (ascending, distinct) in place of True keep only those steps' states:
+    ``(repeat, S', B, ...)``, entry j the state after step
+    ``collect_states[j]``."""
     if chunked_decode and cache is None:
         raise ValueError("chunked_decode needs a filled cache")
-    if collect_states and cache is None:
+    if collect_states is not False and collect_states is not None and cache is None:
         raise ValueError("collect_states needs a decoding state")
     with prompt_rows(prefill):
         return _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode, collect_states)
@@ -230,12 +266,12 @@ def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_de
             for bi, btype in enumerate(pattern):
                 key = f"b{bi}"
                 c_in = None if stage_c is None else layer_slice(stage_c[key], l)
-                coll = collect and btype == "rglru"
+                coll = collect if btype in RECURRENT_BLOCKS else False
                 h, c_out = apply_block(
                     layer_slice(stage_p[key], l), cfg, btype, h, positions, c_in, pos,
                     chunked=chunked_decode, collect=coll,
                 )
-                if coll:
+                if coll is not False:
                     stacks.setdefault((si, key), []).append(c_out)
     if stacks:
         cache = {"stages": tuple(

@@ -49,9 +49,13 @@ from repro_torch.kernels import (
     launch_counts,
     lutgemm,
     lutgemm_plain,
+    mlstm_scan,
+    mlstm_scan_plain,
     reset_launch_counts,
     rglru_scan,
     rglru_scan_plain,
+    slstm_scan,
+    slstm_scan_plain,
     ternary_mm,
     ternary_mm_plain,
     uniform_mm,
@@ -140,6 +144,7 @@ def test_kernels_match_plain(cuda, B, k, o, q, g, dtype):
     assert launch_counts() == {
         "bcq_mm": 1, "bcq_mm_fused": 1, "lutgemm": 1, "uniform_mm": 2,
         "dequant_materialize": 4, "ternary_mm": 2, "codebook_mm": 2, "flash_attention": 0, "rglru_scan": 0,
+        "mlstm_scan": 0, "slstm_scan": 0,
     }
     torch.testing.assert_close(bcq_mm(x, packed, scales, g=g), bcq_mm(x, packed, scales, g=g), rtol=0, atol=0)
     torch.testing.assert_close(lutgemm(x, packed, scales, g=g), lutgemm(x, packed, scales, g=g), rtol=0, atol=0)
@@ -153,7 +158,7 @@ def test_kernels_raise_on_mixed_devices(cuda):
             fn(x, packed, torch.ones((s, 4, 128)), g=64)
     with pytest.raises(ValueError, match="devices"):
         dequant_materialize(packed.to(cuda), torch.ones((2, 4, 128)), g=64)
-    assert len(KERNEL_WRAPPERS) == 9
+    assert len(KERNEL_WRAPPERS) == 11
 
 
 @pytest.mark.parametrize("fmt", ["uniform", "dequant", "ternary", "codebook"])
@@ -1485,3 +1490,260 @@ def test_hybrid_warm_equals_cold_on_card(cuda):
         h = warm.take_prefix_handle()
         assert h.length == 0 and not h.new_spans
         assert torch.equal(got_l, _admission(cold, long)[0])
+
+
+# -- the ssm family on the card: K10, K11 and xlstm-125m's serving paths ------
+
+XLSTM_SHAPES = [  # (B, S, NH, Dh): decode steps, a verify, a long prompt, many rows, a small and a ragged head
+    (4, 1, 4, 384), (4, 5, 4, 384), (1, 3000, 4, 384), (64, 1, 4, 384), (2, 7, 4, 32), (3, 9, 2, 100),
+]
+
+
+def _mlstm_inputs(gen, B, S, NH, Dh, cuda):
+    q, k, v = (torch.randn((B, S, NH, Dh), generator=gen, device=cuda) for _ in range(3))
+    ig = torch.randn((B, S, NH), generator=gen, device=cuda)
+    logf = torch.nn.functional.logsigmoid(torch.randn((B, S, NH), generator=gen, device=cuda) + 2.0)
+    state = (torch.randn((B, NH, Dh, Dh), generator=gen, device=cuda) * 0.1,
+             torch.randn((B, NH, Dh), generator=gen, device=cuda), torch.randn((B, NH), generator=gen, device=cuda))
+    return (q, k, v, ig, logf), state
+
+
+@pytest.mark.parametrize("B,S,NH,Dh", XLSTM_SHAPES)
+def test_mlstm_scan_matches_plain_on_card(cuda, B, S, NH, Dh):
+    """K10 against its plain loop within 2e-4 (both sum the same f32
+    products, in other orders): h, the final state written in place and the
+    states kept at chosen steps (the state then left as it was); the same
+    bits on a rerun; a scan of S tokens equals S calls at S = 1 and a batch
+    row equals the row alone, bit for bit."""
+    from repro_torch.kernels.mlstm_scan import scale_for
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B * 131 + S + Dh)
+    xs, state = _mlstm_inputs(gen, B, S, NH, Dh, cuda)
+    sc, steps = scale_for(Dh), sorted({0, S // 2, S - 1})
+    st, ps = [t.clone() for t in state], [t.clone() for t in state]
+    reset_launch_counts()
+    h, _ = mlstm_scan(*xs, *st, sc)
+    assert launch_counts()["mlstm_scan"] == 1
+    ph, _ = mlstm_scan_plain(*xs, *ps, sc)
+    torch.testing.assert_close(h, ph, rtol=TOL, atol=TOL)
+    for name, a, b in zip("cnm", st, ps):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL, msg=name)
+    kept = [t.clone() for t in state]
+    h1, stacks = mlstm_scan(*xs, *kept, sc, steps=steps)
+    _, pstacks = mlstm_scan_plain(*xs, *[t.clone() for t in state], sc, steps=steps)
+    assert torch.equal(h1, h) and all(torch.equal(a, b) for a, b in zip(kept, state))
+    for name in "cnm":
+        torch.testing.assert_close(stacks[name], pstacks[name], rtol=TOL, atol=TOL, msg=name)
+    h2, stacks2 = mlstm_scan(*xs, *kept, sc, steps=steps)
+    assert torch.equal(h2, h) and all(torch.equal(stacks2[name], stacks[name]) for name in "cnm")
+    if S <= 9:
+        step_st = [t.clone() for t in state]
+        hs = [mlstm_scan(*(x[:, t : t + 1] for x in xs), *step_st, sc)[0] for t in range(S)]
+        assert torch.equal(torch.cat(hs, dim=1), h) and all(torch.equal(a, b) for a, b in zip(step_st, st))
+    if B > 1:
+        alone = [t[:1].clone() for t in state]
+        assert torch.equal(mlstm_scan(*(x[:1] for x in xs), *alone, sc)[0], h[:1])
+
+
+def test_mlstm_scan_from_the_initial_state_on_card(cuda):
+    """From ``m = -inf`` (a fresh cache): finite, and within 2e-4 of the plain
+    loop."""
+    from repro_torch.kernels.mlstm_scan import scale_for
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    xs, _ = _mlstm_inputs(gen, 2, 3, 4, 384, cuda)
+    state = (torch.zeros((2, 4, 384, 384), device=cuda), torch.zeros((2, 4, 384), device=cuda),
+             torch.full((2, 4), -float("inf"), device=cuda))
+    st, ps = [t.clone() for t in state], [t.clone() for t in state]
+    h, _ = mlstm_scan(*xs, *st, scale_for(384))
+    ph, _ = mlstm_scan_plain(*xs, *ps, scale_for(384))
+    assert torch.isfinite(h).all() and all(torch.isfinite(t).all() for t in st)
+    torch.testing.assert_close(h, ph, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,S,NH,Dh", [(4, 1, 4, 192), (4, 5, 4, 192), (1, 3000, 4, 192), (64, 1, 4, 192),
+                                       (2, 7, 4, 16), (3, 9, 2, 100)])
+def test_slstm_scan_matches_plain_on_card(cuda, B, S, NH, Dh, dtype):
+    """K11 against its plain loop within 2e-4, R in bf16 (xlstm-125m's
+    parameter dtype) and f32; the same bits on a rerun; scan == steps and a
+    batch row == the row alone, bit for bit."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B * 17 + S + Dh)
+    pre = [torch.randn((B, S, NH, Dh), generator=gen, device=cuda) for _ in range(4)]
+    r = [(torch.randn((NH, Dh, Dh), generator=gen, device=cuda) / Dh**0.5).to(dtype) for _ in range(4)]
+    state = [torch.randn((B, NH, Dh), generator=gen, device=cuda) for _ in range(4)]
+    state[2] = state[2].abs() + 0.5
+    steps = sorted({0, S // 2, S - 1})
+    st, ps = [t.clone() for t in state], [t.clone() for t in state]
+    reset_launch_counts()
+    hs, _ = slstm_scan(pre, r, st)
+    assert launch_counts()["slstm_scan"] == 1
+    phs, _ = slstm_scan_plain(pre, r, ps)
+    torch.testing.assert_close(hs, phs, rtol=TOL, atol=TOL)
+    for name, a, b in zip("hcnm", st, ps):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL, msg=name)
+    kept = [t.clone() for t in state]
+    hs1, stacks = slstm_scan(pre, r, kept, steps=steps)
+    _, pstacks = slstm_scan_plain(pre, r, [t.clone() for t in state], steps=steps)
+    assert torch.equal(hs1, hs) and all(torch.equal(a, b) for a, b in zip(kept, state))
+    for name in "hcnm":
+        torch.testing.assert_close(stacks[name], pstacks[name], rtol=TOL, atol=TOL, msg=name)
+    hs2, _ = slstm_scan(pre, r, kept, steps=())
+    assert torch.equal(hs2, hs) and all(torch.equal(a, b) for a, b in zip(kept, state))
+    if S <= 9:
+        step_st = [t.clone() for t in state]
+        outs = [slstm_scan([p[:, t : t + 1] for p in pre], r, step_st)[0] for t in range(S)]
+        assert torch.equal(torch.cat(outs, dim=1), hs) and all(torch.equal(a, b) for a, b in zip(step_st, st))
+    if B > 1:
+        alone = [t[:1].clone() for t in state]
+        assert torch.equal(slstm_scan([p[:1] for p in pre], r, alone)[0], hs[:1])
+
+
+def test_xlstm_scans_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((2, 3, 4, 8), device=cuda)
+    g = torch.zeros((2, 3, 4), device=cuda)
+    c, n, m = torch.zeros((2, 4, 8, 8), device=cuda), torch.zeros((2, 4, 8), device=cuda), torch.zeros((2, 4))
+    with pytest.raises(ValueError, match="is on"):
+        mlstm_scan(q, q, q, g, g, c, n, m, 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        mlstm_scan(q, q, q.bfloat16(), g, g, c, n, m.to(cuda), 1.0)
+    st = [n.clone() for _ in range(4)]
+    r = [torch.zeros((4, 8, 8), device=cuda) for _ in range(4)]
+    with pytest.raises(ValueError, match="is on"):
+        slstm_scan([q] * 4, r[:3] + [torch.zeros((4, 8, 8))], st)
+    with pytest.raises(ValueError, match="exceeds"):
+        slstm_scan([torch.zeros((1, 1, 1, 300), device=cuda)] * 4, [torch.zeros((1, 300, 300), device=cuda)] * 4,
+                   [torch.zeros((1, 1, 300), device=cuda)] * 4)
+
+
+# a 2-layer xlstm-125m at full width (Dh 384 and 192), bf16, its projections in bcq
+XLSTM = dict(d_model=768, n_heads=4, n_kv_heads=4, vocab=4096, param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+@functools.lru_cache(maxsize=None)
+def _xlstm_params():
+    cfg = reduced(get_config("xlstm-125m"), **XLSTM)
+    return quantize_params(init_params(cfg, seed=0, device="cuda"), QuantPolicy(q=4, g=128, iters=2), device="cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def _xlstm_engine(prefix=False):
+    from repro_torch.infer import PrefixCache
+
+    cfg = reduced(get_config("xlstm-125m"), **XLSTM)
+    pc = PrefixCache(block_tokens=4, max_bytes=1 << 30) if prefix else None
+    return Engine(cfg, _xlstm_params(), max_seq=128, device="cuda", prefix_cache=pc)
+
+
+def test_xlstm_graph_generate_equals_eager_on_card(cuda):
+    """The xLSTM decode step captured and replayed (the state written in
+    place by K10 / K11) against the eager loop: the same logits step by step
+    and the same sampled tokens, bit for bit; the census counts K10 and K11
+    once a layer of their cell a forward, K8 and K9 never."""
+    eng = _xlstm_engine()
+    prompts = np.random.default_rng(5).integers(0, eng.cfg.vocab, (4, 21))
+    eager_l = _step_logits(eng, prompts, 20, False)
+    graph_l = _step_logits(eng, prompts, 20, True)
+    assert torch.equal(graph_l, eager_l)
+    reset_launch_counts()
+    eager = eng.generate(prompts, 20, temperature=0.8, seed=1, scan=False)
+    eager_counts = launch_counts()
+    reset_launch_counts()
+    graphed = eng.generate(prompts, 20, temperature=0.8, seed=1)
+    assert launch_counts() == eager_counts
+    assert eager_counts["mlstm_scan"] == eager_counts["slstm_scan"] == 21  # one layer each: prefill + 20 steps
+    assert eager_counts["bcq_mm"] == 21 * (6 + 5 + 1) and eager_counts["flash_attention"] == 0
+    assert eager_counts["rglru_scan"] == eager_counts["bcq_mm_fused"] == 0
+    np.testing.assert_array_equal(graphed.tokens, eager.tokens)
+
+
+def test_xlstm_scan_and_verify_equal_decode_steps_on_card(cuda):
+    """30 tokens from a fresh cache as one chunked forward (K10 / K11 over
+    30 steps, each token a row of its own in the linears) leave the logits
+    and the state of 30 decode steps, and a verify of 5 tokens after a
+    prefill gives each position the bits of a decode step there."""
+    from repro_torch.utils import tree_leaves
+
+    eng = _xlstm_engine()
+    cfg = eng.cfg
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 30)), device=cuda)
+    chunk = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 5)), device=cuda)
+    c_scan, c_step = eng._make_cache(4), eng._make_cache(4)
+    got, _ = forward(cfg, eng.params, tokens=prompt, cache=c_scan, pos=torch.zeros(4, dtype=torch.long, device=cuda),
+                     logits_mode="all", chunked_decode=True)
+    steps = []
+    for t in range(30):
+        lg, c_step = eng.decode(prompt[:, t : t + 1], c_step, torch.full((4,), t, device=cuda))
+        steps.append(lg)
+    assert torch.equal(got, torch.stack(steps, dim=1))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(c_scan), tree_leaves(c_step)))
+    pos = torch.tensor([30, 30, 30, 30], device=cuda)
+    _, c_chunk = eng.prefill(prompt, eng._make_cache(4))
+    _, c_step = eng.prefill(prompt, eng._make_cache(4))
+    got, _ = forward(cfg, eng.params, tokens=chunk, cache=c_chunk, pos=pos, logits_mode="all", chunked_decode=True)
+    steps = []
+    for t in range(5):
+        lg, c_step = eng.decode(chunk[:, t : t + 1], c_step, pos + t)
+        steps.append(lg)
+    assert torch.equal(got, torch.stack(steps, dim=1))
+
+
+def test_xlstm_slots_and_speculation_exact_on_card(cuda):
+    """Nine requests, prompts of 4..40 tokens, through 3 slots (each reused
+    after a tenant): the slot graph and the eager slot loop give every
+    request its solo ``generate``'s tokens; greedy speculation (q' = 2 and
+    the all-accepting q' = q) equals plain greedy, in ``generate`` and
+    through speculative slots."""
+    from repro_torch.infer import engine as engine_mod
+
+    eng = _xlstm_engine()
+    rng = np.random.default_rng(6)
+    reqs = [Request(prompt=rng.integers(0, eng.cfg.vocab, size=int(rng.integers(4, 40))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(3, 20)), temperature=[0.0, 1.0, 0.7][i % 3], seed=i, rid=i)
+            for i in range(9)]
+    solo = {r.rid: eng.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature,
+                                seed=r.seed).tokens[0, r.prompt.size :] for r in reqs}
+    for eager in (False, True):
+        engine_mod._EAGER_SLOT_STEPS = eager
+        try:
+            sched = Scheduler(eng, n_slots=3, chunk=4)
+            for r in reqs:
+                sched.submit(r)
+            for c in sched.run():
+                np.testing.assert_array_equal(c.new_tokens, solo[c.rid])
+        finally:
+            engine_mod._EAGER_SLOT_STEPS = False
+    prompts = rng.integers(0, eng.cfg.vocab, (4, 24))
+    plain = eng.generate(prompts, 18)
+    for q_draft in (2, 4):
+        spec = eng.generate(prompts, 18, speculate=SpecConfig(q_draft, 4))
+        np.testing.assert_array_equal(spec.tokens, plain.tokens)
+        assert spec.spec_stats["committable"] < spec.spec_stats["proposed"]  # 17 after the first: no chunk boundary
+        if q_draft == 4:
+            assert spec.spec_stats["accepted"] == spec.spec_stats["committable"]
+    sched = Scheduler(eng, n_slots=3, chunk=2, speculate=SpecConfig(2, 4))
+    for r in reqs:
+        sched.submit(dataclasses.replace(r, speculate=r.temperature == 0.0))
+    for c in sched.run():
+        np.testing.assert_array_equal(c.new_tokens, solo[c.rid])
+
+
+def test_xlstm_warm_equals_cold_on_card(cuda):
+    """A warm admission (the shared prefix's boundary state installed, the
+    tail prefilled from it) gives the cold admission's last-prompt logits
+    and tokens bit for bit."""
+    cold = _xlstm_engine()
+    warm = _xlstm_engine(prefix=True)
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, cold.cfg.vocab, 12)
+    prompts = [np.concatenate([shared, rng.integers(0, cold.cfg.vocab, n)]).astype(np.int32) for n in (3, 6, 1)]
+    for i, prompt in enumerate(prompts):
+        want_l, want_t = _admission(cold, prompt)
+        got_l, got_t = _admission(warm, prompt)
+        assert warm.take_prefix_handle().length == (0 if i == 0 else 12)
+        assert torch.equal(got_l, want_l), i
+        np.testing.assert_array_equal(got_t, want_t)

@@ -97,8 +97,17 @@ def test_reduced_and_stages_match_the_reference(n_layers):
 @pytest.mark.parametrize("family,missing", [("ssm", "xLSTM"), ("moe", "MoE"), ("vlm", "cross-attention"),
                                             ("audio", "frame-embedding")])
 def test_unported_families_name_what_is_missing(family, missing):
+    """Each family the port lacks is refused with what it needs. The ssm
+    family (the xLSTM cells) is ported: its case checks that it builds the
+    reference's stages and refuses an odd layer count as the reference does."""
+    kw = dict(name="x", family=family, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=256)
+    if family == "ssm":
+        assert ModelConfig(n_layers=4, **kw).stages == jreduced(jget_config("xlstm-125m"), n_layers=4).stages
+        with pytest.raises(ValueError, match="even layer count"):
+            ModelConfig(n_layers=3, **kw)
+        return
     with pytest.raises(ValueError, match=missing):
-        ModelConfig(name="x", family=family, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=256)
+        ModelConfig(n_layers=2, **kw)
 
 
 # -- local attention and the ring cache ----------------------------------------
