@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py    # full llama3.2-3b (28 layers, every format), full recurrentgemma-9b, full xlstm-125m
+    python3 chip_smoke.py    # full llama3.2-3b (28 layers, every format), full recurrentgemma-9b, full xlstm-125m,
+                             # full olmoe-1b-7b
 
 Phases, each printed on lines of its own; any failure raises and the exit
 code is non-zero:
@@ -170,7 +171,7 @@ code is non-zero:
 9. kernels  one JSON line listing every kernel, its launches
              (``spec_launches``: on phase 7's runs; K8's ``offset_launches``:
              on phase 8's; K9's on phase 12's main path, K10's and K11's on
-             phase 13's) and its numbers,
+             phase 13's, K12's on phase 14's) and its numbers,
              printed last but one;
 10. graphs   captured decode and the int8 cache, at 28 layers. Every
              format's batched ``generate`` of phase 5 (and bcq under
@@ -231,15 +232,19 @@ code is non-zero:
              K9 launched as the blocks predict, K8 and the oracle never;
              captured against eager, logits, sampled tokens and census bit
              for bit (every capture's graph nodes its counted launches,
-             ``inspect_captures``), each loop profiled. A 3000-token prompt
+             ``inspect_captures``), each loop profiled. At the first 14
+             layers (``HYBRID_SIDE_LAYERS``: 4 of the 12 (rglru, rglru,
+             local_attn) patterns and the remainder, views of the weights;
+             the smoke's time budget since phase 14): a 3000-token prompt
              (the ring wraps inside the prefill) and 32 new tokens: prefill
              time, decode tok/s, peak memory above the weights, 8
              teacher-forced steps against ``impl_mode("ref")`` within 3e-2
              of max|logit|, K8 never. 8 requests (prompts of 16..2600
              tokens, 16 new) on 4 slots == solo ``generate``;
              ``SpecConfig(2, 4)`` greedy == plain on 2 prompts of 2100
-             tokens (the acceptance printed); a wave of 6 requests sharing
-             a 512-token prompt, cold then warm against a prefix cache,
+             tokens (the acceptance printed). At all 38: a wave of 6
+             requests sharing a 512-token prompt, cold then warm against a
+             prefix cache,
              tokens and last-prompt logits bit for bit, and a 2200-token
              prompt that neither matches nor commits; the int8 ring cache's
              forced decode logits within 5% (relative L2) of the bf16
@@ -272,7 +277,41 @@ code is non-zero:
              depth, launches counted, logits against the ref path; every
              (kernel, planes, rows, leaf) of K1-K7 the phase launched is
              held to its plain version. K10 and K11 join the kernels line;
-14. last line ``{"ok": true, "device": {...}}``.
+14. moe      olmoe-1b-7b (the MoE family: 16 ``attn_moe`` layers, d_model
+             2048, 16 heads of 128, 64 experts, top-8, ``moe_d_ff`` 1024) at
+             full width and depth, random weights from seed 0, bcq on the
+             card (q = 4, g = 128, iters = 4; time, packed GB, solver peak).
+             K12 (``expert_mm``, every expert of a bank in one launch) at
+             olmoe's two bank shapes for capacities 8, 16 and 80 (a decode
+             step at B = 4, the batched prefill, a 512-token prompt), bf16
+             and f32: within 2e-4 of its plain version, every expert's rows
+             bit for bit K1 called on that expert alone, the same bits on a
+             rerun, timed beside its byte bound, its plain version and
+             ``torch.bmm`` of bf16 buffers against the bank pre-dequantized
+             to bf16; uniform's K12 at one shape; K8 at olmoe's heads. The
+             main path: a batched ``generate`` (4 × 16 + 32 new) in a counted
+             window, K1, K2, K8 and K12 launched as the parameter tree
+             predicts (``moe_forward_counts``), the oracle never; captured
+             against eager (logits, sampled tokens, census bit for bit; the
+             graph's kernel nodes its counted launches); both decode loops
+             profiled (device ms a step, busy share, ms by part: K12, K1/K2,
+             the dispatch's sorts / scans / scatters / gathers, the rest;
+             the largest kernels), and one MoE layer's dispatch (router,
+             sorts, buffers, combine) timed apart: ``moe_apply`` less its
+             three K12 launches. Logits: the f32-compute kernel path
+             within 3e-2 of the f32-weight oracle (gated), the bf16 paths'
+             distances and the share of (token, layer) top-8 sets the bf16
+             kernel and ref paths agree on (reported). A 512-token prompt at
+             B = 1: prefill time, peak memory, launches. The four refusals
+             (slots, speculation, prefix cache, chunked prefill) raise with
+             the reference's words. Every launched K12 bank shape was held
+             to its plain version, every K1/K2 shape is checked. Last,
+             llama4-maverick reduced (d_model 512, 128 experts, top-1, the
+             shared expert, dense / MoE interleaved every 2 of 4 layers, bf16
+             through the kernels): K12 at E = 128 against its plain version,
+             a batched ``generate`` with the predicted census, captured ==
+             eager. K12 joins the kernels line;
+15. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -412,7 +451,18 @@ TRACE_TAGS = {
     ("rglru_scan",): ("rglru_scan_kernel",),
     ("mlstm_scan",): ("mlstm_scan_kernel",),
     ("slstm_scan",): ("slstm_scan_kernel",),
+    ("expert_mm",): ("expert_grouptable_kernel",),
 }
+# K12's device kernel; its name also holds its format's decoder (BCQGroups, ...), so
+# a name holding it counts as K12's alone (``tagged``)
+EXPERT_TAG = "expert_grouptable_kernel"
+
+
+def tagged(text, tags):
+    """Whether a device kernel's name (or a graph node's statement) ``text``
+    is one of the kernels ``tags`` names: K1's tag matches K12's names too,
+    which count for K12 only."""
+    return any(tag in text for tag in tags) and (EXPERT_TAG in tags or EXPERT_TAG not in text)
 L2_BYTES = 50 * 2**20
 # phase 10: the decode step's device time with the bf16 and the int8 cache,
 # at these widths (the widest first) and this cache length; int8
@@ -439,7 +489,7 @@ def graph_kernel_nodes(dot):
     dump (``cudaGraphDebugDotPrint``), each node statement counted once by
     the kernel name it holds; K4's tensor-core nodes also apart."""
     stmts = re.split(r'(?m)^(?=\s*"[^"\n]+"\s*\[)', dot)[1:]
-    nodes = {"+".join(group): sum(any(tag in st for tag in tags) for st in stmts)
+    nodes = {"+".join(group): sum(tagged(st, tags) for st in stmts)
              for group, tags in TRACE_TAGS.items()}
     nodes["ternary_mm on the tensor cores"] = sum("ternary_tc_kernel" in st for st in stmts)
     return nodes
@@ -1485,7 +1535,7 @@ def _trace_device_ms(prof):
 
 def traced_launches(by_count):
     """{kernel-wrapper group: device launches in a trace} (``TRACE_TAGS``)."""
-    return {"+".join(group): sum(n for name, n in by_count.items() if any(tag in name for tag in tags))
+    return {"+".join(group): sum(n for name, n in by_count.items() if tagged(name, tags))
             for group, tags in TRACE_TAGS.items()}
 
 
@@ -2162,19 +2212,26 @@ SPEC_LAYERS = 8  # phase 7's depth: the first 8 of llama3.2-3b's 28 layers (the 
 
 
 def depth_view(engine, n_layers):
-    """The first ``n_layers`` layers of a dense-decoder engine as an engine
-    of their own: views of its stacked (fused) weights, no copy."""
+    """The first ``n_layers`` layers of an engine as an engine of their own:
+    views of its stacked (fused) weights, no copy. The config's stages at
+    ``n_layers`` must repeat the engine's patterns, each stage taking the
+    first of its layers (a hybrid model at 14 layers: 4 of the 12 (rglru,
+    rglru, local_attn) patterns and the (rglru, rglru) remainder)."""
     from repro_torch.core.qtensor import QuantizedTensor
     from repro_torch.infer import Engine
     from repro_torch.utils import tree_map
 
-    def head(leaf):
+    def head(leaf, n):
         if isinstance(leaf, QuantizedTensor):
-            return leaf.replace(packed=leaf.packed[:n_layers], scales=leaf.scales[:n_layers])
-        return leaf[:n_layers]
+            return leaf.replace(packed=leaf.packed[:n], scales=leaf.scales[:n])
+        return leaf[:n]
 
     cfg = dataclasses.replace(engine.cfg, n_layers=n_layers, stages=None)
-    params = dict(engine.params, stages=tuple(tree_map(head, stage) for stage in engine.params["stages"]))
+    if [p for p, _ in cfg.stages] != [p for p, _ in engine.cfg.stages]:
+        raise SystemExit(f"chip_smoke: a {n_layers}-layer view of {engine.cfg.name} has stages {cfg.stages}, "
+                         f"which do not repeat {engine.cfg.stages}")
+    params = dict(engine.params, stages=tuple(tree_map(lambda leaf, n=n: head(leaf, n), stage)
+                                              for (_, n), stage in zip(cfg.stages, engine.params["stages"])))
     return Engine(cfg, params, max_seq=engine.max_seq, fuse=False, device="cuda")
 
 
@@ -3012,6 +3069,9 @@ HYBRID_SPEC, HYBRID_SPEC_LEN, HYBRID_SPEC_NEW = (2, 4), 2100, 12  # prompts that
 HYBRID_PREFIX_TAILS, HYBRID_BYPASS = (16, 64, 23, 40, 31, 57), 2200
 HYBRID_INT8_LENS = (16, 300, 2100, 64)
 HYBRID_FORMAT_LAYERS = 5  # one (rglru, rglru, local_attn) pattern and the (rglru, rglru) remainder
+# the long prompt's and the slots' / speculation's depth (the smoke's time budget since phase 14): the first 4
+# (rglru, rglru, local_attn) patterns and the (rglru, rglru) remainder of the 38 layers, views of the weights
+HYBRID_SIDE_LAYERS = 14
 
 
 def hybrid_leaves(cfg):
@@ -3373,15 +3433,17 @@ def phase_hybrid(gen, records):
     rng = np.random.default_rng(12)
     prompts = rng.integers(0, cfg.vocab, (PROMPTS, PROMPT_LEN))
     summary, walls = {}, {}
+    side = depth_view(engine, HYBRID_SIDE_LAYERS)
     with kernel_census(by_leaf=True) as seen:
         t = time.perf_counter()
         counts, summary["main"] = hybrid_main(engine, prompts)
         walls["main"] = time.perf_counter() - t
-        for name, fn in (("long", hybrid_long), ("slots_spec", hybrid_slots_and_spec), ("prefix", hybrid_prefix),
-                         ("int8", hybrid_int8)):
+        for name, fn, eng in (("long", hybrid_long, side), ("slots_spec", hybrid_slots_and_spec, side),
+                              ("prefix", hybrid_prefix, engine), ("int8", hybrid_int8, engine)):
             t = time.perf_counter()
-            summary[name] = fn(engine, rng)
+            summary[name] = fn(eng, rng)
             walls[name] = time.perf_counter() - t
+    del side
     summary["checked"] = len(check_launched("hybrid", seen, None, records, gen, hybrid_leaves(cfg)))
     del engine
     torch.cuda.empty_cache()
@@ -3742,6 +3804,483 @@ def phase_xlstm(gen, records):
     return summary, k10, k11, counts
 
 
+# -- phase 14: the MoE family (olmoe-1b-7b; llama4-maverick reduced) -----------------
+
+MOE = "olmoe-1b-7b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+# K12 has no TPU kernel: it is the port's counterpart of the reference's _w dequantize and grouped einsums
+K12 = ("expert_mm", "csrc/grouptable.cuh", "src/repro/models/moe.py:186")
+MOE_NEW = 32  # the batched generate's new tokens
+# parts of the device kernel names of the MoE dispatch's own ops (routing sorts, counts, buffers, combine)
+DISPATCH_TAGS = ("sort", "scan", "scatter", "gather", "index")
+MOE_LONG = 512
+# llama4-maverick's shared expert, top-1 and dense / MoE interleaving at a width one card holds (every
+# linear >= 128 wide, so each is packed)
+LLAMA4_REDUCED = dict(d_model=512, d_ff=1024, moe_d_ff=512, n_experts=128, top_k=1, moe_period=2, n_layers=4,
+                      param_dtype="bfloat16", compute_dtype="bfloat16")
+LLAMA4_CAPS = (8, 80)
+MOE_REFUSALS = {  # the reference's words, infer/engine.py
+    "slots": "slot-batched serving does not support MoE models: shared expert capacity couples batch rows",
+    "speculation": "speculative decoding does not support MoE models: shared expert capacity couples the "
+                   "verified chunk's tokens, so the batched verify is not equivalent to step-by-step decode",
+    "prefix cache": "prefix_cache requires a tokens-input, non-VLM, non-MoE model",
+    "chunked prefill": "chunked prefill is unsupported for this architecture (ring-buffer/recurrent/MoE/VLM",
+}
+
+
+def bank_planes(kind, E, k, o, dtype, gen):
+    """A bank of E experts' random packed planes and scales (``format_planes``
+    each; scales in ``dtype``) → (packed (E, P, k/8, o), scales (E, S, k/G, o))."""
+    planes = [format_planes(kind, k, o, Q, G, gen) for _ in range(E)]
+    return torch.stack([p for p, _ in planes]), torch.stack([s for _, s in planes]).to(dtype)
+
+
+def check_k12(kind, E, k, o, C, dtype, gen, bank=None, leaf=""):
+    """K12 at one bank shape: within ``KERNEL_TOL`` of its plain version,
+    every expert's rows bit for bit the format's kernel called on that expert
+    alone, the same bits on a rerun; timed (graph replays) beside its
+    plain version, its bound (the bank's planes and scales, x and the f32
+    out read or written once; E·C·k·o products and sums at the inputs'
+    peak) and the library call (``torch.bmm`` of bf16 buffers against the
+    bank pre-dequantized to bf16) → record."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.kernels import bcq_mm, expert_mm, expert_mm_plain, ternary_mm, uniform_mm
+
+    single = {"bcq": bcq_mm, "uniform": uniform_mm, "ternary": ternary_mm}[kind]
+    packed, scales = bank if bank is not None else bank_planes(kind, E, k, o, dtype, gen)
+    x = torch.randn((E, C, k), generator=gen, device=DEVICE).to(dtype)
+    y = expert_mm(x, packed, scales, g=G, kind=kind)
+    torch.cuda.synchronize()
+    want = expert_mm_plain(x, packed, scales, g=G, kind=kind)
+    err = (y - want).abs().max().item()
+    within = bool(torch.allclose(y, want, rtol=KERNEL_TOL, atol=KERNEL_TOL)) and bool(torch.isfinite(y).all())
+    del want
+    each = bool(torch.equal(torch.stack([single(x[e], packed[e], scales[e], g=G) for e in range(E)]), y))
+    same = bool(torch.equal(expert_mm(x, packed, scales, g=G, kind=kind), y))
+    ms = time_ms(lambda: expert_mm(x, packed, scales, g=G, kind=kind), [()])
+    plain_ms = time_ms(lambda: expert_mm_plain(x, packed, scales, g=G, kind=kind), [()], reps=3, inner=1)
+    f = get_format(kind)
+    w16 = f.dequantize(QuantizedTensor(packed=packed, scales=scales, g=G, k=k, o=o, fmt=kind), dtype=torch.bfloat16)
+    x16 = x.to(torch.bfloat16)
+    library_ms = time_ms(lambda: torch.bmm(x16, w16), [()])
+    del w16, x16
+    nbytes = packed.numel() + scales.numel() * scales.element_size() + x.numel() * x.element_size() + E * C * o * 4
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * E * C * k * o / PEAK_OPS[torch.promote_types(dtype, scales.dtype)] * 1e3
+    rec = dict(kernel=K12[0], kind=kind, leaf=leaf, E=E, C=C, k=k, o=o, q=packed.shape[1], g=G,
+               dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=KERNEL_TOL, equals_each_expert=each,
+               same_bits=same, ok=within and each and same, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations", mb=nbytes / 1e6)
+    log(f"  [K12 {kind}] {leaf or '-':11s} E={E:<3d} C={C:<2d} k={k:<4d} o={o:<4d} {rec['dtype']:8s} err {err:.2e} "
+        f"(tol {KERNEL_TOL:g}), == each expert's {single.__name__} {each}, rerun same bits {same} "
+        f"{'ok' if rec['ok'] else 'FAIL'}  {ms:.4f} ms = {ms / rec['bound_ms']:.1f}x its bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, library "
+        f"bmm {library_ms:.4f} ms ({ms / library_ms:.2f}x)")
+    return rec
+
+
+def moe_caps(cfg):
+    """The capacity rows of the phase's calls: a decode step at B = 4, the
+    batched prefill of 4 × 16 tokens, the ``MOE_LONG``-token prompt (olmoe:
+    8, 16, 80)."""
+    from repro_torch.models.moe import capacity
+
+    return tuple(capacity(cfg, t) for t in (PROMPTS, PROMPTS * PROMPT_LEN, MOE_LONG))
+
+
+def check_k12_banks(gen, cfg):
+    """K12 at olmoe-1b-7b's two bank shapes (w_gate / w_up: d → F, w_down: F →
+    d), for every capacity of :func:`moe_caps`, bf16 and f32; uniform's K12
+    at one shape → records (raises on any failure)."""
+    E, d, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    recs = []
+    for leaf, (k, o) in (("w_gate/w_up", (d, F)), ("w_down", (F, d))):
+        for dtype in (torch.bfloat16, torch.float32):
+            bank = bank_planes("bcq", E, k, o, dtype, gen)
+            recs += [check_k12("bcq", E, k, o, C, dtype, gen, bank, leaf) for C in moe_caps(cfg)]
+            del bank
+    recs.append(check_k12("uniform", E, d, F, moe_caps(cfg)[0], torch.bfloat16, gen, leaf="w_gate/w_up"))
+    bad = [r for r in recs if not r["ok"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: [moe] K12 differs from its plain version or from each expert's kernel: {bad}")
+    return recs
+
+
+class _CountedBank(_Counted):
+    """K12's wrapper seen through :func:`k12_census`: counts each call by
+    (kind, E, C, k, o, x dtype); the launch counter passes through."""
+
+    def __call__(self, x, packed, scales, *a, **kw):
+        self._seen[(kw.get("kind", "bcq"), *x.shape, packed.shape[-1], str(x.dtype).replace("torch.", ""))] += 1
+        return self._fn(x, packed, scales, *a, **kw)
+
+
+@contextlib.contextmanager
+def k12_census():
+    """Count every K12 call by (kind, E, C, k, o, x dtype) while the block
+    runs (``ops.expert_matmul`` imports the wrapper at each call, so the
+    module attribute patched here sees them all)."""
+    mod = importlib.import_module("repro_torch.kernels.expert_mm")
+    fn, seen = mod.expert_mm, collections.Counter()
+    mod.expert_mm = _CountedBank(fn, "expert_mm", seen, False)
+    try:
+        yield seen
+    finally:
+        mod.expert_mm = fn
+
+
+def moe_forward_counts(engine, batch, seq):
+    """Launches of one forward of ``batch`` rows of ``seq`` tokens through
+    the bcq engine, from its fused parameter tree: K2 at every ``wqkv`` and
+    dense ``w_gate_up``, K1 at ``wo``, a dense or shared ``w_down``, the
+    shared expert's ``w_gate`` / ``w_up`` (an MoE MLP is not fused) and the
+    LM head (``batch`` rows: the last position's), one a row slab; K12 at
+    each bank, one a slab of the capacity's rows; K8 once an attention
+    layer of a prefill (seq > 1)."""
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.kernels import grouptable
+    from repro_torch.models.moe import capacity
+
+    cfg, counts = engine.cfg, collections.Counter()
+    rows, cap = batch * seq, capacity(engine.cfg, batch * seq)
+
+    def launches(qt, n, experts=1):
+        pl = grouptable.plan("bcq", qt.k, qt.o, qt.q, qt.g, cfg.cdtype, qt.scales.dtype)
+        return -(-n // pl.slab_rows(n, experts))
+
+    def linears(tree):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                linears(leaf)
+            elif isinstance(leaf, QuantizedTensor):
+                fused = name in ("wqkv", "w_gate_up")
+                counts["bcq_mm_fused" if fused else "bcq_mm"] += launches(leaf, rows)
+
+    for (pattern, repeat), stage in zip(cfg.stages, engine.params["stages"]):
+        for bi, btype in enumerate(pattern):
+            blk = stage[f"b{bi}"]
+            for _ in range(repeat):
+                linears(blk["attn"])
+                mlp = blk["mlp"]
+                if "router" in mlp:
+                    for name in ("w_gate", "w_up", "w_down"):
+                        counts["expert_mm"] += launches(mlp[name], cap, cfg.n_experts)
+                    linears(mlp.get("shared", {}))
+                else:
+                    linears(mlp)
+                counts["flash_attention"] += int(seq > 1)
+    counts["bcq_mm"] += launches(engine.params["lm_head"], batch)
+    return counts
+
+
+def generate_counts(engine, batch, prompt_len, new):
+    """Launches of ``generate``: a prefill, then ``new`` decode forwards (one
+    a sampled token) → {wrapper: launches}, every other wrapper 0."""
+    from repro_torch.kernels import launch_counts
+
+    want = dict.fromkeys(launch_counts(), 0)
+    for n, (b, s) in ((1, (batch, prompt_len)), (new, (batch, 1))):
+        for name, v in moe_forward_counts(engine, b, s).items():
+            want[name] += n * v
+    return want
+
+
+def route_census():
+    """Record every routing decision of ``models.moe`` while the block runs:
+    each call's (T, k) expert sets, sorted per token, in call order."""
+    from repro_torch.models import moe as M
+
+    real, calls = M.route, []
+
+    def recorded(logits, k):
+        top_p, top_e = real(logits, k)
+        calls.append(torch.sort(top_e, dim=-1).values.cpu())
+        return top_p, top_e
+
+    @contextlib.contextmanager
+    def scope():
+        M.route = recorded
+        try:
+            yield calls
+        finally:
+            M.route = real
+
+    return scope()
+
+
+def moe_main(engine, prompts):
+    """The phase's main path: a batched ``generate`` in a counted window, the
+    census held to :func:`generate_counts`; captured against eager (every
+    decode step's logits, a sampled run's tokens and census, bit for bit;
+    the graph's kernel nodes its counted launches, ``inspect_captures``);
+    the replayed and eager decode loops profiled (device ms a step, busy
+    share, ms by part) → (counts, summary)."""
+    from repro_torch.kernels import ternary_mm
+
+    cfg = engine.cfg
+    b, s = prompts.shape
+    engine.generate(prompts, 2)  # the graph's warm-up and capture
+    res, dt, counts, ref_calls = run_counted(lambda: engine.generate(prompts, MOE_NEW))
+    expect = generate_counts(engine, b, s, MOE_NEW)
+    log(f"  [moe] main path: generate batched ({b}x{s} + {MOE_NEW}, replayed graph) {dt:.3f}s, "
+        f"{b * MOE_NEW / dt:.1f} tok/s; launches {json.dumps(counts)} (expected {json.dumps(expect)}), ref-oracle "
+        f"dispatches {ref_calls}")
+    if counts != expect or ref_calls or ternary_mm.tc_launches:
+        raise SystemExit(f"chip_smoke: [moe] main path launches {counts} != {expect} (ref {ref_calls})")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise SystemExit("chip_smoke: [moe] bad generated tokens")
+    graph_l = decode_loop(engine, prompts, True, MOE_NEW)()
+    eager_l = decode_loop(engine, prompts, False, MOE_NEW)()
+    runs = {name: run_counted(lambda sc=scan: engine.generate(prompts, MOE_NEW, temperature=0.8, seed=7, scan=sc))
+            for name, scan in (("eager", False), ("graph", True))}
+    same = dict(logits=bool(torch.equal(graph_l, eager_l)),
+                tokens=bool((runs["graph"][0].tokens == runs["eager"][0].tokens).all()),
+                census=runs["graph"][2] == runs["eager"][2])
+    graph = engine._graphs[(b, None)]
+    nodes = {k: v for k, v in GRAPH_NODES[graph].items() if v}
+    step = moe_forward_counts(engine, b, 1)
+    want_nodes = {"bcq_mm+bcq_mm_fused": step["bcq_mm"] + step["bcq_mm_fused"], "expert_mm": step["expert_mm"]}
+    tok_s = {name: b * MOE_NEW / runs[name][1] for name in runs}
+    prof = {}
+    for name, captured in (("graph", True), ("eager", False)):
+        loop = decode_loop(engine, prompts, captured, MOE_NEW)
+        loop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        device_ms, _, by_name = device_profile(loop)
+        parts = collections.Counter()
+        for kname, ms in by_name.items():
+            parts["K12" if EXPERT_TAG in kname else "K1/K2" if "BCQGroups" in kname
+                  else "sort/scan/scatter/gather/index" if any(tag in kname.lower() for tag in DISPATCH_TAGS)
+                  else "the rest"] += ms
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        prof[name] = dict(wall_s=wall, tok_s=b * MOE_NEW / wall, step_device_ms=device_ms / MOE_NEW,
+                          busy=device_ms / (wall * 1e3),
+                          step_ms_by_part={k: round(v / MOE_NEW, 4) for k, v in parts.items()},
+                          top_kernels_step_ms=[(kname[:90], round(ms / MOE_NEW, 4)) for kname, ms in top])
+    g, e = prof["graph"], prof["eager"]
+    log(f"  [moe] captured against eager ({MOE_NEW} steps at B = {b}): logits equal {same['logits']}, sampled tokens "
+        f"equal {same['tokens']}, census equal {same['census']}; the graph's kernel nodes {nodes} (expected "
+        f"{want_nodes}), pool {POOL_BYTES[graph] / 1e6:.1f} MB; generate tok/s eager {tok_s['eager']:.1f}, graph "
+        f"{tok_s['graph']:.1f}")
+    log(f"  [moe] decode loop, a step: replayed {g['step_device_ms']:.3f} device ms ({g['tok_s']:.1f} tok/s, busy "
+        f"{g['busy']:.1%}, ms by part {g['step_ms_by_part']}); eager {e['step_device_ms']:.3f} device ms "
+        f"({e['tok_s']:.1f} tok/s, busy {e['busy']:.1%}, ms by part {e['step_ms_by_part']})")
+    log(f"  [moe] the replayed step's largest kernels, ms a step: {g['top_kernels_step_ms']}")
+    whole, banks = moe_dispatch_ms(engine, b)
+    n_moe = cfg.block_counts()["attn_moe"]
+    dispatch = dict(layer_ms=whole, banks_ms=banks, dispatch_ms=whole - banks, step_dispatch_ms=(whole - banks) * n_moe)
+    log(f"  [moe] one MoE layer at B = {b} (graph replays): {whole:.4f} ms, its three K12 launches {banks:.4f} ms, "
+        f"so the dispatch (router, sorts, counts, buffers, combine) {whole - banks:.4f} ms, "
+        f"{dispatch['step_dispatch_ms']:.3f} ms a step of {n_moe} layers")
+    if not all(same.values()) or nodes != want_nodes:
+        raise SystemExit(f"chip_smoke: [moe] the replayed graph differs from the eager loop or its nodes from the "
+                         f"prediction: {same}, {nodes}")
+    return counts, dict(wall_s=dt, tok_s=tok_s, same=same, nodes=nodes, pool_bytes=POOL_BYTES[graph], loops=prof,
+                        dispatch=dispatch)
+
+
+def moe_dispatch_ms(engine, batch):
+    """What one MoE layer's dispatch costs at a decode step of ``batch``
+    rows, apart from its expert products: ``moe_apply`` on layer 0's
+    weights (router, stable sorts, counts, buffers, the banks, combine)
+    less its three K12 launches on buffers of the same shape, each timed
+    by graph replays → (whole ms, banks ms)."""
+    from repro_torch.kernels import expert_linear
+    from repro_torch.models import moe as M
+    from repro_torch.models.model import layer_slice
+
+    cfg, gen = engine.cfg, torch.Generator(device=DEVICE)
+    gen.manual_seed(14)
+    p = layer_slice(engine.params["stages"][0]["b0"], 0)["mlp"]
+    cap = M.capacity(cfg, batch)
+    x = torch.randn((batch, 1, cfg.d_model), generator=gen, device=DEVICE).to(cfg.cdtype)
+    buf = torch.randn((cfg.n_experts, cap, cfg.d_model), generator=gen, device=DEVICE).to(cfg.cdtype)
+    h = torch.randn((cfg.n_experts, cap, cfg.moe_d_ff), generator=gen, device=DEVICE).to(cfg.cdtype)
+    whole = time_ms(lambda: M.moe_apply(p, cfg, x), [()])
+    banks = time_ms(lambda: (expert_linear(buf, p["w_gate"]), expert_linear(buf, p["w_up"]),
+                             expert_linear(h, p["w_down"])), [()])
+    return whole, banks
+
+
+def moe_logits(engine, prompts):
+    """The gate: the f32-compute kernel path within ``LOGITS_REL_TOL`` of the
+    f32-weight oracle (:func:`logits_distances`, as phase 13's); the bf16
+    kernel path's distances to the ref path and the oracle are reported,
+    with the share of (token, layer) top-k sets on which the bf16 kernel
+    and ref paths route alike (a flip at a near tie moves the logits
+    discontinuously) → {distances, routing agreement}."""
+    with route_census() as kernel_sets:
+        step_logits(engine, prompts, None)
+    with route_census() as ref_sets:
+        step_logits(engine, prompts, "ref")
+    pairs = [(a, b) for ka, kb in zip(kernel_sets, ref_sets) for a, b in zip(ka, kb)]
+    agree = sum(bool(torch.equal(a, b)) for a, b in pairs) / max(1, len(pairs))
+    d = xlstm_logits_check(engine, "moe main path, prefill + 1 step",
+                           lambda eng, mode: step_logits(eng, prompts, mode))
+    log(f"  [moe] routing: the bf16 kernel and ref paths chose the same top-{engine.cfg.top_k} set for "
+        f"{agree:.2%} of {len(pairs)} (token, layer) pairs")
+    return dict(d, routing_agreement=agree, routed_pairs=len(pairs))
+
+
+def moe_long(engine, rng):
+    """One ``MOE_LONG``-token prompt at B = 1 (capacity 80 rows): its prefill
+    time and peak memory above the resident model, and its launches."""
+    prompt = torch.as_tensor(rng.integers(0, engine.cfg.vocab, (1, MOE_LONG)), device=DEVICE).long()
+    engine.prefill(prompt, engine._make_cache(1))  # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, _), dt, counts, ref_calls = run_counted(lambda: engine.prefill(prompt, engine._make_cache(1)))
+    peak = torch.cuda.max_memory_allocated() - base
+    want = dict.fromkeys(counts, 0)
+    want.update(moe_forward_counts(engine, 1, MOE_LONG))
+    log(f"  [moe long] {MOE_LONG}-token prompt at B = 1: prefill {dt * 1e3:.1f} ms, peak {peak / 1e9:.3f} GB above "
+        f"the resident {base / 1e9:.3f} GB; launches {json.dumps(counts)} (expected {json.dumps(want)}), ref-oracle "
+        f"dispatches {ref_calls}")
+    if counts != want or ref_calls or not torch.isfinite(logits).all():
+        raise SystemExit(f"chip_smoke: [moe long] launches {counts} != {want}, ref {ref_calls}, or non-finite")
+    return dict(prefill_s=dt, peak_gb=peak / 1e9, resident_gb=base / 1e9, launches=counts)
+
+
+def moe_refusals(engine):
+    """Each of the four paths the reference refuses for MoE raises with the
+    reference's words."""
+    from repro_torch.infer import Engine, PrefixCache, SpecConfig
+
+    tries = {
+        "slots": lambda: engine.init_slots(2),
+        "speculation": lambda: engine.generate(np.zeros((1, 4), np.int64), 2, speculate=SpecConfig(SPEC_Q, SPEC_GAMMA)),
+        "prefix cache": lambda: Engine(engine.cfg, engine.params, max_seq=64, fuse=False, device="cuda",
+                                       prefix_cache=PrefixCache()),
+        "chunked prefill": lambda: engine.begin_admission(np.arange(8), max_new_tokens=2, chunked=True),
+    }
+    said = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            said[name] = None
+        except ValueError as e:
+            said[name] = str(e)
+    ok = {name: said[name] is not None and MOE_REFUSALS[name] in said[name] for name in tries}
+    log(f"  [moe] refusals with the reference's words: {ok}")
+    if not all(ok.values()):
+        raise SystemExit(f"chip_smoke: [moe] a refusal is missing or worded otherwise: {said}")
+    return ok
+
+
+def llama4_reduced(gen):
+    """llama4-maverick's three differences from olmoe (a shared expert, top-1,
+    dense / MoE interleaving) on the card in bf16 through the kernels, at
+    ``LLAMA4_REDUCED``: K12 at its 128-expert bank against its plain
+    version; a batched ``generate`` whose census is the prediction, captured
+    == eager (logits and sampled tokens) → summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, reduced
+
+    cfg = reduced(get_config(LLAMA4), **LLAMA4_REDUCED)
+    recs = [check_k12("bcq", cfg.n_experts, cfg.d_model, cfg.moe_d_ff, C, torch.bfloat16, gen, leaf="w_gate/w_up")
+            for C in LLAMA4_CAPS]
+    if not all(r["ok"] for r in recs):
+        raise SystemExit(f"chip_smoke: [llama4] K12 at 128 experts differs from its plain version: {recs}")
+    engine = quantized_engine(cfg, init_params(cfg, seed=0, device="cuda"), "bcq", PROMPT_LEN + NEW_TOKENS + 8)
+    prompts = np.random.default_rng(41).integers(0, cfg.vocab, (PROMPTS, PROMPT_LEN))
+    engine.generate(prompts, 2)
+    res, dt, counts, ref_calls = run_counted(lambda: engine.generate(prompts, NEW_TOKENS))
+    expect = generate_counts(engine, PROMPTS, PROMPT_LEN, NEW_TOKENS)
+    graph_l = decode_loop(engine, prompts, True, NEW_TOKENS)()
+    eager_l = decode_loop(engine, prompts, False, NEW_TOKENS)()
+    sampled = [engine.generate(prompts, NEW_TOKENS, temperature=0.8, seed=3, scan=sc).tokens for sc in (True, False)]
+    same = dict(logits=bool(torch.equal(graph_l, eager_l)), tokens=bool((sampled[0] == sampled[1]).all()))
+    log(f"  [llama4 reduced] {cfg.stages}, {cfg.n_experts} experts top-{cfg.top_k}, shared expert "
+        f"{cfg.shared_expert}, d_model {cfg.d_model}: generate {PROMPTS}x{PROMPT_LEN} + {NEW_TOKENS} {dt:.3f}s; "
+        f"launches {json.dumps(counts)} (expected {json.dumps(expect)}), ref {ref_calls}; captured == eager {same}")
+    if counts != expect or ref_calls or not all(same.values()):
+        raise SystemExit(f"chip_smoke: [llama4 reduced] launches {counts} != {expect}, ref {ref_calls}, or the "
+                         f"replayed graph differs from the eager loop: {same}")
+    return dict(stages=str(cfg.stages), wall_s=dt, same=same, launches=counts, k12=recs)
+
+
+def phase_moe(gen, records):
+    """Phase 14 (module docstring) → (summary, K12 records, the main path's counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant import quantized_bytes
+
+    cfg = get_config(MOE)
+    walls = {}
+    t = time.perf_counter()
+    k12 = check_k12_banks(gen, cfg)
+    flash = [check_flash(B, S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, torch.bfloat16, gen)
+             for B, S in ((PROMPTS, PROMPT_LEN), (1, MOE_LONG))]
+    if not all(r["ok"] for r in flash):
+        raise SystemExit(f"chip_smoke: [moe] K8 at olmoe's heads differs from its plain version: {flash}")
+    walls["kernels"] = time.perf_counter() - t
+    log(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (Dh {cfg.d_head}), "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab}, layers "
+        f"{cfg.n_layers} {cfg.block_counts()}, {cfg.param_dtype}")
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  init {time.perf_counter() - t:.1f}s ({quantized_bytes(params) / 1e9:.3f} GB dense)")
+    engine = quantized_engine(cfg, params, "bcq", MOE_LONG + MOE_NEW + 8)
+    del params
+    torch.cuda.empty_cache()
+    walls["build"] = time.perf_counter() - t
+    rng = np.random.default_rng(14)
+    prompts = rng.integers(0, cfg.vocab, (PROMPTS, PROMPT_LEN))
+    summary = {}
+    with kernel_census(by_leaf=True) as seen, k12_census() as banks:
+        t = time.perf_counter()
+        counts, summary["main"] = moe_main(engine, prompts)
+        walls["main"] = time.perf_counter() - t
+        for name, fn in (("logits", lambda: moe_logits(engine, prompts)), ("long", lambda: moe_long(engine, rng)),
+                         ("refusals", lambda: moe_refusals(engine))):
+            t = time.perf_counter()
+            summary[name] = fn()
+            walls[name] = time.perf_counter() - t
+    checked_banks = {("bcq", r["E"], r["C"], r["k"], r["o"], r["dtype"]) for r in k12}
+    unchecked = sorted(set(banks) - checked_banks)
+    if unchecked:
+        raise SystemExit(f"chip_smoke: [moe] K12 launched at bank shapes it was not held to its plain version at: "
+                         f"{unchecked}")
+    t = time.perf_counter()
+    leaf_of = {(cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim): ("wqkv", (cfg.q_dim, cfg.kv_dim, cfg.kv_dim)),
+               (cfg.q_dim, cfg.d_model): ("wo", None), (cfg.d_model, cfg.vocab): ("lm_head", None)}
+    summary["checked"] = len(check_launched("moe", seen, None, records, gen, leaf_of))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["llama4_reduced"] = llama4_reduced(gen)
+    walls["checked_llama4"] = time.perf_counter() - t
+    summary.update(k12_banks=sorted(banks), flash=flash, walls=walls)
+    log(f"  [moe] phase wall by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return summary, k12, counts
+
+
+def k12_line(k12, counts, cfg):
+    """K12's entry of the kernels line: its launches on phase 14's main path;
+    time, plain time, bound and library time summed over one decode step's
+    launches at B = 4 (capacity 8, bf16: w_gate and w_up at d → F, w_down at
+    F → d, a layer each), the other shapes beside them."""
+    step = {r["leaf"]: r for r in k12 if r["kind"] == "bcq" and r["C"] == moe_caps(cfg)[0] and r["dtype"] == "bfloat16"}
+    per_layer = [(step["w_gate/w_up"], 2), (step["w_down"], 1)]
+    total = lambda key: sum(r[key] * n for r, n in per_layer) * cfg.n_layers  # noqa: E731
+    name, src, replaces = K12
+    return dict(name=name, route="cuda", source=f"src/repro_torch/{src}", replaces=replaces,
+                launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in k12),
+                ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
+                library_ms=total("library_ms"),
+                shapes=[{k: r[k] for k in ("kind", "leaf", "E", "C", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")} for r in k12])
+
+
 def scan_line(kernel, recs, counts, n_layers):
     """A scan kernel's entry of the kernels line (K10, K11): its launches on
     phase 13's main path; time, plain time and bound summed over one decode
@@ -3838,7 +4377,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     walls = {"t": time.perf_counter()}
-    log("[1/13] card")
+    log("[1/14] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3847,7 +4386,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
     phase_wall(walls)
-    log("[2/13] build")
+    log("[2/14] build")
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
@@ -3865,7 +4404,7 @@ def main() -> int:
             log(f"    {line}")
 
     phase_wall(walls)
-    log("[3/13] kernels against their plain versions")
+    log("[3/14] kernels against their plain versions")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
@@ -3875,22 +4414,22 @@ def main() -> int:
     prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[4/13] flash_attention against its plain version")
+    log("[4/14] flash_attention against its plain version")
     flash_records, flash_offsets = phase_flash(gen)
 
     phase_wall(walls)
-    log("[5/13] main path, one run per format")
+    log("[5/14] main path, one run per format")
     inspect_captures()
     counts, cfg, summaries, engines, prompts = phase_main_path()
     bcq_engine, ternary_engine = engines["bcq"], engines["ternary"]
 
     phase_wall(walls)
-    log("[6/13] continuous serving and one long request")
+    log("[6/14] continuous serving and one long request")
     counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
     summaries["long"], long_logits, long_tokens = phase_long(bcq_engine)
 
     phase_wall(walls)
-    log(f"[7/13] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
+    log(f"[7/14] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
     spec_bcq = depth_view(bcq_engine, SPEC_LAYERS)
     summaries["speculative"], spec_launches = phase_speculative(spec_bcq, depth_view(ternary_engine, SPEC_LAYERS),
                                                                 prompts, spec_serving_view(spec_bcq, serving),
@@ -3901,7 +4440,7 @@ def main() -> int:
     del ternary_engine, serving
 
     phase_wall(walls)
-    log("[8/13] prefix cache and chunked prefill")
+    log("[8/14] prefix cache and chunked prefill")
     summaries["prefix"] = phase_prefix(bcq_engine, (summaries["long"], long_logits, long_tokens),
                                        records + draft_records, gen)
     offset_launches = (sum(summaries["prefix"][run]["offset_launches"] for run in ("cold wave", "warm wave"))
@@ -3909,23 +4448,23 @@ def main() -> int:
     del bcq_engine
 
     phase_wall(walls)
-    log("[9/13] kernels (the JSON line is printed last but one)")
+    log("[9/14] kernels (the JSON line is printed last but one)")
     line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches, flash_offsets,
                         offset_launches)
 
     phase_wall(walls)
-    log("[10/13] captured decode and the int8 cache")
+    log("[10/14] captured decode and the int8 cache")
     summaries["graphs"] = phase_graphs(engines, prompts)
 
     phase_wall(walls)
-    log("[11/13] serving session and observability")
+    log("[11/14] serving session and observability")
     summaries["session"] = phase_session(engines["bcq"], solos)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[12/13] the hybrid family: recurrentgemma-9b at full width and depth")
+    log("[12/14] the hybrid family: recurrentgemma-9b at full width and depth")
     summaries["hybrid"], k9_records, hybrid_counts = phase_hybrid(gen, records + draft_records)
     from repro_torch.configs import get_config
 
@@ -3934,11 +4473,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[13/13] the ssm family: xlstm-125m at full width and depth")
+    log("[13/14] the ssm family: xlstm-125m at full width and depth")
     summaries["xlstm"], k10_records, k11_records, xlstm_counts = phase_xlstm(gen, records + draft_records)
     n_cells = get_config(XLSTM).block_counts()
     line["kernels"].append(scan_line(K10, k10_records, xlstm_counts, n_cells["mlstm"]))
     line["kernels"].append(scan_line(K11, k11_records, xlstm_counts, n_cells["slstm"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_wall(walls)
+    log("[14/14] the MoE family: olmoe-1b-7b at full width and depth, llama4-maverick reduced")
+    summaries["moe"], k12_records, moe_counts = phase_moe(gen, records + draft_records)
+    line["kernels"].append(k12_line(k12_records, moe_counts, get_config(MOE)))
     phase_wall(walls)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3948,7 +4494,7 @@ def main() -> int:
                    for path, names in STEP_PATHS.items()},
          "table_limit": limit_records, "dense_rows": dense_rows, "prompt_tiles": prompt_tiles,
          "flash_offsets": flash_offsets, "k9_records": k9_records, "k10_records": k10_records,
-         "k11_records": k11_records,
+         "k11_records": k11_records, "k12_records": k12_records,
          "draft_records": draft_records, "draft_steps": draft_steps,
          "paths": summaries, **line},
         indent=1))

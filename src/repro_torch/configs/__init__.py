@@ -1,6 +1,7 @@
 """Published model configs (counterpart of ``repro/configs``; the dense
-decoders, the hybrid recurrentgemma-9b and the ssm xlstm-125m, the families
-the port runs so far).
+decoders, the MoE olmoe-1b-7b and llama4-maverick-400b-a17b, the hybrid
+recurrentgemma-9b and the ssm xlstm-125m, the families the port runs so
+far).
 
 ``get_config(arch_id)`` resolves the ``--arch`` flag. Each module defines
 ``CONFIG`` at the published shape; reduced variants come from
@@ -16,6 +17,8 @@ _ARCHS = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "minitron-4b": "minitron_4b",
     "starcoder2-7b": "starcoder2_7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "xlstm-125m": "xlstm_125m",
     "gpt3-175b": "gpt3_175b",  # the paper's own estimation target (§IV)

@@ -85,3 +85,4 @@ struct BCQGroups {
 REPRO_EXPORT_ERROR_STRING
 
 REPRO_GROUPTABLE_ENTRY(bcq_mm_launch, BCQGroups)
+REPRO_GROUPTABLE_GROUPED_ENTRY(bcq_mm_grouped_launch, BCQGroups)

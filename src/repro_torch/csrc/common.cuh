@@ -142,14 +142,15 @@ __device__ __forceinline__ void copy_x_rows(uint8_t* dst, const void* x, int xb,
 // out and resets its ticket. Nothing of that order depends on B, the row
 // tile or the block that arrives last, so the result is bitwise the same
 // run to run and a row equals the row called alone.
+// This block is k-chunk `split` of `splits` (finish_split: blockIdx.z of
+// gridDim.z; a grouped launch folds its expert index into the grid's z too).
 template <int kThreads, int kWarps, int BT, int BC>
-__device__ __forceinline__ void finish_split(const float* red, float* __restrict__ out, float* __restrict__ scratch,
-                                             unsigned* __restrict__ tickets, int B, int o, int b0, int o0,
-                                             int valid) {
+__device__ __forceinline__ void finish_split_at(const float* red, float* __restrict__ out,
+                                                float* __restrict__ scratch, unsigned* __restrict__ tickets, int B,
+                                                int o, int b0, int o0, int valid, int split, int splits) {
   __shared__ int s_last;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int splits = gridDim.z;
-  float* const dst = splits > 1 ? scratch + static_cast<size_t>(blockIdx.z) * B * o : out;
+  float* const dst = splits > 1 ? scratch + static_cast<size_t>(split) * B * o : out;
   for (int e = threadIdx.x; e < BT * BC; e += kThreads) {
     const int b = e / BC, cl = e % BC;
     float sum = 0.f;
@@ -183,6 +184,13 @@ __device__ __forceinline__ void finish_split(const float* red, float* __restrict
     out[at] = sum;
   }
   if (threadIdx.x == 0) tickets[tile] = 0;  // ready for the next launch
+}
+
+template <int kThreads, int kWarps, int BT, int BC>
+__device__ __forceinline__ void finish_split(const float* red, float* __restrict__ out, float* __restrict__ scratch,
+                                             unsigned* __restrict__ tickets, int B, int o, int b0, int o0,
+                                             int valid) {
+  finish_split_at<kThreads, kWarps, BT, BC>(red, out, scratch, tickets, B, o, b0, o0, valid, blockIdx.z, gridDim.z);
 }
 
 // The q-bit code at bit position `shift` of q plane words: sum_i 2^i bit_i.

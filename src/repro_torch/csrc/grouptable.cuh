@@ -1,5 +1,6 @@
-// The group-table skeleton shared by bcq_mm (K1/K2), uniform_mm (K5) and the
-// CUDA-core path of ternary_mm (K4):
+// The group-table skeleton shared by bcq_mm (K1/K2), uniform_mm (K5), the
+// CUDA-core path of ternary_mm (K4) and, over a bank of MoE experts in one
+// launch, expert_mm (K12: expert_grouptable_kernel below):
 // y (B, o) f32 = x (B, k) @ W, where W[r, c] is a function of the q-bit code
 // of (r, c), read from q packed planes, and of the scales of the group r / g
 // of column c. A (group, column) pair can take only 2^q weight values.
@@ -104,13 +105,15 @@ __device__ __forceinline__ void load_x4(const uint8_t* p, bool bf16, float (&v)[
   }
 }
 
-// Q > 0 fixes q at compile time (the main path's q = 4); Q = 0 takes q at
-// run time.
+// One block's work: columns blockIdx.x, rows blockIdx.y and k-chunk `split`
+// of `splits`, of one (x, planes, scales) product. Q > 0 fixes q at compile
+// time (the main path's q = 4); Q = 0 takes q at run time.
 template <typename ST, typename Dec, int NS, int BT, int Q, bool TABLE>
-__global__ void __launch_bounds__(kThreads, 2)
-grouptable_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restrict__ packed,
-                  const ST* __restrict__ scales, float* __restrict__ out, float* __restrict__ scratch,
-                  unsigned* __restrict__ tickets, int B, int k, int o, int q, int g, Plan p) {
+__device__ __forceinline__ void grouptable_block(const void* __restrict__ xv, int x_bf16,
+                                                 const uint8_t* __restrict__ packed, const ST* __restrict__ scales,
+                                                 float* __restrict__ out, float* __restrict__ scratch,
+                                                 unsigned* __restrict__ tickets, int B, int k, int o, int q, int g,
+                                                 Plan p, int split, int splits) {
   constexpr int BC = 32 * NS;  // columns of a block
   extern __shared__ __align__(16) uint8_t smem[];
 
@@ -118,7 +121,7 @@ grouptable_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __rest
   const int o0 = blockIdx.x * BC, b0 = blockIdx.y * BT;
   if constexpr (Q > 0) q = Q;
   const int kc = k / 8, G = k / g, S = Dec::scale_planes(q), E = 1 << q;
-  const int c0 = blockIdx.z * p.chunk, c1 = min(kc, c0 + p.chunk);
+  const int c0 = split * p.chunk, c1 = min(kc, c0 + p.chunk);
   const int SR = p.stage_rows;
   const int nstage = (c1 - c0 + SR - 1) / SR;
   const int xb = x_bf16 ? 2 : 4;
@@ -255,7 +258,41 @@ grouptable_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __rest
 #pragma unroll
     for (int c = 0; c < NS; ++c) red[(warp * BT + b) * BC + c * 32 + lane] = acc[b][c];
   __syncthreads();
-  finish_split<kThreads, kWarps, BT, BC>(red, out, scratch, tickets, B, o, b0, o0, valid);
+  finish_split_at<kThreads, kWarps, BT, BC>(red, out, scratch, tickets, B, o, b0, o0, valid, split, splits);
+}
+
+// K1 / K2, K5 and K4's CUDA-core path: one product, the k-chunk in blockIdx.z.
+template <typename ST, typename Dec, int NS, int BT, int Q, bool TABLE>
+__global__ void __launch_bounds__(kThreads, 2)
+grouptable_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restrict__ packed,
+                  const ST* __restrict__ scales, float* __restrict__ out, float* __restrict__ scratch,
+                  unsigned* __restrict__ tickets, int B, int k, int o, int q, int g, Plan p) {
+  grouptable_block<ST, Dec, NS, BT, Q, TABLE>(xv, x_bf16, packed, scales, out, scratch, tickets, B, k, o, q, g, p,
+                                              blockIdx.z, gridDim.z);
+}
+
+// K12 (kernels/expert_mm.py): every expert of a bank in one launch.
+// blockIdx.z = expert * splits + chunk; each block offsets x (B rows of
+// expert e start at e * x_estride elements), the planes, the scales, out
+// (e * out_estride floats), the split's scratch (splits * B * o floats an
+// expert) and its tickets (one an expert's (column tile, batch tile)) by its
+// expert, then runs the single-product block on that expert with the same
+// plan: each expert's rows get the bits of the kernel called on it alone.
+template <typename ST, typename Dec, int NS, int BT, int Q, bool TABLE>
+__global__ void __launch_bounds__(kThreads, 2)
+expert_grouptable_kernel(const void* __restrict__ xv, int x_bf16, const uint8_t* __restrict__ packed,
+                         const ST* __restrict__ scales, float* __restrict__ out, float* __restrict__ scratch,
+                         unsigned* __restrict__ tickets, int B, int k, int o, int q, int g, Plan p,
+                         long long x_estride, long long out_estride) {
+  const int e = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
+  const int qq = Q > 0 ? Q : q;
+  const size_t pe = static_cast<size_t>(qq) * (k / 8) * o, se = static_cast<size_t>(Dec::scale_planes(qq)) * (k / g) * o;
+  const uint8_t* const xe = static_cast<const uint8_t*>(xv) + e * x_estride * (x_bf16 ? 2 : 4);
+  grouptable_block<ST, Dec, NS, BT, Q, TABLE>(
+      xe, x_bf16, packed + e * pe, scales + e * se, out + e * out_estride,
+      scratch == nullptr ? nullptr : scratch + static_cast<size_t>(e) * p.splits * B * o,
+      tickets == nullptr ? nullptr : tickets + static_cast<size_t>(e) * gridDim.x * gridDim.y, B, k, o, q, g, p,
+      split, p.splits);
 }
 
 struct Args {
@@ -268,27 +305,57 @@ struct Args {
   unsigned* tickets;
   int B, k, o, q, g;
   Plan p;
+  int experts;  // 0: one product (grouptable_kernel); else a bank (expert_grouptable_kernel)
+  long long x_estride, out_estride;
 };
+
+// Opts `kernel` in to `smem` bytes of dynamic shared memory, once per size
+// grown to (attr: the largest opt-in made so far for this kernel).
+template <typename K>
+cudaError_t opt_in(K kernel, int smem, int& attr) {
+  if (smem > attr) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attr = smem;
+  }
+  return cudaSuccess;
+}
 
 template <typename ST, typename Dec, int NS, int BT, int Q, bool TABLE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kernel = grouptable_kernel<ST, Dec, NS, BT, Q, TABLE>;
-  static int attr = 0;  // per instantiation: the largest opt-in made so far
-  if (a.p.smem > attr) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.smem);
-    if (err != cudaSuccess) return err;
-    attr = a.p.smem;
-  }
   constexpr int BC = 32 * NS;
+  auto kernel = grouptable_kernel<ST, Dec, NS, BT, Q, TABLE>;
+  static int attr = 0;  // per instantiation
+  cudaError_t err = opt_in(kernel, a.p.smem, attr);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.o + BC - 1) / BC, (a.B + BT - 1) / BT, a.p.splits);
   kernel<<<grid, kThreads, a.p.smem, stream>>>(a.x, a.x_bf16, static_cast<const uint8_t*>(a.packed),
-                                               static_cast<const ST*>(a.scales), a.out, a.scratch,
-                                               a.tickets, a.B, a.k, a.o, a.q, a.g, a.p);
+                                               static_cast<const ST*>(a.scales), a.out, a.scratch, a.tickets, a.B,
+                                               a.k, a.o, a.q, a.g, a.p);
+  return cudaGetLastError();
+}
+
+// K12 takes row tiles of 8 only: an MoE buffer's capacity is a multiple of 8
+// (and a shorter call's missing rows are zeros that nothing writes back), so
+// one instantiation a path serves every bank, and the row tile changes no
+// row's sum.
+template <typename ST, typename Dec, int NS, int Q, bool TABLE>
+cudaError_t launch_grouped(const Args& a, cudaStream_t stream) {
+  constexpr int BC = 32 * NS, BT = kMaxBT;
+  auto kernel = expert_grouptable_kernel<ST, Dec, NS, BT, Q, TABLE>;
+  static int attr = 0;
+  cudaError_t err = opt_in(kernel, a.p.smem, attr);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.o + BC - 1) / BC, (a.B + BT - 1) / BT, a.p.splits * a.experts);
+  kernel<<<grid, kThreads, a.p.smem, stream>>>(a.x, a.x_bf16, static_cast<const uint8_t*>(a.packed),
+                                               static_cast<const ST*>(a.scales), a.out, a.scratch, a.tickets, a.B,
+                                               a.k, a.o, a.q, a.g, a.p, a.x_estride, a.out_estride);
   return cudaGetLastError();
 }
 
 template <typename ST, typename Dec, int NS, int Q, bool TABLE>
 cudaError_t launch_bt(const Args& a, cudaStream_t st) {
+  if (a.experts > 0) return launch_grouped<ST, Dec, NS, Q, TABLE>(a, st);
   switch (row_tile(a.B)) {
     case 1: return launch<ST, Dec, NS, 1, Q, TABLE>(a, st);
     case 2: return launch<ST, Dec, NS, 2, Q, TABLE>(a, st);
@@ -315,13 +382,17 @@ cudaError_t launch_path(const Args& a, int table, int ns, cudaStream_t st) {
 
 // The C entry of a format: checks the plan against the shapes, then
 // launches. scratch holds splits * B * o floats and tickets one zeroed
-// counter per (column tile, batch tile) when splits > 1.
+// counter per (column tile, batch tile) when splits > 1, each E times over
+// for a bank of E = experts (experts = 0: one product).
 template <typename Dec>
 int entry(const void* x, int x_dtype, const void* packed, const void* scales, int s_dtype, void* out,
           void* scratch, void* tickets, int B, int k, int o, int q, int g, int table, int ns, const Plan& p,
-          void* stream) {
+          void* stream, int experts = 0, long long x_estride = 0, long long out_estride = 0) {
   cudaGetLastError();  // clear any stale error so the return is this launch's
   const int kc = k / 8;
+  if (experts < 0 || (experts > 0 && (static_cast<long long>(experts) * p.splits > 65535 || x_estride < 1LL * B * k ||
+                                      out_estride < 1LL * B * o)))
+    return cudaErrorInvalidValue;
   if (q < 1 || q > kMaxQ || (Dec::kQ > 0 && (q != Dec::kQ || ns != 4)) || g <= 0 || g % 8 != 0 ||
       k % g != 0 || (ns != 1 && ns != 4) || (ns == 1 && !table) || p.splits < 1 || p.chunk < 1 ||
       static_cast<long long>(p.chunk) * p.splits < kc || p.chunk * (p.splits - 1) >= kc ||
@@ -338,8 +409,8 @@ int entry(const void* x, int x_dtype, const void* packed, const void* scales, in
       p.smem < p.off_t + 2LL * p.table_bytes || p.smem < kWarps * kMaxBT * bc * 4)
     return cudaErrorInvalidValue;
   if (B <= 0 || o <= 0) return cudaSuccess;
-  const Args a{x, x_dtype == kBF16, packed, scales, static_cast<float*>(out), static_cast<float*>(scratch),
-               static_cast<unsigned*>(tickets), B, k, o, q, g, p};
+  const Args a{x,    x_dtype == kBF16, packed, scales, static_cast<float*>(out), static_cast<float*>(scratch),
+               static_cast<unsigned*>(tickets), B, k, o, q, g, p, experts, x_estride, out_estride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = s_dtype == kF32 ? launch_path<float, Dec>(a, table, ns, st)
                                           : launch_path<__nv_bfloat16, Dec>(a, table, ns, st);
@@ -363,4 +434,22 @@ int entry(const void* x, int x_dtype, const void* packed, const void* scales, in
                                     off_x,  stage_groups, off_t,      table_bytes, smem};            \
     return repro::grouptable::entry<DEC>(x, x_dtype, packed, scales, s_dtype, out, scratch, tickets, B, \
                                          k, o, q, g, table, ns, p, stream);                           \
+  }
+
+// K12's C entry of a format: the same, over a bank of `experts` experts:
+// x (E, ..., k) whose expert e's B rows start at e * x_estride elements;
+// packed (E, q, k/8, o); scales (E, S, k/g, o); out's expert e at
+// e * out_estride floats.
+#define REPRO_GROUPTABLE_GROUPED_ENTRY(NAME, DEC)                                                    \
+  extern "C" int NAME(const void* x, int x_dtype, const void* packed, const void* scales, int s_dtype, \
+                      void* out, void* scratch, void* tickets, int B, int k, int o, int q, int g,      \
+                      int table, int ns, int splits, int chunk, int stage_rows, int stage_bytes,      \
+                      int off_s, int off_x, int stage_groups, int off_t, int table_bytes, int smem,   \
+                      int experts, long long x_estride, long long out_estride, void* stream) {         \
+    const repro::grouptable::Plan p{splits, chunk,        stage_rows, stage_bytes, off_s,            \
+                                    off_x,  stage_groups, off_t,      table_bytes, smem};            \
+    if (experts < 1) return cudaErrorInvalidValue;                                                   \
+    return repro::grouptable::entry<DEC>(x, x_dtype, packed, scales, s_dtype, out, scratch, tickets, B, \
+                                         k, o, q, g, table, ns, p, stream, experts, x_estride,        \
+                                         out_estride);                                                \
   }

@@ -299,6 +299,7 @@ REPRO_EXPORT_ERROR_STRING
 
 // (b): f32 x or f32 alpha, on the group-table skeleton.
 REPRO_GROUPTABLE_ENTRY(ternary_mm_launch, TernaryGroups)
+REPRO_GROUPTABLE_GROUPED_ENTRY(ternary_mm_grouped_launch, TernaryGroups)
 
 // (a): x (B, k) bf16, 16-byte aligned; packed (2, k/8, o) u8 (sign, mask);
 // scales (1, k/g, o) bf16 (alpha); out (B, o) f32, all contiguous; scratch

@@ -54,3 +54,4 @@ struct UniformGroups {
 REPRO_EXPORT_ERROR_STRING
 
 REPRO_GROUPTABLE_ENTRY(uniform_mm_launch, UniformGroups)
+REPRO_GROUPTABLE_GROUPED_ENTRY(uniform_mm_grouped_launch, UniformGroups)

@@ -95,6 +95,12 @@ whole-shot admission) writes ``init_cache``'s values
 so a committing prefill collects only the states the prefix cache takes
 (the new blocks' ends) and its own last one, not one a token.
 
+The MoE family (``attn_moe`` blocks, ``models/moe.py``) is served by
+``generate`` alone, batched, captured or eager: expert capacity couples a
+call's rows (a row's tokens compete with the others' for expert buffer
+rows), so slot serving, speculation, the prefix cache and chunked prefill
+are refused with the reference's words, as the reference refuses them.
+
 Not ported: the reference's power-of-two chunk buckets, which exist for
 XLA's compile cache (chunks here are dispatched at their exact length).
 """
@@ -138,6 +144,13 @@ from repro_torch.utils import resolve_device, tree_leaves, tree_map
 CHUNK_REFUSAL = ("unsupported for ring-buffer and recurrent architectures, as in the reference "
                  "(Engine.supports_chunked_prefill): ring buffers wrap pad writes onto live rows "
                  "and recurrent state folds pad tokens irreversibly")
+# The reference's words for a model outside the slot-serving gate (an MoE
+# model: expert capacity couples a batch's rows), for the prefix cache and
+# for chunked prefill.
+PREFIX_REFUSAL = ("requires a tokens-input, non-VLM, non-MoE model (the slot-batched serving gate, "
+                  "DESIGN.md §4)")
+GATE_CHUNK_REFUSAL = ("unsupported for this architecture (ring-buffer/recurrent/MoE/VLM — see "
+                      "Engine.supports_chunked_prefill)")
 
 # True: decode_slots runs each step's forward eagerly instead of replaying a
 # captured graph (the oracle that tests and the chip smoke hold replays to).
@@ -284,7 +297,7 @@ class Engine:
         if prefix_cache is not None:
             why = self._prefix_refusal()
             if why:
-                raise ValueError(f"prefix_cache: {why}")
+                raise ValueError(f"prefix_cache {why}")
             prefix_cache.bind(model_identity(cfg, self.params))
 
     def _make_cache(self, batch: int) -> dict:
@@ -404,7 +417,8 @@ class Engine:
         if getattr(self.cfg, "n_experts", 0):
             raise ValueError(
                 "speculative decoding does not support MoE models: shared expert "
-                "capacity couples the verified chunk's tokens"
+                "capacity couples the verified chunk's tokens, so the batched verify "
+                "is not equivalent to step-by-step decode"
             )
         if self._has_ring and spec.gamma + 1 >= self._ring_rows:
             raise ValueError(
@@ -556,17 +570,18 @@ class Engine:
         """Why this model cannot take a prefix cache, or None: the
         slot-serving gate (tokens input, no MoE)."""
         if getattr(self.cfg, "input_kind", "tokens") != "tokens" or getattr(self.cfg, "n_experts", 0):
-            return "needs a tokens-input, non-MoE model (the slot-batched serving gate)"
+            return PREFIX_REFUSAL
         return None
 
     def _chunk_refusal(self) -> Optional[str]:
         """Why this model cannot take chunked prefill, or None: the prefix
         cache's gate, and the reference's refusal of ring-buffer and
         recurrent architectures (``supports_chunked_prefill``)."""
-        why = self._prefix_refusal()
-        if why is None and (self._has_ring or self._has_recurrent):
-            why = CHUNK_REFUSAL
-        return why
+        if self._prefix_refusal() is not None:
+            return GATE_CHUNK_REFUSAL
+        if self._has_ring or self._has_recurrent:
+            return CHUNK_REFUSAL
+        return None
 
     def init_slots(self, n_slots: int, speculate: Optional[SpecConfig] = None) -> dict:
         """Fresh slot-batched decode state: an ``n_slots``-row KV cache, the
@@ -650,7 +665,7 @@ class Engine:
         prompt = np.asarray(prompt_tokens).reshape(1, -1)
         self._check_prompt(prompt, max_new_tokens)
         if chunked and not self.supports_chunked_prefill:
-            raise ValueError(f"chunked prefill: {self._chunk_refusal()}")
+            raise ValueError(f"chunked prefill is {self._chunk_refusal()}")
         plen = prompt.shape[1]
         p = PendingAdmission(
             prompt=torch.as_tensor(prompt, dtype=torch.long, device=self.device), plen=plen,

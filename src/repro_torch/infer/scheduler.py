@@ -259,7 +259,7 @@ class Scheduler:
                     "chunked admission)"
                 )
             if not engine.supports_chunked_prefill:
-                raise ValueError(f"chunked prefill: {engine._chunk_refusal()}; use prefill_chunk=None")
+                raise ValueError(f"chunked prefill is {engine._chunk_refusal()}; use prefill_chunk=None")
         self.prefill_chunk = prefill_chunk
         self.engine = engine
         self.n_slots = n_slots

@@ -13,9 +13,10 @@ versions, and the quantized-matmul dispatch.
 - ``rglru_scan.py``   the RG-LRU recurrence over a sequence (the hybrid family)
 - ``mlstm_scan.py``   the mLSTM matrix-memory recurrence (the ssm family)
 - ``slstm_scan.py``   the sLSTM scalar-memory recurrence (the ssm family)
+- ``expert_mm.py``    a bank of MoE experts' packed products in one launch (K12)
 - ``_build.py``       nvcc build of ``csrc/*.cu`` at first use, ctypes loading
 - ``_common.py``      wrapper checks, the split-k launch shape and workspace
-- ``ops.py``          ``qmatmul`` format dispatch, ``linear``, ``impl_mode``
+- ``ops.py``          ``qmatmul`` / ``expert_matmul`` format dispatch, ``linear``, ``impl_mode``
 - ``ref.py``          oracles
 
 Importing this package needs neither ``nvcc`` nor a GPU.
@@ -30,11 +31,14 @@ from repro_torch.kernels.dequant_mm import (
     dequant_mm,
     dequant_mm_plain,
 )
+from repro_torch.kernels.expert_mm import expert_mm, expert_mm_plain
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_plain
 from repro_torch.kernels.lutgemm import lutgemm, lutgemm_plain
 from repro_torch.kernels.mlstm_scan import mlstm_scan, mlstm_scan_plain
 from repro_torch.kernels.ops import (
     current_impl_mode,
+    expert_linear,
+    expert_matmul,
     impl_mode,
     linear,
     linear_fused,
@@ -50,7 +54,7 @@ from repro_torch.kernels.uniform_mm import uniform_mm, uniform_mm_plain
 
 KERNEL_WRAPPERS = (
     bcq_mm, bcq_mm_fused, lutgemm, uniform_mm, dequant_materialize, ternary_mm, codebook_mm,
-    flash_attention, rglru_scan, mlstm_scan, slstm_scan,
+    flash_attention, rglru_scan, mlstm_scan, slstm_scan, expert_mm,
 )
 
 
@@ -138,6 +142,10 @@ __all__ = [
     "dequant_materialize_plain",
     "dequant_mm",
     "dequant_mm_plain",
+    "expert_linear",
+    "expert_matmul",
+    "expert_mm",
+    "expert_mm_plain",
     "flash_attention",
     "flash_attention_plain",
     "impl_mode",

@@ -1,5 +1,6 @@
-"""The group-table kernels' host side: K1/K2 ``bcq_mm``, K5 ``uniform_mm``
-and the CUDA-core path of K4 ``ternary_mm`` (f32 x or f32 alpha).
+"""The group-table kernels' host side: K1/K2 ``bcq_mm``, K5 ``uniform_mm``,
+the CUDA-core path of K4 ``ternary_mm`` (f32 x or f32 alpha), and K12
+``expert_mm``, the same kernel over every expert of a bank in one launch.
 
 Each is ``csrc/grouptable.cuh`` with a format's way of making the ``2^q``
 weights that a (group, column) pair can take (``csrc/bcq_mm.cu``,
@@ -16,8 +17,12 @@ columns a lane, the k-split, the stage size and shared memory); nothing in
 it depends on B. :func:`launch` takes the split's scratch and tickets from
 the per-device workspace that K3 and K7 also use, and launches over row
 slabs that keep the scratch within ``SCRATCH_CAP``; a row's sum does not
-depend on its slab. :func:`table_plain` and :func:`weights_plain` are the
-table build in plain PyTorch, for the tests.
+depend on its slab. :func:`launch_grouped` is K12: one launch over a bank
+of E experts, the expert index folded into the grid's third dimension with
+the k-chunks, each expert on the plan :func:`plan` makes for one expert,
+so each expert's rows get the bits of the kernel called on that expert
+alone. :func:`table_plain` and :func:`weights_plain` are the table build in
+plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
@@ -116,12 +121,13 @@ class Plan:
         """Arrival counters a launch of ``B`` rows needs: one a (column tile, batch tile)."""
         return self.col_tiles * -(-B // row_tile(B)) if self.splits > 1 else 0
 
-    def slab_rows(self, B: int) -> int:
-        """Rows a launch takes: all ``B`` unless the split's scratch would
-        pass ``SCRATCH_CAP``, else the most whole row tiles of 8 within it."""
+    def slab_rows(self, B: int, experts: int = 1) -> int:
+        """Rows a launch takes (of each expert's, for a grouped launch over
+        ``experts``): all ``B`` unless the split's scratch would pass
+        ``SCRATCH_CAP``, else the most whole row tiles of 8 within it."""
         if self.splits == 1:
             return B
-        most = SCRATCH_CAP // (4 * self.splits * self.o) // MAX_BT * MAX_BT
+        most = SCRATCH_CAP // (4 * self.splits * self.o * experts) // MAX_BT * MAX_BT
         return min(B, max(MAX_BT, most))
 
     def args(self) -> tuple:
@@ -179,12 +185,12 @@ def plan(kind: str, k: int, o: int, q: int, g: int, x_dtype: torch.dtype, s_dtyp
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(kind: str):
+def _entry(kind: str, grouped: bool = False):
     name = f"{kind}_mm"  # csrc/bcq_mm.cu, csrc/uniform_mm.cu, csrc/ternary_mm.cu
     lib = _build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, i, p, p, p] + [i] * 17 + [p]
+    fn = getattr(lib, f"{name}_grouped_launch" if grouped else f"{name}_launch")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, i, p, p, i, p, p, p] + [i] * 17 + ([i, ll, ll] if grouped else []) + [p]
     fn.restype = i
     return lib, fn
 
@@ -216,6 +222,37 @@ def launch(kind: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tenso
             )
             _build.check(lib, rc, f"{kind}_mm launch")
     return out, -(-B // slab)
+
+
+def launch_grouped(kind: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                   g: int) -> Tuple[torch.Tensor, int]:
+    """K12: ``x (E, C, k)`` against E experts' ``packed (E, P, k/8, o)`` and
+    ``scales (E, S, k/g, o)`` of format ``kind``, on validated CUDA inputs →
+    (``(E, C, o)`` f32, the launches made), on PyTorch's current stream: one
+    launch over the whole bank for each slab of every expert's rows
+    (:meth:`Plan.slab_rows` with ``experts``), whose split scratch and
+    tickets are E times one expert's. Counts nothing itself."""
+    x, packed, scales = x.contiguous(), packed.contiguous(), scales.contiguous()
+    E, C, k = x.shape
+    q, o = packed.shape[1], packed.shape[-1]
+    out = torch.empty((E, C, o), dtype=torch.float32, device=x.device)
+    if E == 0 or C == 0:
+        return out, 0
+    pl = plan(kind, k, o, q, g, x.dtype, scales.dtype)
+    slab = pl.slab_rows(C, E)
+    lib, fn = _entry(kind, grouped=True)
+    with torch.cuda.device(x.device):
+        scratch, tickets = _workspace(x.device, E * pl.scratch_floats(slab), E * pl.tickets(slab))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for c0 in range(0, C, slab):
+            xs, ys = x[:, c0 : c0 + slab], out[:, c0 : c0 + slab]
+            rc = fn(
+                xs.data_ptr(), DTYPE_CODES[x.dtype], packed.data_ptr(), scales.data_ptr(),
+                DTYPE_CODES[scales.dtype], ys.data_ptr(), scratch.data_ptr(), tickets.data_ptr(),
+                xs.shape[1], k, o, q, g, *pl.args(), E, C * k, C * o, stream,
+            )
+            _build.check(lib, rc, f"{kind}_mm grouped launch")
+    return out, -(-C // slab)
 
 
 def table_plain(kind: str, scales: torch.Tensor, q: int) -> torch.Tensor:

@@ -25,6 +25,10 @@ the format (``token_rows``), so a product that sums by the row count (the
 ``dequant`` GEMM) can keep each row's bits independent of B.
 Every path returns values computed in f32, cast to ``out_dtype`` (default:
 ``x``'s dtype).
+
+``expert_matmul(fmt, buf, qt)`` is the same dispatch for an MoE bank:
+``buf (E, C, k)`` against E experts' packed weights ``(E, k, o)`` → ``(E,
+C, o)`` f32 (:func:`expert_linear` also takes a dense bank).
 """
 
 from __future__ import annotations
@@ -109,6 +113,69 @@ def qmatmul(
 
 
 qmatmul.ref_calls = 0  # dispatches that took the oracle instead of a kernel
+
+
+# format → the group-table kind its kernel takes for a bank (K12); ternary only
+# off its tensor cores (f32 x or f32 alpha)
+_GROUPED_KINDS = {("bcq", "bcq_mm"): "bcq", ("uniform", "uniform_mm"): "uniform",
+                  ("ternary", "ternary_mm"): "ternary"}
+
+
+def expert_matmul(fmt, buf: torch.Tensor, qt: QuantizedTensor, *, impl: str = "auto") -> torch.Tensor:
+    """``buf (E, C, k)`` against a bank of E experts' packed weights (``qt``
+    with a leading ``(E,)``, each ``(k, o)``) → ``(E, C, o)`` f32.
+
+    Dispatch, as :func:`qmatmul`'s:
+
+    - ``impl="ref"`` (or ``impl_mode("ref")``): the reference's ``_w``
+      route, the format's dequantize of the whole bank to ``buf``'s dtype,
+      then one batched product accumulated in f32: the oracle.
+    - a kernel, for ``bcq`` on ``bcq_mm``, ``uniform``, and ``ternary`` with
+      f32 x or f32 alpha (the group-table kinds): K12
+      (:func:`~repro_torch.kernels.expert_mm.expert_mm`), one launch for
+      the bank (a launch a row slab where the bank's split scratch would
+      pass ``grouptable.SCRATCH_CAP``).
+    - any other kernel: that format's kernel on each expert's view in turn:
+      ``codebook`` (K7), ``dequant`` (K6 and its GEMM), ``ternary`` bf16
+      with bf16 alpha (K4 on its tensor cores) and ``impl_mode("lutgemm")``
+      (K3). Those kernels take one matrix; looping over the experts is how
+      their formats serve a bank, by design.
+
+    On a CPU tensor the kernels' plain versions run, as everywhere."""
+    f = get_format(fmt) if isinstance(fmt, str) else fmt
+    E, C, k = buf.shape
+    if qt.packed.dim() != 4 or qt.packed.shape[0] != E:
+        raise ValueError(f"expert bank packed {tuple(qt.packed.shape)} does not lead with the {E} experts of buf")
+    if k != qt.k:
+        raise ValueError(f"buf reduction dim {k} != weight k {qt.k}")
+    if impl == "auto" and _IMPL_MODE is not None:
+        impl = _IMPL_MODE
+    impl = f.resolve_impl(impl, buf)
+    if impl == "ref":
+        qmatmul.ref_calls += 1
+        w = f.dequantize(qt, dtype=buf.dtype)  # (E, k, o)
+        return torch.bmm(buf.to(torch.float32), w.to(torch.float32))
+    kind = _GROUPED_KINDS.get((f.name, impl))
+    if kind == "ternary" and buf.dtype == torch.bfloat16 and qt.scales.dtype == torch.bfloat16:
+        kind = None  # K4's tensor cores, expert by expert
+    if kind is not None:
+        from repro_torch.kernels.expert_mm import expert_mm
+
+        return expert_mm(buf, qt.packed, qt.scales, g=qt.g, kind=kind)
+    return torch.stack([
+        f.matvec(buf[e], qt.replace(packed=qt.packed[e], scales=qt.scales[e]), impl=impl, out_dims=(qt.o,))[0]
+        for e in range(E)
+    ])
+
+
+def expert_linear(buf: torch.Tensor, w, *, impl: str = "auto") -> torch.Tensor:
+    """An MoE bank's product ``buf (E, C, k) @ w (E, k, o)`` → ``(E, C, o)``
+    f32: :func:`expert_matmul` for a packed bank; a dense bank is one
+    batched product of ``buf`` against ``w`` in ``buf``'s dtype, accumulated
+    in f32 (the reference's einsum with ``preferred_element_type=f32``)."""
+    if isinstance(w, QuantizedTensor):
+        return expert_matmul(w.fmt, buf, w, impl=impl)
+    return torch.bmm(buf.to(torch.float32), w.to(buf.dtype).to(torch.float32))
 
 
 def quantized_matmul(

@@ -59,7 +59,12 @@ and recurrent models too: ``--prefill-chunk`` is then an argparse error
 naming its reason; a prompt past the window bypasses the prefix cache.
 ``--arch xlstm-125m`` serves the ssm family (mLSTM and sLSTM cells;
 reduced: 2 layers) the same way, with the same refusal of
-``--prefill-chunk``.
+``--prefill-chunk``. ``--arch olmoe-1b-7b`` (or
+``llama4-maverick-400b-a17b``) serves the MoE family (reduced: 2 layers,
+at most 8 experts, top-2, ``moe_d_ff`` 256) with ``--sequential`` only:
+expert capacity couples a batch's rows, so the continuous default raises
+the reference's slot refusal, and speculation, the prefix cache and
+chunked prefill are refused with it.
 
 ``--tp`` belongs to tensor parallelism, which is not ported yet; it is
 refused with an error naming the missing piece.
@@ -267,7 +272,8 @@ def main(argv=None) -> None:
                  f"--prompt-len={args.prompt_len}): every request keeps at least one token of its own")
 
     # the reference launcher's reduced config (>=128-dim linears, so quantization bites)
-    cfg = reduced(arch_cfg, d_model=256, n_kv_heads=4, d_ff=512 if arch_cfg.d_ff else 0)
+    cfg = reduced(arch_cfg, d_model=256, n_kv_heads=4, d_ff=512 if arch_cfg.d_ff else 0,
+                  moe_d_ff=256 if arch_cfg.n_experts else None)
     params = init_params(cfg, seed=0, device=args.device)
     print(f"dense bytes: {quantized_bytes(params)/2**20:.2f} MiB")
     if args.q:

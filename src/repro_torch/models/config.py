@@ -1,5 +1,5 @@
 """Model configuration (counterpart of ``repro/models/config.py``; the dense,
-hybrid and ssm families are ported so far).
+MoE, hybrid and ssm families are ported so far).
 
 A model is a stack of stages; each stage is ``(pattern, repeat)``: a tuple
 of block types applied in order, repeated ``repeat`` times with its
@@ -7,6 +7,8 @@ parameters stacked on a leading axis. The stages are derived as the
 reference derives them:
 
   dense    [("attn",) x L]
+  moe      [("attn_moe",) x L], or with ``moe_period`` p > 1
+           [("attn",) * (p - 1) + ("attn_moe",) x L // p]   (L % p == 0)
   hybrid   [("rglru", "rglru", "local_attn") x L // 3, ("rglru",) * (L % 3) x 1]
   ssm      [("mlstm", "slstm") x L // 2]   (L even)
 
@@ -14,6 +16,9 @@ reference derives them:
 ``local_attn`` attention over a window of ``window`` positions whose KV
 cache is a ring of ``min(max_seq, window)`` rows (``models/layers.py``).
 ``mlstm`` and ``slstm`` are the xLSTM cells (``models/recurrent.py``).
+``attn_moe`` is an attention block whose MLP is a bank of ``n_experts``
+SwiGLU experts of width ``moe_d_ff``, ``top_k`` of them a token, plus an
+always-on ``shared_expert`` where the config has one (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -25,10 +30,9 @@ import torch
 
 Stage = Tuple[Tuple[str, ...], int]
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 # What each family the reference has and the port does not still needs.
 MISSING = {
-    "moe": "the MoE blocks (models/moe.py)",
     "vlm": "cross-attention and the image-embedding inputs",
     "audio": "the frame-embedding inputs",
 }
@@ -49,6 +53,13 @@ class ModelConfig:
     stages: Optional[Tuple[Stage, ...]] = None  # derived if None
     rope_theta: float = 500_000.0
     window: int = 2048  # local attention window (hybrid family)
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    shared_expert: bool = False  # llama4-style always-on expert
+    moe_d_ff: Optional[int] = None  # per-expert hidden (defaults to d_ff)
+    moe_period: int = 1  # every Nth layer is MoE (llama4 interleaves dense/MoE)
     # hybrid (RG-LRU)
     lru_width: Optional[int] = None  # defaults to d_model
     conv_width: int = 4
@@ -75,11 +86,20 @@ class ModelConfig:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
         if self.lru_width is None:
             object.__setattr__(self, "lru_width", self.d_model)
+        if self.moe_d_ff is None and self.n_experts:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
         if self.stages is None:
             object.__setattr__(self, "stages", self._derive_stages())
 
     def _derive_stages(self) -> Tuple[Stage, ...]:
         L = self.n_layers
+        if self.family == "moe":
+            if self.moe_period > 1:
+                p = self.moe_period
+                if L % p:
+                    raise ValueError(f"moe layers {L} must divide by period {p}")
+                return ((("attn",) * (p - 1) + ("attn_moe",), L // p),)
+            return ((("attn_moe",), L),)
         if self.family == "hybrid":
             # Griffin 1:2: repeat (rglru, rglru, local_attn); the remainder rglru
             full, rem = divmod(L, 3)
@@ -130,7 +150,10 @@ class ModelConfig:
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the reference's sizes:
     5 layers for the hybrid family, 2 otherwise, the ssm family's two
-    cells included; window 16, lru_width 64)."""
+    cells included; window 16, lru_width 64; at most 8 experts, top-2,
+    ``moe_d_ff`` 64, the shared expert kept; like the reference it does not
+    carry ``moe_period``, so a reduced interleaved MoE is all ``attn_moe``
+    unless the caller passes one)."""
     base = dict(
         name=cfg.name + "-smoke",
         family=cfg.family,
@@ -142,6 +165,10 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab=256,
         rope_theta=cfg.rope_theta,
         window=16,
+        n_experts=min(cfg.n_experts, 8),
+        top_k=min(cfg.top_k, 2),
+        shared_expert=cfg.shared_expert,
+        moe_d_ff=64 if cfg.n_experts else None,
         lru_width=64,
         param_dtype="float32",
         compute_dtype="float32",

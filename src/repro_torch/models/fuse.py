@@ -6,7 +6,9 @@ output-concatenated ``wqkv`` leaf and every SwiGLU MLP's ``w_gate``/``w_up``
 become ``w_gate_up``; ``models.layers`` then issues one projection launch per
 activation instead of N. Quantized leaves fuse only when they share a format
 that supports fusion and the same ``(k, q, g)`` and scale dtype; anything
-else is left unfused. The fused tree's parameter bytes equal the unfused
+else is left unfused. An MoE block's attention fuses too; its experts
+keep their own routing path (``router`` present: the MLP, the shared
+expert included, is left as it is, as the reference leaves it). The fused tree's parameter bytes equal the unfused
 tree's (the concatenation allocates new tensors; the caller frees the old
 tree by dropping it).
 """
@@ -21,7 +23,7 @@ from repro_torch.core.formats import get_format
 from repro_torch.core.qtensor import QuantizedTensor, fuse_tensors
 from repro_torch.models.config import ModelConfig
 
-_FUSABLE_ATTN = ("attn", "local_attn")
+_FUSABLE_ATTN = ("attn", "attn_moe", "local_attn")
 
 
 def _fuse_leaves(leaves: Sequence) -> Optional[object]:
@@ -54,7 +56,7 @@ def _fuse_attn(attn: dict) -> dict:
 
 
 def _fuse_mlp(mlp: dict) -> dict:
-    if "w_gate" not in mlp or "w_up" not in mlp:
+    if "router" in mlp or "w_gate" not in mlp or "w_up" not in mlp:
         return mlp
     fused = _fuse_leaves([mlp["w_gate"], mlp["w_up"]])
     if fused is None:

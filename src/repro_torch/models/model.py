@@ -1,5 +1,5 @@
-"""Model assembly: init / forward for the dense decoder, the hybrid family
-and the ssm family (counterpart of ``repro/models/model.py``).
+"""Model assembly: init / forward for the dense decoder, the MoE family, the
+hybrid family and the ssm family (counterpart of ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``{"stages": ({"b0": block}, ...),
 "final_norm", "lm_head", "embed"}`` with each block's leaves stacked over the
@@ -25,7 +25,9 @@ prefill whose recurrent boundary states the prefix cache commits): the
 stacks then hold the states after those steps only, ``(repeat, S', B,
 ...)``, since an mLSTM layer's state is a (Dh × Dh) matrix a head.
 
-Block types: ``attn`` (dense), ``local_attn`` (attention over a window on a
+Block types: ``attn`` (dense), ``attn_moe`` (attention, then a bank of
+experts in place of the MLP, ``models/moe.py``; its cache is an ``attn``
+cache), ``local_attn`` (attention over a window on a
 ring cache of ``min(s_max, window)`` rows), ``rglru`` (Griffin's recurrent
 block, whose state is ``h`` (B, W) f32 and ``conv`` (B, K-1, W)), and the
 xLSTM cells ``mlstm`` (state ``c`` (B, NH, Dh, Dh), ``n``, ``m``) and
@@ -44,11 +46,12 @@ import torch
 from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels.ops import linear
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils import host_pos, prompt_rows, resolve_device, tree_map
 
-ATTN_BLOCKS = ("attn", "local_attn")
+ATTN_BLOCKS = ("attn", "attn_moe", "local_attn")
 XLSTM_BLOCKS = ("mlstm", "slstm")
 RECURRENT_BLOCKS = ("rglru",) + XLSTM_BLOCKS
 BLOCKS = ATTN_BLOCKS + RECURRENT_BLOCKS
@@ -72,7 +75,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, btype: str, repeat: int, 
     else:
         p["attn"] = L.init_attention(gen, cfg, lead, device)
     p["ln2"] = torch.ones((*lead, d), dtype=cfg.pdtype, device=device)
-    p["mlp"] = L.init_mlp(gen, cfg, lead, device)
+    p["mlp"] = (M.init_moe if btype == "attn_moe" else L.init_mlp)(gen, cfg, lead, device)
     return p
 
 
@@ -187,7 +190,9 @@ def apply_block(
     tokens are a chunked decode (``layers.attention``), and the MLP sees
     them as token rows. ``collect`` (True, or step indices): a recurrent
     block returns its state stacks instead of the cache
-    (``models/recurrent.py``). An xLSTM block has no MLP."""
+    (``models/recurrent.py``). An xLSTM block has no MLP. An ``attn_moe``
+    block's experts see all of the call's tokens at once (capacity couples
+    them); its load-balance loss is not threaded out yet."""
     _check_block(btype)
     if btype in RECURRENT_BLOCKS:
         r, cache = _CELLS[btype](p["mix"], cfg, L.rmsnorm(p["ln1"], h), cache, collect=collect, chunked=chunked)
@@ -201,6 +206,8 @@ def apply_block(
         )
     h = h + r
     x = L.rmsnorm(p["ln2"], h)
+    if btype == "attn_moe":
+        return h + M.moe_apply(p["mlp"], cfg, x)[0], cache
     if chunked:
         return h + L.mlp_swiglu(p["mlp"], L.token_rows_view(x)).reshape(h.shape), cache
     return h + L.mlp_swiglu(p["mlp"], x), cache

@@ -43,6 +43,8 @@ from repro_torch.kernels import (
     dequant_materialize_plain,
     dequant_mm,
     dequant_mm_plain,
+    expert_mm,
+    expert_mm_plain,
     flash_attention,
     flash_attention_plain,
     impl_mode,
@@ -144,7 +146,7 @@ def test_kernels_match_plain(cuda, B, k, o, q, g, dtype):
     assert launch_counts() == {
         "bcq_mm": 1, "bcq_mm_fused": 1, "lutgemm": 1, "uniform_mm": 2,
         "dequant_materialize": 4, "ternary_mm": 2, "codebook_mm": 2, "flash_attention": 0, "rglru_scan": 0,
-        "mlstm_scan": 0, "slstm_scan": 0,
+        "mlstm_scan": 0, "slstm_scan": 0, "expert_mm": 0,
     }
     torch.testing.assert_close(bcq_mm(x, packed, scales, g=g), bcq_mm(x, packed, scales, g=g), rtol=0, atol=0)
     torch.testing.assert_close(lutgemm(x, packed, scales, g=g), lutgemm(x, packed, scales, g=g), rtol=0, atol=0)
@@ -158,7 +160,7 @@ def test_kernels_raise_on_mixed_devices(cuda):
             fn(x, packed, torch.ones((s, 4, 128)), g=64)
     with pytest.raises(ValueError, match="devices"):
         dequant_materialize(packed.to(cuda), torch.ones((2, 4, 128)), g=64)
-    assert len(KERNEL_WRAPPERS) == 11
+    assert len(KERNEL_WRAPPERS) == 12
 
 
 @pytest.mark.parametrize("fmt", ["uniform", "dequant", "ternary", "codebook"])
@@ -1747,3 +1749,106 @@ def test_xlstm_warm_equals_cold_on_card(cuda):
         assert warm.take_prefix_handle().length == (0 if i == 0 else 12)
         assert torch.equal(got_l, want_l), i
         np.testing.assert_array_equal(got_t, want_t)
+
+
+# -- K12: a bank of MoE experts in one launch ------------------------------------------
+
+# (kind, E, k, o, C, x dtype, scales dtype): olmoe-1b-7b's two bank shapes at
+# decode, batched-prefill and 512-token capacities, llama4-maverick's reduced
+# bank (128 experts), the other kinds, a ragged o at q = 3
+EXPERT_SHAPES = [
+    *(("bcq", 64, k, o, C, dt, dt) for k, o in ((2048, 1024), (1024, 2048)) for C in (8, 16, 80)
+      for dt in (torch.bfloat16, torch.float32)),
+    ("bcq", 128, 512, 512, 8, torch.bfloat16, torch.bfloat16),
+    ("bcq", 128, 512, 512, 80, torch.bfloat16, torch.bfloat16),
+    ("uniform", 64, 2048, 1024, 8, torch.bfloat16, torch.bfloat16),
+    ("uniform", 16, 1024, 2048, 16, torch.float32, torch.float32),
+    ("ternary", 16, 2048, 1024, 8, torch.float32, torch.bfloat16),
+    ("ternary", 16, 1024, 2048, 16, torch.bfloat16, torch.float32),
+    ("bcq", 3, 256, 200, 5, torch.float32, torch.float32),
+]
+SINGLE_KERNEL = {"bcq": (bcq_mm, 4), "uniform": (uniform_mm, 4), "ternary": (ternary_mm, 2)}
+
+
+@pytest.mark.parametrize("kind,E,k,o,C,xdt,sdt", EXPERT_SHAPES)
+def test_expert_mm_matches_plain_and_each_experts_kernel_on_card(cuda, kind, E, k, o, C, xdt, sdt):
+    """K12 within 2e-4 of its plain version, every expert's rows bit for bit
+    the format's kernel called on that expert alone, the same bits on a
+    rerun; one launch a slab of every expert's rows."""
+    from repro_torch.kernels import grouptable
+
+    fn, q = SINGLE_KERNEL[kind]
+    if o == 200:
+        q = 3
+    g = 64 if o == 200 else 128
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(E + k + C)
+    planes = [format_planes(kind, k, o, q, g, sdt, gen, cuda) for _ in range(E)]
+    packed = torch.stack([p for p, _ in planes])
+    scales = torch.stack([s for _, s in planes])
+    x = torch.randn((E, C, k), generator=gen, device=cuda).to(xdt)
+    reset_launch_counts()
+    got = expert_mm(x, packed, scales, g=g, kind=kind)
+    torch.cuda.synchronize()
+    pl = grouptable.plan(kind, k, o, packed.shape[1], g, xdt, sdt)
+    assert launch_counts()["expert_mm"] == -(-C // pl.slab_rows(C, E))
+    torch.testing.assert_close(got, expert_mm_plain(x, packed, scales, g=g, kind=kind), rtol=TOL, atol=TOL)
+    each = torch.stack([fn(x[e], packed[e], scales[e], g=g) for e in range(E)])
+    assert torch.equal(got, each)
+    assert torch.equal(expert_mm(x, packed, scales, g=g, kind=kind), got)
+
+
+def test_expert_mm_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 8, 256), device=cuda)
+    packed = torch.zeros((2, 4, 32, 128), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        expert_mm(x, packed, torch.ones((2, 4, 2, 128)), g=128)
+    with pytest.raises(ValueError, match="group-table kinds"):
+        expert_mm(x, packed, torch.ones((2, 4, 2, 128), device=cuda), g=128, kind="codebook")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        expert_mm(x.half(), packed, torch.ones((2, 4, 2, 128), device=cuda), g=128)
+
+
+# olmoe-1b-7b at full width (64 experts, top-8, moe_d_ff 1024), 2 of its 16 layers, bf16, bcq
+@functools.lru_cache(maxsize=None)
+def _moe_engine():
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=2, stages=None)
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), QuantPolicy(q=4, g=128, iters=1), device="cuda")
+    return Engine(cfg, params, max_seq=64, device="cuda")
+
+
+def test_moe_graph_generate_equals_eager_on_card(cuda):
+    """The MoE decode step (router, stable sorts, scatter_add_ counts, the
+    capacity buffers, K12 three times a layer, the ordered combine) is
+    captured, which no host sync inside it would allow, and its replays give
+    the eager loop's logits step by step and its sampled tokens, bit for
+    bit; the census counts K12 three launches a layer a forward."""
+    eng = _moe_engine()
+    prompts = np.random.default_rng(3).integers(0, eng.cfg.vocab, (4, 16))
+    eager_l = _step_logits(eng, prompts, 12, False)
+    graph_l = _step_logits(eng, prompts, 12, True)
+    assert eng._graphs[(4, None)].graph is not None  # captured, not the eager fallback of the CPU
+    assert torch.equal(graph_l, eager_l)
+    reset_launch_counts()
+    eager = eng.generate(prompts, 12, temperature=0.8, seed=1, scan=False)
+    eager_counts = launch_counts()
+    reset_launch_counts()
+    graphed = eng.generate(prompts, 12, temperature=0.8, seed=1)
+    assert launch_counts() == eager_counts
+    # 3 banks, 2 layers: the prefill's 64 tokens fill 16 capacity rows, two slabs of 8 a bank; a step one launch
+    assert eager_counts["expert_mm"] == (2 + 12) * 3 * 2
+    assert eager_counts["bcq_mm_fused"] == 13 * 2 and eager_counts["bcq_mm"] == 13 * 3
+    np.testing.assert_array_equal(graphed.tokens, eager.tokens)
+
+
+def test_moe_kernel_path_matches_ref_path_on_card(cuda):
+    """The same engine under ``impl_mode("ref")`` (the dequantized bank in
+    bf16, one batched product): greedy tokens of a short run agree, and the
+    prefill logits sit within 3e-2 of max|logit| (bf16 products summed in
+    other orders; a routing flip at a near tie moves a token's output)."""
+    eng = _moe_engine()
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(0, eng.cfg.vocab, (4, 16)), device=cuda)
+    got, _ = eng.prefill(tokens, eng._make_cache(4))
+    with impl_mode("ref"):
+        want, _ = eng.prefill(tokens, eng._make_cache(4))
+    assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()

@@ -98,13 +98,21 @@ def test_reduced_and_stages_match_the_reference(n_layers):
                                             ("audio", "frame-embedding")])
 def test_unported_families_name_what_is_missing(family, missing):
     """Each family the port lacks is refused with what it needs. The ssm
-    family (the xLSTM cells) is ported: its case checks that it builds the
-    reference's stages and refuses an odd layer count as the reference does."""
+    family (the xLSTM cells) and the MoE family are ported: their cases check
+    that they build the reference's stages and refuse a layer count the
+    reference refuses (odd for ssm; one that the MoE period does not divide)."""
     kw = dict(name="x", family=family, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=256)
     if family == "ssm":
         assert ModelConfig(n_layers=4, **kw).stages == jreduced(jget_config("xlstm-125m"), n_layers=4).stages
         with pytest.raises(ValueError, match="even layer count"):
             ModelConfig(n_layers=3, **kw)
+        return
+    if family == "moe":
+        moe = dict(n_experts=8, top_k=2, moe_period=2)
+        want = jreduced(jget_config("llama4-maverick-400b-a17b"), n_layers=4, moe_period=2).stages
+        assert ModelConfig(n_layers=4, **moe, **kw).stages == want == ((("attn", "attn_moe"), 2),)
+        with pytest.raises(ValueError, match="must divide by period"):
+            ModelConfig(n_layers=3, **moe, **kw)
         return
     with pytest.raises(ValueError, match=missing):
         ModelConfig(n_layers=2, **kw)
