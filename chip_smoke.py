@@ -232,19 +232,15 @@ code is non-zero:
              K9 launched as the blocks predict, K8 and the oracle never;
              captured against eager, logits, sampled tokens and census bit
              for bit (every capture's graph nodes its counted launches,
-             ``inspect_captures``), each loop profiled. At the first 14
-             layers (``HYBRID_SIDE_LAYERS``: 4 of the 12 (rglru, rglru,
-             local_attn) patterns and the remainder, views of the weights;
-             the smoke's time budget since phase 14): a 3000-token prompt
+             ``inspect_captures``), each loop profiled. A 3000-token prompt
              (the ring wraps inside the prefill) and 32 new tokens: prefill
              time, decode tok/s, peak memory above the weights, 8
              teacher-forced steps against ``impl_mode("ref")`` within 3e-2
              of max|logit|, K8 never. 8 requests (prompts of 16..2600
              tokens, 16 new) on 4 slots == solo ``generate``;
              ``SpecConfig(2, 4)`` greedy == plain on 2 prompts of 2100
-             tokens (the acceptance printed). At all 38: a wave of 6
-             requests sharing a 512-token prompt, cold then warm against a
-             prefix cache,
+             tokens (the acceptance printed). A wave of 6 requests sharing
+             a 512-token prompt, cold then warm against a prefix cache,
              tokens and last-prompt logits bit for bit, and a 2200-token
              prompt that neither matches nor commits; the int8 ring cache's
              forced decode logits within 5% (relative L2) of the bf16
@@ -281,14 +277,21 @@ code is non-zero:
              2048, 16 heads of 128, 64 experts, top-8, ``moe_d_ff`` 1024) at
              full width and depth, random weights from seed 0, bcq on the
              card (q = 4, g = 128, iters = 4; time, packed GB, solver peak).
-             K12 (``expert_mm``, every expert of a bank in one launch) at
-             olmoe's two bank shapes for capacities 8, 16 and 80 (a decode
-             step at B = 4, the batched prefill, a 512-token prompt), bf16
-             and f32: within 2e-4 of its plain version, every expert's rows
-             bit for bit K1 called on that expert alone, the same bits on a
-             rerun, timed beside its byte bound, its plain version and
-             ``torch.bmm`` of bf16 buffers against the bank pre-dequantized
-             to bf16; uniform's K12 at one shape; K8 at olmoe's heads. The
+             K12 (``expert_mm``: every expert of a bank in one launch, its
+             empty row tiles skipped, gate and up paired) at olmoe's two
+             bank shapes for capacities 8, 16 and 80 (a decode step at B =
+             4, the batched prefill, a 512-token prompt), bf16 and f32:
+             within 2e-4 of its plain version, every expert's rows bit for
+             bit K1 called on that expert alone (also with per-expert row
+             counts: empty experts, partial tiles, the rest zero), the same
+             bits on a rerun, one launch a bank, timed beside its byte
+             bound, its plain version and ``torch.bmm`` of bf16 buffers
+             against the bank pre-dequantized to bf16; uniform's K12 at one
+             shape; the decode step itself (16 layers of gate + up paired,
+             then down, on a random top-8 routing of 4 tokens: 32 launches)
+             timed beside its bound over the live experts and over all, the
+             library's bmm and its plain version, and held to K1 bit for
+             bit; K8 at olmoe's heads. The
              main path: a batched ``generate`` (4 × 16 + 32 new) in a counted
              window, K1, K2, K8 and K12 launched as the parameter tree
              predicts (``moe_forward_counts``), the oracle never; captured
@@ -298,7 +301,7 @@ code is non-zero:
              the dispatch's sorts / scans / scatters / gathers, the rest;
              the largest kernels), and one MoE layer's dispatch (router,
              sorts, buffers, combine) timed apart: ``moe_apply`` less its
-             three K12 launches. Logits: the f32-compute kernel path
+             two K12 launches on the same routing. Logits: the f32-compute kernel path
              within 3e-2 of the f32-weight oracle (gated), the bf16 paths'
              distances and the share of (token, layer) top-8 sets the bf16
              kernel and ref paths agree on (reported). A 512-token prompt at
@@ -2215,8 +2218,7 @@ def depth_view(engine, n_layers):
     """The first ``n_layers`` layers of an engine as an engine of their own:
     views of its stacked (fused) weights, no copy. The config's stages at
     ``n_layers`` must repeat the engine's patterns, each stage taking the
-    first of its layers (a hybrid model at 14 layers: 4 of the 12 (rglru,
-    rglru, local_attn) patterns and the (rglru, rglru) remainder)."""
+    first of its layers."""
     from repro_torch.core.qtensor import QuantizedTensor
     from repro_torch.infer import Engine
     from repro_torch.utils import tree_map
@@ -3069,9 +3071,6 @@ HYBRID_SPEC, HYBRID_SPEC_LEN, HYBRID_SPEC_NEW = (2, 4), 2100, 12  # prompts that
 HYBRID_PREFIX_TAILS, HYBRID_BYPASS = (16, 64, 23, 40, 31, 57), 2200
 HYBRID_INT8_LENS = (16, 300, 2100, 64)
 HYBRID_FORMAT_LAYERS = 5  # one (rglru, rglru, local_attn) pattern and the (rglru, rglru) remainder
-# the long prompt's and the slots' / speculation's depth (the smoke's time budget since phase 14): the first 4
-# (rglru, rglru, local_attn) patterns and the (rglru, rglru) remainder of the 38 layers, views of the weights
-HYBRID_SIDE_LAYERS = 14
 
 
 def hybrid_leaves(cfg):
@@ -3433,17 +3432,15 @@ def phase_hybrid(gen, records):
     rng = np.random.default_rng(12)
     prompts = rng.integers(0, cfg.vocab, (PROMPTS, PROMPT_LEN))
     summary, walls = {}, {}
-    side = depth_view(engine, HYBRID_SIDE_LAYERS)
     with kernel_census(by_leaf=True) as seen:
         t = time.perf_counter()
         counts, summary["main"] = hybrid_main(engine, prompts)
         walls["main"] = time.perf_counter() - t
-        for name, fn, eng in (("long", hybrid_long, side), ("slots_spec", hybrid_slots_and_spec, side),
-                              ("prefix", hybrid_prefix, engine), ("int8", hybrid_int8, engine)):
+        for name, fn in (("long", hybrid_long), ("slots_spec", hybrid_slots_and_spec), ("prefix", hybrid_prefix),
+                         ("int8", hybrid_int8)):
             t = time.perf_counter()
-            summary[name] = fn(eng, rng)
+            summary[name] = fn(engine, rng)
             walls[name] = time.perf_counter() - t
-    del side
     summary["checked"] = len(check_launched("hybrid", seen, None, records, gen, hybrid_leaves(cfg)))
     del engine
     torch.cuda.empty_cache()
@@ -3838,26 +3835,39 @@ def bank_planes(kind, E, k, o, dtype, gen):
 def check_k12(kind, E, k, o, C, dtype, gen, bank=None, leaf=""):
     """K12 at one bank shape: within ``KERNEL_TOL`` of its plain version,
     every expert's rows bit for bit the format's kernel called on that expert
-    alone, the same bits on a rerun; timed (graph replays) beside its
-    plain version, its bound (the bank's planes and scales, x and the f32
-    out read or written once; E·C·k·o products and sums at the inputs'
-    peak) and the library call (``torch.bmm`` of bf16 buffers against the
-    bank pre-dequantized to bf16) → record."""
+    alone, the same bits on a rerun, one launch; with per-expert row counts
+    (empty experts, partial tiles, a count past C) the rows below each
+    count bit for bit the same and the rest zero; timed (graph replays,
+    every expert filled) beside its plain version, its bound (the bank's
+    planes and scales, x and the f32 out read or written once; E·C·k·o
+    products and sums at the inputs' peak) and the library call
+    (``torch.bmm`` of bf16 buffers against the bank pre-dequantized to
+    bf16) → record."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.qtensor import QuantizedTensor
-    from repro_torch.kernels import bcq_mm, expert_mm, expert_mm_plain, ternary_mm, uniform_mm
+    from repro_torch.kernels import bcq_mm, expert_mm, expert_mm_plain, launch_counts, ternary_mm, uniform_mm
 
     single = {"bcq": bcq_mm, "uniform": uniform_mm, "ternary": ternary_mm}[kind]
     packed, scales = bank if bank is not None else bank_planes(kind, E, k, o, dtype, gen)
     x = torch.randn((E, C, k), generator=gen, device=DEVICE).to(dtype)
+    before = launch_counts()["expert_mm"]
     y = expert_mm(x, packed, scales, g=G, kind=kind)
+    one_launch = launch_counts()["expert_mm"] - before == 1
     torch.cuda.synchronize()
     want = expert_mm_plain(x, packed, scales, g=G, kind=kind)
     err = (y - want).abs().max().item()
     within = bool(torch.allclose(y, want, rtol=KERNEL_TOL, atol=KERNEL_TOL)) and bool(torch.isfinite(y).all())
     del want
-    each = bool(torch.equal(torch.stack([single(x[e], packed[e], scales[e], g=G) for e in range(E)]), y))
+    each_out = torch.stack([single(x[e], packed[e], scales[e], g=G) for e in range(E)])
+    each = bool(torch.equal(each_out, y))
     same = bool(torch.equal(expert_mm(x, packed, scales, g=G, kind=kind), y))
+    rows = torch.randint(0, C + 2, (E,), generator=gen, device=DEVICE).to(torch.int32)
+    rows[0] = 0
+    live = torch.arange(C, device=DEVICE)[None, :] < rows[:, None]
+    part = expert_mm(x, packed, scales, g=G, kind=kind, rows=rows)
+    rows_ok = bool(torch.equal(part.view(torch.int32),
+                               torch.where(live[..., None], each_out, torch.zeros_like(each_out)).view(torch.int32)))
+    del each_out, part
     ms = time_ms(lambda: expert_mm(x, packed, scales, g=G, kind=kind), [()])
     plain_ms = time_ms(lambda: expert_mm_plain(x, packed, scales, g=G, kind=kind), [()], reps=3, inner=1)
     f = get_format(kind)
@@ -3870,14 +3880,98 @@ def check_k12(kind, E, k, o, C, dtype, gen, bank=None, leaf=""):
     ops_ms = 2.0 * E * C * k * o / PEAK_OPS[torch.promote_types(dtype, scales.dtype)] * 1e3
     rec = dict(kernel=K12[0], kind=kind, leaf=leaf, E=E, C=C, k=k, o=o, q=packed.shape[1], g=G,
                dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=KERNEL_TOL, equals_each_expert=each,
-               same_bits=same, ok=within and each and same, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+               same_bits=same, rows_equal=rows_ok, one_launch=one_launch,
+               ok=within and each and same and rows_ok and one_launch, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations", mb=nbytes / 1e6)
     log(f"  [K12 {kind}] {leaf or '-':11s} E={E:<3d} C={C:<2d} k={k:<4d} o={o:<4d} {rec['dtype']:8s} err {err:.2e} "
-        f"(tol {KERNEL_TOL:g}), == each expert's {single.__name__} {each}, rerun same bits {same} "
-        f"{'ok' if rec['ok'] else 'FAIL'}  {ms:.4f} ms = {ms / rec['bound_ms']:.1f}x its bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, library "
-        f"bmm {library_ms:.4f} ms ({ms / library_ms:.2f}x)")
+        f"(tol {KERNEL_TOL:g}), == each expert's {single.__name__} {each} (with row counts {rows_ok}), rerun same "
+        f"bits {same}, one launch {one_launch} {'ok' if rec['ok'] else 'FAIL'}  {ms:.4f} ms = "
+        f"{ms / rec['bound_ms']:.1f}x its bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB), "
+        f"plain {plain_ms:.3f} ms, library bmm {library_ms:.4f} ms ({ms / library_ms:.2f}x)")
+    return rec
+
+
+STEP_SETS = 4  # distinct bank sets the timed decode step cycles through (~0.86 GB: past the 50 MB L2)
+
+
+def step_routing(gen, E, C, tokens, top):
+    """Each expert's filled rows after ``tokens`` tokens each pick ``top``
+    distinct experts at random, at most C: a decode step's ``rows``."""
+    picks = torch.rand((tokens, E), generator=gen, device=DEVICE).argsort(-1)[:, :top]
+    counts = torch.zeros(E, dtype=torch.int64, device=DEVICE).scatter_add_(0, picks.reshape(-1),
+                                                                          torch.ones_like(picks.reshape(-1)))
+    return torch.clamp_max(counts, C).to(torch.int32)
+
+
+def k12_step(gen, cfg):
+    """K12 as olmoe's decode step at B = 4 launches it: each of its 16 layers
+    gate + up paired over one buffer, then down, each expert's rows from a
+    random top-8 routing of 4 tokens (capacity 8), the buffers zero past
+    them, ``STEP_SETS`` bank sets in turn. Held to K1 on each expert bit for
+    bit (every layer's rows, the rest zero); timed by graph replays beside
+    its plain version, the bytes of the live experts and of all experts
+    (planes, scales, buffers and f32 outputs once) and the library's three
+    bmm a layer against the banks pre-dequantized to bf16 → record."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.kernels import bcq_mm, expert_mm, expert_mm_pair, expert_mm_plain, launch_counts
+
+    E, d, F, L = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.n_layers
+    C, bf = moe_caps(cfg)[0], torch.bfloat16
+    sets = [[bank_planes("bcq", E, k, o, bf, gen) for k, o in ((d, F), (d, F), (F, d))] for _ in range(STEP_SETS)]
+    layers = []
+    for layer in range(L):
+        rows = step_routing(gen, E, C, PROMPTS, cfg.top_k)
+        live = (torch.arange(C, device=DEVICE)[None, :] < rows[:, None])[..., None]
+        xb = torch.where(live, torch.randn((E, C, d), generator=gen, device=DEVICE), 0.0).to(bf)
+        hb = torch.where(live, torch.randn((E, C, F), generator=gen, device=DEVICE), 0.0).to(bf)
+        layers.append((rows, sets[layer % STEP_SETS], xb, hb, live))
+
+    def step():
+        for rows, (gate, up, down), xb, hb, _ in layers:
+            expert_mm_pair(xb, gate, up, g=G, rows=rows)
+            expert_mm(hb, *down, g=G, rows=rows)
+
+    before = launch_counts()["expert_mm"]
+    step()
+    launches = launch_counts()["expert_mm"] - before
+    equal = True
+    for rows, (gate, up, down), xb, hb, live in layers:
+        outs = [*expert_mm_pair(xb, gate, up, g=G, rows=rows), expert_mm(hb, *down, g=G, rows=rows)]
+        for y, (packed, scales), xx in zip(outs, (gate, up, down), (xb, xb, hb)):
+            each = torch.stack([bcq_mm(xx[e], packed[e], scales[e], g=G) for e in range(E)])
+            equal &= bool(torch.equal(y.view(torch.int32), torch.where(live, each, 0.0).view(torch.int32)))
+    ms = time_ms(step, [()], inner=3)
+    r0, (g0, u0, d0), x0, h0, _ = layers[0]
+    plain_ms = L * time_ms(lambda: (expert_mm_plain(x0, *g0, g=G, rows=r0), expert_mm_plain(x0, *u0, g=G, rows=r0),
+                                    expert_mm_plain(h0, *d0, g=G, rows=r0)), [()], reps=3, inner=1)
+    fmt = get_format("bcq")
+    w16 = [[fmt.dequantize(QuantizedTensor(packed=p, scales=s, g=G, k=p.shape[2] * 8, o=p.shape[-1], fmt="bcq"),
+                           dtype=bf) for p, s in bank_set] for bank_set in sets]
+
+    def library():
+        for layer, (_, _, xb, hb, _) in enumerate(layers):
+            wg, wu, wd = w16[layer % STEP_SETS]
+            torch.bmm(xb, wg), torch.bmm(xb, wu), torch.bmm(hb, wd)
+
+    library_ms = time_ms(library, [()], inner=3)
+    del w16
+    per_expert = sum(p[0].numel() + p[1].numel() * p[1].element_size() for p in sets[0]) // E
+    n_live = sum(int((rows > 0).sum()) for rows, *_ in layers)
+    n_rows = sum(int(rows.sum()) for rows, *_ in layers)
+    io_row = 2 * d + 2 * F * 4 + 2 * F + d * 4  # x read, gate and up written (f32), h read, down written (f32)
+    bytes_ms = (n_live * per_expert + n_rows * io_row) / MEM_BYTES_PER_S * 1e3
+    all_ms = L * (E * per_expert + E * C * io_row) / MEM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * n_rows * 3 * d * F / PEAK_OPS[bf] * 1e3
+    rec = dict(kernel=K12[0], leaf="step", E=E, C=C, layers=L, launches=launches, live_experts=n_live / L,
+               equals_each_expert=equal, ok=equal and launches == 2 * L, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_all_ms=all_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=0.0)
+    log(f"  [K12 step] B = {PROMPTS}, {L} layers, {launches} launches (gate + up paired, then down), "
+        f"{n_live / L:.1f} of {E} experts live a layer: == each expert's bcq_mm {equal}  {ms:.4f} ms = "
+        f"{ms / rec['bound_ms']:.1f}x its bound over the live experts {rec['bound_ms']:.4f} ms (all experts "
+        f"{all_ms:.4f} ms), library bmm {library_ms:.4f} ms ({ms / library_ms:.2f}x), plain {plain_ms:.1f} ms")
     return rec
 
 
@@ -3893,7 +3987,8 @@ def moe_caps(cfg):
 def check_k12_banks(gen, cfg):
     """K12 at olmoe-1b-7b's two bank shapes (w_gate / w_up: d → F, w_down: F →
     d), for every capacity of :func:`moe_caps`, bf16 and f32; uniform's K12
-    at one shape → records (raises on any failure)."""
+    at one shape; the decode step (:func:`k12_step`) → records (raises on
+    any failure)."""
     E, d, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
     recs = []
     for leaf, (k, o) in (("w_gate/w_up", (d, F)), ("w_down", (F, d))):
@@ -3902,6 +3997,7 @@ def check_k12_banks(gen, cfg):
             recs += [check_k12("bcq", E, k, o, C, dtype, gen, bank, leaf) for C in moe_caps(cfg)]
             del bank
     recs.append(check_k12("uniform", E, d, F, moe_caps(cfg)[0], torch.bfloat16, gen, leaf="w_gate/w_up"))
+    recs.append(k12_step(gen, cfg))
     bad = [r for r in recs if not r["ok"]]
     if bad:
         raise SystemExit(f"chip_smoke: [moe] K12 differs from its plain version or from each expert's kernel: {bad}")
@@ -3909,26 +4005,32 @@ def check_k12_banks(gen, cfg):
 
 
 class _CountedBank(_Counted):
-    """K12's wrapper seen through :func:`k12_census`: counts each call by
-    (kind, E, C, k, o, x dtype); the launch counter passes through."""
+    """K12's wrapper seen through :func:`k12_census`: counts each bank a call
+    takes by (kind, E, C, k, o, x dtype), both of a pair; the launch counter
+    passes through."""
 
-    def __call__(self, x, packed, scales, *a, **kw):
-        self._seen[(kw.get("kind", "bcq"), *x.shape, packed.shape[-1], str(x.dtype).replace("torch.", ""))] += 1
-        return self._fn(x, packed, scales, *a, **kw)
+    def __call__(self, x, *banks, **kw):
+        pair = isinstance(banks[0], tuple)
+        for _ in range(2 if pair else 1):
+            o = (banks[0][0] if pair else banks[0]).shape[-1]
+            self._seen[(kw.get("kind", "bcq"), *x.shape, o, str(x.dtype).replace("torch.", ""))] += 1
+        return self._fn(x, *banks, **kw)
 
 
 @contextlib.contextmanager
 def k12_census():
-    """Count every K12 call by (kind, E, C, k, o, x dtype) while the block
-    runs (``ops.expert_matmul`` imports the wrapper at each call, so the
-    module attribute patched here sees them all)."""
+    """Count every bank of every K12 call by (kind, E, C, k, o, x dtype)
+    while the block runs (``ops.expert_matmul`` and ``expert_linear_pair``
+    import the wrappers at each call, so the module attributes patched here
+    see them all)."""
     mod = importlib.import_module("repro_torch.kernels.expert_mm")
-    fn, seen = mod.expert_mm, collections.Counter()
-    mod.expert_mm = _CountedBank(fn, "expert_mm", seen, False)
+    fns, seen = (mod.expert_mm, mod.expert_mm_pair), collections.Counter()
+    mod.expert_mm = _CountedBank(fns[0], "expert_mm", seen, False)
+    mod.expert_mm_pair = _CountedBank(fns[1], "expert_mm", seen, False)
     try:
         yield seen
     finally:
-        mod.expert_mm = fn
+        mod.expert_mm, mod.expert_mm_pair = fns
 
 
 def moe_forward_counts(engine, batch, seq):
@@ -3936,19 +4038,18 @@ def moe_forward_counts(engine, batch, seq):
     the bcq engine, from its fused parameter tree: K2 at every ``wqkv`` and
     dense ``w_gate_up``, K1 at ``wo``, a dense or shared ``w_down``, the
     shared expert's ``w_gate`` / ``w_up`` (an MoE MLP is not fused) and the
-    LM head (``batch`` rows: the last position's), one a row slab; K12 at
-    each bank, one a slab of the capacity's rows; K8 once an attention
-    layer of a prefill (seq > 1)."""
+    LM head (``batch`` rows: the last position's), one a row slab; K12
+    twice an MoE layer at any capacity (gate and up paired, then down); K8
+    once an attention layer of a prefill (seq > 1)."""
     from repro_torch.core.qtensor import QuantizedTensor
     from repro_torch.kernels import grouptable
-    from repro_torch.models.moe import capacity
 
     cfg, counts = engine.cfg, collections.Counter()
-    rows, cap = batch * seq, capacity(engine.cfg, batch * seq)
+    rows = batch * seq
 
-    def launches(qt, n, experts=1):
+    def launches(qt, n):
         pl = grouptable.plan("bcq", qt.k, qt.o, qt.q, qt.g, cfg.cdtype, qt.scales.dtype)
-        return -(-n // pl.slab_rows(n, experts))
+        return -(-n // pl.slab_rows(n))
 
     def linears(tree):
         for name, leaf in tree.items():
@@ -3965,8 +4066,7 @@ def moe_forward_counts(engine, batch, seq):
                 linears(blk["attn"])
                 mlp = blk["mlp"]
                 if "router" in mlp:
-                    for name in ("w_gate", "w_up", "w_down"):
-                        counts["expert_mm"] += launches(mlp[name], cap, cfg.n_experts)
+                    counts["expert_mm"] += 2
                     linears(mlp.get("shared", {}))
                 else:
                     linears(mlp)
@@ -4075,7 +4175,7 @@ def moe_main(engine, prompts):
     whole, banks = moe_dispatch_ms(engine, b)
     n_moe = cfg.block_counts()["attn_moe"]
     dispatch = dict(layer_ms=whole, banks_ms=banks, dispatch_ms=whole - banks, step_dispatch_ms=(whole - banks) * n_moe)
-    log(f"  [moe] one MoE layer at B = {b} (graph replays): {whole:.4f} ms, its three K12 launches {banks:.4f} ms, "
+    log(f"  [moe] one MoE layer at B = {b} (graph replays): {whole:.4f} ms, its two K12 launches {banks:.4f} ms, "
         f"so the dispatch (router, sorts, counts, buffers, combine) {whole - banks:.4f} ms, "
         f"{dispatch['step_dispatch_ms']:.3f} ms a step of {n_moe} layers")
     if not all(same.values()) or nodes != want_nodes:
@@ -4089,9 +4189,9 @@ def moe_dispatch_ms(engine, batch):
     """What one MoE layer's dispatch costs at a decode step of ``batch``
     rows, apart from its expert products: ``moe_apply`` on layer 0's
     weights (router, stable sorts, counts, buffers, the banks, combine)
-    less its three K12 launches on buffers of the same shape, each timed
-    by graph replays → (whole ms, banks ms)."""
-    from repro_torch.kernels import expert_linear
+    less its two K12 launches on buffers of the same shape and the same
+    routing's row counts, each timed by graph replays → (whole ms, banks ms)."""
+    from repro_torch.kernels import expert_linear, expert_linear_pair, linear
     from repro_torch.models import moe as M
     from repro_torch.models.model import layer_slice
 
@@ -4100,11 +4200,15 @@ def moe_dispatch_ms(engine, batch):
     p = layer_slice(engine.params["stages"][0]["b0"], 0)["mlp"]
     cap = M.capacity(cfg, batch)
     x = torch.randn((batch, 1, cfg.d_model), generator=gen, device=DEVICE).to(cfg.cdtype)
-    buf = torch.randn((cfg.n_experts, cap, cfg.d_model), generator=gen, device=DEVICE).to(cfg.cdtype)
-    h = torch.randn((cfg.n_experts, cap, cfg.moe_d_ff), generator=gen, device=DEVICE).to(cfg.cdtype)
+    _, top_e = M.route(linear(x.reshape(batch, -1), p["router"], out_dtype=torch.float32), cfg.top_k)
+    rows = M.dispatch(top_e, cfg.n_experts, cap)[-1]
+    live = (torch.arange(cap, device=DEVICE)[None, :] < rows[:, None])[..., None]
+    buf = torch.where(live, torch.randn((cfg.n_experts, cap, cfg.d_model), generator=gen, device=DEVICE), 0.0)
+    h = torch.where(live, torch.randn((cfg.n_experts, cap, cfg.moe_d_ff), generator=gen, device=DEVICE), 0.0)
+    buf, h = buf.to(cfg.cdtype), h.to(cfg.cdtype)
     whole = time_ms(lambda: M.moe_apply(p, cfg, x), [()])
-    banks = time_ms(lambda: (expert_linear(buf, p["w_gate"]), expert_linear(buf, p["w_up"]),
-                             expert_linear(h, p["w_down"])), [()])
+    banks = time_ms(lambda: (expert_linear_pair(buf, p["w_gate"], p["w_up"], rows=rows),
+                             expert_linear(h, p["w_down"], rows=rows)), [()])
     return whole, banks
 
 
@@ -4244,7 +4348,7 @@ def phase_moe(gen, records):
             t = time.perf_counter()
             summary[name] = fn()
             walls[name] = time.perf_counter() - t
-    checked_banks = {("bcq", r["E"], r["C"], r["k"], r["o"], r["dtype"]) for r in k12}
+    checked_banks = {("bcq", r["E"], r["C"], r["k"], r["o"], r["dtype"]) for r in k12 if r["leaf"] != "step"}
     unchecked = sorted(set(banks) - checked_banks)
     if unchecked:
         raise SystemExit(f"chip_smoke: [moe] K12 launched at bank shapes it was not held to its plain version at: "
@@ -4265,20 +4369,19 @@ def phase_moe(gen, records):
 
 def k12_line(k12, counts, cfg):
     """K12's entry of the kernels line: its launches on phase 14's main path;
-    time, plain time, bound and library time summed over one decode step's
-    launches at B = 4 (capacity 8, bf16: w_gate and w_up at d → F, w_down at
-    F → d, a layer each), the other shapes beside them."""
-    step = {r["leaf"]: r for r in k12 if r["kind"] == "bcq" and r["C"] == moe_caps(cfg)[0] and r["dtype"] == "bfloat16"}
-    per_layer = [(step["w_gate/w_up"], 2), (step["w_down"], 1)]
-    total = lambda key: sum(r[key] * n for r, n in per_layer) * cfg.n_layers  # noqa: E731
+    time, plain time, bound (over the live experts; over all of them beside
+    it) and library time of one decode step's launches at B = 4
+    (:func:`k12_step`: 16 layers of gate + up paired, then down), the bank
+    shapes beside them."""
+    (step,) = [r for r in k12 if r["leaf"] == "step"]
     name, src, replaces = K12
     return dict(name=name, route="cuda", source=f"src/repro_torch/{src}", replaces=replaces,
                 launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in k12),
-                ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-                bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
-                library_ms=total("library_ms"),
+                ms=step["ms"], plain_ms=step["plain_ms"], bound_ms=step["bound_ms"], bound_by=step["bound_by"],
+                library_ms=step["library_ms"], bound_all_experts_ms=step["bound_all_ms"],
+                step_launches=step["launches"], live_experts=step["live_experts"],
                 shapes=[{k: r[k] for k in ("kind", "leaf", "E", "C", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms")} for r in k12])
+                                          "library_ms")} for r in k12 if r["leaf"] != "step"])
 
 
 def scan_line(kernel, recs, counts, n_layers):

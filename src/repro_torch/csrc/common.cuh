@@ -26,7 +26,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // Smallest batch-row tile in {1, 2, 4, 8} that covers min(B, 8) rows.
-inline int row_tile(int B) {
+__host__ __device__ inline int row_tile(int B) {
   if (B >= 5) return 8;
   if (B >= 3) return 4;
   if (B >= 2) return 2;
@@ -143,7 +143,7 @@ __device__ __forceinline__ void copy_x_rows(uint8_t* dst, const void* x, int xb,
 // tile or the block that arrives last, so the result is bitwise the same
 // run to run and a row equals the row called alone.
 // This block is k-chunk `split` of `splits` (finish_split: blockIdx.z of
-// gridDim.z; a grouped launch folds its expert index into the grid's z too).
+// gridDim.z).
 template <int kThreads, int kWarps, int BT, int BC>
 __device__ __forceinline__ void finish_split_at(const float* red, float* __restrict__ out,
                                                 float* __restrict__ scratch, unsigned* __restrict__ tickets, int B,

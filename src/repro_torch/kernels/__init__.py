@@ -31,13 +31,14 @@ from repro_torch.kernels.dequant_mm import (
     dequant_mm,
     dequant_mm_plain,
 )
-from repro_torch.kernels.expert_mm import expert_mm, expert_mm_plain
+from repro_torch.kernels.expert_mm import expert_mm, expert_mm_pair, expert_mm_plain
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_plain
 from repro_torch.kernels.lutgemm import lutgemm, lutgemm_plain
 from repro_torch.kernels.mlstm_scan import mlstm_scan, mlstm_scan_plain
 from repro_torch.kernels.ops import (
     current_impl_mode,
     expert_linear,
+    expert_linear_pair,
     expert_matmul,
     impl_mode,
     linear,
@@ -145,6 +146,7 @@ __all__ = [
     "expert_linear",
     "expert_matmul",
     "expert_mm",
+    "expert_mm_pair",
     "expert_mm_plain",
     "flash_attention",
     "flash_attention_plain",

@@ -18,11 +18,14 @@ it depends on B. :func:`launch` takes the split's scratch and tickets from
 the per-device workspace that K3 and K7 also use, and launches over row
 slabs that keep the scratch within ``SCRATCH_CAP``; a row's sum does not
 depend on its slab. :func:`launch_grouped` is K12: one launch over a bank
-of E experts, the expert index folded into the grid's third dimension with
-the k-chunks, each expert on the plan :func:`plan` makes for one expert,
-so each expert's rows get the bits of the kernel called on that expert
-alone. :func:`table_plain` and :func:`weights_plain` are the table build in
-plain PyTorch, for the tests.
+of E experts (or two banks over the same x), on :func:`bank_plan`, which
+keeps the one-expert plan's k-chunks but walks them all in each block
+(by columns where they are 8 byte rows, else by chunks) and adds their
+partials in registers, in the order K1's last block adds them from
+scratch: each expert's rows get the bits of the kernel called on that
+expert alone, with no scratch, no tickets and no slabs. :func:`table_plain`
+and :func:`weights_plain` are the table build in plain PyTorch, for the
+tests.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ SMEM_BUDGET = 112 * 1024  # a block's shared memory, so two fit an SM (228 KB, 1
 MAX_SMEM = 232448  # dynamic shared memory a block may opt in to
 SCRATCH_CAP = 64 * 2**20  # bytes of partial sums a launch may write; wider calls go in row slabs
 NS_TABLE_MAX_Q = 5  # above it a table of 4 columns a lane is too large: 1 column a lane
+COL_WARPS = 4  # K12's column walk: warps a block, 32 columns each (csrc/grouptable.cuh::kColWarps)
+COLS_SMEM_BUDGET = 56 * 1024  # the column walk's shared memory a block, so four share an SM
 # The largest q that takes the table path, by format; above it each weight
 # is made from its code in registers. Measured at llama3.2-3b's wo, B = 4,
 # bf16 (chip_smoke.py's table_limit; PERF.md): BCQ's table wins up to q = 5
@@ -104,30 +109,32 @@ class Plan:
     off_t: int
     table_bytes: int
     smem: int
+    grouped: bool = False  # K12's bank plan (bank_plan): every chunk in one block
+    col_warps: int = 1  # warps that split a block's columns: 1 (K1, K12's chunk walk) or COL_WARPS (its column walk)
 
     @property
     def cols(self) -> int:
-        return 32 * self.ns
+        return 32 * self.ns * self.col_warps
 
     @property
     def col_tiles(self) -> int:
         return -(-self.o // self.cols)
 
     def scratch_floats(self, B: int) -> int:
-        """f32 partial sums a launch of ``B`` rows needs: one (B, o) slab a chunk."""
-        return self.splits * B * self.o if self.splits > 1 else 0
+        """f32 partial sums a launch of ``B`` rows needs: one (B, o) slab a chunk
+        (none for a bank plan, which adds its chunks in registers)."""
+        return self.splits * B * self.o if self.splits > 1 and not self.grouped else 0
 
     def tickets(self, B: int) -> int:
         """Arrival counters a launch of ``B`` rows needs: one a (column tile, batch tile)."""
-        return self.col_tiles * -(-B // row_tile(B)) if self.splits > 1 else 0
+        return self.col_tiles * -(-B // row_tile(B)) if self.splits > 1 and not self.grouped else 0
 
-    def slab_rows(self, B: int, experts: int = 1) -> int:
-        """Rows a launch takes (of each expert's, for a grouped launch over
-        ``experts``): all ``B`` unless the split's scratch would pass
-        ``SCRATCH_CAP``, else the most whole row tiles of 8 within it."""
-        if self.splits == 1:
+    def slab_rows(self, B: int) -> int:
+        """Rows a launch takes: all ``B`` unless the split's scratch would
+        pass ``SCRATCH_CAP``, else the most whole row tiles of 8 within it."""
+        if self.scratch_floats(B) == 0:
             return B
-        most = SCRATCH_CAP // (4 * self.splits * self.o * experts) // MAX_BT * MAX_BT
+        most = SCRATCH_CAP // (4 * self.splits * self.o) // MAX_BT * MAX_BT
         return min(B, max(MAX_BT, most))
 
     def args(self) -> tuple:
@@ -137,14 +144,20 @@ class Plan:
 
 
 def _layout(rows: int, chunk: int, q: int, S: int, g: int, k: int, cols: int, xb: int, sb: int,
-            table: bool) -> dict:
+            table: bool, red: Optional[str] = "over") -> dict:
+    """A ring stage's regions and the tables for stages of ``rows`` byte
+    rows cut from chunks of ``chunk``; then the warps' sums (``red``):
+    "over" the ring once it is done (K1), "after" the tables (K12's chunk
+    walk) or None (its column walk keeps none)."""
     sg = stage_groups(k // MU, chunk, rows, g)
     off_s = _align16(q * rows * cols)
     off_x = off_s + _align16(S * sg * cols * sb)
     stage_bytes = off_x + _align16(MAX_BT * rows * MU * xb)
     off_t = RING * stage_bytes
     table_bytes = _align16(sg * (1 << q) * cols * 4) if table else 0
-    smem = max(off_t + 2 * table_bytes, WARPS * MAX_BT * cols * 4)  # the ring and tables, then the warps' sums
+    sums = WARPS * MAX_BT * cols * 4
+    smem = {"over": max(off_t + 2 * table_bytes, sums), "after": off_t + 2 * table_bytes + sums,
+            None: off_t + 2 * table_bytes}[red]
     return dict(stage_rows=rows, stage_bytes=stage_bytes, off_s=off_s, off_x=off_x, stage_groups=sg,
                 off_t=off_t, table_bytes=table_bytes, smem=smem)
 
@@ -171,17 +184,49 @@ def plan(kind: str, k: int, o: int, q: int, g: int, x_dtype: torch.dtype, s_dtyp
     cols = 32 * ns
     kc = k // MU
     chunk = max(1, min(kc, chunk or split_chunk(kc, -(-o // cols))))
+    lay = _stages(kind, chunk, q, S, g, k, cols, x_dtype, s_dtype, table)
+    return Plan(kind=kind, k=k, o=o, q=q, table=table, ns=ns, splits=-(-kc // chunk), chunk=chunk, **lay)
+
+
+def _stages(kind, chunk, q, S, g, k, cols, x_dtype, s_dtype, table, red="over", budget=SMEM_BUDGET) -> dict:
+    """The layout of the fewest balanced stages of at most ``STAGE_ROWS``
+    byte rows a chunk, that limit halved while shared memory passes
+    ``budget``; raises if even one row a stage passes ``MAX_SMEM``."""
     xb, sb = torch.finfo(x_dtype).bits // 8, torch.finfo(s_dtype).bits // 8
     most = STAGE_ROWS
-    while True:  # the fewest stages of at most `most` rows, balanced
+    while True:
         rows = -(-chunk // -(-chunk // most))
-        lay = _layout(rows, chunk, q, S, g, k, cols, xb, sb, table)
-        if most == 1 or lay["smem"] <= SMEM_BUDGET:
+        lay = _layout(rows, chunk, q, S, g, k, cols, xb, sb, table, red)
+        if most == 1 or lay["smem"] <= budget:
             break
         most //= 2
     if lay["smem"] > MAX_SMEM:
         raise ValueError(f"{kind}: no stage fits shared memory at q={q}, g={g} ({lay['smem']} bytes)")
-    return Plan(kind=kind, k=k, o=o, q=q, table=table, ns=ns, splits=-(-kc // chunk), chunk=chunk, **lay)
+    return lay
+
+
+@functools.lru_cache(maxsize=None)
+def bank_plan(kind: str, k: int, o: int, q: int, g: int, x_dtype: torch.dtype, s_dtype: torch.dtype) -> Plan:
+    """K12's plan for a bank of experts each ``(k, o)``: :func:`plan`'s path
+    and k-chunks for one expert (so its chunk boundaries, and with them
+    every row's sum order, are K1's), every chunk walked by one block: no
+    scratch, no tickets, one launch a bank at any capacity. Where those
+    chunks are 8 byte rows (or one of at most 8) and no table above q = 5
+    is asked for, the column walk: ``COL_WARPS`` warps of one column a
+    thread over all of k, stages over all of k within
+    ``COLS_SMEM_BUDGET``. Otherwise the chunk walk: :func:`plan`'s columns,
+    its warps' sums in shared memory after the tables, the stages cut again
+    for that budget. Neither changes a sum."""
+    one = plan(kind, k, o, q, g, x_dtype, s_dtype)
+    S = SCALE_PLANES[kind] or q
+    kc = k // MU
+    if one.chunk == WARPS or (one.splits == 1 and kc <= WARPS):
+        if not (one.table and q > NS_TABLE_MAX_Q):
+            cols = 32 * COL_WARPS
+            lay = _stages(kind, kc, q, S, g, k, cols, x_dtype, s_dtype, one.table, None, COLS_SMEM_BUDGET)
+            return dataclasses.replace(one, grouped=True, ns=1, col_warps=COL_WARPS, **lay)
+    lay = _stages(kind, one.chunk, q, S, g, k, one.cols, x_dtype, s_dtype, one.table, "after")
+    return dataclasses.replace(one, grouped=True, **lay)
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,8 +234,11 @@ def _entry(kind: str, grouped: bool = False):
     name = f"{kind}_mm"  # csrc/bcq_mm.cu, csrc/uniform_mm.cu, csrc/ternary_mm.cu
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_grouped_launch" if grouped else f"{name}_launch")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, i, p, p, i, p, p, p] + [i] * 17 + ([i, ll, ll] if grouped else []) + [p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if grouped:  # x, x dtype, bank a (packed, scales, out), bank b, s dtype, rows, E, C, k, o, q, g, the plan
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, p] + [i] * 19 + [p]
+    else:
+        fn.argtypes = [p, i, p, p, i, p, p, p] + [i] * 17 + [p]
     fn.restype = i
     return lib, fn
 
@@ -224,35 +272,33 @@ def launch(kind: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tenso
     return out, -(-B // slab)
 
 
-def launch_grouped(kind: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                   g: int) -> Tuple[torch.Tensor, int]:
-    """K12: ``x (E, C, k)`` against E experts' ``packed (E, P, k/8, o)`` and
-    ``scales (E, S, k/g, o)`` of format ``kind``, on validated CUDA inputs →
-    (``(E, C, o)`` f32, the launches made), on PyTorch's current stream: one
-    launch over the whole bank for each slab of every expert's rows
-    (:meth:`Plan.slab_rows` with ``experts``), whose split scratch and
-    tickets are E times one expert's. Counts nothing itself."""
-    x, packed, scales = x.contiguous(), packed.contiguous(), scales.contiguous()
+def launch_grouped(kind: str, x: torch.Tensor, banks, g: int,
+                   rows: Optional[torch.Tensor] = None) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """K12: ``x (E, C, k)`` against one or two banks ``(packed (E, P, k/8,
+    o), scales (E, S, k/g, o))`` of format ``kind`` with one plan, on
+    validated CUDA inputs → (one ``(E, C, o)`` f32 output a bank, the
+    launches made: 1), on PyTorch's current stream. ``rows`` (E,) int32 on
+    the device: expert e's rows from ``rows[e]`` on are zero and its blocks
+    there read nothing (the output is one zeroed allocation); None computes
+    every row. Counts nothing itself."""
+    x = x.contiguous()
+    banks = [(p.contiguous(), s.contiguous()) for p, s in banks]
     E, C, k = x.shape
-    q, o = packed.shape[1], packed.shape[-1]
-    out = torch.empty((E, C, o), dtype=torch.float32, device=x.device)
+    q, o = banks[0][0].shape[1], banks[0][0].shape[-1]
+    new = torch.empty if rows is None else torch.zeros
+    outs = tuple(new((E, C, o), dtype=torch.float32, device=x.device) for _ in banks)
     if E == 0 or C == 0:
-        return out, 0
-    pl = plan(kind, k, o, q, g, x.dtype, scales.dtype)
-    slab = pl.slab_rows(C, E)
+        return outs, 0
+    pl = bank_plan(kind, k, o, q, g, x.dtype, banks[0][1].dtype)
     lib, fn = _entry(kind, grouped=True)
+    (pa, sa), (pb, sb) = banks[0], banks[1] if len(banks) == 2 else (None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
-        scratch, tickets = _workspace(x.device, E * pl.scratch_floats(slab), E * pl.tickets(slab))
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        for c0 in range(0, C, slab):
-            xs, ys = x[:, c0 : c0 + slab], out[:, c0 : c0 + slab]
-            rc = fn(
-                xs.data_ptr(), DTYPE_CODES[x.dtype], packed.data_ptr(), scales.data_ptr(),
-                DTYPE_CODES[scales.dtype], ys.data_ptr(), scratch.data_ptr(), tickets.data_ptr(),
-                xs.shape[1], k, o, q, g, *pl.args(), E, C * k, C * o, stream,
-            )
-            _build.check(lib, rc, f"{kind}_mm grouped launch")
-    return out, -(-C // slab)
+        rc = fn(x.data_ptr(), DTYPE_CODES[x.dtype], pa.data_ptr(), sa.data_ptr(), outs[0].data_ptr(), ptr(pb),
+                ptr(sb), ptr(outs[-1]) if len(banks) == 2 else None, DTYPE_CODES[sa.dtype], ptr(rows), E, C, k, o,
+                q, g, *pl.args(), pl.col_warps, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, f"{kind}_mm grouped launch")
+    return outs, 1
 
 
 def table_plain(kind: str, scales: torch.Tensor, q: int) -> torch.Tensor:

@@ -28,7 +28,8 @@ Every path returns values computed in f32, cast to ``out_dtype`` (default:
 
 ``expert_matmul(fmt, buf, qt)`` is the same dispatch for an MoE bank:
 ``buf (E, C, k)`` against E experts' packed weights ``(E, k, o)`` → ``(E,
-C, o)`` f32 (:func:`expert_linear` also takes a dense bank).
+C, o)`` f32 (:func:`expert_linear` also takes a dense bank;
+:func:`expert_linear_pair` two banks over one buffer, gate and up).
 """
 
 from __future__ import annotations
@@ -121,7 +122,29 @@ _GROUPED_KINDS = {("bcq", "bcq_mm"): "bcq", ("uniform", "uniform_mm"): "uniform"
                   ("ternary", "ternary_mm"): "ternary"}
 
 
-def expert_matmul(fmt, buf: torch.Tensor, qt: QuantizedTensor, *, impl: str = "auto") -> torch.Tensor:
+def _grouped_kind(f, impl: str, buf: torch.Tensor, qt: QuantizedTensor) -> Optional[str]:
+    """The group-table kind K12 takes for this bank, or None (another kernel,
+    expert by expert: ternary bf16 with bf16 alpha runs on K4's tensor cores)."""
+    kind = _GROUPED_KINDS.get((f.name, impl))
+    if kind == "ternary" and buf.dtype == torch.bfloat16 and qt.scales.dtype == torch.bfloat16:
+        return None
+    return kind
+
+
+def _resolve_bank(fmt, buf: torch.Tensor, qt: QuantizedTensor, impl: str):
+    f = get_format(fmt) if isinstance(fmt, str) else fmt
+    E, C, k = buf.shape
+    if qt.packed.dim() != 4 or qt.packed.shape[0] != E:
+        raise ValueError(f"expert bank packed {tuple(qt.packed.shape)} does not lead with the {E} experts of buf")
+    if k != qt.k:
+        raise ValueError(f"buf reduction dim {k} != weight k {qt.k}")
+    if impl == "auto" and _IMPL_MODE is not None:
+        impl = _IMPL_MODE
+    return f, f.resolve_impl(impl, buf)
+
+
+def expert_matmul(fmt, buf: torch.Tensor, qt: QuantizedTensor, *, impl: str = "auto",
+                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``buf (E, C, k)`` against a bank of E experts' packed weights (``qt``
     with a leading ``(E,)``, each ``(k, o)``) → ``(E, C, o)`` f32.
 
@@ -133,49 +156,62 @@ def expert_matmul(fmt, buf: torch.Tensor, qt: QuantizedTensor, *, impl: str = "a
     - a kernel, for ``bcq`` on ``bcq_mm``, ``uniform``, and ``ternary`` with
       f32 x or f32 alpha (the group-table kinds): K12
       (:func:`~repro_torch.kernels.expert_mm.expert_mm`), one launch for
-      the bank (a launch a row slab where the bank's split scratch would
-      pass ``grouptable.SCRATCH_CAP``).
+      the bank; ``rows`` ((E,) int32 on the device, an expert's filled
+      buffer rows) lets it skip the rest, which it leaves zero.
     - any other kernel: that format's kernel on each expert's view in turn:
       ``codebook`` (K7), ``dequant`` (K6 and its GEMM), ``ternary`` bf16
       with bf16 alpha (K4 on its tensor cores) and ``impl_mode("lutgemm")``
       (K3). Those kernels take one matrix; looping over the experts is how
       their formats serve a bank, by design.
 
-    On a CPU tensor the kernels' plain versions run, as everywhere."""
-    f = get_format(fmt) if isinstance(fmt, str) else fmt
-    E, C, k = buf.shape
-    if qt.packed.dim() != 4 or qt.packed.shape[0] != E:
-        raise ValueError(f"expert bank packed {tuple(qt.packed.shape)} does not lead with the {E} experts of buf")
-    if k != qt.k:
-        raise ValueError(f"buf reduction dim {k} != weight k {qt.k}")
-    if impl == "auto" and _IMPL_MODE is not None:
-        impl = _IMPL_MODE
-    impl = f.resolve_impl(impl, buf)
+    The oracle and the expert-by-expert kernels compute every row; a row
+    past ``rows[e]`` of a dispatch buffer holds zeros, so it comes out zero
+    on every path. On a CPU tensor the kernels' plain versions run, as
+    everywhere."""
+    f, impl = _resolve_bank(fmt, buf, qt, impl)
     if impl == "ref":
         qmatmul.ref_calls += 1
         w = f.dequantize(qt, dtype=buf.dtype)  # (E, k, o)
         return torch.bmm(buf.to(torch.float32), w.to(torch.float32))
-    kind = _GROUPED_KINDS.get((f.name, impl))
-    if kind == "ternary" and buf.dtype == torch.bfloat16 and qt.scales.dtype == torch.bfloat16:
-        kind = None  # K4's tensor cores, expert by expert
+    kind = _grouped_kind(f, impl, buf, qt)
     if kind is not None:
         from repro_torch.kernels.expert_mm import expert_mm
 
-        return expert_mm(buf, qt.packed, qt.scales, g=qt.g, kind=kind)
+        return expert_mm(buf, qt.packed, qt.scales, g=qt.g, kind=kind, rows=rows)
     return torch.stack([
         f.matvec(buf[e], qt.replace(packed=qt.packed[e], scales=qt.scales[e]), impl=impl, out_dims=(qt.o,))[0]
-        for e in range(E)
+        for e in range(buf.shape[0])
     ])
 
 
-def expert_linear(buf: torch.Tensor, w, *, impl: str = "auto") -> torch.Tensor:
+def expert_linear(buf: torch.Tensor, w, *, impl: str = "auto", rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """An MoE bank's product ``buf (E, C, k) @ w (E, k, o)`` → ``(E, C, o)``
     f32: :func:`expert_matmul` for a packed bank; a dense bank is one
     batched product of ``buf`` against ``w`` in ``buf``'s dtype, accumulated
     in f32 (the reference's einsum with ``preferred_element_type=f32``)."""
     if isinstance(w, QuantizedTensor):
-        return expert_matmul(w.fmt, buf, w, impl=impl)
+        return expert_matmul(w.fmt, buf, w, impl=impl, rows=rows)
     return torch.bmm(buf.to(torch.float32), w.to(buf.dtype).to(torch.float32))
+
+
+def expert_linear_pair(buf: torch.Tensor, w_a, w_b, *, impl: str = "auto",
+                       rows: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two banks over one buffer (an MoE layer's gate and up) → two ``(E, C,
+    o)`` f32 outputs: one K12 launch
+    (:func:`~repro_torch.kernels.expert_mm.expert_mm_pair`) when both are
+    packed banks of one format, shape and scale dtype that take K12, else
+    :func:`expert_linear` on each; the same bits either way."""
+    if isinstance(w_a, QuantizedTensor) and isinstance(w_b, QuantizedTensor) and w_a.fmt == w_b.fmt:
+        f, resolved = _resolve_bank(w_a.fmt, buf, w_a, impl)
+        kind = _grouped_kind(f, resolved, buf, w_a)
+        same = (w_a.packed.shape == w_b.packed.shape and w_a.scales.shape == w_b.scales.shape
+                and w_a.scales.dtype == w_b.scales.dtype and w_a.g == w_b.g)
+        if kind is not None and same:
+            from repro_torch.kernels.expert_mm import expert_mm_pair
+
+            return expert_mm_pair(buf, (w_a.packed, w_a.scales), (w_b.packed, w_b.scales), g=w_a.g, kind=kind,
+                                  rows=rows)
+    return expert_linear(buf, w_a, impl=impl, rows=rows), expert_linear(buf, w_b, impl=impl, rows=rows)
 
 
 def quantized_matmul(

@@ -7,11 +7,13 @@ reference's ``lax.scan`` over the sLSTM step
 (``src/repro/models/recurrent.py:383-403``), which serves every prefill,
 decode step and speculative verify of an xLSTM model, and which as eager
 PyTorch on the card would be S steps of ~20 launches a layer. The CUDA
-kernel is ``csrc/slstm_scan.cu``: one block per (row, head), one thread per
-(gate, output column), ``h_{t-1}`` in shared memory, each ``Σ_d h[d]
-R_g[d, e]`` summed in d order with products and sums rounded separately, so
-a row's bits depend on its own values alone and a scan of S steps equals S
-decode steps (S = 1).
+kernel is ``csrc/slstm_scan.cu``: a thread-block cluster per (head, tile of
+rows), each CTA holding its columns' slice of the four ``R_g`` in shared
+memory for the whole launch (:func:`plan`), one thread per (gate, row,
+output column), ``h_{t-1}`` exchanged through the cluster's distributed
+shared memory once a step; each ``Σ_d h[d] R_g[d, e]`` summed in d order
+with products and sums rounded separately, so a row's bits depend on its
+own values alone and a scan of S steps equals S decode steps (S = 1).
 
 :func:`slstm_scan` launches the kernel for CUDA tensors (or raises: there
 is no fallback) and runs :func:`slstm_scan_plain` for CPU tensors; the
@@ -27,6 +29,7 @@ place.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Sequence
 
@@ -39,8 +42,63 @@ from repro_torch.kernels.mlstm_scan import check_steps
 from repro_torch.utils import row_sum
 
 MAX_DH = 256  # csrc/slstm_scan.cu::MAX_DH
+MAX_THREADS = 1024  # 4 RB CW threads a CTA
+MAX_CLUSTER = 8  # CTAs a cluster: the portable limit
+MAX_SMEM = 232448  # dynamic shared memory a CTA may opt in to (227 KB)
 GATES = ("z", "i", "f", "o")
 STATE = ("h", "c", "n", "m")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The kernel's launch shape for one head width and R dtype: ``cl`` CTAs
+    a cluster, each owning ``Dh / cl`` output columns of the four gates and
+    their slice of R; at most ``rb`` rows a cluster; ``smem`` bytes a CTA at
+    ``rb`` rows (:func:`smem_bytes`). It sets no sum's order, which depends
+    on Dh alone."""
+
+    Dh: int
+    cl: int
+    rb: int
+    smem: int
+
+    @property
+    def cols(self) -> int:
+        return self.Dh // self.cl
+
+
+def smem_bytes(Dh: int, cl: int, rb: int, r_bytes: int) -> int:
+    """A CTA's shared memory (``csrc/slstm_scan.cu::smem_bytes``): its R
+    slice transposed, [4][Dh / cl][DP] (DP: Dh rounded up to 16 bytes, plus
+    16 where that leaves an even count of 16-byte pieces), h [2][rb][HS] f32
+    (HS: Dh rounded up to 4, plus 4 at a multiple of 32) and the gate values
+    [4][rb][Dh / cl] f32."""
+    v = 16 // r_bytes
+    dp = -(-Dh // v) * v
+    dp += 0 if (dp // v) % 2 else v
+    hs = -(-Dh // 4) * 4
+    hs += 0 if hs % 32 else 4
+    return 4 * (Dh // cl) * dp * r_bytes + 2 * rb * hs * 4 + 4 * rb * (Dh // cl) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def plan(Dh: int, r_dtype: torch.dtype) -> Plan:
+    """The cluster: the largest ``cl <= MAX_CLUSTER`` dividing Dh that
+    leaves a CTA at least ``min(8, Dh)`` columns, so R's slices spread over
+    the most SMs; then the most rows a cluster (up to 8) within
+    ``MAX_THREADS`` threads and ``MAX_SMEM`` bytes. Raises if even one row
+    does not fit (a slice of R too large for one CTA)."""
+    if not 1 <= Dh <= MAX_DH:
+        raise ValueError(f"slstm_scan: Dh {Dh} must be in 1..{MAX_DH}")
+    cl = max(d for d in range(1, MAX_CLUSTER + 1) if Dh % d == 0 and Dh // d >= min(8, Dh))
+    rb_bytes = torch.finfo(r_dtype).bits // 8
+    rb = min(8, MAX_THREADS // (4 * (Dh // cl)))
+    while rb > 0 and smem_bytes(Dh, cl, rb, rb_bytes) > MAX_SMEM:
+        rb -= 1
+    if rb == 0:
+        raise ValueError(f"slstm_scan: Dh {Dh} in {r_dtype}: a slice of R over {cl} CTAs "
+                         f"({smem_bytes(Dh, cl, 1, rb_bytes)} bytes) does not fit one CTA's shared memory")
+    return Plan(Dh=Dh, cl=cl, rb=rb, smem=smem_bytes(Dh, cl, rb, rb_bytes))
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +150,7 @@ def _entry():
     lib = _build.load("slstm_scan")
     fn = lib.slstm_scan_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 8 + [i] + [p] * 9 + [p, i] + [p] * 4 + [i, i, i, i, p]
+    fn.argtypes = [p] * 8 + [i] + [p] * 9 + [p, i] + [p] * 4 + [i] * 6 + [p]
     fn.restype = i
     return lib, fn
 
@@ -121,6 +179,8 @@ def _check(pre, r, state) -> None:
             raise ValueError(f"slstm_scan: r_{g} is on {w.device}, pre_z on {dev}")
     if Dh > MAX_DH:
         raise ValueError(f"slstm_scan: Dh {Dh} exceeds the kernel's {MAX_DH}")
+    if pre[0].is_cuda and Dh > 0:
+        plan(Dh, r[0].dtype)  # raises where the slice of R fits no CTA
 
 
 def slstm_scan(pre, r, state, steps: Optional[Sequence[int]] = None):
@@ -150,11 +210,13 @@ def slstm_scan(pre, r, state, steps: Optional[Sequence[int]] = None):
     stacks = {name: t.new_empty((n_sel, *t.shape)) for name, t in zip(STATE, st_in)}
     sel_t = torch.tensor(sel, dtype=torch.int32, device=hs.device) if n_sel else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    pl = plan(Dh, r[0].dtype) if Dh > 0 else None
+    cl, rb = (pl.cl, min(B, pl.rb)) if pl and B > 0 else (1, 1)
     lib, fn = _entry()
     with torch.cuda.device(hs.device):
         rc = fn(*(t.data_ptr() for t in pre), *(w.data_ptr() for w in r), DTYPE_CODES[r[0].dtype],
                 *(t.data_ptr() for t in st_in), hs.data_ptr(), *(ptr(t) for t in st_out), ptr(sel_t), n_sel,
-                *(stacks[name].data_ptr() for name in STATE), B, S, NH, Dh,
+                *(stacks[name].data_ptr() for name in STATE), B, S, NH, Dh, cl, rb,
                 torch.cuda.current_stream(hs.device).cuda_stream)
     _build.check(lib, rc, "slstm_scan launch")
     slstm_scan.launches += 1

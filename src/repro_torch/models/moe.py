@@ -6,7 +6,8 @@ Top-k routing (OLMoE: 64 experts, top-8; Llama-4-Maverick: 128, top-1 and a
 shared expert). A token's assignments are sorted by expert id, each expert
 takes a buffer of ``capacity`` rows, the banks' grouped SwiGLU runs over
 every expert's buffer (``kernels.ops.expert_linear``: one grouped
-hand-written kernel launch a bank on the GPU, K12), and the outputs are
+hand-written kernel launch for gate and up together and one for down on
+the GPU, K12, which skips each expert's empty rows), and the outputs are
 combined back, weighted by the renormalised router probabilities.
 Assignments past an expert's capacity are dropped, as the reference drops
 them.
@@ -44,7 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.ops import expert_linear, linear
+from repro_torch.kernels.ops import expert_linear, expert_linear_pair, linear
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -90,7 +91,9 @@ def dispatch(top_e: torch.Tensor, n_experts: int, cap: int):
     """Sort-and-bucket: ``top_e (T, k)`` → (``order`` (T·k,) the stable sort
     of the flat assignments by expert, ``se`` their experts, ``st`` their
     tokens, ``keep`` (within capacity), ``slot`` (their row in the expert's
-    buffer; ``cap`` for a dropped one))."""
+    buffer; ``cap`` for a dropped one), ``rows`` the filled rows of each
+    expert's buffer, ``min(count, cap)``, ``(E,)`` int32 on the device (no
+    read-back: the kernels skip the rest))."""
     t, k = top_e.shape
     flat_e = top_e.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
@@ -102,7 +105,7 @@ def dispatch(top_e: torch.Tensor, n_experts: int, cap: int):
     rank = torch.arange(t * k, device=top_e.device) - starts[se]
     keep = rank < cap
     slot = torch.where(keep, rank, torch.full_like(rank, cap))
-    return order, se, st, keep, slot
+    return order, se, st, keep, slot, torch.clamp_max(counts, cap).to(torch.int32)
 
 
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, aux: bool = False
@@ -118,7 +121,7 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, aux: bool = False
 
     logits = linear(xf, p["router"], out_dtype=torch.float32)  # (T, E)
     top_p, top_e = route(logits, k)
-    order, se, st, keep, slot = dispatch(top_e, e, cap)
+    order, se, st, keep, slot, rows = dispatch(top_e, e, cap)
     sp = top_p.reshape(-1)[order]
 
     # per-expert buffers (E, C + 1, D): dropped assignments land in a
@@ -127,9 +130,9 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, aux: bool = False
     buf[se, slot] = xf[st]
     buf = buf[:, :cap].contiguous()
 
-    gate = torch.nn.functional.silu(expert_linear(buf, p["w_gate"]))
-    up = expert_linear(buf, p["w_up"])
-    out_buf = expert_linear((gate * up).to(x.dtype), p["w_down"]).to(x.dtype)  # (E, C, D)
+    gate, up = expert_linear_pair(buf, p["w_gate"], p["w_up"], rows=rows)
+    h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    out_buf = expert_linear(h, p["w_down"], rows=rows).to(x.dtype)  # (E, C, D); rows past `rows` are zero
 
     contrib = out_buf[se, torch.clamp_max(slot, cap - 1)] * (sp * keep).to(x.dtype)[:, None]
     # each token's k contributions, in ascending position of the sorted list

@@ -44,6 +44,7 @@ from repro_torch.kernels import (
     dequant_mm,
     dequant_mm_plain,
     expert_mm,
+    expert_mm_pair,
     expert_mm_plain,
     flash_attention,
     flash_attention_plain,
@@ -1567,7 +1568,7 @@ def test_mlstm_scan_from_the_initial_state_on_card(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("B,S,NH,Dh", [(4, 1, 4, 192), (4, 5, 4, 192), (1, 3000, 4, 192), (64, 1, 4, 192),
-                                       (2, 7, 4, 16), (3, 9, 2, 100)])
+                                       (2, 7, 4, 16), (3, 9, 2, 100), (3, 6, 4, 256)])
 def test_slstm_scan_matches_plain_on_card(cuda, B, S, NH, Dh, dtype):
     """K11 against its plain loop within 2e-4, R in bf16 (xlstm-125m's
     parameter dtype) and f32; the same bits on a rerun; scan == steps and a
@@ -1755,7 +1756,8 @@ def test_xlstm_warm_equals_cold_on_card(cuda):
 
 # (kind, E, k, o, C, x dtype, scales dtype): olmoe-1b-7b's two bank shapes at
 # decode, batched-prefill and 512-token capacities, llama4-maverick's reduced
-# bank (128 experts), the other kinds, a ragged o at q = 3
+# bank (128 experts), the other kinds, a ragged o at q = 3, a wide bank whose
+# one-expert plan cuts k coarser than 8 byte rows
 EXPERT_SHAPES = [
     *(("bcq", 64, k, o, C, dt, dt) for k, o in ((2048, 1024), (1024, 2048)) for C in (8, 16, 80)
       for dt in (torch.bfloat16, torch.float32)),
@@ -1766,36 +1768,65 @@ EXPERT_SHAPES = [
     ("ternary", 16, 2048, 1024, 8, torch.float32, torch.bfloat16),
     ("ternary", 16, 1024, 2048, 16, torch.bfloat16, torch.float32),
     ("bcq", 3, 256, 200, 5, torch.float32, torch.float32),
+    ("bcq", 3, 1024, 8192, 5, torch.float32, torch.bfloat16),  # chunks of 16 byte rows: K12's chunk walk
 ]
 SINGLE_KERNEL = {"bcq": (bcq_mm, 4), "uniform": (uniform_mm, 4), "ternary": (ternary_mm, 2)}
+
+
+def _bank(kind, E, k, o, C, xdt, sdt, cuda, seed=0):
+    fn, q = SINGLE_KERNEL[kind]
+    if o == 200:
+        q = 3
+    g = 64 if o == 200 else 128
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(E + k + C + seed)
+    planes = [format_planes(kind, k, o, q, g, sdt, gen, cuda) for _ in range(E)]
+    packed = torch.stack([p for p, _ in planes])
+    scales = torch.stack([s for _, s in planes])
+    x = torch.randn((E, C, k), generator=gen, device=cuda).to(xdt)
+    # empty experts, partial and whole row tiles, a count past the capacity
+    rows = torch.randint(0, C + 2, (E,), generator=gen, device=cuda).to(torch.int32)
+    rows[0] = 0
+    return fn, g, packed, scales, x, rows
 
 
 @pytest.mark.parametrize("kind,E,k,o,C,xdt,sdt", EXPERT_SHAPES)
 def test_expert_mm_matches_plain_and_each_experts_kernel_on_card(cuda, kind, E, k, o, C, xdt, sdt):
     """K12 within 2e-4 of its plain version, every expert's rows bit for bit
     the format's kernel called on that expert alone, the same bits on a
-    rerun; one launch a slab of every expert's rows."""
-    from repro_torch.kernels import grouptable
-
-    fn, q = SINGLE_KERNEL[kind]
-    if o == 200:
-        q = 3
-    g = 64 if o == 200 else 128
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(E + k + C)
-    planes = [format_planes(kind, k, o, q, g, sdt, gen, cuda) for _ in range(E)]
-    packed = torch.stack([p for p, _ in planes])
-    scales = torch.stack([s for _, s in planes])
-    x = torch.randn((E, C, k), generator=gen, device=cuda).to(xdt)
+    rerun; one launch a bank at every capacity. With ``rows`` (empty
+    experts, partial tiles): the rows below each count bit for bit that
+    kernel's, the rest zero."""
+    fn, g, packed, scales, x, rows = _bank(kind, E, k, o, C, xdt, sdt, cuda)
     reset_launch_counts()
     got = expert_mm(x, packed, scales, g=g, kind=kind)
     torch.cuda.synchronize()
-    pl = grouptable.plan(kind, k, o, packed.shape[1], g, xdt, sdt)
-    assert launch_counts()["expert_mm"] == -(-C // pl.slab_rows(C, E))
+    assert launch_counts()["expert_mm"] == 1
     torch.testing.assert_close(got, expert_mm_plain(x, packed, scales, g=g, kind=kind), rtol=TOL, atol=TOL)
     each = torch.stack([fn(x[e], packed[e], scales[e], g=g) for e in range(E)])
     assert torch.equal(got, each)
     assert torch.equal(expert_mm(x, packed, scales, g=g, kind=kind), got)
+    part = expert_mm(x, packed, scales, g=g, kind=kind, rows=rows)
+    live = torch.arange(C, device=cuda)[None, :] < rows[:, None]
+    want = torch.where(live[..., None], each, torch.zeros_like(each))
+    assert torch.equal(part.view(torch.int32), want.view(torch.int32))
+    torch.testing.assert_close(part, expert_mm_plain(x, packed, scales, g=g, kind=kind, rows=rows), rtol=TOL, atol=TOL)
+    assert torch.equal(expert_mm(x, packed, scales, g=g, kind=kind, rows=rows), part)
+
+
+@pytest.mark.parametrize("kind,E,k,o,C,xdt,sdt", [s for s in EXPERT_SHAPES if s[2] > s[3] or s[3] in (200, 8192)])
+def test_expert_mm_pair_equals_two_single_launches_on_card(cuda, kind, E, k, o, C, xdt, sdt):
+    """Gate and up in one launch: each output bit for bit its own bank's
+    single launch, with and without ``rows``; one launch counted."""
+    _, g, packed, scales, x, rows = _bank(kind, E, k, o, C, xdt, sdt, cuda)
+    other = (packed.roll(1, 0).contiguous(), (scales.roll(1, 0) * 1.5).contiguous())
+    for r in (None, rows):
+        reset_launch_counts()
+        a, b = expert_mm_pair(x, (packed, scales), other, g=g, kind=kind, rows=r)
+        torch.cuda.synchronize()
+        assert launch_counts()["expert_mm"] == 1
+        assert torch.equal(a, expert_mm(x, packed, scales, g=g, kind=kind, rows=r))
+        assert torch.equal(b, expert_mm(x, *other, g=g, kind=kind, rows=r))
 
 
 def test_expert_mm_refuses_what_it_does_not_take(cuda):
@@ -1819,10 +1850,10 @@ def _moe_engine():
 
 def test_moe_graph_generate_equals_eager_on_card(cuda):
     """The MoE decode step (router, stable sorts, scatter_add_ counts, the
-    capacity buffers, K12 three times a layer, the ordered combine) is
+    capacity buffers, K12 twice a layer, the ordered combine) is
     captured, which no host sync inside it would allow, and its replays give
     the eager loop's logits step by step and its sampled tokens, bit for
-    bit; the census counts K12 three launches a layer a forward."""
+    bit; the census counts K12 two launches a layer a forward."""
     eng = _moe_engine()
     prompts = np.random.default_rng(3).integers(0, eng.cfg.vocab, (4, 16))
     eager_l = _step_logits(eng, prompts, 12, False)
@@ -1835,8 +1866,8 @@ def test_moe_graph_generate_equals_eager_on_card(cuda):
     reset_launch_counts()
     graphed = eng.generate(prompts, 12, temperature=0.8, seed=1)
     assert launch_counts() == eager_counts
-    # 3 banks, 2 layers: the prefill's 64 tokens fill 16 capacity rows, two slabs of 8 a bank; a step one launch
-    assert eager_counts["expert_mm"] == (2 + 12) * 3 * 2
+    # 2 layers, a forward (the prefill, then 12 steps) launches K12 twice: gate + up, then down
+    assert eager_counts["expert_mm"] == (1 + 12) * 2 * 2
     assert eager_counts["bcq_mm_fused"] == 13 * 2 and eager_counts["bcq_mm"] == 13 * 3
     np.testing.assert_array_equal(graphed.tokens, eager.tokens)
 

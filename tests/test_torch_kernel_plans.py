@@ -489,6 +489,85 @@ def test_grouptable_plan_refuses_what_does_not_fit(monkeypatch):
     gt.plan.cache_clear()
 
 
+# K12 expert_mm: olmoe-1b-7b's banks (w_gate / w_up: d -> F, w_down: F -> d), llama4-maverick's reduced
+# bank, a ragged bank at q = 3, and a k whose one-expert plan cuts chunks of more than 8 byte rows
+BANKS = [("bcq", 2048, 1024, 4, 128), ("bcq", 1024, 2048, 4, 128), ("bcq", 512, 512, 4, 128),
+         ("bcq", 256, 200, 3, 64), ("uniform", 2048, 1024, 4, 128), ("bcq", 5120, 8192, 4, 128)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind,k,o,q,g", BANKS)
+def test_bank_plan_keeps_the_one_expert_chunks_without_scratch(kind, k, o, q, g, dtype):
+    """K12's plan: the path and k-chunks of ``plan`` for one expert (so each
+    row's sum order is K1's), every chunk walked by one block; no scratch,
+    no tickets and one launch a bank at every capacity. Chunks of 8 byte
+    rows take the column walk (4 warps of 32 columns, stages over all of k,
+    no shared memory for sums, four blocks an SM); others the chunk walk
+    (K1's columns and stages, the warps' sums after the tables, two blocks
+    an SM)."""
+    one = gt.plan(kind, k, o, q, g, dtype, dtype)
+    p = gt.bank_plan(kind, k, o, q, g, dtype, dtype)
+    assert p.grouped and not one.grouped
+    assert (p.table, p.splits, p.chunk) == (one.table, one.splits, one.chunk)
+    assert chunks(p) == chunks(one)
+    xb, sb = torch.finfo(dtype).bits // 8, torch.finfo(dtype).bits // 8
+    S = gt.SCALE_PLANES[kind] or q
+    kc = k // 8
+    if p.chunk == common.WARPS:
+        assert p.col_warps == gt.COL_WARPS and p.ns == 1 and p.cols == 128
+        stages = [(r0, min(kc, r0 + p.stage_rows)) for r0 in range(0, kc, p.stage_rows)]  # over all of k
+        assert p.stage_groups == max((r1 * 8 - 1) // g - r0 * 8 // g + 1 for r0, r1 in stages)
+        assert p.off_s >= q * p.stage_rows * p.cols and p.off_x >= p.off_s + S * p.stage_groups * p.cols * sb
+        assert p.stage_bytes >= p.off_x + common.MAX_BT * p.stage_rows * 8 * xb
+        assert p.off_t >= gt.RING * p.stage_bytes and p.smem == p.off_t + 2 * p.table_bytes
+        assert p.table_bytes >= (p.stage_groups * (1 << q) * p.cols * 4 if p.table else 0)
+        assert p.smem <= gt.COLS_SMEM_BUDGET and 4 * (p.smem + 1024) <= SM_SHARED
+    else:
+        assert p.col_warps == 1 and p.ns == one.ns
+        check_gt_plan(p, kind, k, o, q, g, dtype, dtype)
+        assert p.smem >= p.off_t + 2 * p.table_bytes + common.WARPS * common.MAX_BT * p.cols * 4
+        assert p.smem <= gt.SMEM_BUDGET
+    for C in (8, 16, 80, 8192):
+        assert p.scratch_floats(C) == p.tickets(C) == 0 and p.slab_rows(C) == C
+    assert "B" not in inspect.signature(gt.bank_plan).parameters
+
+
+def test_bank_plan_fills_the_card_at_an_olmoe_decode_step():
+    """At B = 4 with top-8, at most 32 of olmoe's 64 experts hold a token:
+    128 columns a block give the gate + up launch and the down launch each
+    at least two blocks on every one of 132 SMs; olmoe's chunks of 8 byte
+    rows take the column walk."""
+    for k, o, banks in ((2048, 1024, 2), (1024, 2048, 1)):
+        p = gt.bank_plan("bcq", k, o, 4, 128, torch.bfloat16, torch.bfloat16)
+        assert p.cols == 128 and p.col_tiles * 32 * banks >= common.MIN_BLOCKS
+        assert p.chunk == common.WARPS and p.col_warps == gt.COL_WARPS
+
+
+def test_bank_plan_walks_chunks_where_they_are_not_8_rows(monkeypatch):
+    """Chunks of 35 and 64 byte rows (a one-expert plan that a large o
+    cuts coarser) and a table above q = 5 take the chunk walk; a k of at
+    most 64 (one chunk of at most 8 rows) the column walk."""
+    real = gt.plan
+    for chunk, walk in ((35, 1), (64, 1), (8, gt.COL_WARPS)):
+        monkeypatch.setattr(gt, "plan", lambda *a, c=chunk, **kw: real(*a, **kw, chunk=c))
+        gt.bank_plan.cache_clear()
+        p = gt.bank_plan("bcq", 1024, 256, 4, 128, torch.bfloat16, torch.bfloat16)
+        assert p.chunk == chunk and p.col_warps == walk
+    monkeypatch.setattr(gt, "plan", real)
+    gt.bank_plan.cache_clear()
+    assert gt.bank_plan("bcq", 1024, 256, 6, 64, torch.float32, torch.float32).col_warps == gt.COL_WARPS  # direct
+    monkeypatch.setattr(gt, "TABLE_MAX_Q", {**gt.TABLE_MAX_Q, "bcq": 6})
+    gt.plan.cache_clear()
+    gt.bank_plan.cache_clear()
+    p = gt.bank_plan("bcq", 1024, 256, 6, 64, torch.float32, torch.float32)
+    assert p.table and p.col_warps == 1
+    gt.plan.cache_clear()
+    gt.bank_plan.cache_clear()
+    for k in (32, 64):
+        p = gt.bank_plan("bcq", k, 256, 2, 32, torch.float32, torch.float32)
+        assert p.splits == 1 and p.chunk == k // 8 and p.col_warps == gt.COL_WARPS
+
+
 def test_split_kernels_share_one_set_of_launch_helpers():
     """K3, K7 and the group-table kernels take the card's numbers, row
     tiles and per-device workspace from one module."""
@@ -620,3 +699,36 @@ def test_ternary_grouptable_plan_at_llama_leaves(leaf, dtypes):
     for B in (1, 4):
         assert blocks(p, B) >= common.MIN_BLOCKS
     assert p.splits == gt.plan("uniform", k, o, 4, 128, *dtypes).splits
+
+
+# ---- K11 slstm_scan (a cluster per (head, row tile)) ---------------------------------
+
+sm = importlib.import_module("repro_torch.kernels.slstm_scan")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("Dh", [16, 100, 192, 256])
+def test_slstm_plan_divides_dh_and_fits_one_cta(Dh, dtype):
+    """The cluster's CTAs split Dh's columns evenly (at most the portable 8),
+    every CTA holds its slice of the four R_g, two copies of h and the gate
+    sums within 227 KB, and 4 rows x columns x gates threads within 1024;
+    xlstm-125m's Dh 192 takes 8 CTAs of 24 columns."""
+    p = sm.plan(Dh, dtype)
+    rb = torch.finfo(dtype).bits // 8
+    assert 1 <= p.cl <= sm.MAX_CLUSTER and Dh % p.cl == 0 and p.cols == Dh // p.cl >= min(8, Dh)
+    assert 1 <= p.rb <= 8 and 4 * p.rb * p.cols <= sm.MAX_THREADS
+    assert p.smem == sm.smem_bytes(Dh, p.cl, p.rb, rb) <= sm.MAX_SMEM < 227 * 1024 + 1
+    assert p.smem >= 4 * Dh * p.cols * rb + 2 * p.rb * Dh * 4 + 4 * p.rb * p.cols * 4  # R, h twice, the gates
+    if Dh in (192, 256):
+        assert p.cl == 8 and p.rb == 8
+    assert "B" not in inspect.signature(sm.plan).parameters
+
+
+def test_slstm_plan_refuses_a_slice_that_fits_no_cta():
+    """A Dh whose divisors up to 8 leave a slice of R past one CTA's shared
+    memory (254 = 2 x 127) raises; so does a width past the kernel's."""
+    with pytest.raises(ValueError, match="does not fit"):
+        sm.plan(254, torch.float32)
+    with pytest.raises(ValueError, match="must be in"):
+        sm.plan(sm.MAX_DH + 1, torch.float32)
+    assert sm.plan(255, torch.float32).cl == 5  # 51 columns a CTA, fewer rows a cluster

@@ -32,7 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.formats import format_names, get_format
 from repro_torch.infer import Engine, PrefixCache, Scheduler, SpecConfig
 from repro_torch.kernels import expert_linear, expert_matmul, impl_mode, launch_counts, reset_launch_counts
-from repro_torch.kernels.expert_mm import expert_mm, expert_mm_plain
+from repro_torch.kernels.expert_mm import expert_mm, expert_mm_pair, expert_mm_plain
 from repro_torch.launch import serve
 from repro_torch.models import forward, fuse_decode_projections, init_cache, init_params, params_from_numpy, reduced
 from repro_torch.models import moe as M
@@ -153,7 +153,7 @@ def _port_routing(tp, cfg, x):
     xf = torch.from_numpy(x).reshape(-1, x.shape[-1])
     logits = M.linear(xf, tp["router"], out_dtype=torch.float32)
     _, top_e = M.route(logits, cfg.top_k)
-    _, _, _, keep, slot = M.dispatch(top_e, cfg.n_experts, M.capacity(cfg, xf.shape[0]))
+    _, _, _, keep, slot, _ = M.dispatch(top_e, cfg.n_experts, M.capacity(cfg, xf.shape[0]))
     return top_e.numpy(), keep.numpy(), slot.numpy()
 
 
@@ -283,7 +283,7 @@ def test_combine_is_the_serial_scatter_add_in_expert_order(dtype):
     logits = M.linear(xf, p["router"], out_dtype=torch.float32)
     top_p, top_e = M.route(logits, cfg.top_k)
     cap = M.capacity(cfg, 15)
-    order, se, st, keep, slot = M.dispatch(top_e, cfg.n_experts, cap)
+    order, se, st, keep, slot, _ = M.dispatch(top_e, cfg.n_experts, cap)
     buf = torch.zeros((8, cap + 1, 16), dtype=dtype)
     buf[se, slot] = xf[st]
     buf = buf[:, :cap]
@@ -524,3 +524,73 @@ def test_expert_mm_plain_is_each_experts_plain_kernel_and_validates():
     with pytest.raises(ValueError, match="does not lead"):
         expert_matmul("bcq", x[:4], _quantize_leaf(torch.randn(5, 128, 96), 3, 64, "bcq", QuantPolicy(iters=1)),
                       impl="ref")
+
+
+def test_expert_mm_plain_zeroes_rows_past_each_experts_count():
+    """``rows`` zeroes expert e's rows at or past ``rows[e]`` (an empty
+    expert entirely, a count past C none) and leaves every other row the
+    plain result bit for bit; the pair gives each bank's own result."""
+    gen = torch.Generator().manual_seed(1)
+    packed = torch.randint(0, 256, (4, 4, 16, 64), generator=gen, dtype=torch.uint8)
+    scales = torch.rand((4, 4, 2, 64), generator=gen)
+    x = torch.randn((4, 6, 128), generator=gen)
+    whole = expert_mm(x, packed, scales, g=64)
+    rows = torch.tensor([0, 3, 6, 9], dtype=torch.int32)
+    got = expert_mm(x, packed, scales, g=64, rows=rows)
+    assert torch.equal(got, expert_mm_plain(x, packed, scales, g=64, rows=rows))
+    for e, n in enumerate([0, 3, 6, 6]):
+        assert torch.equal(got[e, :n], whole[e, :n]) and not got[e, n:].any()
+    assert torch.equal(expert_mm(x, packed, scales, g=64, rows=torch.full((4,), 6, dtype=torch.int32)), whole)
+    other = (packed.flip(0), scales.flip(0))
+    a, b = expert_mm_pair(x, (packed, scales), other, g=64, rows=rows)
+    assert torch.equal(a, got) and torch.equal(b, expert_mm(x, *other, g=64, rows=rows))
+    with pytest.raises(ValueError, match="rows must be"):
+        expert_mm(x, packed, scales, g=64, rows=rows.long())
+    with pytest.raises(ValueError, match="the banks differ"):
+        expert_mm_pair(x, (packed, scales), (packed, scales.to(torch.bfloat16)), g=64)
+
+
+def test_dispatch_rows_are_the_clamped_counts():
+    """``dispatch``'s last result is each expert's filled buffer rows: its
+    assignments, at most the capacity, int32 on the routing's device."""
+    top_e = torch.tensor([[0, 2], [2, 0], [2, 3], [2, 1]])
+    order, se, st, keep, slot, rows = M.dispatch(top_e, 5, 3)
+    assert rows.dtype == torch.int32 and rows.tolist() == [2, 1, 3, 1, 0]
+    assert rows.tolist() == [int(((se == e) & keep).sum()) for e in range(5)]
+
+
+@pytest.mark.parametrize("mode,paired", [("bcq_mm", True), (None, False), ("lutgemm", False)])
+def test_gate_and_up_pair_only_on_the_grouped_kernel(quantized_bank, mode, paired, monkeypatch):
+    """``moe_apply`` runs gate and up as one pair where both banks take K12
+    (``bcq_mm``); the oracle and the expert-by-expert kernels (``lutgemm``)
+    take two ``expert_linear`` calls, as before. Either way the result is
+    the two single products'."""
+    import importlib
+
+    EM = importlib.import_module("repro_torch.kernels.expert_mm")  # the package re-exports the function
+    ops = importlib.import_module("repro_torch.kernels.ops")
+
+    jc, tc, jq, tq = quantized_bank
+    p = params_from_numpy(jax_tree_to_numpy(jq), device="cpu")
+    calls = {"pair": 0, "single": 0}
+    real_pair, real_single = EM.expert_mm_pair, ops.expert_linear
+
+    def pair(*a, **kw):
+        calls["pair"] += 1
+        return real_pair(*a, **kw)
+
+    def single(*a, **kw):
+        calls["single"] += 1
+        return real_single(*a, **kw)
+
+    monkeypatch.setattr(EM, "expert_mm_pair", pair)
+    monkeypatch.setattr(ops, "expert_linear", single)
+    buf = torch.from_numpy(np.random.default_rng(4).standard_normal((4, 8, 128)).astype(np.float32))
+    rows = torch.tensor([8, 0, 3, 5], dtype=torch.int32)
+    with impl_mode(mode):
+        gate, up = ops.expert_linear_pair(buf, p["w_gate"], p["w_up"], rows=rows)
+        want = [real_single(buf, p[n], rows=rows) for n in ("w_gate", "w_up")]
+    assert calls == ({"pair": 1, "single": 0} if paired else {"pair": 0, "single": 2})
+    assert torch.equal(gate, want[0]) and torch.equal(up, want[1])
+    dense_gate, dense_up = ops.expert_linear_pair(buf, torch.randn(4, 128, 64), torch.randn(4, 128, 64))
+    assert dense_gate.shape == dense_up.shape == (4, 8, 64)
