@@ -227,7 +227,8 @@ code is non-zero:
              after every earlier model is freed. K9 (``rglru_scan``)
              against its plain loop bit for bit at (B, S) = (1, 3000), (4,
              1), (64, 1), (4, 20), W = 4096, timed by graph replay beside
-             its byte bound. The main path: a batched ``generate`` (4
+             its byte bound, each line with its path (ring or short) and
+             blocks. The main path: a batched ``generate`` (4
              prompts of 16 tokens, 32 new) in a counted window, K1/K2 and
              K9 launched as the blocks predict, K8 and the oracle never;
              captured against eager, logits, sampled tokens and census bit
@@ -256,8 +257,9 @@ code is non-zero:
              K10 (``mlstm_scan``) and K11 (``slstm_scan``) against their
              plain loops within 2e-4 at (B, S) = (4, 1), (4, 5), (1, 3000),
              (64, 1), the same bits on a rerun, a scan of S <= 5 equal to
-             S single steps, timed by graph replay beside their bounds. The
-             main path: a batched ``generate`` (4 × 16 + 32) in a counted
+             S single steps, timed by graph replay beside their bounds
+             (K10's no-FMA instruction floor too), each line with its
+             plan's blocks. The main path: a batched ``generate`` (4 × 16 + 32) in a counted
              window, K1 67, K10 6 and K11 6 launches a forward, K2, K8 and
              the oracle never; captured against eager (logits, sampled
              tokens, census bit for bit; the graph's kernel nodes K1 67, K10
@@ -359,6 +361,9 @@ DEVICE = torch.device("cuda")
 # tensor-core rates
 MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# f32 instructions a second, one a lane: 132 SMs x 128 lanes at the 1.98 GHz
+# boost clock (67 TFLOP/s counts an FMA as two operations)
+F32_ISSUE_PER_S = 132 * 128 * 1.98e9
 # kernel vs its plain version, rtol = atol, for f32 and bf16 inputs alike: both
 # sides widen the same x and scales to f32 and accumulate in f32
 KERNEL_TOL = 2e-4
@@ -3086,8 +3091,9 @@ def check_rglru(gen, W):
     width W; kernel and plain times by graph replay (median of 7) beside the
     byte bound, 3·B·S·W f32 values plus h0 and h_last → records."""
     from repro_torch.kernels import rglru_scan, rglru_scan_plain
+    from repro_torch.kernels.rglru_scan import plan
 
-    recs = []
+    pl, recs = plan(W), []
     for B, S in K9_SHAPES:
         a = torch.rand((B, S, W), generator=gen, device=DEVICE) * 0.2 + 0.8
         g = torch.randn((B, S, W), generator=gen, device=DEVICE) * 0.1
@@ -3100,10 +3106,13 @@ def check_rglru(gen, W):
         ms = time_ms(rglru_scan, [(a, g, h0)])
         plain_ms = time_ms(rglru_scan_plain, [(a, g, h0)], inner=1 if S > 64 else None, reps=3 if S > 64 else 7)
         nbytes = (3 * B * S * W + 2 * B * W) * 4
+        path, blocks = pl.path(S), pl.blocks(B, S)
         recs.append(dict(B=B, S=S, W=W, equal=same, same_bits=rerun, max_abs_err=(hs - phs).abs().max().item(),
-                         ms=ms, plain_ms=plain_ms, bound_ms=nbytes / MEM_BYTES_PER_S * 1e3, bytes=nbytes))
+                         ms=ms, plain_ms=plain_ms, bound_ms=nbytes / MEM_BYTES_PER_S * 1e3, bytes=nbytes,
+                         path=path, blocks=blocks))
         r = recs[-1]
-        log(f"  [K9 rglru_scan] B={B} S={S} W={W}: bit for bit {same}, rerun {rerun}; {ms * 1e3:.2f} us "
+        log(f"  [K9 rglru_scan] B={B} S={S} W={W} ({path} kernel, {blocks} blocks): bit for bit {same}, rerun "
+            f"{rerun}; {ms * 1e3:.2f} us "
             f"(plain {plain_ms * 1e3:.1f} us, {plain_ms / ms:.1f}x), bound {r['bound_ms'] * 1e3:.2f} us "
             f"(bytes, {nbytes / 1e6:.1f} MB at 3.35 TB/s): {ms / r['bound_ms']:.2f}x the bound")
     if not all(r["equal"] and r["same_bits"] for r in recs):
@@ -3486,15 +3495,25 @@ def xlstm_forward_counts(cfg):
     return {"linears": 6 * n["mlstm"] + 5 * n["slstm"] + 1, "mlstm_scan": n["mlstm"], "slstm_scan": n["slstm"]}
 
 
-def _scan_record(name, B, S, width, equal, same, steps_equal, err, ms, plain_ms, nbytes, ops):
+def _scan_record(name, B, S, width, equal, same, steps_equal, err, ms, plain_ms, nbytes, ops, *, blocks,
+                 instr=None):
+    """A scan kernel's record at one shape: ``instr``, where given, counts
+    the f32 instructions its products and sums need when rounded apart (no
+    FMA), whose issue at one a lane on all 132 SMs is a floor beside the
+    bytes and FLOP bounds."""
     bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / PEAK_OPS[torch.float32] * 1e3
     r = dict(B=B, S=S, Dh=width, ok=equal and same and steps_equal, same_bits=same, scan_equals_steps=steps_equal,
              max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
-             bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes)
-    log(f"  [{name}] B={B} S={S} Dh={width}: err {err:.2e} (tol {KERNEL_TOL:g}), rerun same bits {same}, scan == "
-        f"steps {steps_equal}; {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.1f} us, {plain_ms / ms:.1f}x), bound "
-        f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, {ops / 1e9:.3f} GFLOP "
-        f"f32 at 67 TFLOP/s): {ms / r['bound_ms']:.2f}x the bound{'' if r['ok'] else '  FAIL'}")
+             bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
+             blocks=blocks)
+    floor = ""
+    if instr is not None:
+        r["no_fma_floor_ms"] = instr / F32_ISSUE_PER_S * 1e3
+        floor = f"; no-FMA floor {r['no_fma_floor_ms'] * 1e3:.2f} us ({instr / 1e9:.3f} G f32 instructions on 132 SMs)"
+    log(f"  [{name}] B={B} S={S} Dh={width} ({blocks} blocks): err {err:.2e} (tol {KERNEL_TOL:g}), rerun same bits "
+        f"{same}, scan == steps {steps_equal}; {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.1f} us, {plain_ms / ms:.1f}x), "
+        f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, {ops / 1e9:.3f} "
+        f"GFLOP f32 at 67 TFLOP/s{floor}): {ms / r['bound_ms']:.2f}x the bound{'' if r['ok'] else '  FAIL'}")
     return r
 
 
@@ -3506,7 +3525,8 @@ def check_xlstm_scans(gen, cfg):
     7; the plain loop at S = 3000 once a replay, 3 replays) beside the bound
     → (K10 records, K11 records)."""
     from repro_torch.kernels import mlstm_scan, mlstm_scan_plain, slstm_scan, slstm_scan_plain
-    from repro_torch.kernels.mlstm_scan import scale_for
+    from repro_torch.kernels.mlstm_scan import plan as k10_plan, scale_for
+    from repro_torch.kernels.slstm_scan import plan as k11_plan
     from repro_torch.models.recurrent import mlstm_dims
 
     NH, dm, ds = cfg.n_heads, mlstm_dims(cfg)[1], cfg.d_model // cfg.n_heads
@@ -3536,7 +3556,8 @@ def check_xlstm_scans(gen, cfg):
         plain_ms = time_ms(lambda: mlstm_scan_plain(*xs, *ps, sc), [()], inner=1 if long else None, reps=3 if long else 7)
         nbytes = (4 * B * S * NH * dm + 2 * B * S * NH + 2 * B * NH * (dm * dm + dm + 1)) * 4
         k10.append(_scan_record("K10 mlstm_scan", B, S, dm, equal, same, steps_equal, err, ms, plain_ms, nbytes,
-                                4.0 * dm * dm * B * S * NH))
+                                4.0 * dm * dm * B * S * NH, blocks=k10_plan(dm).blocks(B, NH),
+                                instr=5.0 * dm * dm * B * S * NH))
         pre = [torch.randn((B, S, NH, ds), generator=gen, device=DEVICE) for _ in range(4)]
         r = [(torch.randn((NH, ds, ds), generator=gen, device=DEVICE) / math.sqrt(ds)).to(cfg.pdtype) for _ in range(4)]
         state = [torch.randn((B, NH, ds), generator=gen, device=DEVICE) for _ in range(4)]
@@ -3557,8 +3578,9 @@ def check_xlstm_scans(gen, cfg):
         ms = time_ms(lambda: slstm_scan(pre, r, st), [()])
         plain_ms = time_ms(lambda: slstm_scan_plain(pre, r, ps), [()], inner=1 if long else None, reps=3 if long else 7)
         nbytes = (5 * B * S * NH * ds + 8 * B * NH * ds) * 4 + 4 * NH * ds * ds * r[0].element_size()
+        k11_pl = k11_plan(ds, cfg.pdtype)
         k11.append(_scan_record("K11 slstm_scan", B, S, ds, equal, same, steps_equal, err, ms, plain_ms, nbytes,
-                                8.0 * ds * ds * B * S * NH))
+                                8.0 * ds * ds * B * S * NH, blocks=NH * -(-B // k11_pl.rb) * k11_pl.cl))
     bad = [r for r in k10 + k11 if not r["ok"]]
     if bad:
         raise SystemExit(f"chip_smoke: [xlstm] K10 / K11 differ from their plain versions: {bad}")

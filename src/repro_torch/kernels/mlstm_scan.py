@@ -6,11 +6,13 @@ reference's ``lax.scan`` over the mLSTM step
 (``src/repro/models/recurrent.py:293-317``), which serves every prefill,
 decode step and speculative verify of an xLSTM model, and which as eager
 PyTorch on the card would be S steps of 10-20 launches a layer. The CUDA
-kernel is ``csrc/mlstm_scan.cu``: one block per (row, head, 32-column tile
-of C), C in registers for the whole sequence, ``qᵀC`` and ``qᵀn`` summed in
-an order set by Dh alone, products and sums rounded separately, so a row's
-bits depend on its own values alone and a scan of S steps equals S decode
-steps (S = 1).
+kernel is ``csrc/mlstm_scan.cu``: one block per (row, head, 16-column tile
+of C) (:func:`plan`), C in registers over the sequence, the inputs staged
+ahead in a ring of shared memory by a producer warp (TMA bulk copies, or
+per-element ``cp.async`` where a row is not a 16-byte multiple), ``qᵀC``
+and ``qᵀn`` summed in an order set by Dh alone, products and sums rounded
+separately, so a row's bits depend on its own values alone and a scan of S
+steps equals S decode steps (S = 1).
 
 :func:`mlstm_scan` launches the kernel for CUDA tensors (or raises: there
 is no fallback) and runs :func:`mlstm_scan_plain` for CPU tensors; the
@@ -29,6 +31,7 @@ the last step is written in place.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Sequence, Tuple
 
@@ -38,6 +41,71 @@ from repro_torch.kernels import _build
 from repro_torch.utils import row_sum
 
 MAX_DH = 512  # csrc/mlstm_scan.cu::MAX_DH
+GROUPS = 8  # row groups of C, each summed in row order (csrc: kGroups)
+TILE = 16  # columns of C a block (csrc: kTile)
+STEPS = 8  # steps a ring stage holds (csrc: kSteps)
+MAX_STAGES = 4
+SM_SMEM = 233472  # shared memory of one SM (228 KB), 1 KB of it reserved a block
+BLOCKS_PER_SM = 3  # decode launches keep three blocks an SM in flight
+
+
+def row_stride(Dh: int) -> int:
+    """Floats of a staged row: the 8 row groups of ``ceil(Dh / 8)`` rows,
+    rounded up to 16 bytes (``csrc/mlstm_scan.cu::row_stride``)."""
+    return -(-GROUPS * -(-Dh // GROUPS) // 4) * 4
+
+
+def smem_bytes(Dh: int, stages: int) -> int:
+    """A block's shared memory (``csrc/mlstm_scan.cu::smem_bytes``): each
+    stage q and k [STEPS][row_stride], v [STEPS][TILE], four gate values a
+    step and h's partials, acc [STEPS][GROUPS][TILE] and qn
+    [STEPS][GROUPS], all f32, and three mbarriers; kk [STEPS][row_stride]."""
+    rs = row_stride(Dh)
+    stage = 2 * STEPS * rs + STEPS * TILE + 4 * STEPS + STEPS * GROUPS * TILE + STEPS * GROUPS
+    return 4 * (stages * stage + STEPS * rs) + 24 * stages
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The kernel's launch shape for one head width: ``tile`` columns of C
+    a block, a ring of ``stages`` stages of ``steps`` steps in ``smem``
+    bytes; ``bulk``: rows are 16-byte multiples, so TMA bulk copies fill the
+    ring (else per-element ``cp.async`` copies, in the same kernel). It sets
+    no sum's order: that is the row groups', set by Dh alone."""
+
+    Dh: int
+    tile: int
+    steps: int
+    stages: int
+    smem: int
+    bulk: bool
+
+    def grid(self, B: int, NH: int) -> Tuple[int, int, int]:
+        return (-(-self.Dh // self.tile), NH, B)
+
+    def blocks(self, B: int, NH: int) -> int:
+        x, y, z = self.grid(B, NH)
+        return x * y * z
+
+
+@functools.lru_cache(maxsize=None)
+def plan(Dh: int) -> Plan:
+    """16 columns a block, so xlstm-125m's 4 heads of Dh 384 give 96 blocks at
+    B = 1; the most stages (2 to ``MAX_STAGES``) that leave
+    ``BLOCKS_PER_SM`` blocks an SM; bulk copies where ``4 Dh`` is a
+    multiple of 16. Depends on Dh alone, never on B or S."""
+    if not 0 <= Dh <= MAX_DH:
+        raise ValueError(f"mlstm_scan: Dh {Dh} must be in 0..{MAX_DH}")
+    fits = [s for s in range(2, MAX_STAGES + 1) if BLOCKS_PER_SM * (smem_bytes(Dh, s) + 1024) <= SM_SMEM]
+    stages = max(fits, default=2)
+    return Plan(Dh=Dh, tile=TILE, steps=STEPS, stages=stages, smem=smem_bytes(Dh, stages), bulk=Dh % 4 == 0)
+
+
+def use_bulk(pl: Plan, *rows: torch.Tensor) -> bool:
+    """Whether a launch fills the ring by bulk copies: the plan's rows are
+    16-byte multiples and ``rows`` (q, k, v) start on 16-byte boundaries;
+    else the kernel's per-element ``cp.async`` path."""
+    return pl.bulk and all(t.data_ptr() % 16 == 0 for t in rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,7 +170,7 @@ def _entry():
     lib = _build.load("mlstm_scan")
     fn = lib.mlstm_scan_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 12 + [p, i, p, p, p, i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p] * 12 + [p, i, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, p]
     fn.restype = i
     return lib, fn
 
@@ -152,12 +220,15 @@ def mlstm_scan(q, k, v, i_gate, logf, c, n, m, scale: float, steps: Optional[Seq
               "m": m_in.new_empty((n_sel, *m_in.shape))}
     sel_t = torch.tensor(sel, dtype=torch.int32, device=q.device) if n_sel else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    pl = plan(Dh)
+    bulk = use_bulk(pl, q, k, v)
     lib, fn = _entry()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_gate.data_ptr(), logf.data_ptr(), c_in.data_ptr(),
                 n_in.data_ptr(), m_in.data_ptr(), h.data_ptr(), ptr(c_out), n_out.data_ptr(), m_out.data_ptr(),
                 ptr(sel_t), n_sel, stacks["c"].data_ptr(), stacks["n"].data_ptr(), stacks["m"].data_ptr(),
-                B, S, NH, Dh, scale, torch.cuda.current_stream(q.device).cuda_stream)
+                B, S, NH, Dh, scale, pl.stages, int(bulk), pl.smem,
+                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "mlstm_scan launch")
     mlstm_scan.launches += 1
     if update:

@@ -1329,6 +1329,8 @@ def test_decode_attention_rows_equal_solo_on_card(cuda, H, Hkv, Dh, S):
 RGLRU_SHAPES = [  # (B, S, W): a decode step, a verify, a prompt, ragged W, many rows
     (1, 1, 4096), (4, 1, 4096), (64, 1, 4096), (4, 20, 4096), (1, 3000, 4096),
     (3, 7, 300), (2, 513, 1000), (5, 0, 256),
+    # rows not 16-byte multiples (the ring's cp.async path, and the short kernel), S past the ring's stages
+    (2, 100, 257), (3, 5, 257), (2, 1031, 4096), (1, 33, 4096),
 ]
 
 
@@ -1353,6 +1355,31 @@ def test_rglru_scan_equals_plain_bit_for_bit_on_card(cuda, B, S, W):
         steps.append(step_hs)
     if steps:
         assert torch.equal(torch.cat(steps, dim=1), hs[:, : len(steps)])
+
+
+def test_rglru_scan_misaligned_views_on_card(cuda):
+    """Inputs that start off a 16-byte boundary (contiguous views at an
+    offset of one element) take the ring's cp.async path in the kernel, and
+    give the aligned inputs' bits."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    B, S, W = 2, 300, 4096
+    a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.2 + 0.8
+    g = torch.randn((B, S, W), generator=gen, device=cuda) * 0.1
+    h0 = torch.randn((B, W), generator=gen, device=cuda)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    want = rglru_scan(a, g, h0)
+    reset_launch_counts()
+    got = rglru_scan(shifted(a), shifted(g), h0)
+    assert launch_counts()["rglru_scan"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_rglru_scan_refuses_what_it_does_not_take(cuda):
@@ -1499,6 +1526,9 @@ def test_hybrid_warm_equals_cold_on_card(cuda):
 
 XLSTM_SHAPES = [  # (B, S, NH, Dh): decode steps, a verify, a long prompt, many rows, a small and a ragged head
     (4, 1, 4, 384), (4, 5, 4, 384), (1, 3000, 4, 384), (64, 1, 4, 384), (2, 7, 4, 32), (3, 9, 2, 100),
+    # S not a multiple of the ring's 8-step stages (steps kept at 0, 128, 256: stage starts); rows of 30
+    # floats, not 16-byte multiples (per-element cp.async in the kernel)
+    (1, 257, 4, 384), (2, 7, 4, 30),
 ]
 
 
@@ -1547,6 +1577,58 @@ def test_mlstm_scan_matches_plain_on_card(cuda, B, S, NH, Dh):
     if B > 1:
         alone = [t[:1].clone() for t in state]
         assert torch.equal(mlstm_scan(*(x[:1] for x in xs), *alone, sc)[0], h[:1])
+
+
+@pytest.mark.parametrize("Dh", [384, 30])
+def test_mlstm_scan_keeps_steps_at_ring_boundaries_on_card(cuda, Dh):
+    """States kept at the first and last step of ring stages (8 steps a
+    stage) and across a stage that a sequence cuts: each equals the state a
+    scan of the steps up to it writes in place, bit for bit, and h equals
+    the call without ``steps``."""
+    from repro_torch.kernels.mlstm_scan import STEPS, scale_for
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(Dh + 11)
+    B, S, NH = 2, 4 * STEPS + 2, 2
+    xs, state = _mlstm_inputs(gen, B, S, NH, Dh, cuda)
+    sc = scale_for(Dh)
+    steps = sorted({t for t in range(S) if t % STEPS in (0, STEPS - 1)} | {S - 1})
+    kept = [t.clone() for t in state]
+    h, stacks = mlstm_scan(*xs, *kept, sc, steps=steps)
+    assert all(torch.equal(a, b) for a, b in zip(kept, state))
+    whole = [t.clone() for t in state]
+    assert torch.equal(mlstm_scan(*xs, *whole, sc)[0], h)
+    for i, t in enumerate(steps):
+        upto = [x.clone() for x in state]
+        mlstm_scan(*(x[:, : t + 1] for x in xs), *upto, sc)
+        for name, got in zip("cnm", upto):
+            assert torch.equal(stacks[name][i], got), (t, name)
+
+
+def test_mlstm_scan_misaligned_views_on_card(cuda):
+    """q, k and v that start off a 16-byte boundary (contiguous views at an
+    offset of one element) take the per-element cp.async path in the kernel
+    at Dh 384, and give the aligned inputs' bits; so does a state C off a
+    16-byte boundary, still written in place."""
+    from repro_torch.kernels.mlstm_scan import scale_for
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    xs, state = _mlstm_inputs(gen, 2, 9, 4, 384, cuda)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    st, again = [t.clone() for t in state], [shifted(state[0]), *(t.clone() for t in state[1:])]
+    h, _ = mlstm_scan(*xs, *st, scale_for(384))
+    reset_launch_counts()
+    h2, _ = mlstm_scan(*(shifted(x) for x in xs[:3]), *xs[3:], *again, scale_for(384))
+    assert launch_counts()["mlstm_scan"] == 1
+    assert torch.equal(h2, h) and all(torch.equal(a, b) for a, b in zip(again, st))
 
 
 def test_mlstm_scan_from_the_initial_state_on_card(cuda):

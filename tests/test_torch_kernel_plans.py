@@ -3,14 +3,17 @@
 stages, scratch and tickets), K3 ``lutgemm``'s (the k-split, each row
 tile's stage and shared memory, scratch and tickets), the group-table plan
 of K1/K2 ``bcq_mm`` and K5 ``uniform_mm`` (the table or direct path, the
-k-split, stages, tables, row slabs) and K8 ``flash_attention``'s choice of kernel
-by dtype and its TMA alignment check. None of this needs a GPU; the
+k-split, stages, tables, row slabs), K8 ``flash_attention``'s choice of kernel
+by dtype and its TMA alignment check, and the rings of the scans K10
+``mlstm_scan`` and K9 ``rglru_scan`` (tiles, stages, shared memory, the
+in-kernel path for misaligned rows). None of this needs a GPU; the
 kernels themselves are held to their plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import importlib
 import inspect
 import math
+from pathlib import Path
 
 import pytest
 import torch
@@ -732,3 +735,107 @@ def test_slstm_plan_refuses_a_slice_that_fits_no_cta():
     with pytest.raises(ValueError, match="must be in"):
         sm.plan(sm.MAX_DH + 1, torch.float32)
     assert sm.plan(255, torch.float32).cl == 5  # 51 columns a CTA, fewer rows a cluster
+
+
+# ---- K10 mlstm_scan and K9 rglru_scan: their rings' plans ---------------------------
+
+ms = importlib.import_module("repro_torch.kernels.mlstm_scan")
+rs = importlib.import_module("repro_torch.kernels.rglru_scan")
+MAX_BLOCK_SMEM = 232448  # 227 KB a block
+DH10 = [384, 512, 192, 100, 32, 30, 9, 1]  # xlstm-125m's mLSTM head first, then ragged and misaligned widths
+
+
+@pytest.mark.parametrize("Dh", DH10)
+def test_mlstm_plan_tiles_stages_and_shared_memory(Dh):
+    """16 columns of C a block, stages of 8 steps; the ring (with h's
+    partials and three mbarriers a stage) and kk within 227 KB, and the most
+    stages (2 to 4) that leave three blocks an SM; a staged row holds the 8
+    row groups of ceil(Dh / 8) rows, rounded to 16 bytes."""
+    p = ms.plan(Dh)
+    R = -(-Dh // 8)
+    assert p.tile == 16 and p.steps == 8 and 2 <= p.stages <= ms.MAX_STAGES
+    assert ms.row_stride(Dh) % 4 == 0 and 8 * R <= ms.row_stride(Dh) < 8 * R + 4
+    assert p.smem == ms.smem_bytes(Dh, p.stages) <= MAX_BLOCK_SMEM
+    stage = 4 * (2 * p.steps * ms.row_stride(Dh) + p.steps * p.tile + 4 * p.steps + p.steps * 8 * (p.tile + 1))
+    assert p.smem >= p.stages * (stage + 24) + 4 * p.steps * ms.row_stride(Dh)
+    assert 3 * (p.smem + 1024) <= ms.SM_SMEM or p.stages == 2  # else the fewest stages (Dh 512: two blocks)
+    assert p.stages == ms.MAX_STAGES or 3 * (ms.smem_bytes(Dh, p.stages + 1) + 1024) > ms.SM_SMEM
+    assert p.grid(1, 4) == (-(-Dh // 16), 4, 1)
+
+
+def test_mlstm_plan_fills_the_card_at_xlstm_width():
+    """xlstm-125m (Dh 384, 4 heads) at B = 1: 96 blocks (the parent's 32-column
+    tiles: 48), each on its own SM, 2 stages of 8 steps, bulk copies."""
+    p = ms.plan(384)
+    assert p.blocks(1, 4) == 96 >= 96 and p.stages == 2 and p.bulk
+    assert p.blocks(4, 4) == 4 * p.blocks(1, 4)
+
+
+def test_mlstm_plan_depends_on_the_width_alone():
+    """The plan takes Dh alone: B and S change the grid's row count only."""
+    assert list(inspect.signature(ms.plan).parameters) == ["Dh"]
+    p = ms.plan(384)
+    assert {p.grid(B, 4)[:2] for B in (1, 4, 64)} == {(24, 4)}
+    with pytest.raises(ValueError, match="must be in"):
+        ms.plan(ms.MAX_DH + 1)
+
+
+@pytest.mark.parametrize("Dh,bulk", [(384, True), (100, True), (32, True), (30, False), (9, False), (1, False)])
+def test_mlstm_misaligned_rows_take_the_in_kernel_path(Dh, bulk):
+    """Rows of 4 Dh bytes that are not 16-byte multiples, or q, k, v off a
+    16-byte boundary, take the kernel's per-element cp.async path: never the
+    plain version."""
+    p = ms.plan(Dh)
+    assert p.bulk is bulk
+    x = torch.zeros(2 * Dh + 4)
+    assert ms.use_bulk(p, x[:Dh], x[:Dh], x[:Dh]) is bulk
+    assert ms.use_bulk(p, x[:Dh], x[1 : Dh + 1], x[:Dh]) is False
+
+
+@pytest.mark.parametrize("W", [4096, 2560, 1000, 300, 257, 33, 1])
+def test_rglru_plan_slices_stages_and_shared_memory(W):
+    """32 channels a ring block, 8 stages of [32 steps x 32 channels] of a
+    and g (and two mbarriers each) within 227 KB; sequences up to one stage
+    run the short kernel."""
+    p = rs.plan(W)
+    assert p.slice == 32 and p.steps == 32 and p.short == p.steps and p.stages == 8
+    assert p.smem == rs.smem_bytes(p.stages) == p.stages * (2 * p.steps * p.slice * 4 + 16) <= MAX_BLOCK_SMEM
+    assert p.grid(3) == (-(-W // 32), 3)
+
+
+def test_rglru_plan_fills_the_card_at_recurrentgemma_width():
+    """recurrentgemma-9b's W = 4096 at B = 1: 128 ring blocks (the parent's
+    256-thread blocks: 16, which a decode step still runs)."""
+    p = rs.plan(4096)
+    assert p.blocks(1, 3000) == 128 >= 128 and p.tma
+    assert p.path(p.short) == "short" and p.path(p.short + 1) == "ring"
+    assert p.blocks(1, 1) == 16 and p.blocks(4, 20) == 64 and p.blocks(4, 33) == 512
+    assert list(inspect.signature(rs.plan).parameters) == ["W"]
+    assert {p.grid(B)[0] for B in (1, 4, 64)} == {128}
+
+
+@pytest.mark.parametrize("W,tma", [(4096, True), (1000, True), (257, False), (300, True), (33, False)])
+def test_rglru_misaligned_rows_take_the_in_kernel_path(W, tma):
+    """Rows of 4 W bytes that are not 16-byte multiples, or a and g off a
+    16-byte boundary, fill the ring by per-element cp.async in the kernel."""
+    p = rs.plan(W)
+    assert p.tma is tma
+    x = torch.zeros(2 * W + 4)
+    assert rs.use_tma(p, x[:W], x[:W]) is tma
+    assert rs.use_tma(p, x[1 : W + 1], x[:W]) is False
+
+
+def test_hopper_copy_helpers_live_in_one_header():
+    """The mbarrier, TMA and bulk-copy wrappers and the run-time lookup of
+    cuTensorMapEncodeTiled are written once, in csrc/hopper.cuh, which K8,
+    K9 and K10 include."""
+    csrc = Path(ms.__file__).resolve().parents[1] / "csrc"
+    header = (csrc / "hopper.cuh").read_text()
+    for name in ("mbar_init", "mbar_wait", "mbar_expect_tx", "bulk_load", "tma_load_3d", "tma_load_4d",
+                 "cp_async_mbar_arrive", "encode_tiled"):
+        assert f" {name}(" in header, name
+    for src in sorted(csrc.glob("*.cu")):
+        text = src.read_text()
+        assert "mbarrier.init" not in text and "cuTensorMapEncodeTiled\", &p" not in text, src.name
+        if src.stem in ("flash_attn", "rglru_scan", "mlstm_scan"):
+            assert '#include "hopper.cuh"' in text, src.name
