@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py    # full llama3.2-3b (28 layers, every format), full recurrentgemma-9b, full xlstm-125m,
-                             # full olmoe-1b-7b
+                             # full olmoe-1b-7b, full musicgen-medium, llama-3.2-vision-90b at full width
 
 Phases, each printed on lines of its own; any failure raises and the exit
 code is non-zero:
@@ -233,7 +233,10 @@ code is non-zero:
              K9 launched as the blocks predict, K8 and the oracle never;
              captured against eager, logits, sampled tokens and census bit
              for bit (every capture's graph nodes its counted launches,
-             ``inspect_captures``), each loop profiled. A 3000-token prompt
+             ``inspect_captures``), each loop profiled. At the first 14
+             layers (``HYBRID_SIDE_LAYERS``: 4 of the 12 (rglru, rglru,
+             local_attn) patterns and the remainder, views of the weights;
+             the smoke's time budget since phase 15): a 3000-token prompt
              (the ring wraps inside the prefill) and 32 new tokens: prefill
              time, decode tok/s, peak memory above the weights, 8
              teacher-forced steps against ``impl_mode("ref")`` within 3e-2
@@ -296,7 +299,7 @@ code is non-zero:
              bit; K8 at olmoe's heads. The
              main path: a batched ``generate`` (4 × 16 + 32 new) in a counted
              window, K1, K2, K8 and K12 launched as the parameter tree
-             predicts (``moe_forward_counts``), the oracle never; captured
+             predicts (``forward_counts_of``), the oracle never; captured
              against eager (logits, sampled tokens, census bit for bit; the
              graph's kernel nodes its counted launches); both decode loops
              profiled (device ms a step, busy share, ms by part: K12, K1/K2,
@@ -316,7 +319,34 @@ code is non-zero:
              through the kernels): K12 at E = 128 against its plain version,
              a batched ``generate`` with the predicted census, captured ==
              eager. K12 joins the kernels line;
-15. last line ``{"ok": true, "device": {...}}``.
+15. families the vlm and audio families, bcq on the card (q = 4, g = 128,
+             iters = 4; time, packed GB, solver peak), each model alone on
+             the card. musicgen-medium (48 ``attn`` layers, d_model 1536, 24
+             heads of 64, d_ff 6144, 2048 codes; frame-embedding inputs) at
+             full width and depth: K8 at its heads against its plain
+             version; a batched ``generate`` of 4 × 16 seeded bf16 frames +
+             32 codes through an ``embed_fn`` over a seeded bf16 codebook
+             (2048 × 1536) in a counted window, K1 / K2 / K8 launched as the
+             parameter tree predicts (``forward_counts_of``), the oracle
+             never; captured against eager (every step's logits, a sampled
+             run's codes and census, bit for bit; the graph's kernel nodes
+             its counted launches); both decode loops profiled (device ms a
+             step, busy share, ms by part); the batched prefill and a
+             512-frame prompt (time, peak memory, launches); the
+             f32-compute kernel path within 3e-2 of the f32-weight oracle.
+             llama-3.2-vision-90b (d_model 8192, 64 / 8 heads of 128, d_ff
+             28672, vocab 128256, 1601 image tokens) at full width and one
+             period of its 100 layers (4 ``attn``, 1 ``cross``; the whole
+             model cannot be quantized on one card): K8 at its heads and K1
+             at the cross block's ``wk`` / ``wv`` over 4 × 1601 image rows
+             against their plain versions, timed beside their bounds; the
+             same main path with seeded bf16 image embeddings (4, 1601,
+             8192), the cross attention of a decode step timed apart;
+             ``SpecConfig(2, 4)`` greedy == plain; a ``generate`` without
+             image embeddings == one given zeroed ones; the prefill; the
+             f32-compute oracle check. Every (kernel, planes, rows, leaf)
+             of K1 / K2 both models launched is held to its plain version;
+16. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -3076,6 +3106,9 @@ HYBRID_SPEC, HYBRID_SPEC_LEN, HYBRID_SPEC_NEW = (2, 4), 2100, 12  # prompts that
 HYBRID_PREFIX_TAILS, HYBRID_BYPASS = (16, 64, 23, 40, 31, 57), 2200
 HYBRID_INT8_LENS = (16, 300, 2100, 64)
 HYBRID_FORMAT_LAYERS = 5  # one (rglru, rglru, local_attn) pattern and the (rglru, rglru) remainder
+# the long prompt, slots, speculation, prefix cache and int8 runs: 4 of the 12 (rglru, rglru, local_attn) patterns
+# and the (rglru, rglru) remainder (the smoke's time budget)
+HYBRID_SIDE_LAYERS = 14
 
 
 def hybrid_leaves(cfg):
@@ -3441,6 +3474,7 @@ def phase_hybrid(gen, records):
     rng = np.random.default_rng(12)
     prompts = rng.integers(0, cfg.vocab, (PROMPTS, PROMPT_LEN))
     summary, walls = {}, {}
+    side = depth_view(engine, HYBRID_SIDE_LAYERS)
     with kernel_census(by_leaf=True) as seen:
         t = time.perf_counter()
         counts, summary["main"] = hybrid_main(engine, prompts)
@@ -3448,8 +3482,9 @@ def phase_hybrid(gen, records):
         for name, fn in (("long", hybrid_long), ("slots_spec", hybrid_slots_and_spec), ("prefix", hybrid_prefix),
                          ("int8", hybrid_int8)):
             t = time.perf_counter()
-            summary[name] = fn(engine, rng)
+            summary[name] = fn(side, rng)
             walls[name] = time.perf_counter() - t
+    del side
     summary["checked"] = len(check_launched("hybrid", seen, None, records, gen, hybrid_leaves(cfg)))
     del engine
     torch.cuda.empty_cache()
@@ -4055,14 +4090,18 @@ def k12_census():
         mod.expert_mm, mod.expert_mm_pair = fns
 
 
-def moe_forward_counts(engine, batch, seq):
-    """Launches of one forward of ``batch`` rows of ``seq`` tokens through
-    the bcq engine, from its fused parameter tree: K2 at every ``wqkv`` and
-    dense ``w_gate_up``, K1 at ``wo``, a dense or shared ``w_down``, the
-    shared expert's ``w_gate`` / ``w_up`` (an MoE MLP is not fused) and the
-    LM head (``batch`` rows: the last position's), one a row slab; K12
-    twice an MoE layer at any capacity (gate and up paired, then down); K8
-    once an attention layer of a prefill (seq > 1)."""
+def forward_counts_of(engine, batch, seq, image_rows=0):
+    """Launches of one forward of ``batch`` rows of ``seq`` tokens (or
+    frames) through a bcq engine of phases 14–15, from its fused parameter
+    tree: K2 at every ``wqkv`` and dense ``w_gate_up``; K1 at ``wo``, a dense
+    or shared ``w_down``, the shared expert's ``w_gate`` / ``w_up`` (an MoE
+    MLP is not fused), a cross block's ``wq`` / ``wo`` over the token rows
+    and, where the forward is given ``image_rows`` image rows (a prefill
+    with image embeddings), its ``wk`` / ``wv`` over them, and the LM head
+    (``batch`` rows: the last position's), one a row slab; K12 twice an MoE
+    layer at any capacity (gate and up paired, then down); K8 once a
+    self-attention layer of a prefill (seq > 1), never for a cross block
+    (its attention is plain)."""
     from repro_torch.core.qtensor import QuantizedTensor
     from repro_torch.kernels import grouptable
 
@@ -4073,38 +4112,43 @@ def moe_forward_counts(engine, batch, seq):
         pl = grouptable.plan("bcq", qt.k, qt.o, qt.q, qt.g, cfg.cdtype, qt.scales.dtype)
         return -(-n // pl.slab_rows(n))
 
-    def linears(tree):
+    def linears(tree, n, names=None):
         for name, leaf in tree.items():
             if isinstance(leaf, dict):
-                linears(leaf)
-            elif isinstance(leaf, QuantizedTensor):
-                fused = name in ("wqkv", "w_gate_up")
-                counts["bcq_mm_fused" if fused else "bcq_mm"] += launches(leaf, rows)
+                linears(leaf, n)
+            elif isinstance(leaf, QuantizedTensor) and (names is None or name in names):
+                counts["bcq_mm_fused" if name in ("wqkv", "w_gate_up") else "bcq_mm"] += launches(leaf, n)
 
     for (pattern, repeat), stage in zip(cfg.stages, engine.params["stages"]):
         for bi, btype in enumerate(pattern):
             blk = stage[f"b{bi}"]
             for _ in range(repeat):
-                linears(blk["attn"])
+                if btype == "cross":
+                    linears(blk["attn"], rows, ("wq", "wo"))
+                    if image_rows:
+                        linears(blk["attn"], image_rows, ("wk", "wv"))
+                else:
+                    linears(blk["attn"], rows)
+                    counts["flash_attention"] += int(seq > 1)
                 mlp = blk["mlp"]
                 if "router" in mlp:
                     counts["expert_mm"] += 2
-                    linears(mlp.get("shared", {}))
+                    linears(mlp.get("shared", {}), rows)
                 else:
-                    linears(mlp)
-                counts["flash_attention"] += int(seq > 1)
+                    linears(mlp, rows)
     counts["bcq_mm"] += launches(engine.params["lm_head"], batch)
     return counts
 
 
-def generate_counts(engine, batch, prompt_len, new):
-    """Launches of ``generate``: a prefill, then ``new`` decode forwards (one
-    a sampled token) → {wrapper: launches}, every other wrapper 0."""
+def generate_counts(engine, batch, prompt_len, new, image_rows=0):
+    """Launches of ``generate``: a prefill (given ``image_rows`` image
+    rows), then ``new`` decode forwards (one a sampled token) → {wrapper:
+    launches}, every other wrapper 0."""
     from repro_torch.kernels import launch_counts
 
     want = dict.fromkeys(launch_counts(), 0)
-    for n, (b, s) in ((1, (batch, prompt_len)), (new, (batch, 1))):
-        for name, v in moe_forward_counts(engine, b, s).items():
+    for n, (b, s, img) in ((1, (batch, prompt_len, image_rows)), (new, (batch, 1, 0))):
+        for name, v in forward_counts_of(engine, b, s, img).items():
             want[name] += n * v
     return want
 
@@ -4162,7 +4206,7 @@ def moe_main(engine, prompts):
                 census=runs["graph"][2] == runs["eager"][2])
     graph = engine._graphs[(b, None)]
     nodes = {k: v for k, v in GRAPH_NODES[graph].items() if v}
-    step = moe_forward_counts(engine, b, 1)
+    step = forward_counts_of(engine, b, 1)
     want_nodes = {"bcq_mm+bcq_mm_fused": step["bcq_mm"] + step["bcq_mm_fused"], "expert_mm": step["expert_mm"]}
     tok_s = {name: b * MOE_NEW / runs[name][1] for name in runs}
     prof = {}
@@ -4265,7 +4309,7 @@ def moe_long(engine, rng):
     (logits, _), dt, counts, ref_calls = run_counted(lambda: engine.prefill(prompt, engine._make_cache(1)))
     peak = torch.cuda.max_memory_allocated() - base
     want = dict.fromkeys(counts, 0)
-    want.update(moe_forward_counts(engine, 1, MOE_LONG))
+    want.update(forward_counts_of(engine, 1, MOE_LONG))
     log(f"  [moe long] {MOE_LONG}-token prompt at B = 1: prefill {dt * 1e3:.1f} ms, peak {peak / 1e9:.3f} GB above "
         f"the resident {base / 1e9:.3f} GB; launches {json.dumps(counts)} (expected {json.dumps(want)}), ref-oracle "
         f"dispatches {ref_calls}")
@@ -4389,6 +4433,353 @@ def phase_moe(gen, records):
     return summary, k12, counts
 
 
+# -- phase 15: the vlm and audio families (musicgen-medium; llama-3.2-vision-90b at one period) -----
+
+MUSIC = "musicgen-medium"
+VISION = "llama-3.2-vision-90b"
+FAMILY_NEW = 32  # the batched generates' new tokens
+MUSIC_LONG = 512  # frames of the long prompt
+# one period of llama-3.2-vision-90b (4 attn blocks, 1 cross block): its 100 layers (90 B parameters) cannot be
+# quantized on one card (the dense bf16 model alone is ~180 GB)
+VISION_LAYERS = 5
+FAMILY_NO_IMAGE_NEW = 8  # the generate without image embeddings
+
+
+def family_leaves(cfg):
+    """{(k, o): (leaf, fused out_dims)} of a vlm or audio model's packed linears."""
+    d, qd, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    out = {(d, qd + 2 * kv): ("wqkv", (qd, kv, kv)), (qd, d): ("wo", None), (d, 2 * cfg.d_ff): ("w_gate_up", (cfg.d_ff,) * 2),
+           (cfg.d_ff, d): ("w_down", None), (d, cfg.vocab): ("lm_head", None)}
+    if cfg.family == "vlm":
+        out[(d, qd)] = ("wo/wq" if (d, qd) == (qd, d) else "wq", None)
+        out[(d, kv)] = ("wk/wv", None)
+    return out
+
+
+def family_inputs(cfg, seed, batch=PROMPTS, seq=PROMPT_LEN):
+    """Seeded inputs on the card: token ids, or bf16 frame embeddings for an
+    embeddings-input model; and bf16 image embeddings for a vlm model."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    if cfg.input_kind == "embeddings":
+        prompts = torch.randn((batch, seq, cfg.d_model), generator=gen, device=DEVICE).to(torch.bfloat16)
+    else:
+        prompts = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=DEVICE)
+    image = None
+    if cfg.family == "vlm":
+        image = torch.randn((batch, cfg.n_image_tokens, cfg.d_model), generator=gen, device=DEVICE).to(torch.bfloat16)
+    return prompts, image
+
+
+def generate_input(prompts):
+    """What ``Engine.generate`` takes for a prompt of :func:`family_inputs`:
+    token ids on the host, frame embeddings as they are."""
+    return prompts if prompts.is_floating_point() else prompts.cpu().numpy()
+
+
+def family_decode_loop(engine, prompts, image, captured, n=FAMILY_NEW):
+    """:func:`decode_loop` for the vlm and audio families: the prefill is
+    given the image embeddings; an embeddings-input model feeds each greedy
+    code back through its ``embed_fn`` (on the host, between steps) →
+    a function returning the ``(B, n, V)`` logits."""
+    b, s = prompts.shape[:2]
+    graph = engine._generate_graph(b) if captured else None
+    logits0, cache = engine.prefill(prompts, graph.cache if captured else engine._make_cache(b), image)
+
+    def loop():
+        logits, c, out = logits0, cache, []
+        for step in range(n):
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            x = engine._embed(tok.cpu().numpy()) if engine.embed_fn is not None else tok
+            if captured:
+                logits = graph(x, s + step).clone()
+            else:
+                logits, c = engine.decode(x, c, s + step)
+            out.append(logits)
+        return torch.stack(out, dim=1)
+
+    return loop
+
+
+def family_step_logits(engine, prompts, image, mode):
+    """Prefill and one decode step's logits ``(2, B, V)`` under
+    ``impl_mode(mode)``, the inputs in the engine's compute dtype (the step
+    feeds the prompt's last token or frame again)."""
+    from repro_torch.kernels import impl_mode
+
+    dt = engine.cfg.cdtype
+    x = prompts.to(dt) if prompts.is_floating_point() else prompts
+    img = None if image is None else image.to(dt)
+    with impl_mode(mode):
+        l0, cache = engine.prefill(x, engine._make_cache(len(x)), img)
+        l1, _ = engine.decode(x[:, -1:], cache, x.shape[1])
+    return torch.stack([l0, l1])
+
+
+def cross_attention_ms(engine, batch):
+    """One cross block's attention at a decode step of ``batch`` rows, by
+    graph replay: ``_sdpa_decode`` of a query row over the whole image
+    memory (``layers._memory_decode``), on a cache that holds a projected
+    memory → ms (its ``wq`` / ``wo`` are K1's and not in it)."""
+    from repro_torch.models import layers as L
+
+    cfg, gen = engine.cfg, torch.Generator(device=DEVICE)
+    gen.manual_seed(15)
+    shape = (batch, cfg.n_image_tokens, cfg.n_kv_heads, cfg.d_head)
+    k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(cfg.cdtype) for _ in range(2))
+    q = torch.randn((batch, 1, cfg.n_heads, cfg.d_head), generator=gen, device=DEVICE).to(cfg.cdtype)
+    return time_ms(lambda: L._memory_decode(q, k, v), [()])
+
+
+def family_main(label, engine, prompts, image):
+    """The main path of a phase 15 model: a batched ``generate`` in a counted
+    window, the census held to :func:`generate_counts`; captured
+    against eager (every decode step's logits, a sampled run's tokens and
+    census, bit for bit; the graph's kernel nodes its counted launches); the
+    replayed and eager decode loops profiled (device ms a step, busy share,
+    ms by part: K1/K2, K8, the cross attention timed apart, the rest) →
+    (counts, summary, greedy result)."""
+    from repro_torch.kernels import ternary_mm
+
+    cfg = engine.cfg
+    b, s = prompts.shape[:2]
+    image_rows = 0 if image is None else b * cfg.n_image_tokens
+    gp = generate_input(prompts)
+    engine.generate(gp, 2, image_emb=image)  # the graph's warm-up and capture
+    res, dt, counts, ref_calls = run_counted(lambda: engine.generate(gp, FAMILY_NEW, image_emb=image))
+    expect = generate_counts(engine, b, s, FAMILY_NEW, image_rows)
+    log(f"  [{label}] main path: generate batched ({b}x{s} + {FAMILY_NEW}, replayed graph) {dt:.3f}s, "
+        f"{b * FAMILY_NEW / dt:.1f} tok/s; launches {json.dumps(counts)} (expected {json.dumps(expect)}), ref-oracle "
+        f"dispatches {ref_calls}")
+    if counts != expect or ref_calls or ternary_mm.tc_launches:
+        raise SystemExit(f"chip_smoke: [{label}] main path launches {counts} != {expect} (ref {ref_calls})")
+    want_shape = (b, FAMILY_NEW) if cfg.input_kind == "embeddings" else (b, s + FAMILY_NEW)
+    if res.tokens.shape != want_shape or not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: [{label}] bad generated tokens {res.tokens.shape} (expected {want_shape})")
+    graph_l = family_decode_loop(engine, prompts, image, True)()
+    eager_l = family_decode_loop(engine, prompts, image, False)()
+    runs = {name: run_counted(lambda sc=scan: engine.generate(gp, FAMILY_NEW, image_emb=image, temperature=0.8,
+                                                              seed=7, scan=sc))
+            for name, scan in (("eager", False), ("graph", True))}
+    same = dict(logits=bool(torch.equal(graph_l, eager_l)),
+                tokens=bool((runs["graph"][0].tokens == runs["eager"][0].tokens).all()),
+                census=runs["graph"][2] == runs["eager"][2])
+    graph = engine._graphs[(b, None)]
+    nodes = {k: v for k, v in GRAPH_NODES[graph].items() if v}
+    step = forward_counts_of(engine, b, 1)
+    want_nodes = {"bcq_mm+bcq_mm_fused": step["bcq_mm"] + step["bcq_mm_fused"]}
+    tok_s = {name: b * FAMILY_NEW / runs[name][1] for name in runs}
+    n_cross = cfg.block_counts().get("cross", 0)
+    cross_ms = cross_attention_ms(engine, b) * n_cross if n_cross else 0.0
+    prof = {}
+    for name, captured in (("graph", True), ("eager", False)):
+        loop = family_decode_loop(engine, prompts, image, captured)
+        if captured:
+            loop()  # the eager loop ran above
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        device_ms, _, by_name = device_profile(loop)
+        parts = collections.Counter()
+        for kname, ms in by_name.items():
+            parts["K1/K2" if "BCQGroups" in kname else "K8" if tagged(kname, FLASH_TAGS) else "other"] += ms / FAMILY_NEW
+        parts["the cross attention (timed apart)"] = cross_ms
+        parts["the rest"] = parts.pop("other", 0.0) - cross_ms
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        prof[name] = dict(wall_s=wall, tok_s=b * FAMILY_NEW / wall, step_device_ms=device_ms / FAMILY_NEW,
+                          busy=device_ms / (wall * 1e3), step_ms_by_part={k: round(v, 4) for k, v in parts.items()},
+                          top_kernels_step_ms=[(kname[:90], round(ms / FAMILY_NEW, 4)) for kname, ms in top])
+    g, e = prof["graph"], prof["eager"]
+    log(f"  [{label}] captured against eager ({FAMILY_NEW} steps at B = {b}): logits equal {same['logits']}, sampled "
+        f"tokens equal {same['tokens']}, census equal {same['census']}; the graph's kernel nodes {nodes} (expected "
+        f"{want_nodes}), pool {POOL_BYTES[graph] / 1e6:.1f} MB; generate tok/s eager {tok_s['eager']:.1f}, graph "
+        f"{tok_s['graph']:.1f}")
+    log(f"  [{label}] decode loop, a step: replayed {g['step_device_ms']:.3f} device ms ({g['tok_s']:.1f} tok/s, busy "
+        f"{g['busy']:.1%}, ms by part {g['step_ms_by_part']}); eager {e['step_device_ms']:.3f} device ms "
+        f"({e['tok_s']:.1f} tok/s, busy {e['busy']:.1%}, ms by part {e['step_ms_by_part']})")
+    log(f"  [{label}] the replayed step's largest kernels, ms a step: {g['top_kernels_step_ms']}")
+    if not all(same.values()) or nodes != want_nodes:
+        raise SystemExit(f"chip_smoke: [{label}] the replayed graph differs from the eager loop or its nodes from the "
+                         f"prediction: {same}, {nodes}")
+    return counts, dict(wall_s=dt, tok_s=tok_s, same=same, nodes=nodes, pool_bytes=POOL_BYTES[graph], loops=prof,
+                        cross_attention_step_ms=cross_ms), res
+
+
+def family_prefill(label, engine, prompts, image):
+    """One prefill of ``prompts`` (with the image embeddings): its time, peak
+    memory above the resident model and its launches, held to
+    :func:`forward_counts_of`."""
+    b, s = prompts.shape[:2]
+    engine.prefill(prompts, engine._make_cache(b), image)  # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, _), dt, counts, ref_calls = run_counted(lambda: engine.prefill(prompts, engine._make_cache(b), image))
+    peak = torch.cuda.max_memory_allocated() - base
+    want = dict.fromkeys(counts, 0)
+    want.update(forward_counts_of(engine, b, s, 0 if image is None else b * engine.cfg.n_image_tokens))
+    log(f"  [{label} prefill] B = {b}, {s} {'frames' if prompts.is_floating_point() else 'tokens'}"
+        f"{'' if image is None else f' + {image.shape[1]} image tokens'}: {dt * 1e3:.1f} ms, peak {peak / 1e9:.3f} GB "
+        f"above the resident {base / 1e9:.3f} GB; launches {json.dumps(counts)} (expected {json.dumps(want)}), "
+        f"ref-oracle dispatches {ref_calls}")
+    if counts != want or ref_calls or not torch.isfinite(logits).all():
+        raise SystemExit(f"chip_smoke: [{label} prefill] launches {counts} != {want}, ref {ref_calls}, or non-finite")
+    return dict(ms=dt * 1e3, peak_gb=peak / 1e9, resident_gb=base / 1e9, launches=counts)
+
+
+def family_engine(cfg, seed, max_seq, embed_fn=None):
+    """Random weights from ``seed`` on the card, bcq-quantized there (q = 4,
+    g = 128, iters = 4), in a serving engine → (engine, dense GB, packed GB,
+    quantize s)."""
+    from repro_torch.infer import Engine
+    from repro_torch.models import init_params
+    from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    dense = quantized_bytes(params) / 1e9
+    log(f"  init {time.perf_counter() - t0:.1f}s ({dense:.3f} GB dense)")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = quantize_params(params, QuantPolicy(q=Q, g=G, iters=4, fmt="bcq"), device="cuda")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    packed = quantized_bytes(qparams) / 1e9
+    log(f"  [bcq, {cfg.name}, {cfg.n_layers} layers] quantize_params {quant_s:.1f}s ({packed:.3f} GB packed; solver "
+        f"peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB above the dense model)")
+    del params
+    torch.cuda.empty_cache()
+    return Engine(cfg, qparams, max_seq=max_seq, device="cuda", embed_fn=embed_fn), dense, packed, quant_s
+
+
+def music_phase(gen, records):
+    """musicgen-medium at full width and depth → summary (module docstring)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MUSIC)
+    walls, summary = {}, {}
+    t = time.perf_counter()
+    flash = [check_flash(B, S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, torch.bfloat16, gen)
+             for B, S in ((PROMPTS, PROMPT_LEN), (1, MUSIC_LONG))]
+    if not all(r["ok"] for r in flash):
+        raise SystemExit(f"chip_smoke: [musicgen] K8 at musicgen's heads differs from its plain version: {flash}")
+    walls["flash"] = time.perf_counter() - t
+    log(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (Dh {cfg.d_head}), d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, layers {cfg.n_layers} {cfg.block_counts()}, input {cfg.input_kind}, "
+        f"{cfg.param_dtype}")
+    t = time.perf_counter()
+    table = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=DEVICE).to(torch.bfloat16)  # a codebook
+
+    def embed_fn(codes):  # numpy (B, 1) codes → (B, 1, D), the reference's contract
+        return table[torch.as_tensor(codes, device=DEVICE).long()[:, 0]][:, None]
+
+    engine, dense, packed, quant_s = family_engine(cfg, 0, MUSIC_LONG + FAMILY_NEW + 8, embed_fn)
+    walls["build"] = time.perf_counter() - t
+    prompts, _ = family_inputs(cfg, 150)
+    summary.update(dense_gb=dense, packed_gb=packed, quantize_s=quant_s, flash=flash)
+    with kernel_census(by_leaf=True) as seen:
+        t = time.perf_counter()
+        counts, summary["main"], _ = family_main("musicgen", engine, prompts, None)
+        walls["main"] = time.perf_counter() - t
+        t = time.perf_counter()
+        summary["prefill"] = family_prefill("musicgen", engine, prompts, None)
+        summary["long"] = family_prefill("musicgen", engine, family_inputs(cfg, 151, 1, MUSIC_LONG)[0], None)
+        summary["logits"] = xlstm_logits_check(engine, "musicgen main path, prefill + 1 step",
+                                               lambda eng, mode: family_step_logits(eng, prompts, None, mode))
+        walls["long_logits"] = time.perf_counter() - t
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    summary["checked"] = len(check_launched("musicgen", seen, None, records, gen, family_leaves(cfg)))
+    walls["checked"] = time.perf_counter() - t
+    summary.update(walls=walls, launches=counts)
+    log(f"  [musicgen] wall by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return summary
+
+
+def vision_phase(gen, records):
+    """llama-3.2-vision-90b at full width, one period deep → summary (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.infer import SpecConfig
+
+    cfg = dataclasses.replace(get_config(VISION), n_layers=VISION_LAYERS, stages=None)
+    walls, summary = {}, {}
+    t = time.perf_counter()
+    flash = [check_flash(PROMPTS, PROMPT_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, torch.bfloat16, gen)]
+    rows = PROMPTS * cfg.n_image_tokens
+    k1 = check_kernel("bcq_mm", rows, cfg.d_model, cfg.kv_dim, Q, G, torch.bfloat16, gen)
+    k1["leaf"] = "wk/wv"
+    if not (flash[0]["ok"] and k1["ok"]):
+        raise SystemExit(f"chip_smoke: [vision] K8 at its heads or K1 at the image rows differs from its plain "
+                         f"version: {flash}, {k1}")
+    log(f"  [vision] K1 at the cross block's wk / wv over {rows} image rows: {k1['ms']:.4f} ms, "
+        f"{k1['ms'] / k1['bound_ms']:.2f}x its bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}), library "
+        f"{k1['library_ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms")
+    walls["kernels"] = time.perf_counter() - t
+    log(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (Dh {cfg.d_head}), d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_image_tokens} image tokens, layers {cfg.n_layers} of "
+        f"{get_config(VISION).n_layers} {cfg.stages}, {cfg.param_dtype}")
+    t = time.perf_counter()
+    engine, dense, packed, quant_s = family_engine(cfg, 0, PROMPT_LEN + FAMILY_NEW + SPEC_GAMMA + 8)
+    walls["build"] = time.perf_counter() - t
+    prompts, image = family_inputs(cfg, 160)
+    summary.update(dense_gb=dense, packed_gb=packed, quantize_s=quant_s, flash=flash, k1_image_rows=k1)
+    with kernel_census(by_leaf=True) as seen:
+        t = time.perf_counter()
+        counts, summary["main"], plain = family_main("vision", engine, prompts, image)
+        walls["main"] = time.perf_counter() - t
+        t = time.perf_counter()
+        summary["prefill"] = family_prefill("vision", engine, prompts, image)
+        spec, dt, spec_counts, ref_calls = run_counted(
+            lambda: engine.generate(generate_input(prompts), FAMILY_NEW, image_emb=image,
+                                    speculate=SpecConfig(SPEC_Q, SPEC_GAMMA)))
+        st = spec.spec_stats
+        same = bool((spec.tokens == plain.tokens).all())
+        flash_want = 2 * cfg.block_counts()["attn"]  # the target's and the draft's prefills
+        log(f"  [vision spec] SpecConfig({SPEC_Q}, {SPEC_GAMMA}) greedy == plain {same}; acceptance "
+            f"{st['accept_rate']:.3f} ({st['accepted']}/{st['proposed']}, {st['chunks']} chunks), {dt:.3f}s "
+            f"({PROMPTS * FAMILY_NEW / dt:.1f} tok/s against the plain run's "
+            f"{summary['main']['tok_s']['graph']:.1f}); K8 {spec_counts['flash_attention']} (expected {flash_want}), "
+            f"ref-oracle dispatches {ref_calls}")
+        if not same or ref_calls or spec_counts["flash_attention"] != flash_want:
+            raise SystemExit(f"chip_smoke: [vision spec] speculative tokens differ from plain greedy ({same}), or "
+                             f"launches {spec_counts}, ref {ref_calls}")
+        summary["spec"] = dict(same=same, wall_s=dt, **{k: st[k] for k in ("accept_rate", "accepted", "proposed",
+                                                                           "chunks", "committable")})
+        none = engine.generate(generate_input(prompts), FAMILY_NO_IMAGE_NEW)
+        zero = engine.generate(generate_input(prompts), FAMILY_NO_IMAGE_NEW, image_emb=torch.zeros_like(image))
+        l_none = engine.prefill(prompts, engine._make_cache(PROMPTS))[0]
+        l_zero = engine.prefill(prompts, engine._make_cache(PROMPTS), torch.zeros_like(image))[0]
+        no_image = dict(tokens=bool((none.tokens == zero.tokens).all()), logits=bool(torch.equal(l_none, l_zero)))
+        log(f"  [vision] generate without image embeddings == with zeroed ones: {no_image}")
+        if not all(no_image.values()):
+            raise SystemExit(f"chip_smoke: [vision] a generate without image embeddings differs from one given "
+                             f"zeroed image memory: {no_image}")
+        summary["no_image"] = no_image
+        summary["logits"] = xlstm_logits_check(engine, "vision main path, prefill + 1 step",
+                                               lambda eng, mode: family_step_logits(eng, prompts, image, mode))
+        walls["spec_logits"] = time.perf_counter() - t
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    summary["checked"] = len(check_launched("vision", seen, None, records + [k1], gen, family_leaves(cfg)))
+    walls["checked"] = time.perf_counter() - t
+    summary.update(walls=walls, launches=counts)
+    log(f"  [vision] wall by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return summary
+
+
+def phase_families(gen, records):
+    """Phase 15 (module docstring) → summary."""
+    return dict(musicgen=music_phase(gen, records), vision=vision_phase(gen, records))
+
+
 def k12_line(k12, counts, cfg):
     """K12's entry of the kernels line: its launches on phase 14's main path;
     time, plain time, bound (over the live experts; over all of them beside
@@ -4502,7 +4893,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     walls = {"t": time.perf_counter()}
-    log("[1/14] card")
+    log("[1/15] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4511,7 +4902,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
     phase_wall(walls)
-    log("[2/14] build")
+    log("[2/15] build")
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
@@ -4529,7 +4920,7 @@ def main() -> int:
             log(f"    {line}")
 
     phase_wall(walls)
-    log("[3/14] kernels against their plain versions")
+    log("[3/15] kernels against their plain versions")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     records = phase_kernels(gen)
@@ -4539,22 +4930,22 @@ def main() -> int:
     prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[4/14] flash_attention against its plain version")
+    log("[4/15] flash_attention against its plain version")
     flash_records, flash_offsets = phase_flash(gen)
 
     phase_wall(walls)
-    log("[5/14] main path, one run per format")
+    log("[5/15] main path, one run per format")
     inspect_captures()
     counts, cfg, summaries, engines, prompts = phase_main_path()
     bcq_engine, ternary_engine = engines["bcq"], engines["ternary"]
 
     phase_wall(walls)
-    log("[6/14] continuous serving and one long request")
+    log("[6/15] continuous serving and one long request")
     counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
     summaries["long"], long_logits, long_tokens = phase_long(bcq_engine)
 
     phase_wall(walls)
-    log(f"[7/14] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
+    log(f"[7/15] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
     spec_bcq = depth_view(bcq_engine, SPEC_LAYERS)
     summaries["speculative"], spec_launches = phase_speculative(spec_bcq, depth_view(ternary_engine, SPEC_LAYERS),
                                                                 prompts, spec_serving_view(spec_bcq, serving),
@@ -4565,7 +4956,7 @@ def main() -> int:
     del ternary_engine, serving
 
     phase_wall(walls)
-    log("[8/14] prefix cache and chunked prefill")
+    log("[8/15] prefix cache and chunked prefill")
     summaries["prefix"] = phase_prefix(bcq_engine, (summaries["long"], long_logits, long_tokens),
                                        records + draft_records, gen)
     offset_launches = (sum(summaries["prefix"][run]["offset_launches"] for run in ("cold wave", "warm wave"))
@@ -4573,23 +4964,23 @@ def main() -> int:
     del bcq_engine
 
     phase_wall(walls)
-    log("[9/14] kernels (the JSON line is printed last but one)")
+    log("[9/15] kernels (the JSON line is printed last but one)")
     line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches, flash_offsets,
                         offset_launches)
 
     phase_wall(walls)
-    log("[10/14] captured decode and the int8 cache")
+    log("[10/15] captured decode and the int8 cache")
     summaries["graphs"] = phase_graphs(engines, prompts)
 
     phase_wall(walls)
-    log("[11/14] serving session and observability")
+    log("[11/15] serving session and observability")
     summaries["session"] = phase_session(engines["bcq"], solos)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[12/14] the hybrid family: recurrentgemma-9b at full width and depth")
+    log("[12/15] the hybrid family: recurrentgemma-9b at full width and depth")
     summaries["hybrid"], k9_records, hybrid_counts = phase_hybrid(gen, records + draft_records)
     from repro_torch.configs import get_config
 
@@ -4598,7 +4989,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[13/14] the ssm family: xlstm-125m at full width and depth")
+    log("[13/15] the ssm family: xlstm-125m at full width and depth")
     summaries["xlstm"], k10_records, k11_records, xlstm_counts = phase_xlstm(gen, records + draft_records)
     n_cells = get_config(XLSTM).block_counts()
     line["kernels"].append(scan_line(K10, k10_records, xlstm_counts, n_cells["mlstm"]))
@@ -4607,9 +4998,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[14/14] the MoE family: olmoe-1b-7b at full width and depth, llama4-maverick reduced")
+    log("[14/15] the MoE family: olmoe-1b-7b at full width and depth, llama4-maverick reduced")
     summaries["moe"], k12_records, moe_counts = phase_moe(gen, records + draft_records)
     line["kernels"].append(k12_line(k12_records, moe_counts, get_config(MOE)))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_wall(walls)
+    log(f"[15/15] the vlm and audio families: {MUSIC} at full width and depth, {VISION} at full width and "
+        f"{VISION_LAYERS} layers")
+    summaries["families"] = phase_families(gen, records + draft_records)
     phase_wall(walls)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -101,6 +101,27 @@ call's rows (a row's tokens compete with the others' for expert buffer
 rows), so slot serving, speculation, the prefix cache and chunked prefill
 are refused with the reference's words, as the reference refuses them.
 
+The vlm family (``cross`` blocks over a stub vision tower's image
+embeddings) is served by ``generate(image_emb=...)``, captured or eager,
+and speculatively: the image embeddings go to the target's prefill and,
+under ``speculate``, to the draft's; every later forward attends the
+projected memory the prefill stored in the cache (``k_img`` / ``v_img``,
+static leaves: no decode step, verify or rollback touches them). Without
+``image_emb`` a prefill attends the fresh cache's zeros, as the reference's
+does. Slot serving and the prefix cache (so chunked prefill and the
+scheduler) are refused in the reference's words.
+
+Embeddings-input models (the audio family, ``input_kind="embeddings"``):
+``generate`` takes ``(B, S, d_model)`` frame embeddings as the prompt and
+returns only the generated codes ``(B, n_steps)``; each sampled code is
+mapped back to its embedding by the host-side ``Engine(embed_fn=...)``
+between steps (numpy ``(B, 1)`` codes → ``(B, 1, d_model)``), which the
+reference runs in its step loop. Here ``scan=True`` copies that embedding
+into the captured step's static ``(B, 1, d_model)`` input buffer and
+replays it, ``scan=False`` runs the step eagerly; the two give the same
+bits. Speculation, ``stop_tokens``, slot serving and the prefix cache are
+refused, as in the reference.
+
 Not ported: the reference's power-of-two chunk buckets, which exist for
 XLA's compile cache (chunks here are dispatched at their exact length).
 """
@@ -130,6 +151,7 @@ from repro_torch.infer.speculative import (
 from repro_torch.kernels import current_impl_mode
 from repro_torch.models import forward, fuse_decode_projections, init_cache, reset_cache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import tensor_from_numpy
 from repro_torch.infer.speculative import select_recurrent_target
 from repro_torch.models.layers import (
     gather_prefix_rows,
@@ -145,8 +167,9 @@ CHUNK_REFUSAL = ("unsupported for ring-buffer and recurrent architectures, as in
                  "(Engine.supports_chunked_prefill): ring buffers wrap pad writes onto live rows "
                  "and recurrent state folds pad tokens irreversibly")
 # The reference's words for a model outside the slot-serving gate (an MoE
-# model: expert capacity couples a batch's rows), for the prefix cache and
-# for chunked prefill.
+# model: expert capacity couples a batch's rows; a vlm or an
+# embeddings-input model: image and embed_fn inputs cannot run inside the
+# slot loop), for the prefix cache and for chunked prefill.
 PREFIX_REFUSAL = ("requires a tokens-input, non-VLM, non-MoE model (the slot-batched serving gate, "
                   "DESIGN.md §4)")
 GATE_CHUNK_REFUSAL = ("unsupported for this architecture (ring-buffer/recurrent/MoE/VLM — see "
@@ -259,6 +282,7 @@ class Engine:
         params,
         *,
         max_seq: int = 2048,
+        embed_fn=None,
         fuse: bool = True,
         device="cuda",
         prefix_cache: Optional[PrefixCache] = None,
@@ -267,6 +291,11 @@ class Engine:
         """``params`` are moved to ``device`` (default ``"cuda"``, which
         raises when no GPU is usable). ``fuse=False`` keeps the unfused
         per-projection layout.
+
+        ``embed_fn(codes (B, 1) int numpy) → (B, 1, d_model)`` (an array, or
+        a tensor) is required for an embeddings-input model to feed sampled
+        codes back in; it stands in for the stubbed frontend (e.g. the
+        EnCodec codebook embedding) and runs on the host between steps.
 
         ``tracer`` (a :class:`repro_torch.obs.Tracer`) records a span around
         every engine dispatch on the ``engine`` lane (module docstring).
@@ -283,6 +312,7 @@ class Engine:
         params = tree_map(lambda leaf: leaf.to(self.device), params)
         self.params = fuse_decode_projections(cfg, params) if fuse else params
         self.max_seq = max_seq
+        self.embed_fn = embed_fn
         self._draft_params: dict = {}  # q_draft -> truncated params
         # generate(scan=True)'s cache and graphs, of one batch width (the last used)
         self._caches: dict = {}  # batch width -> the cache generate(scan=True) reuses
@@ -364,13 +394,17 @@ class Engine:
         return graphs[mode]
 
     def _check_prompt(self, prompt: np.ndarray, n_new: int) -> None:
-        s = prompt.shape[-1]
+        """A prompt's length against the cache and, for token ids, their
+        range; an embeddings prompt is ``(B, S, d_model)``."""
+        s = prompt.shape[1] if self.cfg.input_kind != "tokens" else prompt.shape[-1]
         if s + n_new > self.max_seq:
             raise ValueError(
                 f"prompt_len({s}) + n_steps({n_new}) exceeds the engine's "
                 f"cache length max_seq={self.max_seq} — build the Engine with a "
                 f"larger max_seq or shorten the request"
             )
+        if self.cfg.input_kind != "tokens":
+            return
         if prompt.size and (prompt.min() < 0 or prompt.max() >= self.cfg.vocab):
             raise ValueError(
                 f"prompt token ids must lie in [0, vocab={self.cfg.vocab}); got "
@@ -412,8 +446,11 @@ class Engine:
                 f"{bad} do not support nested draft truncation "
                 f"(truncation-capable formats: {capable})"
             )
-        if getattr(self.cfg, "input_kind", "tokens") != "tokens":
-            raise ValueError("speculative decoding requires a tokens-input model")
+        if self.cfg.input_kind != "tokens":
+            raise ValueError(
+                "speculative decoding requires a tokens-input model (the host-side embed_fn cannot run "
+                "inside the chunk)"
+            )
         if getattr(self.cfg, "n_experts", 0):
             raise ValueError(
                 "speculative decoding does not support MoE models: shared expert "
@@ -433,19 +470,40 @@ class Engine:
                 f"max_seq={self.max_seq}"
             )
 
+    def _inputs(self, x: torch.Tensor) -> dict:
+        """``forward``'s input keyword for this model: token ids, or
+        embeddings for an embeddings-input model."""
+        return {"tokens": x} if self.cfg.input_kind == "tokens" else {"embeddings": x}
+
+    def _on_device(self, x) -> torch.Tensor:
+        """An array or tensor (embeddings, image embeddings) on the engine's
+        device, in its own dtype (bfloat16 numpy arrays included)."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return tensor_from_numpy(x, self.device)
+
+    def _embed(self, codes: np.ndarray) -> torch.Tensor:
+        """Sampled codes ``(B, 1)`` → their ``(B, 1, d_model)`` embeddings in
+        the compute dtype, through the host-side ``embed_fn``."""
+        return self._on_device(self.embed_fn(codes)).to(self.cfg.cdtype)
+
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: dict):
-        """Prompt ``(B, S)`` → last-position logits ``(B, V)`` and the cache."""
+    def prefill(self, tokens: torch.Tensor, cache: dict, image_emb: Optional[torch.Tensor] = None):
+        """Prompt ``(B, S)`` (``(B, S, d_model)`` embeddings for an
+        embeddings-input model; a vlm model's image embeddings beside it)
+        → last-position logits ``(B, V)`` and the cache."""
         logits, cache = forward(
-            self.cfg, self.params, tokens=tokens, cache=cache, pos=0, logits_mode="last", prefill=True
+            self.cfg, self.params, **self._inputs(tokens), image_emb=image_emb, cache=cache, pos=0,
+            logits_mode="last", prefill=True
         )
         return logits[:, -1], cache
 
     @torch.no_grad()
     def decode(self, tok: torch.Tensor, cache: dict, pos):
-        """One step: tokens ``(B, 1)`` at position ``pos`` → logits ``(B, V)``."""
+        """One step: tokens ``(B, 1)`` (embeddings ``(B, 1, d_model)``) at
+        position ``pos`` → logits ``(B, V)``."""
         logits, cache = forward(
-            self.cfg, self.params, tokens=tok, cache=cache, pos=pos, logits_mode="last"
+            self.cfg, self.params, **self._inputs(tok), cache=cache, pos=pos, logits_mode="last"
         )
         return logits[:, -1], cache
 
@@ -455,6 +513,7 @@ class Engine:
         prompt_tokens: np.ndarray,
         n_steps: int,
         *,
+        image_emb=None,
         temperature: float = 0.0,
         seed: int = 0,
         scan: bool = True,
@@ -462,6 +521,13 @@ class Engine:
         stop_tokens=None,
     ) -> GenerationResult:
         """Greedy (``temperature == 0``) or sampled autoregressive generation.
+
+        ``image_emb`` ``(B, n_image_tokens, d_model)`` (an array or a
+        tensor, kept in its dtype) is a vlm model's image memory, projected
+        at the prefill (both prefills under ``speculate``); without it the
+        cross blocks attend zeros. An embeddings-input model takes ``(B, S,
+        d_model)`` frame embeddings as ``prompt_tokens`` and returns only
+        the generated codes, ``tokens`` ``(B, n_steps)`` (module docstring).
 
         ``speculate=SpecConfig(q_draft, gamma)`` decodes self-speculatively:
         greedy output equals plain greedy output token for token; sampled
@@ -476,12 +542,30 @@ class Engine:
         ``GenerationResult.generated(b)`` returns the cut completion, as the
         scheduler's early exit emits it."""
         b, s = prompt_tokens.shape[:2]
-        pt = np.asarray(prompt_tokens)
-        self._check_prompt(pt, n_steps)
+        embeds = self.cfg.input_kind != "tokens"
+        if embeds:
+            if stop_tokens:
+                raise ValueError(
+                    "stop_tokens is only supported for tokens-input models "
+                    "(modality-stub outputs are code streams, not vocab ids)"
+                )
+            if n_steps and self.embed_fn is None:
+                raise ValueError(
+                    "embedding-input model: pass embed_fn to Engine to map "
+                    "sampled codes back to frame embeddings"
+                )
+            pt = None
+            self._check_prompt(prompt_tokens, n_steps)
+            prompt = self._on_device(prompt_tokens)
+        else:
+            pt = np.asarray(prompt_tokens)
+            self._check_prompt(pt, n_steps)
+            prompt = torch.as_tensor(pt, dtype=torch.long, device=self.device)
+        image = None if image_emb is None else self._on_device(image_emb)
         if speculate is not None:
             self._validate_spec(speculate)
             self._check_spec_headroom(s, n_steps, speculate)
-            new, stats = self._spec_generate(pt, n_steps, temperature, seed, speculate)
+            new, stats = self._spec_generate(prompt, image, n_steps, temperature, seed, speculate)
             out = np.concatenate([pt, new.astype(pt.dtype)], axis=1)
             stops = stop_positions_for(new, stop_tokens) if stop_tokens else None
             return GenerationResult(tokens=out, prompt_len=s, steps=n_steps, stop_positions=stops,
@@ -494,39 +578,46 @@ class Engine:
 
         graph = self._generate_graph(b) if scan else None
         cache = graph.cache if scan else self._make_cache(b)
-        tokens = torch.as_tensor(pt, dtype=torch.long, device=self.device)
         with self._obs_scope("engine/prefill", prompt_len=s, batch=b):
-            logits, cache = self.prefill(tokens, cache)
+            logits, cache = self.prefill(prompt, cache, image)
         steps = []
         with self._obs_scope("engine/scan_decode" if scan else "engine/step_decode", n_steps=n_steps, batch=b):
             for step in range(n_steps):
                 tok = _sample(logits, gen, temperature, greedy)
-                steps.append(tok if scan else tok.cpu().numpy())
-                if scan:
-                    logits = graph(tok, s + step)
+                if embeds:  # embed_fn runs on the host: every step fetches its codes
+                    codes = tok[:, None].cpu().numpy()
+                    steps.append(codes[:, 0])
+                    x = self._embed(codes)
                 else:
-                    logits, cache = self.decode(tok[:, None], cache, s + step)
-            if scan:
+                    steps.append(tok if scan else tok.cpu().numpy())
+                    x = tok[:, None]
+                if scan:
+                    logits = graph(x, s + step)
+                else:
+                    logits, cache = self.decode(x, cache, s + step)
+            if scan and not embeds:
                 new = torch.stack(steps, dim=1).cpu().numpy() if steps else np.zeros((b, 0))
             else:
-                new = np.stack(steps, axis=1) if steps else np.zeros((b, 0))
+                new = np.stack(steps, axis=1) if steps else np.zeros((b, 0), np.int64)
+        if embeds:  # the reference returns the generated codes alone
+            return GenerationResult(tokens=new, prompt_len=s, steps=n_steps)
         out = np.concatenate([pt, new.astype(pt.dtype)], axis=1)
         stops = stop_positions_for(new, stop_tokens) if stop_tokens else None
         return GenerationResult(tokens=out, prompt_len=s, steps=n_steps, stop_positions=stops)
 
-    def _spec_generate(self, pt: np.ndarray, n_steps: int, temperature: float, seed: int,
-                       spec: SpecConfig):
-        """Both prefills whole-shot, the first token from the target's prefill
-        logits, then chunks until every row has ``n_steps`` tokens →
-        ((B, n_steps) tokens, spec_stats)."""
-        b, s = pt.shape
+    def _spec_generate(self, tokens: torch.Tensor, image: Optional[torch.Tensor], n_steps: int,
+                       temperature: float, seed: int, spec: SpecConfig):
+        """Both prefills whole-shot (each given the image embeddings of a
+        vlm model), the first token from the target's prefill logits, then
+        chunks until every row has ``n_steps`` tokens → ((B, n_steps)
+        tokens, spec_stats)."""
+        b, s = tokens.shape
         greedy = temperature <= 0
         draft = self.draft_params(spec.q_draft)
-        tokens = torch.as_tensor(pt, dtype=torch.long, device=self.device)
         with self._obs_scope("engine/prefill", prompt_len=s, batch=b):
-            logits, cache = self.prefill(tokens, self._make_cache(b))
+            logits, cache = self.prefill(tokens, self._make_cache(b), image)
         with self._obs_scope("engine/prefill_draft", prompt_len=s, batch=b, q_draft=spec.q_draft):
-            _, dcache = forward(self.cfg, draft, tokens=tokens, cache=self._make_cache(b), pos=0,
+            _, dcache = forward(self.cfg, draft, tokens=tokens, image_emb=image, cache=self._make_cache(b), pos=0,
                                 logits_mode="last", prefill=True)
         gens = [None if greedy else _seeded(seed + i, self.device) for i in range(b)]
         dgens = [None if greedy else _seeded(draft_seed(seed + i), self.device) for i in range(b)]
@@ -568,8 +659,9 @@ class Engine:
 
     def _prefix_refusal(self) -> Optional[str]:
         """Why this model cannot take a prefix cache, or None: the
-        slot-serving gate (tokens input, no MoE)."""
-        if getattr(self.cfg, "input_kind", "tokens") != "tokens" or getattr(self.cfg, "n_experts", 0):
+        slot-serving gate (tokens input, not vlm, no MoE)."""
+        cfg = self.cfg
+        if cfg.input_kind != "tokens" or cfg.family == "vlm" or cfg.n_experts:
             return PREFIX_REFUSAL
         return None
 
@@ -598,10 +690,10 @@ class Engine:
         :meth:`spec_decode_slots` instead of :meth:`decode_slots`."""
         if speculate is not None:
             self._validate_spec(speculate)
-        if getattr(self.cfg, "input_kind", "tokens") != "tokens":
+        if self.cfg.input_kind != "tokens" or self.cfg.family == "vlm":
             raise ValueError(
-                "slot-batched serving requires a tokens-input model "
-                "(embedding inputs cannot be fed back by the slot loop)"
+                "slot-batched serving requires a tokens-input, non-VLM model "
+                "(embed_fn/image inputs cannot run inside the slot loop)"
             )
         if getattr(self.cfg, "n_experts", 0):
             raise ValueError(

@@ -6,7 +6,12 @@ The reference runs N decode steps as one ``lax.scan`` dispatch. Here one
 decode forward, tokens ``(B, 1)`` at positions ``(B,)`` into a persistent
 KV cache → logits ``(B, V)``, is captured once as a ``torch.cuda.CUDAGraph``
 and replayed every step: about 2000 kernel launches a forward become one
-graph launch. Sampling stays eager between replays, on the replayed logits,
+graph launch. An embeddings-input model's step takes ``(B, 1, d_model)``
+embeddings in a static buffer of the compute dtype in place of the token
+buffer; its ``embed_fn`` runs on the host between replays (the reference
+runs those steps in its host loop). A vlm model's step reads the image
+memory its prefill stored in the cache (``k_img`` / ``v_img``) and never
+writes it: read-only inputs of the graph. Sampling stays eager between replays, on the replayed logits,
 from each row's own ``torch.Generator`` (``infer/engine.py``), so every
 token stream is the eager loop's.
 
@@ -14,6 +19,8 @@ A :class:`DecodeGraph` belongs to one (batch width, cache, params, impl
 mode); the cache fixes the cache dtype. What a capture would freeze, and
 how this module keeps it true:
 
+- **Inputs** come only from the static ``(B, 1)`` token (or ``(B, 1,
+  d_model)`` embeddings) buffer.
 - **Positions** come only from the static ``(B,)`` device tensor, so the
   step takes the per-row paths of ``models/layers.py``; a scalar position
   raises under capture (``utils.host_pos``).
@@ -79,13 +86,17 @@ class DecodeGraph:
     → logits ``(B, V)`` f32. On the card the returned logits are the
     graph's output buffer: read them before the next replay of any graph
     that shares its memory pool. ``pool``: a function that returns the
-    handle of the memory pool to capture into, called at capture."""
+    handle of the memory pool to capture into, called at capture. An
+    embeddings-input model's steps take embeddings ``(B, 1, d_model)`` in
+    place of tokens (held in ``self.tokens``, the step's input buffer)."""
 
     def __init__(self, cfg: ModelConfig, params, cache: dict, batch: int, *, pool: Optional[Callable] = None):
         dev = tree_leaves(cache)[0].device
         self.cfg, self.params, self.cache, self.batch = cfg, params, cache, batch
         self.mode = current_impl_mode()
-        self.tokens = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        self.embeds = cfg.input_kind != "tokens"
+        shape, dtype = ((batch, 1, cfg.d_model), cfg.cdtype) if self.embeds else ((batch, 1), torch.long)
+        self.tokens = torch.zeros(shape, dtype=dtype, device=dev)  # the step's input buffer
         self.pos = torch.zeros((batch,), dtype=torch.long, device=dev)
         self.pool = pool
         self.workspace = Workspace()
@@ -97,8 +108,8 @@ class DecodeGraph:
 
     def step(self) -> torch.Tensor:
         """The captured function: one forward on the static buffers."""
-        logits, _ = forward(self.cfg, self.params, tokens=self.tokens, cache=self.cache, pos=self.pos,
-                            logits_mode="last")
+        inputs = {"embeddings" if self.embeds else "tokens": self.tokens}
+        logits, _ = forward(self.cfg, self.params, **inputs, cache=self.cache, pos=self.pos, logits_mode="last")
         return logits[:, -1]
 
     def uses(self, cache: dict) -> bool:
@@ -111,7 +122,7 @@ class DecodeGraph:
                 f"a decode graph captured under impl_mode({self.mode!r}) cannot replay under "
                 f"impl_mode({current_impl_mode()!r})"
             )
-        self.tokens.copy_(tok.reshape(self.batch, 1))
+        self.tokens.copy_(tok.reshape(self.tokens.shape))
         if isinstance(pos, torch.Tensor):
             self.pos.copy_(pos)
         else:

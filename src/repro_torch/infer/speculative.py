@@ -31,6 +31,9 @@ matmuls read ``q'/q`` of the planes. One chunk:
   each step (:func:`_recurrent_only`); the rollback installs the state at
   the commit index (:func:`select_recurrent_target`,
   :func:`select_recurrent_draft`) into the caches' own tensors, in place.
+  A vlm model's image memory (``k_img`` / ``v_img``, STATIC leaves) is
+  written by the prefills only; the draft steps and the verify read it, so
+  nothing rolls it back and every primitive below passes it by.
 
 Sampling draws from per-row ``torch.Generator``s, as the slot API does. A
 row's commit generator is the one its plain decode would use: a row that does
@@ -133,7 +136,7 @@ def snapshot_rows(cache: dict, pos, n: int) -> dict:
     """Copies of the ``n`` rows a chunk at per-row positions ``pos`` (B,)
     will write (modulo the ring length for a ring) of every POSITIONAL leaf
     (``(repeat, B, rows, ...)`` → ``(repeat, B, n, ...)``), in the cache's
-    tree without its recurrent leaves."""
+    tree without its recurrent and static leaves."""
 
     def take(leaf):
         idx = _row_index(pos, n, leaf.shape[2], leaf.device)
@@ -147,7 +150,8 @@ def restore_rows(cache: dict, snap: dict, pos, n: int, keep) -> dict:
     write iff ``j < keep`` (per row), else its :func:`snapshot_rows` content
     returns. On a ring this puts back the live rows the rejected writes
     overwrote; on a linear cache it leaves the rows as if the rejected
-    suffix had never been decoded. Returns ``cache``."""
+    suffix had never been decoded. Recurrent and static leaves are not in
+    ``snap`` and stay as they are. Returns ``cache``."""
 
     def write(name, leaf, sn):
         b = leaf.shape[1]
@@ -166,7 +170,7 @@ def select_recurrent_target(verify_cache: dict, idx) -> dict:
     (B,): ``verify_cache`` came from a ``collect_states=True`` forward, its
     recurrent leaves ``(repeat, S, B, ...)`` stacks (entry t: the state after
     chunk token t). Returns the cache's tree with those leaves ``(repeat,
-    B, ...)``; positional leaves pass through."""
+    B, ...)``; positional and static leaves pass through."""
 
     def visit(path, leaf):
         if path[-1] not in RECURRENT_CACHE_LEAVES:
@@ -181,7 +185,8 @@ def select_recurrent_target(verify_cache: dict, idx) -> dict:
 def select_recurrent_draft(cache: dict, stacks: dict, idx) -> dict:
     """The same selection on the draft side, whose states were copied after
     each draft step: the recurrent leaves of ``stacks`` are ``(S, repeat,
-    B, ...)`` (step axis first); positional leaves come from ``cache``."""
+    B, ...)`` (step axis first); positional and static leaves come from
+    ``cache``."""
 
     def visit(path, leaf):
         if path[-1] not in RECURRENT_CACHE_LEAVES:
@@ -214,7 +219,8 @@ def _at(tree, path):
 def freeze_inactive(new_state: dict, old_state: dict, active: np.ndarray) -> dict:
     """Inactive rows keep their pre-chunk pending token, position and carried
     logits. Caches are not frozen: an inactive row's writes land at or past
-    its frozen position and are never attended (admission rewrites the row).
+    its frozen position and are never attended (admission rewrites the row);
+    a static image memory is never written after the prefill.
     Its generators did not move: :func:`spec_chunk` draws only for active
     rows."""
     act = torch.as_tensor(active, device=new_state["t_pend"].device)

@@ -64,7 +64,13 @@ reduced: 2 layers) the same way, with the same refusal of
 at most 8 experts, top-2, ``moe_d_ff`` 256) with ``--sequential`` only:
 expert capacity couples a batch's rows, so the continuous default raises
 the reference's slot refusal, and speculation, the prefix cache and
-chunked prefill are refused with it.
+chunked prefill are refused with it. ``--arch llama-3.2-vision-90b``
+serves the vlm family (reduced: one period of 5 layers, 4 ``attn`` and a
+``cross`` block over 8 image tokens) with ``--sequential`` only, as the
+reference serves it: no image memory is given, so the cross blocks attend
+zeros; the continuous default raises the reference's slot refusal.
+``--arch musicgen-medium`` (frame-embedding inputs) is an argparse error,
+as in the reference: serve it through ``Engine(embed_fn=...).generate``.
 
 ``--tp`` belongs to tensor parallelism, which is not ported yet; it is
 refused with an error naming the missing piece.
@@ -261,6 +267,9 @@ def main(argv=None) -> None:
     if args.prefill_chunk < 0:
         ap.error("--prefill-chunk must be >= 0 (0 = whole-shot, no chunked prefill)")
     arch_cfg = get_config(args.arch)
+    if arch_cfg.input_kind != "tokens":
+        ap.error(f"{args.arch} is a modality-stub arch (frame-embedding inputs); serve it through "
+                 f"Engine(embed_fn=...).generate")
     if args.prefill_chunk and (has_ring_buffer(arch_cfg) or has_recurrent_state(arch_cfg)):
         ap.error(f"--prefill-chunk: chunked prefill of {args.arch} is {CHUNK_REFUSAL}")
     if args.prefix_block is not None and not args.prefix_cache_mb:

@@ -1,4 +1,4 @@
-"""Decoder models (the dense, hybrid and ssm families)."""
+"""Decoder models (every family of the reference: dense, MoE, vlm, audio, hybrid, ssm)."""
 
 from repro_torch.models.config import ModelConfig, reduced
 from repro_torch.models.convert import params_from_numpy

@@ -4,7 +4,10 @@
 For every self-attention block ``wq``/``wk``/``wv`` become one
 output-concatenated ``wqkv`` leaf and every SwiGLU MLP's ``w_gate``/``w_up``
 become ``w_gate_up``; ``models.layers`` then issues one projection launch per
-activation instead of N. Quantized leaves fuse only when they share a format
+activation instead of N. A ``cross`` block keeps ``wq`` / ``wk`` / ``wv``
+apart, as the reference does: ``wk`` / ``wv`` project the image memory,
+not the token stream, so there is no shared activation to fuse (its MLP
+fuses as any other). Quantized leaves fuse only when they share a format
 that supports fusion and the same ``(k, q, g)`` and scale dtype; anything
 else is left unfused. An MoE block's attention fuses too; its experts
 keep their own routing path (``router`` present: the MLP, the shared

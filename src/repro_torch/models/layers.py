@@ -1,7 +1,8 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``,
-for the dense decoder's unwindowed KV cache and the hybrid family's local
+for the dense decoder's unwindowed KV cache, the hybrid family's local
 attention on a ring cache, each in the compute dtype or as int8 codes with
-per-(token, head) scales).
+per-(token, head) scales, and the vlm family's cross-attention over a
+provided image memory).
 
 Causal attention of a prompt (train, prefill, and a prefill chunk or
 suffix at ``pos > 0``) goes through :func:`_causal`: on the GPU the
@@ -62,16 +63,30 @@ this takes the flash-attention kernel, which has no window and stops at
 Dh = 128 (the reference computes local attention in plain XLA too);
 training (no cache) runs the reference's :func:`_local_attention_chunked`.
 
+Cross-attention (``attention(kv_override=(k_mem, v_mem))``, the vlm
+family's ``cross`` block): the queries, RoPE'd at their token positions,
+attend every row of a provided memory (the projected image tokens, which
+get no RoPE) without a mask; ``wq`` and ``wo`` project the tokens, and the
+block's ``wk`` / ``wv`` the image embeddings (``models/model.py``). A
+prompt takes one :func:`_sdpa` over the memory, as the reference computes
+it in plain XLA (no kernel: K8 is causal); a decode step and each token of
+a speculative verify take :func:`_sdpa_decode` under an all-true mask
+(:func:`_memory_decode`), so a verify's token gets a decode step's bits.
+
 The cache-rewind contract (the reference's, ``repro/models/layers.py``):
 every cache leaf is POSITIONAL (``k``, ``v`` and the int8 scales: rows at
-absolute positions, or ring slots) or RECURRENT (``h``, ``conv`` of the
+absolute positions, or ring slots), RECURRENT (``h``, ``conv`` of the
 RG-LRU; ``c``, ``n``, ``m`` of the mLSTM and ``h``, ``c``, ``n``, ``m`` of
 the sLSTM: state that folds every token irreversibly,
-``models/recurrent.py``). A name means the same kind in every block, and
-everything keyed by leaf name works whatever the leaf's shape. The prefix
-cache gathers and installs positional rows (:func:`gather_prefix_rows`,
-:func:`install_prefix_rows`) and snapshots recurrent state at block
-boundaries (:func:`snapshot_recurrent`, :func:`install_recurrent`).
+``models/recurrent.py``) or STATIC (``k_img``, ``v_img`` of a ``cross``
+block: the projected image memory, written once by a prefill given image
+embeddings, never by a decode step or a verify, never rewound, and never
+part of a prefix block: the prefix cache refuses vlm models). A name means
+the same kind in every block, and everything keyed by leaf name works
+whatever the leaf's shape. The prefix cache gathers and installs positional
+rows (:func:`gather_prefix_rows`, :func:`install_prefix_rows`) and
+snapshots recurrent state at block boundaries (:func:`snapshot_recurrent`,
+:func:`install_recurrent`); each of them passes static leaves by.
 
 Positions: a scalar ``pos`` is read on the host
 (:func:`~repro_torch.utils.host_pos`, which raises under CUDA graph
@@ -98,6 +113,7 @@ Pos = Union[int, torch.Tensor]
 
 POSITIONAL_CACHE_LEAVES = frozenset({"k", "v", "k_scale", "v_scale"})
 RECURRENT_CACHE_LEAVES = frozenset({"h", "conv", "c", "n", "m"})
+STATIC_CACHE_LEAVES = frozenset({"k_img", "v_img"})
 
 
 def select_leaves(tree, names, fn=lambda leaf: leaf):
@@ -204,6 +220,17 @@ def _sdpa_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, mask: torc
     vals = cv.permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, S_max, Dh)
     out = _rows_sum(probs[..., None] * vals)  # (B, Hkv, G, Dh)
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def _memory_decode(q: torch.Tensor, k_mem: torch.Tensor, v_mem: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of ``s`` query rows over a whole memory, one
+    :func:`_sdpa_decode` call per row under an all-true mask (the function
+    of :func:`_sdpa` with no mask): a row's bits then depend neither on
+    the batch nor on the other rows of the call, so each token of a
+    speculative verify gets the bits of a decode step. q (B, s, H, Dh);
+    k_mem, v_mem (B, N, Hkv, Dh)."""
+    mask = torch.ones((1, 1, 1, k_mem.shape[1]), dtype=torch.bool, device=q.device)
+    return torch.cat([_sdpa_decode(q[:, i : i + 1], k_mem, v_mem, mask) for i in range(q.shape[1])], dim=1)
 
 
 def _rows_sum(x: torch.Tensor) -> torch.Tensor:
@@ -543,9 +570,11 @@ def attention(
     pos: Optional[Pos] = None,
     window: int = 0,
     chunked: bool = False,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """GQA self-attention; ``window > 0`` is local attention over a ring
-    cache (module docstring). Returns (out, cache).
+    cache; ``kv_override=(k_mem, v_mem)`` is cross-attention over that
+    memory (module docstring). Returns (out, cache).
 
     train    cache=None                  causal attention over x
     prefill  cache, s > 1                s prompt tokens at pos..pos+s-1: at
@@ -565,9 +594,23 @@ def attention(
                                          written, then token i attends the
                                          cache as a decode step at pos+i does;
                                          the linears see B·s token rows
+    cross    kv_override=(k_mem, v_mem)  the queries attend the memory, no
+                                         mask; ``cache`` (left as it is)
+                                         only says that a single token
+                                         without ``prompt_rows`` is a decode
+                                         step; ``chunked`` as above
     """
     b, s, _ = x.shape
     xr = token_rows_view(x) if chunked else x
+    if kv_override is not None:
+        q = rope(linear(xr, p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head), positions, cfg.rope_theta)
+        k_mem, v_mem = kv_override
+        if chunked or (cache is not None and s == 1 and not in_prompt_rows()):
+            out = _memory_decode(q, k_mem, v_mem)
+        else:
+            out = _sdpa(q, k_mem, v_mem, None)
+        out = out.reshape(b, s, cfg.q_dim)
+        return linear(token_rows_view(out) if chunked else out, p["wo"]).reshape(b, s, -1), cache
     if "wqkv" in p:
         q, k, v = linear_fused(xr, p["wqkv"], (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
     else:

@@ -1,9 +1,12 @@
-"""Model assembly: init / forward for the dense decoder, the MoE family, the
-hybrid family and the ssm family (counterpart of ``repro/models/model.py``).
+"""Model assembly: init / forward for every family of the reference: the
+dense decoder, the audio, MoE, vlm, hybrid and ssm families (counterpart
+of ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``{"stages": ({"b0": block}, ...),
 "final_norm", "lm_head", "embed"}`` with each block's leaves stacked over the
-stage's layers on a leading axis. The reference's ``lax.scan`` over layers
+stage's layers on a leading axis; a model whose ``input_kind`` is
+``"embeddings"`` (the audio family's) has no ``embed``: :func:`forward`
+takes its ``(B, S, d_model)`` frame embeddings. The reference's ``lax.scan`` over layers
 becomes a Python loop that takes layer ``l``'s views of the stacked leaves.
 
 One :func:`forward` serves train, prefill and decode:
@@ -25,7 +28,11 @@ prefill whose recurrent boundary states the prefix cache commits): the
 stacks then hold the states after those steps only, ``(repeat, S', B,
 ...)``, since an mLSTM layer's state is a (Dh × Dh) matrix a head.
 
-Block types: ``attn`` (dense), ``attn_moe`` (attention, then a bank of
+Block types: ``attn`` (dense), ``cross`` (the vlm family's: the leaves of
+``attn``, its queries attending the image memory, ``layers.attention``'s
+cross path; its cache ``k_img`` / ``v_img`` ``(repeat, B, n_image_tokens,
+Hkv, Dh)`` in the cache dtype, an int8 cache's too, written by a forward
+given ``image_emb`` and read by one without it), ``attn_moe`` (attention, then a bank of
 experts in place of the MLP, ``models/moe.py``; its cache is an ``attn``
 cache), ``local_attn`` (attention over a window on a
 ring cache of ``min(s_max, window)`` rows), ``rglru`` (Griffin's recurrent
@@ -51,7 +58,7 @@ from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils import host_pos, prompt_rows, resolve_device, tree_map
 
-ATTN_BLOCKS = ("attn", "attn_moe", "local_attn")
+ATTN_BLOCKS = ("attn", "attn_moe", "local_attn", "cross")
 XLSTM_BLOCKS = ("mlstm", "slstm")
 RECURRENT_BLOCKS = ("rglru",) + XLSTM_BLOCKS
 BLOCKS = ATTN_BLOCKS + RECURRENT_BLOCKS
@@ -60,7 +67,7 @@ _CELLS = {"rglru": R.rglru_block, "mlstm": R.mlstm_block, "slstm": R.slstm_block
 
 def _check_block(btype: str) -> None:
     if btype not in BLOCKS:
-        raise ValueError(f"block type {btype!r} is not ported yet; ported: {BLOCKS}")
+        raise ValueError(f"unknown block type {btype!r}; known: {BLOCKS}")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, btype: str, repeat: int, device) -> dict:
@@ -91,13 +98,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
         for pattern, repeat in cfg.stages
     )
     lm_head = L._dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.pdtype, dev)
-    embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev) * 0.02
-    return {
+    params = {
         "stages": stages,
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.pdtype, device=dev),
         "lm_head": lm_head,
-        "embed": embed.to(cfg.pdtype),
     }
+    if cfg.input_kind == "tokens":  # an embeddings-input model has no table
+        embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev) * 0.02
+        params["embed"] = embed.to(cfg.pdtype)
+    return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="cuda",
@@ -113,7 +122,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="
     depends on its length); an ``rglru`` block holds ``h`` ``(repeat, B,
     W)`` f32 and ``conv`` ``(repeat, B, K-1, W)`` in ``dtype``; an xLSTM
     block its f32 state at the reference's initial values
-    (``recurrent.init_state``)."""
+    (``recurrent.init_state``); a ``cross`` block its image memory
+    ``k_img`` / ``v_img`` ``(repeat, B, n_image_tokens, Hkv, Dh)`` in
+    ``dtype`` whatever ``kv_cache_dtype`` says, as the reference keeps it."""
     dev = resolve_device(device)
     dtype = dtype or cfg.cdtype
 
@@ -121,6 +132,10 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *, device="
         _check_block(btype)
         if btype in XLSTM_BLOCKS:
             return R.init_state(cfg, btype, batch, (repeat,), dev)
+        if btype == "cross":
+            shape = (repeat, batch, cfg.n_image_tokens, cfg.n_kv_heads, cfg.d_head)
+            return {"k_img": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v_img": torch.zeros(shape, dtype=dtype, device=dev)}
         if btype == "rglru":
             w = cfg.lru_width
             return {
@@ -155,7 +170,9 @@ def reset_cache(cfg: ModelConfig, cache: dict) -> dict:
     """Put every leaf of ``cache`` (a whole cache, or a tree of views of its
     rows, e.g. one slot's) back to :func:`init_cache`'s values, in place:
     zeros, and the xLSTM cells' initial ``m`` and ``n``
-    (``recurrent.INITIAL_VALUES``). Returns ``cache``."""
+    (``recurrent.INITIAL_VALUES``). A cross block's static image memory is
+    zeroed too: the next prefill given image embeddings writes it, and one
+    without them attends zeros, as a fresh cache's. Returns ``cache``."""
     for (pattern, _), stage in zip(cfg.stages, cache["stages"]):
         for bi, btype in enumerate(pattern):
             for name, leaf in stage[f"b{bi}"].items():
@@ -182,6 +199,7 @@ def apply_block(
     positions: torch.Tensor,
     cache: Optional[dict],
     pos,
+    image_emb: Optional[torch.Tensor] = None,
     *,
     chunked: bool = False,
     collect: bool = False,
@@ -192,12 +210,16 @@ def apply_block(
     block returns its state stacks instead of the cache
     (``models/recurrent.py``). An xLSTM block has no MLP. An ``attn_moe``
     block's experts see all of the call's tokens at once (capacity couples
-    them); its load-balance loss is not threaded out yet."""
+    them); its load-balance loss is not threaded out yet. A ``cross``
+    block attends the image memory of :func:`image_memory`."""
     _check_block(btype)
     if btype in RECURRENT_BLOCKS:
         r, cache = _CELLS[btype](p["mix"], cfg, L.rmsnorm(p["ln1"], h), cache, collect=collect, chunked=chunked)
         if btype in XLSTM_BLOCKS:
             return h + r, cache
+    elif btype == "cross":
+        r, cache = L.attention(p["attn"], cfg, L.rmsnorm(p["ln1"], h), positions, cache=cache, chunked=chunked,
+                               kv_override=image_memory(p["attn"], cfg, cache, pos, image_emb))
     else:
         window = cfg.window if btype == "local_attn" else 0
         r, cache = L.attention(
@@ -213,11 +235,36 @@ def apply_block(
     return h + L.mlp_swiglu(p["mlp"], x), cache
 
 
+def image_memory(p: dict, cfg: ModelConfig, cache: Optional[dict], pos, image_emb: Optional[torch.Tensor]):
+    """The ``(k_mem, v_mem)`` a cross block attends, ``(B, N, Hkv, Dh)``
+    each: with ``image_emb`` ``(B, N, d_model)``, its projections by the
+    block's ``wk`` / ``wv`` (no RoPE), written into the cache's ``k_img`` /
+    ``v_img`` in place (cast to the cache's dtype) when there is one; without
+    it, a decoding state's (``cache`` and ``pos``) stored memory: a decode
+    step, a verify, or a prefill given no image embeddings, which attends a
+    fresh cache's zeros as the reference's does. As in the reference,
+    ``image_emb`` is not cast to the compute dtype first."""
+    if image_emb is None:
+        if cache is None or pos is None:
+            raise ValueError("a cross-attention block needs image_emb, or a decoding state (cache and pos) "
+                             "holding the image memory")
+        return cache["k_img"], cache["v_img"]
+    b, n, _ = image_emb.shape
+    k = linear(image_emb, p["wk"]).reshape(b, n, cfg.n_kv_heads, cfg.d_head)
+    v = linear(image_emb, p["wv"]).reshape(b, n, cfg.n_kv_heads, cfg.d_head)
+    if cache is not None:
+        cache["k_img"].copy_(k)
+        cache["v_img"].copy_(v)
+    return k, v
+
+
 def forward(
     cfg: ModelConfig,
     params: dict,
     *,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor] = None,
+    embeddings: Optional[torch.Tensor] = None,
+    image_emb: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
     pos=None,
@@ -226,7 +273,12 @@ def forward(
     prefill: bool = False,
     collect_states: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Run the decoder on ``tokens (B, S)``. Returns (logits f32, cache).
+    """Run the decoder on ``tokens (B, S)``, or on ``embeddings (B, S,
+    d_model)`` for an embeddings-input model (cast to the compute dtype).
+    Returns (logits f32, cache). ``image_emb (B, N, d_model)`` is a vlm
+    model's image memory (:func:`image_memory`): given, every cross block
+    projects it (and stores it in the cache); not given, the cross blocks
+    attend the cache's.
 
     ``chunked_decode=True`` feeds S > 1 tokens mid-sequence against a
     filled cache at ``pos`` (a speculative verify): every position's logits
@@ -249,13 +301,20 @@ def forward(
         raise ValueError("chunked_decode needs a filled cache")
     if collect_states is not False and collect_states is not None and cache is None:
         raise ValueError("collect_states needs a decoding state")
+    if (tokens is None) == (embeddings is None):
+        raise ValueError("forward takes exactly one of tokens and embeddings")
     with prompt_rows(prefill):
-        return _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode, collect_states)
+        return _forward(cfg, params, tokens, embeddings, image_emb, positions, cache, pos, logits_mode,
+                        chunked_decode, collect_states)
 
 
-def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_decode, collect=False):
-    h = params["embed"][tokens].to(cfg.cdtype)
-    b, s = tokens.shape
+def _forward(cfg, params, tokens, embeddings, image_emb, positions, cache, pos, logits_mode, chunked_decode,
+             collect=False):
+    if tokens is not None:
+        h = params["embed"][tokens].to(cfg.cdtype)
+    else:
+        h = embeddings.to(cfg.cdtype)
+    b, s = h.shape[:2]
     if positions is None:
         if pos is None:
             base = torch.zeros((b, 1), dtype=torch.int32, device=h.device)
@@ -275,7 +334,7 @@ def _forward(cfg, params, tokens, positions, cache, pos, logits_mode, chunked_de
                 c_in = None if stage_c is None else layer_slice(stage_c[key], l)
                 coll = collect if btype in RECURRENT_BLOCKS else False
                 h, c_out = apply_block(
-                    layer_slice(stage_p[key], l), cfg, btype, h, positions, c_in, pos,
+                    layer_slice(stage_p[key], l), cfg, btype, h, positions, c_in, pos, image_emb,
                     chunked=chunked_decode, collect=coll,
                 )
                 if coll is not False:

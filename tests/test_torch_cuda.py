@@ -1965,3 +1965,113 @@ def test_moe_kernel_path_matches_ref_path_on_card(cuda):
     with impl_mode("ref"):
         want, _ = eng.prefill(tokens, eng._make_cache(4))
     assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+
+
+# one period of llama-3.2-vision-90b (4 attn blocks and a cross block) at d 1024 over 64 image tokens, and a
+# 4-layer musicgen-medium at full width (24 heads of 64), bf16, bcq
+VLM = dict(d_model=1024, n_heads=8, n_kv_heads=2, d_ff=2048, vocab=4096, n_image_tokens=64,
+           param_dtype="bfloat16", compute_dtype="bfloat16")
+AUDIO = dict(d_model=1536, n_heads=24, n_kv_heads=24, d_ff=6144, vocab=2048, n_layers=4,
+             param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+@functools.lru_cache(maxsize=None)
+def _family_engine(arch):
+    cfg = reduced(get_config(arch), **(VLM if arch == "llama-3.2-vision-90b" else AUDIO))
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), QuantPolicy(q=4, g=128, iters=1), device="cuda")
+    table = torch.randn((cfg.vocab, cfg.d_model), generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda").to(torch.bfloat16)
+    embed_fn = (lambda codes: table[torch.as_tensor(codes, device="cuda").long()[:, 0]][:, None]) \
+        if cfg.input_kind == "embeddings" else None
+    return Engine(cfg, params, max_seq=96, device="cuda", embed_fn=embed_fn)
+
+
+def _family_inputs(eng, seed, b=4, s=16):
+    """Seeded bf16 prompt frames (audio) or token ids, and image embeddings (vlm)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = eng.cfg
+    if cfg.input_kind == "embeddings":
+        prompt = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    else:
+        prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    image = None
+    if cfg.family == "vlm":
+        image = torch.randn((b, cfg.n_image_tokens, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    return prompt, image
+
+
+def _family_step_logits(eng, prompt, image, n, captured):
+    """As :func:`_step_logits`, with the image embeddings at the prefill and,
+    for an embeddings-input model, each greedy code fed back through
+    ``embed_fn``."""
+    b, s = prompt.shape[:2]
+    graph = eng._generate_graph(b) if captured else None
+    logits, cache = eng.prefill(prompt, graph.cache if captured else eng._make_cache(b), image)
+    out = []
+    for step in range(n):
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        x = eng._embed(tok.cpu().numpy()) if eng.embed_fn is not None else tok
+        if captured:
+            logits = graph(x, s + step).clone()
+        else:
+            logits, cache = eng.decode(x, cache, s + step)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "musicgen-medium"])
+def test_family_graph_generate_equals_eager_on_card(cuda, arch):
+    """The vlm step (the cross block reading the image memory its prefill
+    stored) and the audio step (frame embeddings in the graph's static
+    buffer, ``embed_fn`` between replays), captured and replayed, against
+    the eager loop: the same logits step by step and the same sampled
+    tokens, bit for bit; the census counts K8 once a self-attention layer
+    of the prefill, never for the cross block."""
+    eng = _family_engine(arch)
+    prompt, image = _family_inputs(eng, 3)
+    eager_l = _family_step_logits(eng, prompt, image, 12, False)
+    graph_l = _family_step_logits(eng, prompt, image, 12, True)
+    assert eng._graphs[(4, None)].graph is not None
+    assert torch.equal(graph_l, eager_l)
+    gp = prompt if eng.embed_fn is not None else prompt.cpu().numpy()  # token ids go in on the host
+    reset_launch_counts()
+    eager = eng.generate(gp, 12, image_emb=image, temperature=0.8, seed=1, scan=False)
+    eager_counts = launch_counts()
+    reset_launch_counts()
+    graphed = eng.generate(gp, 12, image_emb=image, temperature=0.8, seed=1)
+    assert launch_counts() == eager_counts
+    assert eager_counts["flash_attention"] == eng.cfg.block_counts()["attn"]
+    np.testing.assert_array_equal(graphed.tokens, eager.tokens)
+    assert graphed.tokens.shape == ((4, 12) if eng.embed_fn is not None else (4, 28))
+
+
+def test_vlm_speculation_and_verify_exact_on_card(cuda):
+    """A verify of 5 tokens gives each position a decode step's bits (the
+    cross block one ``_sdpa_decode`` a token over the memory); greedy
+    speculation (q' = 2 and the all-accepting q' = q) equals plain greedy;
+    the image memory is as the prefill wrote it after both; without image
+    embeddings the tokens equal those given zeroed ones."""
+    eng = _family_engine("llama-3.2-vision-90b")
+    cfg = eng.cfg
+    prompt, image = _family_inputs(eng, 4)
+    chunk = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (4, 5)), device=cuda)
+    _, c_chunk = eng.prefill(prompt, eng._make_cache(4), image)
+    _, c_step = eng.prefill(prompt, eng._make_cache(4), image)
+    memory = c_chunk["stages"][0]["b4"]["k_img"].clone()
+    pos = torch.full((4,), 16, device=cuda)
+    got, _ = forward(cfg, eng.params, tokens=chunk, cache=c_chunk, pos=pos, logits_mode="all", chunked_decode=True)
+    steps = []
+    for t in range(5):
+        lg, c_step = eng.decode(chunk[:, t : t + 1], c_step, pos + t)
+        steps.append(lg)
+    assert torch.equal(got, torch.stack(steps, dim=1))
+    assert torch.equal(c_chunk["stages"][0]["b4"]["k_img"], memory)
+    plain = eng.generate(prompt.cpu().numpy(), 18, image_emb=image)
+    for q_draft in (2, 4):
+        spec = eng.generate(prompt.cpu().numpy(), 18, image_emb=image, speculate=SpecConfig(q_draft, 4))
+        np.testing.assert_array_equal(spec.tokens, plain.tokens)
+        if q_draft == 4:
+            assert spec.spec_stats["accepted"] == spec.spec_stats["committable"]
+    none = eng.generate(prompt.cpu().numpy(), 8)
+    zero = eng.generate(prompt.cpu().numpy(), 8, image_emb=torch.zeros_like(image))
+    np.testing.assert_array_equal(none.tokens, zero.tokens)

@@ -29,6 +29,7 @@ from repro.models import init_cache as jinit_cache
 from repro.models import init_params as jinit_params
 from repro.models import layers as JL
 from repro.models import reduced as jreduced
+from repro.models.config import ModelConfig as JModelConfig
 from repro.quant import QuantPolicy as JPolicy
 from repro.quant import quantize_params as jquantize_params
 from repro_torch.configs import get_config
@@ -97,10 +98,12 @@ def test_reduced_and_stages_match_the_reference(n_layers):
 @pytest.mark.parametrize("family,missing", [("ssm", "xLSTM"), ("moe", "MoE"), ("vlm", "cross-attention"),
                                             ("audio", "frame-embedding")])
 def test_unported_families_name_what_is_missing(family, missing):
-    """Each family the port lacks is refused with what it needs. The ssm
-    family (the xLSTM cells) and the MoE family are ported: their cases check
-    that they build the reference's stages and refuse a layer count the
-    reference refuses (odd for ssm; one that the MoE period does not divide)."""
+    """Every family of the reference is ported now; each case checks that
+    its family builds the reference's stages and refuses a layer count the
+    reference refuses: odd for ssm (the xLSTM cells), one that the MoE
+    period does not divide, one that the vlm family's cross-attention
+    period does not divide; the audio family (frame-embedding inputs) is
+    ``("attn",)`` times L at any L."""
     kw = dict(name="x", family=family, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=256)
     if family == "ssm":
         assert ModelConfig(n_layers=4, **kw).stages == jreduced(jget_config("xlstm-125m"), n_layers=4).stages
@@ -114,8 +117,17 @@ def test_unported_families_name_what_is_missing(family, missing):
         with pytest.raises(ValueError, match="must divide by period"):
             ModelConfig(n_layers=3, **moe, **kw)
         return
-    with pytest.raises(ValueError, match=missing):
-        ModelConfig(n_layers=2, **kw)
+    if family == "vlm":
+        want = jreduced(jget_config("llama-3.2-vision-90b"), n_layers=10).stages
+        assert ModelConfig(n_layers=10, **kw).stages == want == ((("attn",) * 4 + ("cross",), 2),)
+        for cls in (ModelConfig, JModelConfig):
+            with pytest.raises(ValueError, match="vlm layers 7 must divide by period 5"):
+                cls(n_layers=7, **kw)
+        return
+    for n_layers in (1, 3, 48):
+        want = jreduced(jget_config("musicgen-medium"), n_layers=n_layers).stages
+        assert ModelConfig(n_layers=n_layers, input_kind="embeddings", **kw).stages == want == (
+            (("attn",), n_layers),)
 
 
 # -- local attention and the ring cache ----------------------------------------
