@@ -9,7 +9,12 @@ code is non-zero:
 
 1. card      the ``nvidia-smi`` name and power limit line;
 2. build     nvcc builds every kernel from ``src/repro_torch/csrc``, all
-             sources at once (timed);
+             sources at once, a build thread each (each source's compile
+             time); meanwhile phase 5's model is quantized in every format
+             (no hand-written kernel runs there), then phase 4 runs (its
+             source builds in seconds) and phase 3 checks each kernel as
+             its source is built, while the slowest sources (``bcq_mm.cu``,
+             ``uniform_mm.cu``) still compile;
 3. kernels   each of the seven quantized-matmul kernels against its plain
              PyTorch version at the main path's leaf shapes (B = 1, 4 and the
              prefill row count) and the reference's kernel sweep, with bf16
@@ -346,7 +351,34 @@ code is non-zero:
              image embeddings == one given zeroed ones; the prefill; the
              f32-compute oracle check. Every (kernel, planes, rows, leaf)
              of K1 / K2 both models launched is held to its plain version;
-16. last line ``{"ok": true, "device": {...}}``.
+16. tp       tensor-parallel serving (``Engine(mesh=...)``): llama3.2-3b
+             bcq at full width and depth split over two ranks on the one
+             card (``launch/_ranks.py``: spawned processes, gloo, since
+             NCCL refuses two ranks of one communicator on one GPU; the
+             collectives are host round trips, so this shows correctness
+             and shard-shape kernel times, not TP speed). Phase 5's packed
+             weights reach the ranks through a file under a temporary
+             directory (not quantized again); each rank loads the built
+             kernels, never compiles. Gates: the f32-compute model's greedy
+             tokens at tp = 2 equal tp = 1's (run here on the same packed
+             weights), its prefill and step logits within 1e-3 of
+             max|logit| (the reference's ``LOGIT_TOL``); the bf16 model's
+             distance to tp = 1 and to the f32-weight oracle and its first
+             differing token reported (the 3e-2 watch rule); every rank
+             the same tokens and logits; at the first 8 layers, within the
+             tp = 2 engine, slot == solo (phase 6's 12 requests, 4 slots,
+             chunk 8), ``SpecConfig(2, 4)`` == plain and warm == cold
+             (phase 8's 512-token shared prompt), bit for bit; 2L + 1
+             collectives a forward; K1/K2 and K8 launched on each rank's
+             main path (counts reset just before, read just after, in the
+             kernels line as ``tp_launches``) and every launched (kernel,
+             planes, rows, shard leaf) and K8 shape at the local heads (12
+             / 4 of 128) held to its plain version. Printed: each rank's
+             device ms of a decode step and of the prefill by part (K1/K2,
+             K8, the collectives' copies, the rest), K1/K2 at each shard
+             leaf beside its byte bound, its plain version and the library,
+             tok/s with the card named;
+17. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -371,9 +403,11 @@ import importlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -757,10 +791,60 @@ def check_kernel(name, B, k, o, q, g, dtype, gen, out_dims=None, s_dtype=None):
     return rec
 
 
-def phase_kernels(gen):
+class Builds:
+    """Every CUDA source compiling at once, a build thread each (phase 2),
+    so that work which needs none of the slow sources runs meanwhile:
+    ``wait(*sources)`` joins those builds (all with none named) and fails
+    the smoke if one failed; ``as_ready(names, source_of)`` yields names as
+    their sources finish; ``seconds`` holds each finished source's compile
+    time."""
+
+    def __init__(self):
+        from repro_torch.kernels import _build
+
+        self.t0 = time.perf_counter()
+        self.errors = {}
+        self.seconds = {}
+        self.threads = {n: threading.Thread(target=self._run, args=(_build, n), name=f"build-{n}")
+                        for n in _build.kernel_names()}
+        for t in self.threads.values():
+            t.start()
+
+    def _run(self, build, name):
+        t0 = time.perf_counter()
+        try:
+            build.build([name])
+        except BaseException as e:  # raised in the main thread by wait()
+            self.errors[name] = e
+        self.seconds[name] = time.perf_counter() - t0
+
+    def wait(self, *sources):
+        for n in sources or self.threads:
+            self.threads[n].join()
+        bad = {n: e for n, e in self.errors.items() if n in (sources or self.threads)}
+        if bad:
+            raise SystemExit(f"chip_smoke: the build of {sorted(bad)} failed:\n" + "\n".join(map(str, bad.values())))
+
+    def as_ready(self, names, source_of):
+        left = list(names)
+        while left:
+            ready = [n for n in left if not self.threads[source_of(n)].is_alive()]
+            if not ready:
+                time.sleep(0.1)
+                continue
+            for n in ready:
+                self.wait(source_of(n))
+                left.remove(n)
+                yield n
+
+
+def phase_kernels(gen, builds):
+    """Every kernel of ``KERNELS`` against its plain version at the leaves and
+    the sweep, each as soon as its source is built → records."""
     records = []
     prefill_rows = PROMPTS * PROMPT_LEN
-    for name, (_, _, leaves, _) in KERNELS.items():
+    for name in builds.as_ready(KERNELS, lambda n: Path(KERNELS[n][0]).stem):
+        leaves = KERNELS[name][2]
         for leaf in leaves:
             k, o, dims = LEAVES[leaf]
             for B in (1, PROMPTS, prefill_rows):
@@ -1109,11 +1193,12 @@ def sdpa_lower_right(q, k, v):
     ).transpose(1, 2)
 
 
-def flash_offset_inputs(q_start, sq, dtype, gen, B=1):
-    """Inputs of K8's offset entry at llama3.2-3b's heads: the queries of the
-    whole sequence ``(B, Sk, H, Dh)`` and a K/V cache ``(2, B, Sk + 64,
-    Hkv, Dh)`` whose rows past ``Sk = q_start + Sq`` hold NaN."""
-    H, Hkv, Dh = LLAMA_HEADS
+def flash_offset_inputs(q_start, sq, dtype, gen, B=1, heads=LLAMA_HEADS):
+    """Inputs of K8's offset entry at ``heads`` (H, Hkv, Dh; default
+    llama3.2-3b's): the queries of the whole sequence ``(B, Sk, H, Dh)`` and
+    a K/V cache ``(2, B, Sk + 64, Hkv, Dh)`` whose rows past ``Sk = q_start
+    + Sq`` hold NaN."""
+    H, Hkv, Dh = heads
     sk = q_start + sq
     q_all = torch.randn((B, sk, H, Dh), generator=gen, device=DEVICE).to(dtype)
     cache = torch.full((2, B, sk + 64, Hkv, Dh), float("nan"), device=DEVICE, dtype=dtype)
@@ -1130,7 +1215,7 @@ def flash_offset_verdict(q_all, cache, q_start, sq):
     from repro_torch.kernels import flash_attention, flash_attention_plain
     from repro_torch.kernels.flash_attn import BF16_ROW_TOL, row_rel_err
 
-    H, Hkv, Dh = LLAMA_HEADS
+    (H, Dh), Hkv = q_all.shape[2:], cache.shape[3]
     dtype, sk = q_all.dtype, q_start + sq
     q, k, v = q_all[:, q_start:], cache[0, :, :sk], cache[1, :, :sk]
     copies0 = flash_attention.copies
@@ -1226,6 +1311,13 @@ def quantized_engine(cfg, params, fmt, max_seq=PROMPT_LEN + NEW_TOKENS + 8):
     """Quantize the dense ``params`` on the card in ``fmt`` and build the
     serving engine (fused QKV / gate-up)."""
     from repro_torch.infer import Engine
+
+    return Engine(cfg, quantize_format(cfg, params, fmt), max_seq=max_seq, device="cuda")
+
+
+def quantize_format(cfg, params, fmt):
+    """The dense ``params`` quantized on the card in ``fmt`` (no hand-written
+    kernel runs), with its time, packed bytes and solver peak logged."""
     from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
 
     torch.cuda.synchronize()
@@ -1237,7 +1329,7 @@ def quantized_engine(cfg, params, fmt, max_seq=PROMPT_LEN + NEW_TOKENS + 8):
     log(f"  [{fmt}, {cfg.name}, {cfg.n_layers} layers] quantize_params {time.perf_counter() - t0:.1f}s "
         f"({quantized_bytes(qparams) / 1e9:.3f} GB packed; solver peak "
         f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB above the dense model)")
-    return Engine(cfg, qparams, max_seq=max_seq, device="cuda")
+    return qparams
 
 
 def check_tokens(cfg, results):
@@ -1308,15 +1400,16 @@ def f32_oracle_check(engine, prompts, fmt, modes):
     return out
 
 
-def serve_bcq(cfg, params, prompts, reqs):
-    """The bcq path: batched, sequential and LUT-kernel ``generate`` in one
-    counted window."""
+def serve_bcq(cfg, packed, prompts, reqs):
+    """The bcq path (``packed``: the model quantized in bcq): batched,
+    sequential and LUT-kernel ``generate`` in one counted window."""
     import numpy as np
 
+    from repro_torch.infer import Engine
     from repro_torch.kernels import impl_mode
     from repro_torch.launch.serve import drive_sequential
 
-    engine = quantized_engine(cfg, params, "bcq")
+    engine = Engine(cfg, packed, max_seq=PROMPT_LEN + NEW_TOKENS + 8, device="cuda")
     engine.generate(prompts, 2)  # warm-up: library handles, allocator
 
     def run():
@@ -1369,12 +1462,14 @@ def serve_bcq(cfg, params, prompts, reqs):
     return {k: counts[k] for k in ("bcq_mm", "bcq_mm_fused", "lutgemm")}, summary, engine
 
 
-def serve_format(cfg, params, prompts, fmt):
-    """One of the other formats' paths: batched ``generate`` in a counted
-    window → (its kernel's launches, tokens, summary)."""
+def serve_format(cfg, packed, prompts, fmt):
+    """One of the other formats' paths (``packed``: the model quantized in
+    ``fmt``): batched ``generate`` in a counted window → (its kernel's
+    launches, tokens, summary)."""
+    from repro_torch.infer import Engine
     from repro_torch.kernels import ternary_mm
 
-    engine = quantized_engine(cfg, params, fmt)
+    engine = Engine(cfg, packed, max_seq=PROMPT_LEN + NEW_TOKENS + 8, device="cuda")
     engine.generate(prompts, 2)  # warm-up
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1408,7 +1503,10 @@ def serve_format(cfg, params, prompts, fmt):
     return counts[kernel], res.tokens, summary, engine
 
 
-def phase_main_path():
+def prepare_main_path():
+    """Phase 5's model at full width and depth, quantized in every format.
+    No hand-written kernel runs here, so phase 2 runs it while the sources
+    compile → (cfg, prompts, requests, {format: packed params})."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1424,17 +1522,22 @@ def phase_main_path():
     torch.cuda.synchronize()
     log(f"  init {time.perf_counter() - t0:.1f}s ({quantized_bytes(params) / 1e9:.3f} GB dense)")
     reqs = build_requests(cfg, PROMPTS, PROMPT_LEN, NEW_TOKENS, mixed_temperature=False)
-    prompts = np.stack([r.prompt for r in reqs])
+    packed = {fmt: quantize_format(cfg, params, fmt) for fmt in ("bcq", *FORMAT_KERNEL)}
+    return cfg, np.stack([r.prompt for r in reqs]), reqs, packed
 
+
+def phase_main_path(prepared):
+    """Phase 5 on :func:`prepare_main_path`'s models."""
     from repro_torch.kernels import flash_attention
 
+    cfg, prompts, reqs, packed = prepared
     flash_attention.copies = 0
-    counts, summary, bcq = serve_bcq(cfg, params, prompts, reqs)
+    counts, summary, bcq = serve_bcq(cfg, packed.pop("bcq"), prompts, reqs)
     engines = {"bcq": bcq}  # every format's engine: phase 7 speculates on ternary, phase 10 replays all
     summaries = {"bcq": summary}
     tokens = {}
     for fmt, kernel in FORMAT_KERNEL.items():
-        counts[kernel], tokens[fmt], summaries[fmt], engines[fmt] = serve_format(cfg, params, prompts, fmt)
+        counts[kernel], tokens[fmt], summaries[fmt], engines[fmt] = serve_format(cfg, packed.pop(fmt), prompts, fmt)
     counts["ternary_mm_tc"] = summaries["ternary"]["tc_launches"]
     same = int((tokens["uniform"] == tokens["dequant"]).all(axis=1).sum())
     log(f"  greedy rows identical, uniform vs dequant: {same}/{PROMPTS} (reported, not asserted: "
@@ -1904,11 +2007,12 @@ def draft_shapes(gen, records):
     return recs, steps
 
 
-def check_untimed(name, B, k, o, q, gen, out_dims=None):
-    """One bf16 kernel call against its plain version and a rerun, as in
-    :func:`check_kernel`, without the timings → record dict."""
+def check_untimed(name, B, k, o, q, gen, out_dims=None, dtype=torch.bfloat16):
+    """One kernel call, x in ``dtype`` and bf16 scales, against its plain
+    version and a rerun, as in :func:`check_kernel`, without the timings
+    → record dict."""
     fn, plain = kernel_fns()[name]
-    x = torch.randn((B, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+    x = torch.randn((B, k), generator=gen, device=DEVICE).to(dtype)
     packed, scales = format_planes(KERNELS[name][3], k, o, q, G, gen)
     scales = scales.to(torch.bfloat16)
 
@@ -1921,7 +2025,7 @@ def check_untimed(name, B, k, o, q, gen, out_dims=None):
     err = (y - ref).abs().max().item()
     same_bits = bool(torch.equal(call(), y))
     ok = bool(torch.allclose(y, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL)) and bool(torch.isfinite(y).all()) and same_bits
-    return dict(kernel=name, format=KERNELS[name][3], B=B, k=k, o=o, q=q, g=G, dtype="bfloat16",
+    return dict(kernel=name, format=KERNELS[name][3], B=B, k=k, o=o, q=q, g=G, dtype=str(dtype).replace("torch.", ""),
                 s_dtype="bfloat16", max_abs_err=err, tol=KERNEL_TOL, same_bits=same_bits, ok=ok)
 
 
@@ -2005,7 +2109,7 @@ def flash_census():
         layers.flash_attention = real
 
 
-def check_launched(label, seen, attn, records, gen, leaf_of=None):
+def check_launched(label, seen, attn, records, gen, leaf_of=None, heads=LLAMA_HEADS, dtype=torch.bfloat16):
     """Hold every shape a phase launched to its plain version: each (kernel,
     planes, rows, k, o) of ``seen`` (:func:`kernel_census` by leaf) that
     phase 3's ``records`` did not check at that leaf, through
@@ -2013,21 +2117,24 @@ def check_launched(label, seen, attn, records, gen, leaf_of=None):
     (:func:`flash_census`; None on a path without K8) through
     :func:`flash_offset_verdict` (plain version, rows of the cold launch,
     rerun) → records. ``leaf_of``: {(k, o): (leaf, fused out_dims)} of the
-    model's packed linears (default llama3.2-3b's ``LEAVES``)."""
+    model's packed linears (default llama3.2-3b's ``LEAVES``); ``heads``:
+    K8's (H, Hkv, Dh); ``dtype``: the model's compute dtype, x's in the
+    K1-K7 checks (phase 3's ``records`` count only for bf16)."""
     if not seen or attn is not None and not attn:
         raise SystemExit(f"chip_smoke: [{label}] the census saw no launches (K1-K7: {len(seen)}, K8: "
                          f"{None if attn is None else len(attn)})")
-    done = {(r["kernel"], r["q"], r["B"], r["k"], r["o"]) for r in records if r["leaf"] != "sweep" and is_bf16(r)}
+    done = {(r["kernel"], r["q"], r["B"], r["k"], r["o"]) for r in records if r["leaf"] != "sweep" and is_bf16(r)
+            and dtype == torch.bfloat16}
     leaf_of = leaf_of or {(k, o): (leaf, dims) for leaf, (k, o, dims) in LEAVES.items()}
     recs = []
     for name, q, rows, k, o in sorted(set(seen) - done):
         leaf, dims = leaf_of[(k, o)]
-        rec = check_untimed(name, rows, k, o, q, gen, dims if name == "bcq_mm_fused" else None)
+        rec = check_untimed(name, rows, k, o, q, gen, dims if name == "bcq_mm_fused" else None, dtype)
         rec["leaf"] = leaf
         recs.append(rec)
         torch.cuda.empty_cache()  # a plain version at lm_head dequantizes ~4 GB of f32
-    flash = [flash_offset_verdict(*flash_offset_inputs(q_start, sq, dtype, gen, B), q_start, sq)
-             for B, q_start, sq, dtype in sorted(attn or (), key=lambda t: (t[0], t[1], t[2], str(t[3])))]
+    flash = [flash_offset_verdict(*flash_offset_inputs(q_start, sq, k_dtype, gen, B, heads), q_start, sq)
+             for B, q_start, sq, k_dtype in sorted(attn or (), key=lambda t: (t[0], t[1], t[2], str(t[3])))]
     bad = [r for r in recs + flash if not r["ok"]]
     rows = sorted({r["B"] for r in recs})
     log(f"  [{label}] launched shapes held to their plain versions: {len(set(seen))} (kernel, planes, rows, leaf) "
@@ -2254,8 +2361,18 @@ def depth_view(engine, n_layers):
     views of its stacked (fused) weights, no copy. The config's stages at
     ``n_layers`` must repeat the engine's patterns, each stage taking the
     first of its layers."""
-    from repro_torch.core.qtensor import QuantizedTensor
     from repro_torch.infer import Engine
+
+    cfg, params = layer_head(engine.cfg, engine.params, n_layers)
+    return Engine(cfg, params, max_seq=engine.max_seq, fuse=False, device="cuda")
+
+
+def layer_head(cfg, params, n_layers):
+    """The first ``n_layers`` layers of a model: its config and views of
+    its stacked weights, no copy. The config's stages at ``n_layers`` must
+    repeat the model's patterns, each stage taking the first of its
+    layers."""
+    from repro_torch.core.qtensor import QuantizedTensor
     from repro_torch.utils import tree_map
 
     def head(leaf, n):
@@ -2263,13 +2380,12 @@ def depth_view(engine, n_layers):
             return leaf.replace(packed=leaf.packed[:n], scales=leaf.scales[:n])
         return leaf[:n]
 
-    cfg = dataclasses.replace(engine.cfg, n_layers=n_layers, stages=None)
-    if [p for p, _ in cfg.stages] != [p for p, _ in engine.cfg.stages]:
-        raise SystemExit(f"chip_smoke: a {n_layers}-layer view of {engine.cfg.name} has stages {cfg.stages}, "
-                         f"which do not repeat {engine.cfg.stages}")
-    params = dict(engine.params, stages=tuple(tree_map(lambda leaf, n=n: head(leaf, n), stage)
-                                              for (_, n), stage in zip(cfg.stages, engine.params["stages"])))
-    return Engine(cfg, params, max_seq=engine.max_seq, fuse=False, device="cuda")
+    cut = dataclasses.replace(cfg, n_layers=n_layers, stages=None)
+    if [p for p, _ in cut.stages] != [p for p, _ in cfg.stages]:
+        raise SystemExit(f"chip_smoke: a {n_layers}-layer view of {cfg.name} has stages {cut.stages}, "
+                         f"which do not repeat {cfg.stages}")
+    return cut, dict(params, stages=tuple(tree_map(lambda leaf, n=n: head(leaf, n), stage)
+                                          for (_, n), stage in zip(cut.stages, params["stages"])))
 
 
 def spec_serving_view(bcq_engine, serving):
@@ -4780,6 +4896,305 @@ def phase_families(gen, records):
     return dict(musicgen=music_phase(gen, records), vision=vision_phase(gen, records))
 
 
+# -- phase 16: tensor-parallel serving, two ranks on one card ------------------
+
+TP_RANKS = 2
+# the bit-for-bit gates' depth: the first 8 of llama3.2-3b's 28 layers (the smoke's time budget)
+TP_GATE_LAYERS = 8
+TP_LOGIT_TOL = 1e-3  # the reference's LOGIT_TOL (tests/test_tp_serve.py:135), here of max|logit|
+TP_SPEC = (2, 4)
+TP_TIMEOUT_S = 300  # the ranks' whole run, their rendezvous and every collective
+TP_STEPS = 8  # decode steps profiled a rank
+TP_PART_TAGS = {"K1/K2": ("BCQGroups",), "K8": FLASH_TAGS, "collectives": ("Memcpy", "gloo", "nccl")}
+
+
+def tp_leaves(cfg, n):
+    """{(k, o): (leaf, fused out_dims)} of one rank's shards of llama3.2-3b's
+    packed linears at tp = ``n``."""
+    qd, kvd, d, ff = cfg.q_dim // n, cfg.kv_dim // n, cfg.d_model, cfg.d_ff // n
+    return {(d, qd + 2 * kvd): ("wqkv", (qd, kvd, kvd)), (qd, d): ("wo", None), (d, 2 * ff): ("w_gate_up", (ff, ff)),
+            (ff, d): ("w_down", None), (d, cfg.vocab // n): ("lm_head", None)}
+
+
+def by_part(by_name, steps):
+    """{part: device ms a step} of a profile's {kernel: ms}: K1/K2, K8, the
+    collectives' device work (gloo's copies between card and host), the
+    rest."""
+    out = dict.fromkeys((*TP_PART_TAGS, "rest"), 0.0)
+    for name, ms in by_name.items():
+        part = next((p for p, tags in TP_PART_TAGS.items() if tagged(name, tags)), "rest")
+        out[part] += ms / steps
+    return out
+
+
+def tp_profile(engine, prompts):
+    """Device ms a step by part (:func:`by_part`) of ``TP_STEPS`` decode steps
+    and of the batched prefill, and the host's wall a decode step."""
+    toks = torch.as_tensor(prompts, device=DEVICE, dtype=torch.long)
+    cache = engine._make_cache(len(prompts))
+    state = {}
+
+    def prefill():
+        state["logits"], _ = engine.prefill(toks, cache)
+
+    def decode():
+        tok = state["logits"].argmax(-1)[:, None]
+        for i in range(TP_STEPS):
+            logits, _ = engine.decode(tok, cache, toks.shape[1] + i)
+            tok = logits.argmax(-1)[:, None]
+
+    pre_ms, _, pre_names = device_profile(prefill)
+    dec_ms, wall_ms, dec_names = device_profile(decode)
+    return dict(prefill=by_part(pre_names, 1), prefill_ms=pre_ms, decode=by_part(dec_names, TP_STEPS),
+                decode_ms=dec_ms / TP_STEPS, decode_wall_ms=wall_ms / TP_STEPS)
+
+
+def tp_gates(engine_of, full, prompts):
+    """The bit-for-bit gates inside one TP engine at ``TP_GATE_LAYERS``
+    layers: slot == solo (phase 6's 12 requests, 4 slots, chunk 8), spec ==
+    plain (``SpecConfig(*TP_SPEC)``), warm == cold (phase 8's requests on a
+    512-token shared prompt) → {gate: tokens and verdicts}."""
+    from repro_torch.infer import PrefixCache, SpecConfig
+    from repro_torch.launch.serve import drive_continuous
+
+    cfg, params = layer_head(*full, TP_GATE_LAYERS)
+    out = {}
+
+    def run(engine, reqs):
+        _, done, _ = drive_continuous(engine, reqs, np.zeros(len(reqs)), n_slots=SERVE_SLOTS, chunk=SERVE_CHUNK)
+        got = {c.rid: np.asarray(c.new_tokens) for c in done}
+        return [got[r.rid] for r in reqs]
+
+    engine = engine_of(cfg, params, max(SERVE_PROMPT_LENS) + NEW_TOKENS + 8)
+    reqs = serve_requests(cfg, SERVE_PROMPT_LENS, NEW_TOKENS, 200)
+    solos = [engine.generate(r.prompt[None], r.max_new_tokens, temperature=r.temperature, seed=r.seed)
+             .tokens[0, r.prompt.size:] for r in reqs]
+    slots = run(engine, serve_requests(cfg, SERVE_PROMPT_LENS, NEW_TOKENS, 200))
+    out["slot == solo"] = dict(ok=all(np.array_equal(a, b) for a, b in zip(slots, solos)), tokens=slots)
+    plain = engine.generate(prompts, NEW_TOKENS).tokens
+    spec = engine.generate(prompts, NEW_TOKENS, speculate=SpecConfig(*TP_SPEC))
+    out["spec == plain"] = dict(ok=bool(np.array_equal(spec.tokens, plain)), tokens=spec.tokens,
+                                accepted=spec.spec_stats["accepted"], proposed=spec.spec_stats["proposed"])
+    del engine
+    max_seq = PREFIX_LEN + max(PREFIX_TAILS) + NEW_TOKENS + 8
+    warm = engine_of(cfg, params, max_seq, prefix_cache=PrefixCache(block_tokens=PREFIX_BLOCK,
+                                                                      max_bytes=PREFIX_CACHE_BYTES))
+    run(warm, prefix_requests(cfg))  # fills the cache
+    hits = warm.prefix_cache.counters["hits"]
+    warm_tokens = run(warm, prefix_requests(cfg))
+    hits = warm.prefix_cache.counters["hits"] - hits
+    del warm
+    cold = run(engine_of(cfg, params, max_seq), prefix_requests(cfg))
+    out["warm == cold"] = dict(ok=hits > 0 and all(np.array_equal(a, b) for a, b in zip(warm_tokens, cold)),
+                               tokens=warm_tokens, warm_hits=hits)
+    return out
+
+
+def tp_rank(rank, n, path, prompts):
+    """One rank of phase 16: loads phase 5's packed weights (built kernels
+    only: a rank never compiles), serves the f32-compute and the bf16 model
+    at 28 layers (counted, profiled, timed), runs the gates of
+    :func:`tp_gates`, holds every launched shape to its plain version, and
+    on rank 0 times K1/K2 at each shard leaf → results for the parent."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.infer import Engine
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.parallel import collective_counts, make_tp_mesh, reset_collective_counts
+    from repro_torch.quant import quantized_bytes
+
+    missing = [k for k in _build.kernel_names() if not _build._lib_path(k).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: kernels {missing} are not built; the parent builds them, a rank never does")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_tp_mesh(n)
+    cfg = get_config("llama3.2-3b")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = torch.load(path, map_location="cpu", mmap=True, weights_only=False)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1600 + rank)
+    seen = {torch.float32: collections.Counter(), torch.bfloat16: collections.Counter()}
+    attn = collections.Counter()
+    out = dict(rank=rank, backend=mesh.backend, device=str(torch.cuda.current_device()))
+
+    def engine_of(cfg_, params_, max_seq, **kw):
+        return Engine(cfg_, params_, max_seq=max_seq, device="cuda", mesh=mesh, **kw)
+
+    max_seq = PROMPT_LEN + NEW_TOKENS + 8
+    with kernel_census(by_leaf=True) as s32, flash_census() as a32:
+        eng = engine_of(cfg32, params, max_seq)
+        out["load_s"] = time.perf_counter() - t0
+        out["local_gb"] = quantized_bytes(eng.params) / 1e9
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        reset_collective_counts()
+        res = eng.generate(prompts, NEW_TOKENS)  # the f32-compute arm's main path
+        torch.cuda.synchronize()
+        out["f32"] = dict(tokens=res.tokens, captured=res.captured, launches=launch_counts(),
+                          collectives=collective_counts(), logits=step_logits(eng, prompts, None).cpu().numpy())
+    seen[torch.float32].update(s32)
+    attn.update(a32)
+    del eng
+    with kernel_census(by_leaf=True) as s16, flash_census() as a16:
+        eng = engine_of(cfg, params, max_seq)
+        eng.generate(prompts, 2)  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        reset_collective_counts()
+        t1 = time.perf_counter()
+        res = eng.generate(prompts, NEW_TOKENS)  # the bf16 arm's main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        out["bf16"] = dict(tokens=res.tokens, launches=launch_counts(), collectives=collective_counts(),
+                           tok_s=len(prompts) * NEW_TOKENS / wall, wall_s=wall,
+                           logits=step_logits(eng, prompts, None).cpu().numpy())
+        out["profile"] = tp_profile(eng, prompts)
+        del eng
+        t1 = time.perf_counter()
+        out["gates"] = tp_gates(engine_of, (cfg, params), prompts)
+        out["gates_s"] = time.perf_counter() - t1
+    seen[torch.bfloat16].update(s16)
+    attn.update(a16)
+    heads = (cfg.n_heads // n, cfg.n_kv_heads // n, cfg.d_head)
+    leaf_of = tp_leaves(cfg, n)
+    checks = check_launched(f"tp rank {rank} f32", seen[torch.float32], None, [], gen, leaf_of, heads, torch.float32)
+    checks += check_launched(f"tp rank {rank} bf16", seen[torch.bfloat16], attn, [], gen, leaf_of, heads)
+    out["checked"] = len(checks)
+    out["shapes"] = sorted({(k, o) for _, _, _, k, o in (*seen[torch.float32], *seen[torch.bfloat16])})
+    out["leaves"] = []
+    if rank == 0:  # the other rank waits: the two share the card
+        for (k, o), (leaf, dims) in leaf_of.items():
+            name = "bcq_mm_fused" if dims else "bcq_mm"
+            rec = check_kernel(name, PROMPTS, k, o, Q, G, torch.bfloat16, gen, dims)
+            rec["leaf"] = leaf
+            out["leaves"].append(rec)
+    dist.barrier()
+    return out
+
+
+def tp_reference(path, prompts):
+    """tp = 1 in this process on the same packed weights: greedy tokens and
+    prefill + one step's logits of the f32-compute and the bf16 model (the
+    kernel path), and the f32-weight oracle's logits (the f32-compute model
+    under ``impl_mode("ref")``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.infer import Engine
+
+    cfg = get_config("llama3.2-3b")
+    params = torch.load(path, map_location="cuda", weights_only=False)
+    out = {}
+    for arm, c in (("f32", dataclasses.replace(cfg, compute_dtype="float32")), ("bf16", cfg)):
+        eng = Engine(c, params, max_seq=PROMPT_LEN + NEW_TOKENS + 8, fuse=False, device="cuda")
+        out[arm] = dict(tokens=eng.generate(prompts, NEW_TOKENS).tokens,
+                        logits=step_logits(eng, prompts, None).cpu().numpy())
+        if arm == "f32":
+            out["oracle"] = step_logits(eng, prompts, "ref").cpu().numpy()
+        del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_difference(a, b):
+    """(row, generated step) of the first token where ``a`` and ``b`` differ, or None."""
+    diff = np.argwhere(a[:, PROMPT_LEN:] != b[:, PROMPT_LEN:])
+    return None if not len(diff) else tuple(int(v) for v in diff[0])
+
+
+def phase_tp(path, prompts):
+    """Phase 16 (module docstring) → (summary, rank 0's launches on the main path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch._ranks import describe, run_ranks
+
+    cfg = get_config("llama3.2-3b")
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    ref = tp_reference(path, prompts)
+    log(f"  tp = 1 references (f32-compute, bf16, the f32-weight oracle) in {time.perf_counter() - t0:.1f}s")
+    log(f"  {describe(TP_RANKS)}")
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, TP_RANKS, (str(path), prompts), device="cuda", timeout=TP_TIMEOUT_S)
+    log(f"  ranks ran in {time.perf_counter() - t0:.1f}s (spawn, load, shard, both arms, gates, checks)")
+    r0 = ranks[0]
+    bad = []
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())  # noqa: E731
+    forwards = 1 + NEW_TOKENS
+    for r in ranks:
+        for arm in ("f32", "bf16"):
+            got = r[arm]
+            want = {"all_reduce": 2 * L * forwards, "all_gather": forwards, "broadcast": 0}
+            if got["collectives"] != want:
+                bad.append(f"rank {r['rank']} {arm}: collectives {got['collectives']} != 2L+1 a forward {want}")
+            if not all(got["launches"][k] for k in ("bcq_mm", "bcq_mm_fused", "flash_attention")):
+                bad.append(f"rank {r['rank']} {arm}: K1/K2/K8 not all launched on the main path: {got['launches']}")
+        log(f"  [tp rank {r['rank']}] {r['backend']} on cuda:{r['device']}: loaded and sharded in {r['load_s']:.1f}s "
+            f"({r['local_gb']:.3f} GB held), launches f32 {json.dumps(r['f32']['launches'])}, collectives "
+            f"{r['f32']['collectives']} ({2 * L + 1} a forward x {forwards}), captured {r['f32']['captured']}; "
+            f"{r['checked']} launched shapes held to their plain versions, shard (k, o) {r['shapes']}")
+    for r in ranks[1:]:  # every rank the same tokens and logits (gathered whole)
+        for arm in ("f32", "bf16"):
+            for key in ("tokens", "logits"):
+                if not np.array_equal(r[arm][key], r0[arm][key]):
+                    bad.append(f"rank {r['rank']} {arm} {key} differ from rank 0's")
+        for gate, g in r["gates"].items():
+            if not all(np.array_equal(a, b) for a, b in zip(g["tokens"], r0["gates"][gate]["tokens"])):
+                bad.append(f"rank {r['rank']} [{gate}] tokens differ from rank 0's")
+    # 1. the f32-compute arm: tokens == tp = 1, logits within 1e-3 of max|logit|
+    d32 = rel(r0["f32"]["logits"], ref["f32"]["logits"])
+    same32 = bool(np.array_equal(r0["f32"]["tokens"], ref["f32"]["tokens"]))
+    log(f"  [tp f32-compute, {L} layers] greedy tokens == tp = 1: {same32}; prefill + step logits max|d| / max|.| "
+        f"{d32:.3e} (tol {TP_LOGIT_TOL:g}); against the f32-weight oracle {rel(r0['f32']['logits'], ref['oracle']):.3e}")
+    if not same32:
+        bad.append(f"f32 tokens differ from tp = 1 at {first_difference(r0['f32']['tokens'], ref['f32']['tokens'])}")
+    if not d32 <= TP_LOGIT_TOL:
+        bad.append(f"f32 logits {d32:.3e} of max|logit| from tp = 1 (tol {TP_LOGIT_TOL})")
+    # 2. the bf16 arm: reported; the port's watch rule
+    d16, d16o = rel(r0["bf16"]["logits"], ref["bf16"]["logits"]), rel(r0["bf16"]["logits"], ref["oracle"])
+    d1o = rel(ref["bf16"]["logits"], ref["oracle"])
+    first = first_difference(r0["bf16"]["tokens"], ref["bf16"]["tokens"])
+    watch = "WATCH (ROADMAP Queue 3)" if d16 > LOGITS_REL_TOL else "under the watch rule"
+    log(f"  [tp bf16, {L} layers] logits max|d| / max|.|: tp = 2 vs tp = 1 {d16:.3e} ({watch}, {LOGITS_REL_TOL:g}); "
+        f"against the f32-weight oracle tp = 2 {d16o:.3e}, tp = 1 {d1o:.3e}; first differing token (row, step): "
+        f"{first}")
+    # 3. the bit-for-bit gates at TP_GATE_LAYERS layers
+    for gate, g in r0["gates"].items():
+        extra = {k: v for k, v in g.items() if k not in ("ok", "tokens")}
+        log(f"  [tp {gate}, {TP_GATE_LAYERS} layers] {'ok' if g['ok'] else 'FAIL'} {extra}")
+        if not all(r["gates"][gate]["ok"] for r in ranks):
+            bad.append(f"[{gate}] failed at tp = {TP_RANKS}")
+    # 4. the decode step by part, K1/K2 at the shard leaves, tok/s
+    card = torch.cuda.get_device_name(0)
+    for r in ranks:
+        p = r["profile"]
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in p["decode"].items())
+        pre = ", ".join(f"{k} {v:.3f}" for k, v in p["prefill"].items())
+        log(f"  [tp rank {r['rank']}] bf16 decode step B={PROMPTS}: device {p['decode_ms']:.3f} ms ({parts}), host "
+            f"wall {p['decode_wall_ms']:.3f} ms; prefill {PROMPTS}x{PROMPT_LEN}: device {p['prefill_ms']:.3f} ms "
+            f"({pre}); generate {r['bf16']['tok_s']:.1f} tok/s on one {card} shared by {TP_RANKS} ranks (not a TP "
+            f"speed figure); gates {r['gates_s']:.1f}s")
+    for rec in r0["leaves"]:
+        log(f"  [tp shard] {rec['kernel']:12s} {rec['leaf']:9s} k={rec['k']:<5d} o={rec['o']:<6d} B={rec['B']} "
+            f"{rec['ms'] * 1e3:8.2f} us = {rec['ms'] / rec['bound_ms']:5.1f}x its bound {rec['bound_ms'] * 1e3:.2f} us "
+            f"({rec['bound_by']}), plain {rec['plain_ms'] * 1e3:.1f} us, library {rec['library_ms'] * 1e3:.2f} us, "
+            f"err {rec['max_abs_err']:.2e} {'ok' if rec['ok'] else 'FAIL'}")
+        if not rec["ok"]:
+            bad.append(f"{rec['kernel']} at shard {rec['leaf']} disagrees with its plain version")
+    if bad:
+        raise SystemExit(f"chip_smoke: [tp] {len(bad)} failures: {bad}")
+    summary = dict(ranks=TP_RANKS, f32_logits_rel=d32, bf16_logits_rel=d16, bf16_oracle_rel=d16o,
+                   tp1_bf16_oracle_rel=d1o, bf16_first_difference=first, watch=d16 > LOGITS_REL_TOL,
+                   profiles=[r["profile"] for r in ranks], tok_s=[r["bf16"]["tok_s"] for r in ranks],
+                   leaves=[{k: v for k, v in rec.items()} for rec in r0["leaves"]],
+                   gates={gate: {k: v for k, v in g.items() if k != "tokens"} for gate, g in r0["gates"].items()},
+                   checked=[r["checked"] for r in ranks])
+    launches = collections.Counter(r0["f32"]["launches"]) + collections.Counter(r0["bf16"]["launches"])
+    return summary, launches
+
+
 def k12_line(k12, counts, cfg):
     """K12's entry of the kernels line: its launches on phase 14's main path;
     time, plain time, bound (over the live experts; over all of them beside
@@ -4878,6 +5293,14 @@ def phase_wall(walls):
 
 
 def main() -> int:
+    tp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))  # phase 16's weights file
+    try:
+        return _main(tp_dir)
+    finally:
+        shutil.rmtree(tp_dir, ignore_errors=True)
+
+
+def _main(tp_dir) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU",
               file=sys.stderr)
@@ -4893,7 +5316,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     walls = {"t": time.perf_counter()}
-    log("[1/15] card")
+    log("[1/16] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4902,10 +5325,25 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
     phase_wall(walls)
-    log("[2/15] build")
-    t0 = time.perf_counter()
-    paths = _build.build()
-    log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
+    log("[2/16] build, every source at once; meanwhile phase 5's model quantized in every format")
+    builds = Builds()
+    prepared = prepare_main_path()
+
+    phase_wall(walls)
+    log("[4/16] flash_attention against its plain version (before phase 3: its source builds fast)")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    builds.wait("flash_attn")
+    flash_records, flash_offsets = phase_flash(gen)
+
+    phase_wall(walls)
+    log("[3/16] kernels against their plain versions, each as its source is built")
+    records = phase_kernels(gen, builds)
+    builds.wait()
+    paths = _build.build()  # all built: the paths only
+    log(f"  built {sorted(paths)}: each source's compile took "
+        f"{', '.join(f'{n} {t:.1f}s' for n, t in sorted(builds.seconds.items(), key=lambda x: x[1]))} "
+        f"(the build began {time.perf_counter() - builds.t0:.1f}s ago)")
     for name in paths:  # ptxas -v: registers of every instantiation, and any spills
         regs, spills = [], []
         for line in _build.build_log(name).splitlines():
@@ -4919,33 +5357,30 @@ def main() -> int:
         for line in spills:
             log(f"    {line}")
 
-    phase_wall(walls)
-    log("[3/15] kernels against their plain versions")
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(0)
-    records = phase_kernels(gen)
     draft_records, draft_steps = draft_shapes(gen, records)
     limit_records = table_limit(gen)
     dense_rows = dense_rows_check(gen)
     prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[4/15] flash_attention against its plain version")
-    flash_records, flash_offsets = phase_flash(gen)
-
-    phase_wall(walls)
-    log("[5/15] main path, one run per format")
+    log("[5/16] main path, one run per format")
     inspect_captures()
-    counts, cfg, summaries, engines, prompts = phase_main_path()
+    counts, cfg, summaries, engines, prompts = phase_main_path(prepared)
+    del prepared
     bcq_engine, ternary_engine = engines["bcq"], engines["ternary"]
+    tp_params = tp_dir / "llama3.2-3b-bcq.pt"  # phase 16 hands these packed weights to its ranks
+    t0 = time.perf_counter()
+    torch.save(bcq_engine.params, tp_params)
+    log(f"  the bcq engine's packed weights saved for phase 16 ({tp_params.stat().st_size / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.1f}s")
 
     phase_wall(walls)
-    log("[6/15] continuous serving and one long request")
+    log("[6/16] continuous serving and one long request")
     counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
     summaries["long"], long_logits, long_tokens = phase_long(bcq_engine)
 
     phase_wall(walls)
-    log(f"[7/15] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
+    log(f"[7/16] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
     spec_bcq = depth_view(bcq_engine, SPEC_LAYERS)
     summaries["speculative"], spec_launches = phase_speculative(spec_bcq, depth_view(ternary_engine, SPEC_LAYERS),
                                                                 prompts, spec_serving_view(spec_bcq, serving),
@@ -4956,7 +5391,7 @@ def main() -> int:
     del ternary_engine, serving
 
     phase_wall(walls)
-    log("[8/15] prefix cache and chunked prefill")
+    log("[8/16] prefix cache and chunked prefill")
     summaries["prefix"] = phase_prefix(bcq_engine, (summaries["long"], long_logits, long_tokens),
                                        records + draft_records, gen)
     offset_launches = (sum(summaries["prefix"][run]["offset_launches"] for run in ("cold wave", "warm wave"))
@@ -4964,23 +5399,23 @@ def main() -> int:
     del bcq_engine
 
     phase_wall(walls)
-    log("[9/15] kernels (the JSON line is printed last but one)")
+    log("[9/16] kernels (the JSON line is printed last but one)")
     line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches, flash_offsets,
                         offset_launches)
 
     phase_wall(walls)
-    log("[10/15] captured decode and the int8 cache")
+    log("[10/16] captured decode and the int8 cache")
     summaries["graphs"] = phase_graphs(engines, prompts)
 
     phase_wall(walls)
-    log("[11/15] serving session and observability")
+    log("[11/16] serving session and observability")
     summaries["session"] = phase_session(engines["bcq"], solos)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[12/15] the hybrid family: recurrentgemma-9b at full width and depth")
+    log("[12/16] the hybrid family: recurrentgemma-9b at full width and depth")
     summaries["hybrid"], k9_records, hybrid_counts = phase_hybrid(gen, records + draft_records)
     from repro_torch.configs import get_config
 
@@ -4989,7 +5424,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[13/15] the ssm family: xlstm-125m at full width and depth")
+    log("[13/16] the ssm family: xlstm-125m at full width and depth")
     summaries["xlstm"], k10_records, k11_records, xlstm_counts = phase_xlstm(gen, records + draft_records)
     n_cells = get_config(XLSTM).block_counts()
     line["kernels"].append(scan_line(K10, k10_records, xlstm_counts, n_cells["mlstm"]))
@@ -4998,16 +5433,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[14/15] the MoE family: olmoe-1b-7b at full width and depth, llama4-maverick reduced")
+    log("[14/16] the MoE family: olmoe-1b-7b at full width and depth, llama4-maverick reduced")
     summaries["moe"], k12_records, moe_counts = phase_moe(gen, records + draft_records)
     line["kernels"].append(k12_line(k12_records, moe_counts, get_config(MOE)))
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log(f"[15/15] the vlm and audio families: {MUSIC} at full width and depth, {VISION} at full width and "
+    log(f"[15/16] the vlm and audio families: {MUSIC} at full width and depth, {VISION} at full width and "
         f"{VISION_LAYERS} layers")
     summaries["families"] = phase_families(gen, records + draft_records)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_wall(walls)
+    log(f"[16/16] tensor-parallel serving: llama3.2-3b over {TP_RANKS} ranks on one card")
+    summaries["tp"], tp_launches = phase_tp(tp_params, prompts)
+    for entry in line["kernels"]:
+        if entry["name"] in ("bcq_mm", "bcq_mm_fused", "flash_attention"):
+            entry["tp_launches"] = tp_launches[entry["name"]]
     phase_wall(walls)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

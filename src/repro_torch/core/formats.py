@@ -146,6 +146,35 @@ class QuantFormat(abc.ABC):
             fmt=first.fmt,
         )
 
+    # -- tensor parallelism --------------------------------------------------
+
+    def tp_specs(self, qt: QuantizedTensor, split: str, n: int) -> Tuple:
+        """The axes of ``(packed, scales)`` that an ``n``-way split of the
+        weight divides, or None for an axis that stays whole.
+
+        ``split="col"`` splits the output dim ``o``, the last axis of both.
+        ``split="row"`` splits the reduction dim ``k``: the packed k-rows
+        (``k/8``) and the scale groups (``k/g``) split only when ``n``
+        divides them, so group scales travel with the k-rows they scale (the
+        paper's group-wise-TP argument, §V.C); a codebook's centroid table
+        ``T[idx, r/g, c]`` splits with its groups the same way. An axis
+        that does not divide is None, and the caller refuses
+        (``parallel/tp.py``)."""
+        if split == "col":
+            return (-1, -1)
+        if split != "row":
+            raise ValueError(f"unknown split {split!r}: 'col' or 'row'")
+
+        def keep(dim):
+            return -2 if (n > 0 and dim % n == 0) else None
+
+        return (keep(qt.packed.shape[-2]), keep(qt.scales.shape[-2]))
+
+    def relocalize(self, qt: QuantizedTensor) -> QuantizedTensor:
+        """``qt`` with its static ``(k, o)`` rebuilt from its planes, for a
+        shard whose planes were cut from a larger weight."""
+        return qt.replace(k=qt.packed.shape[-2] * 8, o=qt.packed.shape[-1])
+
 
 _REGISTRY: Dict[str, QuantFormat] = {}
 

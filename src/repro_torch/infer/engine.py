@@ -122,6 +122,15 @@ replays it, ``scan=False`` runs the step eagerly; the two give the same
 bits. Speculation, ``stop_tokens``, slot serving and the prefix cache are
 refused, as in the reference.
 
+Tensor-parallel serving (``Engine(mesh=...)``, ``parallel/tp.py``): each
+rank's engine keeps its slices of the fused weights and caches of its kv
+heads (``init_cache`` of ``TPContext.cfg_local``), and every forward above
+runs as ``TPContext.forward``, which all-reduces after each ``wo`` and
+``w_down`` and gathers the logits whole. Every rank runs the same host
+code on the same requests with the same generators, so every path serves
+unchanged and every rank samples the same tokens. A TP engine never
+captures a decode step (``Engine.captures``).
+
 Not ported: the reference's power-of-two chunk buckets, which exist for
 XLA's compile cache (chunks here are dispatched at their exact length).
 """
@@ -197,6 +206,9 @@ class GenerationResult:
     # whatever n_steps, and accepted == proposed only when the run ends on a
     # chunk boundary
     spec_stats: Optional[dict] = None
+    # whether the decode steps replayed a captured CUDA graph (False on the
+    # CPU, for speculation and under tensor parallelism: Engine.captures)
+    captured: bool = False
 
     def generated(self, b: int = 0) -> np.ndarray:
         """Row ``b``'s generated tokens, cut after its first stop token
@@ -287,6 +299,7 @@ class Engine:
         device="cuda",
         prefix_cache: Optional[PrefixCache] = None,
         tracer=None,
+        mesh=None,
     ):
         """``params`` are moved to ``device`` (default ``"cuda"``, which
         raises when no GPU is usable). ``fuse=False`` keeps the unfused
@@ -304,13 +317,38 @@ class Engine:
         turns on prompt-prefix KV reuse for slot admissions: the longest
         committed prefix of a prompt is installed instead of recomputed, and
         the prompt's blocks are committed back at finish. The cache is bound
-        to this engine's model identity."""
+        to this engine's model identity.
+
+        ``mesh`` (a :class:`~repro_torch.parallel.tp.TPMesh`, from
+        ``parallel.tp.make_tp_mesh`` in each rank of a tensor-parallel run)
+        serves tensor-parallel: the (fused) weights are split column- and
+        row-parallel and this rank keeps its slices, its caches hold its kv
+        heads, and every forward runs as this rank's part
+        (``TPContext.forward``): every path (``generate``, slots, chunked
+        prefill, speculation, the prefix cache) serves on every rank, each
+        rank running the same host code on the same requests. Greedy tokens
+        equal the single-device engine's; logits differ by the partial
+        sums' order."""
         check_observers(None, tracer, "Engine")
         self.cfg = cfg
         self.tracer = tracer
         self.device = resolve_device(device)
         params = tree_map(lambda leaf: leaf.to(self.device), params)
         self.params = fuse_decode_projections(cfg, params) if fuse else params
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.parallel.tp import shard_model
+
+            self.params, self._tp = shard_model(cfg, self.params, mesh)
+            self._cache_cfg = self._tp.cfg_local  # a rank's caches hold its kv heads
+        else:
+            self._tp = None
+            self._cache_cfg = cfg
+        # The one rule for capture: a tensor-parallel step is not captured
+        # into a CUDA graph. A gloo collective runs on the host, which a
+        # graph cannot replay; capturing a step with NCCL collectives is
+        # future work. A TP engine decodes eagerly (GenerationResult.captured).
+        self.captures = mesh is None
         self.max_seq = max_seq
         self.embed_fn = embed_fn
         self._draft_params: dict = {}  # q_draft -> truncated params
@@ -328,10 +366,17 @@ class Engine:
             why = self._prefix_refusal()
             if why:
                 raise ValueError(f"prefix_cache {why}")
-            prefix_cache.bind(model_identity(cfg, self.params))
+            prefix_cache.bind(model_identity(cfg, self.params, mesh))
+
+    def _fwd(self, params, **kw):
+        """``models.forward`` of this engine's model: this rank's part of it
+        under a mesh (``TPContext.forward``)."""
+        if self._tp is not None:
+            return self._tp.forward(params, **kw)
+        return forward(self.cfg, params, **kw)
 
     def _make_cache(self, batch: int) -> dict:
-        return init_cache(self.cfg, batch, self.max_seq, device=self.device)
+        return init_cache(self._cache_cfg, batch, self.max_seq, device=self.device)
 
     def _obs_scope(self, name: str, **args):
         """The scope of one host dispatch: a tracer span on the ``engine``
@@ -492,8 +537,8 @@ class Engine:
         """Prompt ``(B, S)`` (``(B, S, d_model)`` embeddings for an
         embeddings-input model; a vlm model's image embeddings beside it)
         → last-position logits ``(B, V)`` and the cache."""
-        logits, cache = forward(
-            self.cfg, self.params, **self._inputs(tokens), image_emb=image_emb, cache=cache, pos=0,
+        logits, cache = self._fwd(
+            self.params, **self._inputs(tokens), image_emb=image_emb, cache=cache, pos=0,
             logits_mode="last", prefill=True
         )
         return logits[:, -1], cache
@@ -502,9 +547,7 @@ class Engine:
     def decode(self, tok: torch.Tensor, cache: dict, pos):
         """One step: tokens ``(B, 1)`` (embeddings ``(B, 1, d_model)``) at
         position ``pos`` → logits ``(B, V)``."""
-        logits, cache = forward(
-            self.cfg, self.params, **self._inputs(tok), cache=cache, pos=pos, logits_mode="last"
-        )
+        logits, cache = self._fwd(self.params, **self._inputs(tok), cache=cache, pos=pos, logits_mode="last")
         return logits[:, -1], cache
 
     @torch.no_grad()
@@ -576,6 +619,7 @@ class Engine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
 
+        scan = scan and self.captures  # a TP engine decodes eagerly (Engine.captures)
         graph = self._generate_graph(b) if scan else None
         cache = graph.cache if scan else self._make_cache(b)
         with self._obs_scope("engine/prefill", prompt_len=s, batch=b):
@@ -599,11 +643,12 @@ class Engine:
                 new = torch.stack(steps, dim=1).cpu().numpy() if steps else np.zeros((b, 0))
             else:
                 new = np.stack(steps, axis=1) if steps else np.zeros((b, 0), np.int64)
+        captured = graph is not None and graph.graph is not None
         if embeds:  # the reference returns the generated codes alone
-            return GenerationResult(tokens=new, prompt_len=s, steps=n_steps)
+            return GenerationResult(tokens=new, prompt_len=s, steps=n_steps, captured=captured)
         out = np.concatenate([pt, new.astype(pt.dtype)], axis=1)
         stops = stop_positions_for(new, stop_tokens) if stop_tokens else None
-        return GenerationResult(tokens=out, prompt_len=s, steps=n_steps, stop_positions=stops)
+        return GenerationResult(tokens=out, prompt_len=s, steps=n_steps, stop_positions=stops, captured=captured)
 
     def _spec_generate(self, tokens: torch.Tensor, image: Optional[torch.Tensor], n_steps: int,
                        temperature: float, seed: int, spec: SpecConfig):
@@ -617,8 +662,8 @@ class Engine:
         with self._obs_scope("engine/prefill", prompt_len=s, batch=b):
             logits, cache = self.prefill(tokens, self._make_cache(b), image)
         with self._obs_scope("engine/prefill_draft", prompt_len=s, batch=b, q_draft=spec.q_draft):
-            _, dcache = forward(self.cfg, draft, tokens=tokens, image_emb=image, cache=self._make_cache(b), pos=0,
-                                logits_mode="last", prefill=True)
+            _, dcache = self._fwd(draft, tokens=tokens, image_emb=image, cache=self._make_cache(b), pos=0,
+                                  logits_mode="last", prefill=True)
         gens = [None if greedy else _seeded(seed + i, self.device) for i in range(b)]
         dgens = [None if greedy else _seeded(draft_seed(seed + i), self.device) for i in range(b)]
         t0 = torch.argmax(logits, dim=-1)
@@ -639,7 +684,7 @@ class Engine:
                 active = emitted < n_steps
                 commit, n_keep, new_state = spec_chunk(
                     self.cfg, self.params, draft, state, gamma=spec.gamma, active=active,
-                    gens=gens, draft_gens=dgens, **flags,
+                    gens=gens, draft_gens=dgens, fwd=self._fwd, **flags,
                 )
                 for i in np.flatnonzero(active):
                     rows[i].extend(commit[i, : n_keep[i]].tolist())
@@ -735,7 +780,7 @@ class Engine:
     def _admission_cache(self, plen: int) -> dict:
         """A warm admission's batch-1 cache: ``plen`` rows, a ring the slot
         cache's length (its rows then copy into the slot's at their slots)."""
-        return init_cache(self.cfg, 1, plen, device=self.device, ring=self._ring_rows)
+        return init_cache(self._cache_cfg, 1, plen, device=self.device, ring=self._ring_rows)
 
     @torch.no_grad()
     def begin_admission(
@@ -822,8 +867,8 @@ class Engine:
         if p.collect:
             ends = {e - 1 - pos for _, e in p.handle.new_spans if pos < e <= pos + n}
             steps = tuple(sorted(ends | {n - 1}))
-        logits, tree = forward(self.cfg, self.params, tokens=tokens, cache=cache, pos=pos, logits_mode="last",
-                               prefill=True, collect_states=steps)
+        logits, tree = self._fwd(self.params, tokens=tokens, cache=cache, pos=pos, logits_mode="last",
+                                 prefill=True, collect_states=steps)
         if p.collect:
             p.segments.append((pos, steps, tree))
             last = torch.full((1,), len(steps) - 1, device=self.device)
@@ -865,8 +910,8 @@ class Engine:
             with self._obs_scope("engine/prefill_draft", prompt_len=p.plen, q_draft=spec.q_draft):
                 drows = self._slot_cache(slots, slot, "draft_cache")
                 self._clear_row(drows)
-                forward(self.cfg, self.draft_params(spec.q_draft), tokens=p.prompt, cache=drows, pos=0,
-                        logits_mode="last", prefill=True)
+                self._fwd(self.draft_params(spec.q_draft), tokens=p.prompt, cache=drows, pos=0,
+                          logits_mode="last", prefill=True)
         with self._obs_scope("engine/admit", slot=slot, **({} if spec is None else {"spec": True})):
             return self._install_admission(slots, slot, p, rows, spec)
 
@@ -1008,7 +1053,7 @@ class Engine:
         remaining = slots["remaining"].copy()
         temps, greedy, gens = slots["temperature"], slots["greedy"], slots["gens"]
         cache, last = slots["cache"], self.max_seq - 1
-        graph = None if _EAGER_SLOT_STEPS else self._slot_graph(slots)
+        graph = None if (_EAGER_SLOT_STEPS or not self.captures) else self._slot_graph(slots)
         toks_steps, act_steps = [], []
         for _ in range(n_steps):
             act = active.copy()
@@ -1072,7 +1117,7 @@ class Engine:
             commit, n_keep, new_state = spec_chunk(
                 self.cfg, self.params, draft, state, gamma=spec.gamma, greedy=slots["greedy"],
                 temperature=slots["temperature"], spec_enabled=slots["spec"], active=active,
-                gens=slots["gens"], draft_gens=slots["draft_gens"],
+                gens=slots["gens"], draft_gens=slots["draft_gens"], fwd=self._fwd,
             )
             emit_n = np.where(active, np.minimum(n_keep, remaining), 0)
             ok = np.arange(width)[None, :] < emit_n[:, None]

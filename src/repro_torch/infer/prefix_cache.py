@@ -79,11 +79,13 @@ def check_observers(metrics, tracer, who: str) -> None:
                              f"(repro_torch.obs), got {type(given).__name__}")
 
 
-def model_identity(cfg, params) -> str:
+def model_identity(cfg, params, mesh=None) -> str:
     """Digest of the (model, quant-policy) identity a prefix cache keys on:
     ``repr(cfg)``, and every parameter leaf's path with, for a
     :class:`~repro_torch.core.qtensor.QuantizedTensor`, its format tag and
-    ``(q, g, k, o)``, for a dense leaf its dtype and shape. Weight values
+    ``(q, g, k, o)``, for a dense leaf its dtype and shape, plus the mesh
+    shape of a tensor-parallel engine (a rank's rows hold its kv heads:
+    reusable only under the same split). Weight values
     are deliberately not hashed; the identity guards against sharing a cache
     across quantization policies or architectures, not against loading
     other weights into the same shapes."""
@@ -98,6 +100,8 @@ def model_identity(cfg, params) -> str:
         return leaf
 
     tree_map_with_path(visit, params)
+    if mesh is not None:
+        parts.append(f"mesh:{sorted(dict(mesh.shape).items())}")
     return hashlib.sha256("|".join(parts).encode()).hexdigest()[:16]
 
 

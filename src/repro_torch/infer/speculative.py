@@ -52,7 +52,6 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     POSITIONAL_CACHE_LEAVES,
@@ -253,6 +252,7 @@ def spec_chunk(
     active: np.ndarray,  # (B,) bool: rows that draw from their generators
     gens: Sequence[Optional[torch.Generator]],
     draft_gens: Sequence[Optional[torch.Generator]],
+    fwd,  # the engine's forward, cfg bound (under a mesh, TPContext.forward)
 ) -> Tuple[np.ndarray, np.ndarray, dict]:
     """One speculative chunk over the whole batch.
 
@@ -266,7 +266,8 @@ def spec_chunk(
     one correction or bonus token; ``new_state`` has that token pending, the
     position advanced by ``n_keep`` and ``"logits"``, the verify's logits at
     the commit position (those of the pending token's step). Callers apply
-    :func:`freeze_inactive`.
+    :func:`freeze_inactive`. ``fwd(params, **kw)`` runs every draft step
+    and the verify.
     """
     t_pend, pos = state["t_pend"], state["pos"]
     cache, dcache = state["cache"], state["draft_cache"]
@@ -286,9 +287,7 @@ def spec_chunk(
     dsnap = snapshot_rows(dcache, run_pos, n_tok) if ring else None  # the rows the chunk will write
     tok, props, q_logits, dstates = t_pend, [], [], []
     for j in range(n_tok):
-        lg, dcache = forward(
-            cfg, draft_params, tokens=tok[:, None], cache=dcache, pos=run_pos + j, logits_mode="last"
-        )
+        lg, dcache = fwd(draft_params, tokens=tok[:, None], cache=dcache, pos=run_pos + j, logits_mode="last")
         if collect:
             dstates.append(_recurrent_only(dcache))  # the state after step j
         if j == gamma:  # this step only writes d_gamma's K/V rows
@@ -305,8 +304,8 @@ def spec_chunk(
     # -- verify: one chunked forward of the target over [t_pend, d_1..d_gamma]
     verify = torch.cat([t_pend[:, None], drafts], dim=1)
     snap = snapshot_rows(cache, run_pos, n_tok) if ring else None
-    p_logits, vcache = forward(
-        cfg, params, tokens=verify, cache=cache, pos=run_pos, logits_mode="all", chunked_decode=True,
+    p_logits, vcache = fwd(
+        params, tokens=verify, cache=cache, pos=run_pos, logits_mode="all", chunked_decode=True,
         collect_states=collect,
     )  # (B, gamma + 1, V); [:, i] = the target's step logits at pos + i
 

@@ -74,7 +74,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     nvcc = _nvcc()
     procs = {}
     for n, p in todo.items():
-        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        tmp = p.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")  # one a builder, threads too
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

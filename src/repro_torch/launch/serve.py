@@ -72,8 +72,16 @@ zeros; the continuous default raises the reference's slot refusal.
 ``--arch musicgen-medium`` (frame-embedding inputs) is an argparse error,
 as in the reference: serve it through ``Engine(embed_fn=...).generate``.
 
-``--tp`` belongs to tensor parallelism, which is not ported yet; it is
-refused with an error naming the missing piece.
+``--tp N`` serves tensor-parallel (``parallel/tp.py``): the weights are
+quantized once here, then N ranks start (``launch/_ranks.py``: rank r on
+``cuda:(r % device_count)``, NCCL when every rank has a card of its own,
+else gloo; ``--device cpu``: gloo on the host), each splits them
+column- and row-parallel, keeps its slices and its kv heads, and runs the
+same serve loop (the loop's clock is rank 0's); rank 0 prints the report.
+Greedy tokens equal ``--tp 1``'s. A split the model cannot take (heads or
+``k/g`` groups not divisible by N, e.g. ``--tp 4 --g 128`` here: ``wo`` has
+k = 256) is refused before the ranks start, naming the leaf; the
+MoE, hybrid and ssm families are refused as the reference refuses them.
 """
 
 from __future__ import annotations
@@ -94,9 +102,13 @@ from repro_torch.infer import Engine, PrefixCache, Request, Scheduler, SpecConfi
 from repro_torch.infer.engine import CHUNK_REFUSAL
 from repro_torch.infer.speculative import has_recurrent_state, has_ring_buffer
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.models import init_params, reduced
+from repro_torch.launch._ranks import run_ranks
+from repro_torch.models import fuse_decode_projections, init_params, reduced
 from repro_torch.obs import MetricsRegistry, Tracer
+from repro_torch.parallel.ctx import agree, collective_counts
+from repro_torch.parallel.tp import check_tp, make_tp_mesh
 from repro_torch.quant import QuantPolicy, quantize_params, quantized_bytes
+from repro_torch.utils import tree_map
 
 
 def build_requests(cfg, n, prompt_len, gen, *, mixed_temperature=True, seed=3, shared_prefix_len=0):
@@ -163,6 +175,8 @@ def drive_continuous(engine, reqs, arrivals, *, n_slots, chunk, speculate=None, 
     i = 0
     while len(done) < len(reqs):
         now = time.perf_counter() - t0
+        if engine.mesh is not None:  # every rank admits on rank 0's clock
+            now = agree(engine.mesh, now)
         while i < len(reqs) and arrivals[i] <= now:
             sched.submit(reqs[i])
             i += 1
@@ -221,7 +235,9 @@ def main(argv=None) -> None:
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="every request's prompt starts with the same tokens (a shared system "
                          "prompt), the prefix-cache workload")
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: N ranks, each holding its slices of the weights "
+                         "and its kv heads (greedy tokens identical to --tp 1)")
     ap.add_argument("--trace-out", type=str, default=None, metavar="PATH",
                     help="instrument the run with the span tracer and metrics registry "
                          "(repro_torch.obs), write a Chrome/Perfetto trace here and print the "
@@ -233,8 +249,8 @@ def main(argv=None) -> None:
                     help="where the model runs (default: the GPU)")
     args = ap.parse_args(argv)
 
-    if args.tp != 1:
-        ap.error("--tp needs tensor parallelism (parallel/tp.py), not ported yet")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
     # refuse unwritable outputs now, not after the serve run
     if args.trace_out and not os.path.isdir(os.path.dirname(os.path.abspath(args.trace_out))):
         ap.error(f"--trace-out: the span tracer's trace would go to {args.trace_out!r}, whose "
@@ -292,15 +308,35 @@ def main(argv=None) -> None:
         )
         print(f"{args.format} q={args.q} g={args.g}: "
               f"{quantized_bytes(params)/2**20:.2f} MiB")
+    if args.tp == 1:
+        serve(args, cfg, params, spec)
+        return
+    # refuse a split the model cannot take before any rank starts (the
+    # reference's words: the leaf and its dims, or the heads / block types)
+    check_tp(cfg, fuse_decode_projections(cfg, params), args.tp)
+    params = tree_map(lambda leaf: leaf.to("cpu"), params)  # quantized once, handed to every rank
+    run_ranks(serve_rank, args.tp, (args, cfg, params, spec), device=args.device)
+
+
+def serve_rank(rank, n, args, cfg, params, spec):
+    """One rank of ``--tp n``: this rank's slice of ``params`` on its device."""
+    serve(args, cfg, params, spec, mesh=make_tp_mesh(n))
+
+
+def serve(args, cfg, params, spec, mesh=None) -> None:
+    """Serve the CLI's workload on one device, or as one rank of ``mesh``
+    (rank 0 reports and writes the trace and the profile)."""
+    report = mesh is None or mesh.rank == 0
+    say = print if report else (lambda *a, **k: None)
     headroom = spec.gamma + 1 if spec else 0
     prefix_cache = None
     if args.prefix_cache_mb:
         prefix_cache = PrefixCache(block_tokens=args.prefix_block or 16, max_bytes=args.prefix_cache_mb << 20)
     tracer = registry = None
-    if args.trace_out:
+    if args.trace_out and report:
         tracer, registry = Tracer(), MetricsRegistry()
     engine = Engine(cfg, params, max_seq=args.prompt_len + args.gen + 8 + headroom,
-                    device=args.device, prefix_cache=prefix_cache, tracer=tracer)
+                    device=args.device, prefix_cache=prefix_cache, tracer=tracer, mesh=mesh)
     del params  # the engine holds the fused layout
     reqs = build_requests(cfg, args.requests, args.prompt_len, args.gen,
                           shared_prefix_len=args.shared_prefix_len)
@@ -308,7 +344,7 @@ def main(argv=None) -> None:
     total_new = sum(r.max_new_tokens for r in reqs)
 
     profiler = contextlib.nullcontext()
-    if args.profile_dir:
+    if args.profile_dir and report:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if engine.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -318,7 +354,7 @@ def main(argv=None) -> None:
     if args.sequential:
         with profiler:
             outs, dt = drive_sequential(engine, reqs, arrivals)
-        print(f"[sequential] {len(outs)} requests, {total_new} tokens in "
+        say(f"[sequential] {len(outs)} requests, {total_new} tokens in "
               f"{dt:.2f}s ({total_new/dt:.1f} tok/s on {engine.device})")
         sample = outs[0].tokens[0, args.prompt_len:]
     else:
@@ -335,32 +371,34 @@ def main(argv=None) -> None:
             util = sched.chunk_rows / max(1, sched.decode_steps * sched.n_slots)
             tag = f"speculative q'={spec.q_draft} γ={spec.gamma}"
             extra = f", draft acceptance ~{sched.spec_accept_rate:.0%}"
-        print(f"[{tag}] {len(done)} requests, {total_new} tokens in "
+        say(f"[{tag}] {len(done)} requests, {total_new} tokens in "
               f"{dt:.2f}s ({total_new/dt:.1f} tok/s on {engine.device}, "
               f"{args.slots} slots, chunk={args.chunk}, slot utilisation {util:.0%}{extra})")
         if prefix_cache is not None:
             st = prefix_cache.stats()
-            print(f"prefix cache: {st['hits']} hits / {st['misses']} misses, {st['commits']} commits, "
+            say(f"prefix cache: {st['hits']} hits / {st['misses']} misses, {st['commits']} commits, "
                   f"{st['evictions']} evictions, {st['cached_bytes'] / 2**20:.2f} MiB cached "
                   f"({st['nodes']} blocks)")
         sample = done[0].new_tokens
-    print("kernel launches:", launch_counts())
-    print("sample:", sample)
-    if args.profile_dir:
+    say("kernel launches:", launch_counts())
+    if mesh is not None:
+        say(f"collectives (rank 0): {collective_counts()}")
+    say("sample:", sample)
+    if args.profile_dir and report:
         os.makedirs(args.profile_dir, exist_ok=True)
         path = os.path.join(args.profile_dir, "serve_profile.json")
         profiler.export_chrome_trace(path)
-        print(f"profile: {path} (torch.profiler Chrome trace; open in ui.perfetto.dev)")
+        say(f"profile: {path} (torch.profiler Chrome trace; open in ui.perfetto.dev)")
     if tracer is not None:
         with open(args.trace_out, "w") as f:
             json.dump(tracer.to_chrome(), f)
         st = tracer.stats()
-        print(f"trace: {args.trace_out} ({st['buffered']} events, {st['evicted']} evicted) — "
+        say(f"trace: {args.trace_out} ({st['buffered']} events, {st['evicted']} evicted) — "
               f"open in ui.perfetto.dev")
         if not args.sequential:
             counters = {name: sum(s["value"] for s in fam["series"])
                         for name, fam in registry.snapshot().items() if fam["type"] == "counter"}
-            print("metrics:", json.dumps(counters, sort_keys=True))
+            say("metrics:", json.dumps(counters, sort_keys=True))
 
 
 if __name__ == "__main__":

@@ -107,6 +107,7 @@ from repro_torch.kernels.ops import current_impl_mode, linear, linear_fused
 from repro_torch.kernels.ref import NEG_INF, causal_mask
 from repro_torch.kernels.ref import sdpa as _sdpa
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.ctx import psum_partial
 from repro_torch.utils import ROW_SUM_WIDTH, host_pos, in_prompt_rows, row_sum, tree_map, tree_map_with_path
 
 Pos = Union[int, torch.Tensor]
@@ -610,7 +611,7 @@ def attention(
         else:
             out = _sdpa(q, k_mem, v_mem, None)
         out = out.reshape(b, s, cfg.q_dim)
-        return linear(token_rows_view(out) if chunked else out, p["wo"]).reshape(b, s, -1), cache
+        return psum_partial(linear(token_rows_view(out) if chunked else out, p["wo"]).reshape(b, s, -1)), cache
     if "wqkv" in p:
         q, k, v = linear_fused(xr, p["wqkv"], (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
     else:
@@ -624,7 +625,7 @@ def attention(
         cache = _cache_write(cache, k, v, pos, window)
         out = _chunk_decode(q, cache, pos, window, before)
         y = linear(token_rows_view(out.reshape(b, s, cfg.q_dim)), p["wo"])
-        return y.reshape(b, s, -1), cache
+        return psum_partial(y.reshape(b, s, -1)), cache
     if cache is None:
         out = _local_attention_chunked(q, k, v, window) if window else _causal(q, k, v)
     elif s > 1 or in_prompt_rows():
@@ -654,7 +655,7 @@ def attention(
             valid = _ring_mask(slot, pp, ck.shape[1], window) if window else slot <= pp
             mask = valid[None, None, None, :]
         out = _sdpa_decode(q, ck, cv, mask)
-    return linear(out.reshape(b, s, cfg.q_dim), p["wo"]), cache
+    return psum_partial(linear(out.reshape(b, s, cfg.q_dim), p["wo"])), cache
 
 
 def mlp_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -664,4 +665,4 @@ def mlp_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
         gate, up = linear_fused(x, w, (d_ff, d_ff))
     else:
         gate, up = linear(x, p["w_gate"]), linear(x, p["w_up"])
-    return linear(torch.nn.functional.silu(gate) * up, p["w_down"])
+    return psum_partial(linear(torch.nn.functional.silu(gate) * up, p["w_down"]))

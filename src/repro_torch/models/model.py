@@ -56,6 +56,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.ctx import all_gather_cols
 from repro_torch.utils import host_pos, prompt_rows, resolve_device, tree_map
 
 ATTN_BLOCKS = ("attn", "attn_moe", "local_attn", "cross")
@@ -351,8 +352,10 @@ def _forward(cfg, params, tokens, embeddings, image_emb, positions, cache, pos, 
     h = L.rmsnorm(params["final_norm"], h)
     if logits_mode == "last":
         h = h[:, -1:]
+    # lm_head is column-parallel under TP (vocab shards): gather the whole
+    # logits so sampling sees every token; the identity otherwise
     if chunked_decode:
-        logits = linear(L.token_rows_view(h), params["lm_head"], out_dtype=torch.float32)
+        logits = all_gather_cols(linear(L.token_rows_view(h), params["lm_head"], out_dtype=torch.float32))
         return logits.reshape(*h.shape[:2], -1), cache
-    logits = linear(h, params["lm_head"], out_dtype=torch.float32)
+    logits = all_gather_cols(linear(h, params["lm_head"], out_dtype=torch.float32))
     return logits, cache

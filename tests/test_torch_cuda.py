@@ -2075,3 +2075,44 @@ def test_vlm_speculation_and_verify_exact_on_card(cuda):
     none = eng.generate(prompt.cpu().numpy(), 8)
     zero = eng.generate(prompt.cpu().numpy(), 8, image_emb=torch.zeros_like(image))
     np.testing.assert_array_equal(none.tokens, zero.tokens)
+
+
+# -- tensor-parallel serving: two ranks on one card ------------------------------
+
+
+def test_tp_two_ranks_on_one_card(cuda, tmp_path):
+    """llama3.2-3b's widths at 2 layers, f32 compute over bcq weights, split
+    over two ranks that share the card (gloo, by ``launch/_ranks.py``'s
+    rule): greedy tokens equal tp = 1's, the logits within 1e-3 of
+    max|logit| (the reference's LOGIT_TOL), both ranks alike, K1 / K2 / K8
+    launched at the shard shapes, 2L + 1 collectives a forward, no capture;
+    within the TP engine spec == plain and slot == solo."""
+    import torch_tp_ranks as R
+
+    from repro_torch.launch._ranks import run_ranks
+
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b"), **FULL_WIDTH), compute_dtype="float32")
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), QuantPolicy(q=4, g=128, iters=2), device="cuda")
+    path = tmp_path / "params.pt"
+    torch.save(params, path)
+    prompts = R.prompts()
+    ref = Engine(cfg, params, max_seq=64, device="cuda")
+    want = ref.generate(prompts, R.N_STEPS).tokens
+    toks = torch.as_tensor(prompts, device=cuda).long()
+    pre, cache = ref.prefill(toks, ref._make_cache(len(prompts)))
+    dec, _ = ref.decode(toks[:, -1:], cache, toks.shape[1])
+    want_logits = torch.stack([pre, dec]).cpu().numpy()
+    del ref, params, cache
+    ranks = run_ranks(R.cuda_rank, 2, (cfg, str(path), prompts), device="cuda", timeout=600)
+    forwards = 1 + R.N_STEPS
+    for r in ranks:
+        np.testing.assert_array_equal(r["tokens"], want)
+        rel = np.abs(r["logits"] - want_logits).max() / np.abs(want_logits).max()
+        assert rel <= 1e-3, rel
+        assert r["collectives"] == {"all_reduce": 2 * cfg.n_layers * forwards, "all_gather": forwards, "broadcast": 0}
+        assert r["captured"] is False
+        assert all(r["launches"][k] for k in ("bcq_mm", "bcq_mm_fused", "flash_attention")), r["launches"]
+        np.testing.assert_array_equal(r["spec"], r["tokens"])
+        for got, solo in zip(r["slots"], r["solos"]):
+            np.testing.assert_array_equal(got, solo)
+        np.testing.assert_array_equal(r["logits"], ranks[0]["logits"])

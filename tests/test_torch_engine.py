@@ -212,7 +212,9 @@ def test_mixed_format_model_decodes():
     pytest.param(["--speculate", "2:4", "--q", "0"], "requires a quantized model", id="argv0-speculative"),
     pytest.param(["--sequential", "--speculate", "2:4"], "cannot be combined with --sequential",
                  id="argv1-speculative"),
-    (["--sequential", "--tp", "2"], "tensor parallelism"),
+    # --tp is ported: its two cases hold the reference's refusal of a
+    # degree below 1 (ids kept from when --tp was refused)
+    pytest.param(["--sequential", "--tp", "0"], "--tp must be >= 1", id="argv2-tensor parallelism"),
     (["--sequential", "--prefix-cache-mb", "8"], "prefix cache"),
     (["--sequential", "--prefill-chunk", "4"], "chunked prefill"),
     # --trace-out and --profile-dir are ported: refused now is an output
@@ -220,7 +222,7 @@ def test_mixed_format_model_decodes():
     pytest.param(["--sequential", "--trace-out", str(ROOT / "no_such_dir" / "t.json")], "tracer",
                  id="argv5-tracer"),
     pytest.param(["--sequential", "--profile-dir", str(ROOT / "README.md")], "profiler", id="argv6-profiler"),
-    (["--tp", "2"], "tensor parallelism"),
+    pytest.param(["--tp", "-1"], "--tp must be >= 1", id="argv7-tensor parallelism"),
     pytest.param(["--prefill-chunk", "-1"], "chunked prefill", id="argv8-chunked prefill"),
     (["--sequential", "--prefix-block", "16"], "prefix cache"),
     pytest.param(["--sequential", "--shared-prefix-len", "16"], "prefix cache", id="argv10-prefix cache"),

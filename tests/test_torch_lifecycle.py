@@ -5,8 +5,9 @@ are bit-identical to the same request in an undisturbed run — plus the
 state machine, validation, backpressure, deadlines, retry, stop tokens and
 the streaming callbacks.
 
-Not mirrored: the tensor-parallel cell of the survivor matrix
-(``test_survivor_invariance_tp2``): tensor parallelism is not ported. Added: a
+Not mirrored yet: the tensor-parallel cell of the survivor matrix
+(``test_survivor_invariance_tp2``; ``test_torch_tp_serve.py`` holds the TP
+engine's slots, speculation and prefix cache). Added: a
 decode chunk that fails part-way leaves the slot state as it was, so its
 retry is exact; and the port's lifecycle modules match the reference's.
 """

@@ -17,9 +17,9 @@ helpers and the ``pos > 0`` prefill, the offset attention's plain version,
 cancel / deadline / failure of a pending chunked admission, refusals and
 the CLI.
 
-Not mirrored: the TP rows of the reference grid and the recurrent and ring
-cases (the port has no tensor parallelism or recurrent or ring families
-yet; the engine refuses those families, held below).
+Not mirrored here: the TP rows of the reference grid, which
+``test_torch_tp_serve.py`` holds in spawned ranks, and the recurrent and
+ring cases, which ``test_torch_hybrid.py`` / ``test_torch_xlstm.py`` hold.
 """
 
 import dataclasses

@@ -411,7 +411,7 @@ def test_image_memory_is_unchanged_by_decode_steps_and_verifies(qengine):
              "logits": verify[:, -1]}
     _, n_keep, _ = S.spec_chunk(cfg, qengine.params, draft, state, gamma=4, greedy=np.ones(2, bool),
                                 temperature=np.ones(2), spec_enabled=np.ones(2, bool), active=np.ones(2, bool),
-                                gens=[None, None], draft_gens=[None, None])
+                                gens=[None, None], draft_gens=[None, None], fwd=qengine._fwd)
     assert (n_keep < 5).any()  # a proposal was rejected
     for c, (k, v) in zip((cache, c2, dcache), (memory[0], memory[0], memory[1])):
         assert torch.equal(c["stages"][0]["b4"]["k_img"], k) and torch.equal(c["stages"][0]["b4"]["v_img"], v)
