@@ -378,7 +378,34 @@ code is non-zero:
              K8, the collectives' copies, the rest), K1/K2 at each shard
              leaf beside its byte bound, its plain version and the library,
              tok/s with the card named;
-17. last line ``{"ok": true, "device": {...}}``.
+17. train    the training runtime (``train/``, ``launch/train.py``) and
+             the paper's whole workflow. llama3.2-3b at full width and
+             depth, bf16 parameters from ``init_params(cfg, seed=0)``,
+             trained ``TRAIN_STEPS`` steps of 4 x 256 ``MarkovCorpus``
+             tokens through ``launch/train.py``'s ``main --full-size``
+             (remat, AdamW; the step's forward and backward on the plain
+             route, ``impl_mode("ref")``, as the reference trains): each
+             step's loss and wall, the peak memory and the straggler
+             count; the loss finite and its last value below its first.
+             The trained weights quantized to bcq (q = 4, g = 128, iters =
+             4) and served: a batched ``generate`` (4 x 16 + 16) whose K1/K2
+             and K8 launches the census counts (each above 0, as the
+             parameter tree predicts, counts reset just before and read just
+             after, in the kernels line as ``train_launches``), every
+             launched shape held to its plain version; the held-out NLL of
+             the dense and the bcq model on a fresh corpus batch (the
+             paper's Figs. 5/6 quantity, reported); the kernel path's
+             logits against the ref path and the f32-weight oracle (the
+             f32-compute arm gated, bf16 reported under the 3e-2 watch
+             rule). One ``loss_fn`` gradient of a reduced f32 llama3.2-3b
+             on the card against the CPU's, within ``GRAD_TOL`` of each
+             leaf's max|g|; a CUDA forward with grad-requiring inputs
+             outside ``impl_mode("ref")`` raises (K8, K1, and through the
+             model). The reduced model through the CLI with ``--ckpt-dir``:
+             a SIGTERM stops it with a final checkpoint at that step, which
+             restores onto the card bit for bit, and a rerun resumes from
+             it to the end;
+18. last line ``{"ok": true, "device": {...}}``.
 
 Timing: repeated calls after warm-up are captured in a CUDA graph and timed
 with CUDA events around its replay (median of 7), so a time is the device's
@@ -5195,6 +5222,268 @@ def phase_tp(path, prompts):
     return summary, launches
 
 
+TRAIN = "llama3.2-3b"
+TRAIN_STEPS = 8  # full-width train steps through launch/train.py
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+TRAIN_LR = 3e-4
+TRAIN_NEW = 16  # the trained model's batched generate: 4 x 16 + 16
+TRAIN_NLL_SEED = 20_000  # a MarkovCorpus batch no train step drew
+# card against CPU: one loss_fn gradient of a reduced f32 llama3.2-3b, the
+# largest leaf error relative to that leaf's max|g| (stated before the first
+# card run: f32 sums in other orders through 2 layers, ~1e-6 expected)
+GRAD_TOL = 1e-4
+GRAD_REDUCED = dict(d_model=256, n_layers=2, vocab=512)
+CKPT_STEPS, CKPT_PREEMPT_AT = 6, 2  # the reduced CLI run: SIGTERM after step 2, resume to 6
+
+
+def train_cli(argv, log_fn):
+    """``launch/train.py``'s ``main(argv)`` with its log lines sent to
+    ``log_fn``; the SIGTERM / SIGINT handlers its ``PreemptionGuard`` installs
+    are put back after → main's (cfg, params, opt, history)."""
+    import signal
+
+    from repro_torch.launch import train as train_mod
+
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        return train_mod.main(argv, log=log_fn)
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+
+
+def train_full_width():
+    """llama3.2-3b at full width and depth, bf16, ``TRAIN_STEPS`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens through the CLI → (cfg, params,
+    summary)."""
+    from repro_torch.quant import quantized_bytes
+    from repro_torch.utils import tree_leaves
+
+    lines = []
+
+    def tlog(msg):
+        lines.append(msg)
+        log(f"  [train] {msg}")
+
+    from repro_torch.train import step as step_mod
+
+    real_update, update_s = step_mod.adamw_update, []
+
+    def timed_update(*a, **kw):  # the AdamW share of a step, between two syncs
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_update(*a, **kw)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step_mod.adamw_update = timed_update
+    try:
+        cfg, params, opt, history = train_cli(
+            ["--arch", TRAIN, "--full-size", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+             str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--log-every", "1", "--device", "cuda"], tlog)
+    finally:
+        step_mod.adamw_update = real_update
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    step_ms = [float(m.group(1)) for m in (re.search(r"\((\d+) ms\)", line) for line in lines if line.startswith("step"))
+               if m]
+    steady = statistics.median(step_ms[1:])
+    losses = [loss for _, loss in history]
+    adamw_ms = statistics.median(update_s[1:]) * 1e3
+    stragglers = sum(line.startswith("[straggler]") for line in lines)
+    summary = dict(layers=cfg.n_layers, params=n_params, dense_gb=quantized_bytes(params) / 1e9, losses=losses,
+                   step_ms=step_ms, steady_step_ms=steady, adamw_ms=adamw_ms,
+                   tok_s=TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3), wall_s=wall, peak_gb=peak / 1e9,
+                   stragglers=stragglers)
+    log(f"  [train] {cfg.name} at full width, {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters "
+        f"({cfg.param_dtype}), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens (remat, AdamW lr "
+        f"{TRAIN_LR:g}) in {wall:.1f}s: loss {losses[0]:.4f} -> {losses[-1]:.4f}; a step {steady:.0f} ms (the median "
+        f"of steps 1..{TRAIN_STEPS - 1}; step 0 {step_ms[0]:.0f} ms; of it AdamW {adamw_ms:.1f} ms, the median after "
+        f"step 0, the rest forward and backward), {summary['tok_s']:.0f} tok/s; peak {peak / 1e9:.3f} GB (params, "
+        f"gradients, moments and activations); stragglers {stragglers}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: [train] the loss did not fall, or is not finite: {losses}")
+    del opt
+    return cfg, params, summary
+
+
+def train_serve(cfg, params, records, gen):
+    """The trained weights quantized to bcq on the card (q = 4, g = 128,
+    iters = 4) and served: a batched ``generate`` (4 x 16 + 16) in a
+    counted window, every launched K1/K2 and K8 shape held to its plain
+    version; the held-out NLL of the dense and the quantized model; the
+    logits of the kernel path against the ref path and the f32-weight
+    oracle → (launch counts, summary)."""
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.infer import Engine
+    from repro_torch.models import forward
+    from repro_torch.train import cross_entropy
+
+    packed = quantize_format(cfg, params, "bcq")
+    engine = Engine(cfg, packed, max_seq=PROMPT_LEN + TRAIN_NEW + 8, device="cuda")
+    corpus = MarkovCorpus(cfg.vocab, seed=0)
+    prompts = torch.from_numpy(corpus.sample(PROMPTS, PROMPT_LEN, seed=TRAIN_NLL_SEED + 1)[:, :PROMPT_LEN]).to(DEVICE)
+    gp = generate_input(prompts)
+    engine.generate(gp, 2)  # the graph's warm-up and capture
+    with kernel_census(by_leaf=True) as seen, flash_census() as attn:
+        res, dt, counts, ref_calls = run_counted(lambda: engine.generate(gp, TRAIN_NEW))
+    expect = generate_counts(engine, PROMPTS, PROMPT_LEN, TRAIN_NEW)
+    log(f"  [train serve] the trained weights, bcq: generate batched ({PROMPTS}x{PROMPT_LEN} + {TRAIN_NEW}, replayed "
+        f"graph) {dt:.3f}s, {PROMPTS * TRAIN_NEW / dt:.1f} tok/s; launches {json.dumps(counts)} (expected "
+        f"{json.dumps(expect)}), ref-oracle dispatches {ref_calls}")
+    if (counts != expect or ref_calls or not counts["bcq_mm"] or not counts["bcq_mm_fused"]
+            or not counts["flash_attention"]):
+        raise SystemExit(f"chip_smoke: [train serve] launches {counts} != {expect} (ref {ref_calls})")
+    if res.tokens.shape != (PROMPTS, PROMPT_LEN + TRAIN_NEW) or not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: [train serve] bad generated tokens {res.tokens.shape}")
+    # held-out next-token NLL, dense against bcq (the paper's Figs. 5/6 quantity; reported)
+    batch = corpus.sample(TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_NLL_SEED)
+    toks, labels = (torch.from_numpy(a).to(DEVICE) for a in (batch[:, :-1], batch[:, 1:].astype(np.int32)))
+    with torch.no_grad():
+        nll = {name: cross_entropy(forward(cfg, p, tokens=toks)[0], labels).item()
+               for name, p in (("dense", params), ("bcq", engine.params))}
+    log(f"  [train serve] held-out NLL ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, corpus seed {TRAIN_NLL_SEED}): dense "
+        f"{nll['dense']:.4f}, bcq q = {Q} {nll['bcq']:.4f} ({nll['bcq'] - nll['dense']:+.4f}; reported)")
+    run = lambda eng, mode: family_step_logits(eng, prompts, None, mode)  # noqa: E731
+    logits = xlstm_logits_check(engine, "train serve, prefill + 1 step", run)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    checked = check_launched("train serve", seen, attn, records, gen)
+    return counts, dict(generate_s=dt, tok_s=PROMPTS * TRAIN_NEW / dt, nll=nll, logits=logits, checked=len(checked),
+                        launches=counts)
+
+
+def train_grads_and_guard():
+    """One ``loss_fn`` gradient of a reduced f32 llama3.2-3b on the card
+    against the CPU's (same init and batch), and the forward-only guard: a
+    CUDA forward with grad-requiring inputs outside ``impl_mode("ref")``
+    raises, for K8 and for K1, and through the model → summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovCorpus, batch_iterator
+    from repro_torch.kernels import bcq_mm, flash_attention
+    from repro_torch.models import forward, init_params, reduced
+    from repro_torch.train import loss_and_grads
+    from repro_torch.train.checkpoint import leaf_paths
+    from repro_torch.utils import tree_map
+
+    cfg = reduced(get_config(TRAIN), **GRAD_REDUCED)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card = tree_map(lambda t: t.to(DEVICE), cpu)
+    batch = next(batch_iterator(MarkovCorpus(cfg.vocab, seed=0), batch=TRAIN_BATCH, seq_len=64))
+    got = {}
+    for name, p, dev in (("cpu", cpu, "cpu"), ("card", card, DEVICE)):
+        got[name] = loss_and_grads(cfg, p, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    errs = {}
+    for (key, gc_), (_, gg) in zip(leaf_paths(got["cpu"][1]), leaf_paths(got["card"][1])):
+        errs[key] = (gg.cpu() - gc_).abs().max().item() / max(gc_.abs().max().item(), 1e-30)
+    worst = max(errs, key=errs.get)
+    loss_d = abs(got["card"][0]["loss"].item() - got["cpu"][0]["loss"].item())
+    log(f"  [train grads] reduced f32 {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers, vocab {cfg.vocab}), "
+        f"one loss_fn gradient, card against CPU: loss {got['card'][0]['loss'].item():.6f} (|d| {loss_d:.2e}); "
+        f"largest leaf error / the leaf's max|g| {errs[worst]:.3e} at {worst} (tol {GRAD_TOL:g}), median "
+        f"{statistics.median(errs.values()):.3e} over {len(errs)} leaves")
+    if not errs[worst] <= GRAD_TOL:
+        raise SystemExit(f"chip_smoke: [train grads] card and CPU gradients differ by {errs[worst]:.3e} at {worst}")
+    # the guard: each forward-only kernel refuses a grad-requiring input outside the ref route
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(17)
+    q = torch.randn((1, 16, 24, 128), generator=gen, device=DEVICE).to(torch.bfloat16).requires_grad_(True)
+    kv = torch.randn((1, 16, 8, 128), generator=gen, device=DEVICE).to(torch.bfloat16)
+    x = torch.randn((4, 3072), generator=gen, device=DEVICE).requires_grad_(True)
+    packed, scales = format_planes("bcq", 3072, 3072, Q, G, gen)
+    grad_card = tree_map(lambda t: t.detach().requires_grad_(True), card)
+    raised = {}
+    for name, call in (("flash_attention", lambda: flash_attention(q, kv, kv)),
+                       ("bcq_mm", lambda: bcq_mm(x, packed, scales, g=G)),
+                       ("forward (K8)", lambda: forward(cfg, grad_card, tokens=torch.zeros((1, 8), dtype=torch.long,
+                                                                                          device=DEVICE)))):
+        try:
+            call()
+            raised[name] = None
+        except RuntimeError as e:
+            raised[name] = str(e).split(":")[0]
+    log(f"  [train guard] a CUDA forward with grad-requiring inputs outside impl_mode('ref') raises: {raised}")
+    if not all(raised.values()):
+        raise SystemExit(f"chip_smoke: [train guard] a forward-only kernel took a grad-requiring input: {raised}")
+    with torch.no_grad():
+        bcq_mm(x, packed, scales, g=G)  # no_grad: the same inputs launch
+    return dict(loss=got["card"][0]["loss"].item(), loss_abs_diff=loss_d, worst_rel=errs[worst], worst_leaf=worst,
+                guard=raised)
+
+
+def train_checkpoints():
+    """The reduced config through the CLI with ``--ckpt-dir`` on the card: a
+    SIGTERM after step ``CKPT_PREEMPT_AT`` stops the run with a final
+    checkpoint at that step, which restores bit for bit onto the card; a
+    rerun resumes from it and continues the step count to ``CKPT_STEPS`` →
+    summary."""
+    import os
+    import signal
+
+    from repro_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        argv = ["--steps", str(CKPT_STEPS), "--ckpt-dir", d, "--log-every", "1", "--device", "cuda"]
+        lines = []
+
+        def preempt(msg):
+            lines.append(msg)
+            if msg.startswith(f"step {CKPT_PREEMPT_AT:5d}"):
+                os.kill(os.getpid(), signal.SIGTERM)  # the guard's handler sets its stop flag
+
+        _, params, opt, _ = train_cli(argv, preempt)
+        stopped = ckpt.latest_step(d)
+        restored = ckpt.restore(d, stopped, {"params": params, "opt": opt})
+        pairs = list(zip(ckpt.leaf_paths({"params": params, "opt": opt}), ckpt.leaf_paths(restored)))
+        same = all(torch.equal(a, b) and a.dtype == b.dtype and b.device == a.device for (_, a), (_, b) in pairs)
+        resumed = []
+        train_cli(argv, resumed.append)
+        final = ckpt.latest_step(d)
+        steps = sorted(ckpt.all_steps(d))
+    ran = [int(line.split()[1]) for line in resumed if line.startswith("step")]
+    ok = (stopped == CKPT_PREEMPT_AT + 1 and same and resumed[0] == f"[restore] resumed from step {stopped}"
+          and ran == list(range(stopped, CKPT_STEPS)) and final == CKPT_STEPS)
+    log(f"  [train checkpoint] reduced {TRAIN} on the card, {CKPT_STEPS} steps: SIGTERM after step {CKPT_PREEMPT_AT} "
+        f"-> '{[x for x in lines if x.startswith('[preempt]')]}', final checkpoint at step {stopped}; restored onto "
+        f"the card {len(pairs)} leaves, bit for bit {same}; the rerun: '{resumed[0]}', steps {ran}, latest "
+        f"checkpoint {final} (kept {steps}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: [train checkpoint] preemption, restore or resume failed")
+    return dict(stopped_at=stopped, restored_bitwise=same, resumed_steps=ran, final=final)
+
+
+def phase_train(gen, records):
+    """Phase 17 (module docstring) → (summary, K1/K2 and K8 launches of the
+    trained model's main path)."""
+    walls, summary = {}, {}
+    t = time.perf_counter()
+    cfg, params, summary["train"] = train_full_width()
+    walls["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    counts, summary["serve"] = train_serve(cfg, params, records, gen)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls["quantize_serve"] = time.perf_counter() - t
+    t = time.perf_counter()
+    summary["grads"] = train_grads_and_guard()
+    walls["grads_guard"] = time.perf_counter() - t
+    t = time.perf_counter()
+    summary["checkpoint"] = train_checkpoints()
+    walls["checkpoint"] = time.perf_counter() - t
+    summary["walls"] = walls
+    log(f"  [train] wall by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return summary, counts
+
+
 def k12_line(k12, counts, cfg):
     """K12's entry of the kernels line: its launches on phase 14's main path;
     time, plain time, bound (over the live experts; over all of them beside
@@ -5286,9 +5575,11 @@ def kernels_line(records, counts, n_layers, flash_records, spec_launches, flash_
 
 
 def phase_wall(walls):
-    """Log the wall seconds since the previous phase began."""
+    """Log the wall seconds since the previous phase began (and keep them,
+    in the order the phases ran, for the summary line)."""
     now = time.perf_counter()
     log(f"  (phase wall {now - walls['t']:.1f}s)")
+    walls.setdefault("each", []).append(round(now - walls["t"], 1))
     walls["t"] = now
 
 
@@ -5316,7 +5607,7 @@ def _main(tp_dir) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     walls = {"t": time.perf_counter()}
-    log("[1/16] card")
+    log("[1/17] card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -5325,19 +5616,19 @@ def _main(tp_dir) -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(0)}")
 
     phase_wall(walls)
-    log("[2/16] build, every source at once; meanwhile phase 5's model quantized in every format")
+    log("[2/17] build, every source at once; meanwhile phase 5's model quantized in every format")
     builds = Builds()
     prepared = prepare_main_path()
 
     phase_wall(walls)
-    log("[4/16] flash_attention against its plain version (before phase 3: its source builds fast)")
+    log("[4/17] flash_attention against its plain version (before phase 3: its source builds fast)")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     builds.wait("flash_attn")
     flash_records, flash_offsets = phase_flash(gen)
 
     phase_wall(walls)
-    log("[3/16] kernels against their plain versions, each as its source is built")
+    log("[3/17] kernels against their plain versions, each as its source is built")
     records = phase_kernels(gen, builds)
     builds.wait()
     paths = _build.build()  # all built: the paths only
@@ -5363,7 +5654,7 @@ def _main(tp_dir) -> int:
     prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[5/16] main path, one run per format")
+    log("[5/17] main path, one run per format")
     inspect_captures()
     counts, cfg, summaries, engines, prompts = phase_main_path(prepared)
     del prepared
@@ -5375,12 +5666,12 @@ def _main(tp_dir) -> int:
         f"{time.perf_counter() - t0:.1f}s")
 
     phase_wall(walls)
-    log("[6/16] continuous serving and one long request")
+    log("[6/17] continuous serving and one long request")
     counts["flash_attention"], summaries["continuous"], serving = phase_serving(bcq_engine)
     summaries["long"], long_logits, long_tokens = phase_long(bcq_engine)
 
     phase_wall(walls)
-    log(f"[7/16] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
+    log(f"[7/17] self-speculative decoding (the first {SPEC_LAYERS} of {cfg.n_layers} layers)")
     spec_bcq = depth_view(bcq_engine, SPEC_LAYERS)
     summaries["speculative"], spec_launches = phase_speculative(spec_bcq, depth_view(ternary_engine, SPEC_LAYERS),
                                                                 prompts, spec_serving_view(spec_bcq, serving),
@@ -5391,7 +5682,7 @@ def _main(tp_dir) -> int:
     del ternary_engine, serving
 
     phase_wall(walls)
-    log("[8/16] prefix cache and chunked prefill")
+    log("[8/17] prefix cache and chunked prefill")
     summaries["prefix"] = phase_prefix(bcq_engine, (summaries["long"], long_logits, long_tokens),
                                        records + draft_records, gen)
     offset_launches = (sum(summaries["prefix"][run]["offset_launches"] for run in ("cold wave", "warm wave"))
@@ -5399,23 +5690,23 @@ def _main(tp_dir) -> int:
     del bcq_engine
 
     phase_wall(walls)
-    log("[9/16] kernels (the JSON line is printed last but one)")
+    log("[9/17] kernels (the JSON line is printed last but one)")
     line = kernels_line(records, counts, cfg.n_layers, flash_records, spec_launches, flash_offsets,
                         offset_launches)
 
     phase_wall(walls)
-    log("[10/16] captured decode and the int8 cache")
+    log("[10/17] captured decode and the int8 cache")
     summaries["graphs"] = phase_graphs(engines, prompts)
 
     phase_wall(walls)
-    log("[11/16] serving session and observability")
+    log("[11/17] serving session and observability")
     summaries["session"] = phase_session(engines["bcq"], solos)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[12/16] the hybrid family: recurrentgemma-9b at full width and depth")
+    log("[12/17] the hybrid family: recurrentgemma-9b at full width and depth")
     summaries["hybrid"], k9_records, hybrid_counts = phase_hybrid(gen, records + draft_records)
     from repro_torch.configs import get_config
 
@@ -5424,7 +5715,7 @@ def _main(tp_dir) -> int:
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[13/16] the ssm family: xlstm-125m at full width and depth")
+    log("[13/17] the ssm family: xlstm-125m at full width and depth")
     summaries["xlstm"], k10_records, k11_records, xlstm_counts = phase_xlstm(gen, records + draft_records)
     n_cells = get_config(XLSTM).block_counts()
     line["kernels"].append(scan_line(K10, k10_records, xlstm_counts, n_cells["mlstm"]))
@@ -5433,26 +5724,39 @@ def _main(tp_dir) -> int:
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log("[14/16] the MoE family: olmoe-1b-7b at full width and depth, llama4-maverick reduced")
+    log("[14/17] the MoE family: olmoe-1b-7b at full width and depth, llama4-maverick reduced")
     summaries["moe"], k12_records, moe_counts = phase_moe(gen, records + draft_records)
     line["kernels"].append(k12_line(k12_records, moe_counts, get_config(MOE)))
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log(f"[15/16] the vlm and audio families: {MUSIC} at full width and depth, {VISION} at full width and "
+    log(f"[15/17] the vlm and audio families: {MUSIC} at full width and depth, {VISION} at full width and "
         f"{VISION_LAYERS} layers")
     summaries["families"] = phase_families(gen, records + draft_records)
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_wall(walls)
-    log(f"[16/16] tensor-parallel serving: llama3.2-3b over {TP_RANKS} ranks on one card")
+    log(f"[16/17] tensor-parallel serving: llama3.2-3b over {TP_RANKS} ranks on one card")
     summaries["tp"], tp_launches = phase_tp(tp_params, prompts)
     for entry in line["kernels"]:
         if entry["name"] in ("bcq_mm", "bcq_mm_fused", "flash_attention"):
             entry["tp_launches"] = tp_launches[entry["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase_wall(walls)
+    log(f"[17/17] training: {TRAIN} at full width trained {TRAIN_STEPS} steps, checkpointed and resumed, quantized "
+        "and served")
+    summaries["train"], train_launches = phase_train(gen, records + draft_records)
+    for entry in line["kernels"]:
+        if entry["name"] in ("bcq_mm", "bcq_mm_fused", "flash_attention"):
+            entry["train_launches"] = train_launches[entry["name"]]
+    phase_wall(walls)
+    log(card)
+    log(f"phase walls, s, in the order run (1, 2, 4, 3, 5, ..., 17): {walls['each']}; phases "
+        f"{sum(walls['each']):.1f}s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -5463,7 +5767,7 @@ def _main(tp_dir) -> int:
          "flash_offsets": flash_offsets, "k9_records": k9_records, "k10_records": k10_records,
          "k11_records": k11_records, "k12_records": k12_records,
          "draft_records": draft_records, "draft_steps": draft_steps,
-         "paths": summaries, **line},
+         "paths": summaries, "phase_walls_s": walls["each"], **line},
         indent=1))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

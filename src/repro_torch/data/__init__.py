@@ -1,5 +1,5 @@
-"""Synthetic data."""
+"""Synthetic data: the Markov corpus and its host-sharded training loader."""
 
-from repro_torch.data.synthetic import MarkovCorpus
+from repro_torch.data.synthetic import MarkovCorpus, batch_iterator
 
-__all__ = ["MarkovCorpus"]
+__all__ = ["MarkovCorpus", "batch_iterator"]

@@ -119,6 +119,24 @@ def _workspace(device: torch.device, n_scratch: int, n_tickets: int) -> Tuple[to
     return (_ACTIVE[-1] if _ACTIVE else _WORKSPACE).get(device, n_scratch, n_tickets)
 
 
+def forward_only(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Refuse a launch whose output autograd would need a backward of: grad
+    mode on and an input that requires grad. No hand-written kernel has a
+    backward (nor has any kernel of the reference), so its output would
+    carry no gradient back to the inputs, and everything upstream (the
+    projections, the gates, the embeddings) would silently get none. The
+    reference trains through its plain attention and scans; so does the
+    port's train step (``train/step.py``, under ``impl_mode("ref")``). A
+    check on the host before the launch: a replayed CUDA graph never runs
+    it, and it never hands the inputs to the plain version instead."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the hand-written kernel is forward-only, and an input requires grad; its output would "
+            "carry no gradient. The reference trains through the plain route: run the forward under "
+            "repro_torch.kernels.ops.impl_mode('ref') (as train/step.py does) or under torch.no_grad()"
+        )
+
+
 def _check_dtype(name: str, t: torch.Tensor) -> None:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")

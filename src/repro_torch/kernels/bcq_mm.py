@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import grouptable
-from repro_torch.kernels._common import validate
+from repro_torch.kernels._common import forward_only, validate
 
 
 def bcq_weight_plain(packed: torch.Tensor, scales: torch.Tensor, g: int) -> torch.Tensor:
@@ -51,6 +51,7 @@ def bcq_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: in
     validate(x, packed, scales, g)
     if not x.is_cuda:
         return bcq_mm_plain(x, packed, scales, g=g)
+    forward_only("bcq_mm", x, scales)
     out, n = grouptable.launch("bcq", x, packed, scales, g)
     bcq_mm.launches += n
     return out

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.formats import split_outputs
 from repro_torch.kernels import grouptable
-from repro_torch.kernels._common import validate
+from repro_torch.kernels._common import forward_only, validate
 from repro_torch.kernels.bcq_mm import bcq_mm_plain
 
 
@@ -39,6 +39,7 @@ def bcq_mm_fused(
     validate(x, packed, scales, g)
     if not x.is_cuda:
         return split_outputs(bcq_mm_plain(x, packed, scales, g=g), out_dims)
+    forward_only("bcq_mm_fused", x, scales)
     y, n = grouptable.launch("bcq", x, packed, scales, g)
     bcq_mm_fused.launches += n
     return split_outputs(y, out_dims)

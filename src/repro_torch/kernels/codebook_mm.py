@@ -38,6 +38,7 @@ from repro_torch.kernels._common import (  # noqa: F401  (MIN_BLOCKS, wave_fill:
     WARPS,
     _align16,
     _workspace,
+    forward_only,
     row_tile,
     split_chunk,
     validate,
@@ -163,6 +164,7 @@ def codebook_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, 
     validate(x, packed, scales, g, scale_planes=n_cent)
     if not x.is_cuda:
         return codebook_mm_plain(x, packed, scales, g=g)
+    forward_only("codebook_mm", x, scales)
     x, packed, scales = x.contiguous(), packed.contiguous(), scales.contiguous()
     B, k = x.shape
     q, _, o = packed.shape

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core.formats import uniform_dequantize
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES, validate, validate_planes
+from repro_torch.kernels._common import DTYPE_CODES, forward_only, validate, validate_planes
 from repro_torch.utils import PROMPT_TILE, matmul_row_tiles, matmul_rows
 
 
@@ -67,6 +67,7 @@ def dequant_materialize(
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if not packed.is_cuda:
         return dequant_materialize_plain(packed, scales, g=g, out_dtype=out_dtype)
+    forward_only("dequant_materialize", scales)
     packed, scales = packed.contiguous(), scales.contiguous()
     q, kc, o = packed.shape
     out = torch.empty((kc * 8, o), dtype=out_dtype, device=packed.device)

@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import grouptable
-from repro_torch.kernels._common import validate
+from repro_torch.kernels._common import forward_only, validate
 from repro_torch.kernels.bcq_mm import bcq_mm_plain
 from repro_torch.kernels.ternary_mm import PLANES as TERNARY_PLANES
 from repro_torch.kernels.ternary_mm import ternary_mm_plain
@@ -102,6 +102,7 @@ def expert_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g:
     _check_rows(rows, x)
     if not x.is_cuda:
         return expert_mm_plain(x, packed, scales, g=g, kind=kind, rows=rows)
+    forward_only("expert_mm", x, scales)
     (out,), n = grouptable.launch_grouped(kind, x, [(packed, scales)], g, rows)
     expert_mm.launches += n
     return out
@@ -123,6 +124,7 @@ def expert_mm_pair(x: torch.Tensor, bank_a: Tuple[torch.Tensor, torch.Tensor],
     _check_rows(rows, x)
     if not x.is_cuda:
         return tuple(expert_mm_plain(x, p, s, g=g, kind=kind, rows=rows) for p, s in (bank_a, bank_b))
+    forward_only("expert_mm_pair", x, bank_a[1], bank_b[1])
     outs, n = grouptable.launch_grouped(kind, x, [bank_a, bank_b], g, rows)
     expert_mm.launches += n
     return outs

@@ -47,7 +47,7 @@ import numbers
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES
+from repro_torch.kernels._common import DTYPE_CODES, forward_only
 from repro_torch.kernels.ref import causal_mask, sdpa
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -169,6 +169,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_start: 
     validate(q, k, v, q_start)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, q_start)
+    forward_only("flash_attention", q, k, v)
     q, k, v = _kernel_input(q), _kernel_input(k), _kernel_input(v)
     b, sq, h, dh = q.shape
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)

@@ -38,6 +38,7 @@ from repro_torch.kernels._common import (
     MIN_BLOCKS,
     _align16,
     _workspace,
+    forward_only,
     row_tile,
     validate,
     wave_fill,
@@ -219,6 +220,7 @@ def lutgemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: i
     validate(x, packed, scales, g)
     if not x.is_cuda:
         return lutgemm_plain(x, packed, scales, g=g)
+    forward_only("lutgemm", x, scales)
     x, packed, scales = x.contiguous(), packed.contiguous(), scales.contiguous()
     B, k = x.shape
     q, _, o = packed.shape

@@ -38,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._common import forward_only
 from repro_torch.utils import row_sum
 
 MAX_DH = 512  # csrc/mlstm_scan.cu::MAX_DH
@@ -134,7 +135,9 @@ def mlstm_scan_plain(q, k, v, i_gate, logf, c, n, m, scale: float, steps: Option
     S = q.shape[1]
     keep = set(check_steps(steps, S))
     hs, kept = [], []
-    cc, nn, mm = c, n, m
+    # from copies: c, n, m take the last step's values in place below, and a
+    # backward reads the first step's inputs (see slstm_scan_plain)
+    cc, nn, mm = c.clone(), n.clone(), m.clone()
     for t in range(S):
         q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]  # (B, NH, Dh)
         lm = logf[:, t] + mm
@@ -207,6 +210,7 @@ def mlstm_scan(q, k, v, i_gate, logf, c, n, m, scale: float, steps: Optional[Seq
     _check(q, k, v, i_gate, logf, c, n, m)
     if not q.is_cuda:
         return mlstm_scan_plain(q, k, v, i_gate, logf, c, n, m, scale, steps)
+    forward_only("mlstm_scan", q, k, v, i_gate, logf, c, n, m)
     B, S, NH, Dh = q.shape
     sel = check_steps(steps, S)
     update = steps is None

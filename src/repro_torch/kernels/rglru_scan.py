@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._common import forward_only
 
 SHORT_THREADS = 256  # threads a short-kernel block, one a channel (csrc: kShortThreads)
 SLICE = 32  # channels a ring block: one warp's lanes (csrc: kSlice)
@@ -135,6 +136,7 @@ def rglru_scan(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor) -> Tuple[torc
             raise ValueError(f"rglru_scan: {name} is on {t.device}, a on {a.device}")
     if not a.is_cuda:
         return rglru_scan_plain(a, g, h0)
+    forward_only("rglru_scan", a, g, h0)
     a, g, h0 = a.contiguous(), g.contiguous(), h0.contiguous()
     B, S, W = a.shape
     hs = torch.empty_like(a)

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES
+from repro_torch.kernels._common import DTYPE_CODES, forward_only
 from repro_torch.kernels.mlstm_scan import check_steps
 from repro_torch.utils import row_sum
 
@@ -116,7 +116,10 @@ def slstm_scan_plain(pre, r, state, steps: Optional[Sequence[int]] = None):
     S = pre[0].shape[1]
     keep = set(check_steps(steps, S))
     rf = [w.to(torch.float32) for w in r]
-    h, c, n, m = state
+    # from copies: the state's own tensors take the last step's values in place
+    # below, and a backward reads the first step's inputs (under a
+    # non-reentrant checkpoint's recompute, without autograd's version check)
+    h, c, n, m = (t.clone() for t in state)
     hs, kept = [], []
     for t in range(S):
         rec = [row_sum((h[..., :, None] * w).transpose(-1, -2))[..., 0] for w in rf]  # Σ_d h[d] R[d, e]
@@ -198,6 +201,7 @@ def slstm_scan(pre, r, state, steps: Optional[Sequence[int]] = None):
     _check(pre, r, state)
     if not pre[0].is_cuda:
         return slstm_scan_plain(pre, r, state, steps)
+    forward_only("slstm_scan", *pre, *r, *state)
     B, S, NH, Dh = pre[0].shape
     sel = check_steps(steps, S)
     update = steps is None

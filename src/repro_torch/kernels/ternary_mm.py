@@ -38,7 +38,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.formats import ternary_dequantize
 from repro_torch.kernels import _build, grouptable
-from repro_torch.kernels._common import MIN_BLOCKS, WARPS, _align16, _workspace, split_chunk, validate
+from repro_torch.kernels._common import MIN_BLOCKS, WARPS, _align16, _workspace, forward_only, split_chunk, validate
 
 PLANES = 2  # sign + mask
 MU = packing.MU
@@ -192,6 +192,7 @@ def ternary_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g
     validate(x, packed, scales, g, scale_planes=1)
     if not x.is_cuda:
         return ternary_mm_plain(x, packed, scales, g=g)
+    forward_only("ternary_mm", x, scales)
     if x.dtype == torch.bfloat16 and scales.dtype == torch.bfloat16:
         out, n = _launch_tc(x, packed, scales, g)
         ternary_mm.tc_launches += n

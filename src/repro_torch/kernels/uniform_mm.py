@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.formats import uniform_dequantize
 from repro_torch.kernels import grouptable
-from repro_torch.kernels._common import validate
+from repro_torch.kernels._common import forward_only, validate
 
 
 def uniform_mm_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g: int) -> torch.Tensor:
@@ -38,6 +38,7 @@ def uniform_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *, g
     validate(x, packed, scales, g, scale_planes=2)
     if not x.is_cuda:
         return uniform_mm_plain(x, packed, scales, g=g)
+    forward_only("uniform_mm", x, scales)
     out, n = grouptable.launch("uniform", x, packed, scales, g)
     uniform_mm.launches += n
     return out

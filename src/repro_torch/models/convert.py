@@ -6,6 +6,12 @@ reference's keys and layer-stacked layout (nested dicts and tuples, as its
 A quantized leaf arrives as a plain dict ``{"packed", "scales", "g", "k",
 "o", "fmt"}`` and becomes a :class:`QuantizedTensor`.
 
+:func:`opt_state_from_numpy` carries an optimizer state across the same way:
+the reference's ``AdamWState`` with numpy leaves (or any object, or dict,
+with its ``step``, ``m`` and ``v``) becomes the port's
+:class:`~repro_torch.train.optimizer.AdamWState`, its moments in the
+parameters' tree.
+
 bfloat16 arrays (numpy's ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses) are carried as their uint16 bit patterns and viewed as
 ``torch.bfloat16``, so the values cross bit for bit.
@@ -51,3 +57,15 @@ def params_from_numpy(tree, *, device="cuda"):
         return tensor_from_numpy(node, dev)
 
     return convert(tree)
+
+
+def opt_state_from_numpy(state, *, device="cuda"):
+    """The reference's AdamW state with numpy leaves (``step``, and ``m`` /
+    ``v`` trees in the parameters' layout) → the port's ``AdamWState`` on
+    ``device``."""
+    from repro_torch.train.optimizer import AdamWState
+
+    get = state.__getitem__ if isinstance(state, dict) else lambda name: getattr(state, name)
+    dev = resolve_device(device)
+    return AdamWState(step=tensor_from_numpy(get("step"), dev).to(torch.int32),
+                      m=params_from_numpy(get("m"), device=dev), v=params_from_numpy(get("v"), device=dev))

@@ -7,10 +7,13 @@ Parameters keep the reference's tree: ``{"stages": ({"b0": block}, ...),
 stage's layers on a leading axis; a model whose ``input_kind`` is
 ``"embeddings"`` (the audio family's) has no ``embed``: :func:`forward`
 takes its ``(B, S, d_model)`` frame embeddings. The reference's ``lax.scan`` over layers
-becomes a Python loop that takes layer ``l``'s views of the stacked leaves.
+becomes a Python loop that takes layer ``l``'s views of the stacked leaves
+(``unbind`` views where a leaf takes gradients: :func:`unbound_layers`).
 
 One :func:`forward` serves train, prefill and decode:
-  train    cache=None                      → logits (B, S, V)
+  train    cache=None                      → logits (B, S, V); with
+           ``with_aux=True`` also the MoE load-balance loss, ``remat=True``
+           a ``torch.utils.checkpoint`` a layer (``train/step.py``)
   prefill  cache=init_cache(...), pos=0    → logits (B, 1, V) with "last"
   chunk    cache rows [0, pos) filled, pos > 0, S > 1 → the next S prompt
            tokens (a chunked prefill, or the suffix after a cached prefix):
@@ -49,6 +52,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels.ops import linear
@@ -57,7 +61,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.ctx import all_gather_cols
-from repro_torch.utils import host_pos, prompt_rows, resolve_device, tree_map
+from repro_torch.utils import host_pos, prompt_rows, resolve_device, tree_leaves, tree_map, tree_map_with_path
 
 ATTN_BLOCKS = ("attn", "attn_moe", "local_attn", "cross")
 XLSTM_BLOCKS = ("mlstm", "slstm")
@@ -211,13 +215,21 @@ def apply_block(
     block returns its state stacks instead of the cache
     (``models/recurrent.py``). An xLSTM block has no MLP. An ``attn_moe``
     block's experts see all of the call's tokens at once (capacity couples
-    them); its load-balance loss is not threaded out yet. A ``cross``
-    block attends the image memory of :func:`image_memory`."""
+    them); :func:`forward` ``(with_aux=True)`` also collects its
+    load-balance loss. A ``cross`` block attends the image memory of
+    :func:`image_memory`."""
+    h, cache, _ = _block(p, cfg, btype, h, positions, cache, pos, image_emb, chunked=chunked, collect=collect)
+    return h, cache
+
+
+def _block(p, cfg, btype, h, positions, cache, pos, image_emb=None, *, chunked=False, collect=False, aux=False):
+    """:func:`apply_block`, returning also the block's MoE load-balance loss
+    (an ``attn_moe`` block's, when ``aux``; else None)."""
     _check_block(btype)
     if btype in RECURRENT_BLOCKS:
         r, cache = _CELLS[btype](p["mix"], cfg, L.rmsnorm(p["ln1"], h), cache, collect=collect, chunked=chunked)
         if btype in XLSTM_BLOCKS:
-            return h + r, cache
+            return h + r, cache, None
     elif btype == "cross":
         r, cache = L.attention(p["attn"], cfg, L.rmsnorm(p["ln1"], h), positions, cache=cache, chunked=chunked,
                                kv_override=image_memory(p["attn"], cfg, cache, pos, image_emb))
@@ -230,10 +242,26 @@ def apply_block(
     h = h + r
     x = L.rmsnorm(p["ln2"], h)
     if btype == "attn_moe":
-        return h + M.moe_apply(p["mlp"], cfg, x)[0], cache
+        y, loss = M.moe_apply(p["mlp"], cfg, x, aux=aux)
+        return h + y, cache, loss
     if chunked:
-        return h + L.mlp_swiglu(p["mlp"], L.token_rows_view(x)).reshape(h.shape), cache
-    return h + L.mlp_swiglu(p["mlp"], x), cache
+        return h + L.mlp_swiglu(p["mlp"], L.token_rows_view(x)).reshape(h.shape), cache, None
+    return h + L.mlp_swiglu(p["mlp"], x), cache, None
+
+
+def _takes_grad(tree) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(tree))
+
+
+def unbound_layers(tree, repeat: int) -> list:
+    """Each layer's views of a stacked block tree, by ``unbind``: the
+    backward of ``unbind`` stacks the layers' gradients into the leaf's once,
+    where one ``leaf[l]`` a layer would give the leaf ``repeat`` full-size
+    gradients to add (zeros but for one layer each)."""
+    parts = {}
+    tree_map_with_path(lambda path, leaf: parts.__setitem__(path, leaf.unbind(0)), tree)
+    return [tree_map_with_path(lambda path, _: parts[path][l], tree) for l in range(repeat)]
 
 
 def image_memory(p: dict, cfg: ModelConfig, cache: Optional[dict], pos, image_emb: Optional[torch.Tensor]):
@@ -273,7 +301,9 @@ def forward(
     chunked_decode: bool = False,
     prefill: bool = False,
     collect_states: bool = False,
-) -> Tuple[torch.Tensor, Optional[dict]]:
+    remat: bool = False,
+    with_aux: bool = False,
+):
     """Run the decoder on ``tokens (B, S)``, or on ``embeddings (B, S,
     d_model)`` for an embeddings-input model (cast to the compute dtype).
     Returns (logits f32, cache). ``image_emb (B, N, d_model)`` is a vlm
@@ -297,7 +327,19 @@ def forward(
     leaves keep their values, its positional ones are written. Step indices
     (ascending, distinct) in place of True keep only those steps' states:
     ``(repeat, S', B, ...)``, entry j the state after step
-    ``collect_states[j]``."""
+    ``collect_states[j]``.
+
+    Training options (off by default, so the return value above holds):
+    ``with_aux=True`` returns ``(logits, cache, aux)``, ``aux`` the f32 sum of
+    every MoE layer's load-balance loss (0 for a model without experts), in
+    the reference's order (its ``_apply_stage`` adds each block's in turn,
+    a stage at a time); ``remat=True`` runs each period of a stage's pattern
+    (one layer's blocks) under ``torch.utils.checkpoint`` (non-reentrant),
+    the counterpart of the reference's ``jax.checkpoint`` of its scan body:
+    a backward then holds one period's activations at a time and recomputes
+    them. It takes no cache."""
+    if remat and cache is not None:
+        raise ValueError("remat is a training option: it takes no cache")
     if chunked_decode and cache is None:
         raise ValueError("chunked_decode needs a filled cache")
     if collect_states is not False and collect_states is not None and cache is None:
@@ -305,12 +347,13 @@ def forward(
     if (tokens is None) == (embeddings is None):
         raise ValueError("forward takes exactly one of tokens and embeddings")
     with prompt_rows(prefill):
-        return _forward(cfg, params, tokens, embeddings, image_emb, positions, cache, pos, logits_mode,
-                        chunked_decode, collect_states)
+        logits, cache, aux = _forward(cfg, params, tokens, embeddings, image_emb, positions, cache, pos,
+                                      logits_mode, chunked_decode, collect_states, remat, with_aux)
+    return (logits, cache, aux) if with_aux else (logits, cache)
 
 
 def _forward(cfg, params, tokens, embeddings, image_emb, positions, cache, pos, logits_mode, chunked_decode,
-             collect=False):
+             collect=False, remat=False, with_aux=False):
     if tokens is not None:
         h = params["embed"][tokens].to(cfg.cdtype)
     else:
@@ -326,20 +369,35 @@ def _forward(cfg, params, tokens, embeddings, image_emb, positions, cache, pos, 
         positions = base + torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
 
     stacks = {}  # (stage, block key) → per layer, the collected state stacks
+    aux = torch.zeros((), dtype=torch.float32, device=h.device) if with_aux else None
     for si, (pattern, repeat) in enumerate(cfg.stages):
         stage_p = params["stages"][si]
         stage_c = None if cache is None else cache["stages"][si]
-        for l in range(repeat):
+        split = ({key: unbound_layers(blk, repeat) for key, blk in stage_p.items()} if _takes_grad(stage_p)
+                 else None)
+
+        def period(h, stage_aux, l, pattern=pattern, stage_p=stage_p, stage_c=stage_c, split=split, si=si):
             for bi, btype in enumerate(pattern):
                 key = f"b{bi}"
                 c_in = None if stage_c is None else layer_slice(stage_c[key], l)
                 coll = collect if btype in RECURRENT_BLOCKS else False
-                h, c_out = apply_block(
-                    layer_slice(stage_p[key], l), cfg, btype, h, positions, c_in, pos, image_emb,
-                    chunked=chunked_decode, collect=coll,
-                )
+                p_l = layer_slice(stage_p[key], l) if split is None else split[key][l]
+                h, c_out, loss = _block(p_l, cfg, btype, h, positions, c_in, pos, image_emb,
+                                        chunked=chunked_decode, collect=coll, aux=with_aux)
+                if loss is not None:
+                    stage_aux = stage_aux + loss
                 if coll is not False:
                     stacks.setdefault((si, key), []).append(c_out)
+            return h, stage_aux
+
+        stage_aux = torch.zeros_like(aux) if with_aux else None
+        for l in range(repeat):
+            if remat:
+                h, stage_aux = checkpoint(period, h, stage_aux, l, use_reentrant=False)
+            else:
+                h, stage_aux = period(h, stage_aux, l)
+        if with_aux:
+            aux = aux + stage_aux
     if stacks:
         cache = {"stages": tuple(
             {key: ({**blk, **{name: torch.stack([c[name] for c in stacks[(si, key)]])
@@ -356,6 +414,6 @@ def _forward(cfg, params, tokens, embeddings, image_emb, positions, cache, pos, 
     # logits so sampling sees every token; the identity otherwise
     if chunked_decode:
         logits = all_gather_cols(linear(L.token_rows_view(h), params["lm_head"], out_dtype=torch.float32))
-        return logits.reshape(*h.shape[:2], -1), cache
+        return logits.reshape(*h.shape[:2], -1), cache, aux
     logits = all_gather_cols(linear(h, params["lm_head"], out_dtype=torch.float32))
-    return logits, cache
+    return logits, cache, aux

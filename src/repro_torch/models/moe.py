@@ -34,9 +34,10 @@ Where the reference leaves an order to XLA, this port fixes it:
 
 The reference computes the load-balance loss always and leaves XLA to drop
 it where unused; here :func:`moe_apply` computes it only when asked
-(``aux=True``), so a captured decode step carries no dead work. The sharded
-expert-parallel path (``_moe_apply_sharded``) waits for tensor
-parallelism.
+(``aux=True``: a training forward, ``models.forward(with_aux=True)``), so a
+captured decode step carries no dead work. The reference's sharded
+expert-parallel path (``_moe_apply_sharded``) runs only under an ambient
+mesh, which its training entry point never sets: it has no counterpart yet.
 """
 
 from __future__ import annotations

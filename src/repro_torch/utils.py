@@ -169,6 +169,13 @@ def tree_map_with_path(
     return fn(path, tree)
 
 
+def tree_get(tree, path: Tuple):
+    """The subtree of ``tree`` at ``path`` (:func:`tree_map_with_path`'s)."""
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def tree_map(fn: Callable[[Any], Any], tree):
     return tree_map_with_path(lambda _, leaf: fn(leaf), tree)
 

@@ -2116,3 +2116,60 @@ def test_tp_two_ranks_on_one_card(cuda, tmp_path):
         for got, solo in zip(r["slots"], r["solos"]):
             np.testing.assert_array_equal(got, solo)
         np.testing.assert_array_equal(r["logits"], ranks[0]["logits"])
+
+
+# -- training: the forward-only guard and the card's gradients --------------------------
+
+
+def test_forward_only_kernels_refuse_grad_inputs(cuda):
+    """No hand-written kernel has a backward: under grad mode a
+    grad-requiring input raises (K8, K1, K9 and through the model) instead
+    of giving an output that carries no gradient; without grad the same
+    inputs launch; the train step's ``impl_mode("ref")`` route differentiates."""
+    from repro_torch.train import loss_and_grads
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    q = torch.randn((1, 16, 24, 128), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_(True)
+    kv = torch.randn((1, 16, 8, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    x = torch.randn((4, 512), generator=gen, device=cuda).requires_grad_(True)
+    packed = torch.randint(0, 256, (4, 64, 256), generator=gen, device=cuda, dtype=torch.uint8)
+    scales = torch.rand((4, 4, 256), generator=gen, device=cuda) / 64
+    a = torch.rand((2, 40, 64), generator=gen, device=cuda).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="flash_attention: the hand-written kernel is forward-only"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(RuntimeError, match="bcq_mm: the hand-written kernel is forward-only"):
+        bcq_mm(x, packed, scales, g=128)
+    with pytest.raises(RuntimeError, match="rglru_scan: the hand-written kernel is forward-only"):
+        rglru_scan(a, a.detach(), torch.zeros((2, 64), device=cuda))
+    with torch.no_grad():
+        flash_attention(q, kv, kv)
+        bcq_mm(x, packed, scales, g=128)
+    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_layers=2, vocab=512)
+    params = init_params(cfg, seed=0, device=cuda)
+    grad_params = {k: (v.detach().requires_grad_(True) if isinstance(v, torch.Tensor) else v)
+                   for k, v in params.items()}
+    toks = torch.zeros((1, 8), dtype=torch.long, device=cuda)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        forward(cfg, grad_params, tokens=toks)
+    metrics, grads = loss_and_grads(cfg, params, {"tokens": toks, "labels": toks})
+    assert torch.isfinite(metrics["loss"]) and grads["embed"].abs().sum() > 0
+
+
+def test_loss_and_grads_on_card_match_cpu(cuda):
+    """One ``loss_fn`` gradient of a reduced f32 llama3.2-3b on the card
+    against the CPU's, same init and batch: each leaf within 1e-4 of its
+    max|g| (chip_smoke.py phase 17's bound; f32 sums in other orders)."""
+    from repro_torch.data import MarkovCorpus, batch_iterator
+    from repro_torch.train import loss_and_grads
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = reduced(get_config("llama3.2-3b"), d_model=256, n_layers=2, vocab=512)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    batch = next(batch_iterator(MarkovCorpus(cfg.vocab, seed=0), batch=4, seq_len=64))
+    mc, gc = loss_and_grads(cfg, cpu, {k: torch.from_numpy(v) for k, v in batch.items()})
+    mg, gg = loss_and_grads(cfg, tree_map(lambda t: t.to(cuda), cpu),
+                            {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
