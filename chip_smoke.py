@@ -107,7 +107,9 @@ code is non-zero:
              a slab, ``grouptable.Plan.slab_rows``). Each path's logits are then held against
              the same engine under ``impl_mode("ref")``, and a reduced f32
              model per format against its oracle within the kernels'
-             tolerance;
+             tolerance. Meanwhile a process of its own runs the dry run
+             (``launch/dryrun.py``, on meta tensors) of the steps phases 10
+             and 17 hold it to (``DryRun``);
 6. serving   the continuous-batching path on the bcq model: 12 requests of
              16 new tokens, prompts of 16 to 512 tokens (so K8 sees ragged
              S), greedy and sampled, through 4 slots with chunk 8. Every
@@ -202,7 +204,10 @@ code is non-zero:
              speculative == plain and slot == solo (12 requests, greedy and
              sampled) bit for bit; a warm prefix-cache admission and the
              8192-token request in 8 chunks, each within 5% of its cold
-             whole-shot admission;
+             whole-shot admission. The dry run of each of the four decode
+             steps (bcq q = 4, 1 x 1 mesh): its argument bytes, the params
+             as quantized plus the cache, equal the engine's resident
+             tensors' bytes exactly (``[dryrun]`` lines);
 11. session  the async serving session (``launch/server.py::ServeSession``,
              driven in-process with asyncio: the card's machine has no
              aiohttp) on the bcq model at 28 layers, phase 6's 12 requests,
@@ -387,6 +392,12 @@ code is non-zero:
              route, ``impl_mode("ref")``, as the reference trains): each
              step's loss and wall, the peak memory and the straggler
              count; the loss finite and its last value below its first.
+             The dry run of the step (1 x 1 mesh, every layer traced): its
+             argument bytes (params, AdamW state, a batch) equal the card's
+             tensors exactly, and its predicted peak (arguments +
+             temporaries) is within 25% of the measured peak
+             (``max_memory_allocated`` above the memory allocated before
+             the run), both on one ``[dryrun]`` line with their ratio.
              The trained weights quantized to bcq (q = 4, g = 128, iters =
              4) and served: a batched ``generate`` (4 x 16 + 16) whose K1/K2
              and K8 launches the census counts (each above 0, as the
@@ -2856,16 +2867,135 @@ def graph_serving(bcq_engine):
     return dict(out, speedup=out["graph"]["tok_s"] / out["eager"]["tok_s"])
 
 
+# -- the dry run's predictions, checked in phases 10 and 17 ---------------------
+
+DRYRUN_PEAK_TOL = 0.25  # phase 17: the predicted peak within 25% of max_memory_allocated
+
+
+def dryrun_cells(out_path):
+    """The dry run (``launch/dryrun.py``: meta tensors, no card) of the
+    steps phases 10 and 17 run, on a 1 x 1 mesh → JSON at ``out_path``:
+    llama3.2-3b bcq q = 4 decode steps at B = 64 and 4 over
+    ``INT8_MAX_SEQ`` rows with the bf16 and the int8 cache, and phase 17's
+    train step (full width and depth, bf16, ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens, remat, accum 1, every layer traced). Run in a
+    process of its own, started in phase 5 (:class:`DryRun`)."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.parallel.sharding import MeshAxes
+
+    one = MeshAxes(("data",), "data", "model", (("data", 1), ("model", 1)))
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        cfg = dataclasses.replace(get_config("llama3.2-3b"), kv_cache_dtype=kv)
+        for B in INT8_BATCHES:
+            t = time.perf_counter()
+            r = run_cell(cfg, ShapeConfig(f"decode_{INT8_MAX_SEQ}", INT8_MAX_SEQ, B, "decode"), one, Q, verbose=False)
+            out[f"{kv}/B={B}"] = dict(parts=r["argument_parts"], temp=r["memory_analysis"]["temp_size"],
+                                      seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    r = run_cell(get_config(TRAIN), ShapeConfig("train_card", TRAIN_SEQ, TRAIN_BATCH, "train"), one, 0, verbose=False,
+                 accum=1)
+    out["train"] = dict(parts=r["argument_parts"], temp=r["memory_analysis"]["temp_size"],
+                        seconds=time.perf_counter() - t)
+    Path(out_path).write_text(json.dumps(out))
+
+
+class DryRun:
+    """:func:`dryrun_cells` in a child process, started at construction
+    (phase 5, once every source is built, so that its trace does not take
+    cores from ``nvcc``; it ends before phase 10); ``result()`` waits for it
+    and fails the smoke if it failed. ``waited_s`` sums the checks' seconds,
+    waiting included."""
+
+    def __init__(self, tmp_dir):
+        import os
+
+        self.path = Path(tmp_dir) / "dryrun.json"
+        self.log_path = Path(tmp_dir) / "dryrun.log"
+        self.t0 = time.perf_counter()
+        self.waited_s = 0.0
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.dryrun_cells({str(self.path)!r})")
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=out,
+                                         stderr=subprocess.STDOUT)
+        self._out = None
+
+    def result(self):
+        if self._out is None:
+            ended = self.proc.poll() is not None
+            self.proc.wait(timeout=600)
+            if self.proc.returncode != 0:
+                raise SystemExit(f"chip_smoke: [dryrun] the dry run failed (exit {self.proc.returncode}):\n"
+                                 f"{self.log_path.read_text()[-3000:]}")
+            self._out = json.loads(self.path.read_text())
+            log(f"  [dryrun] the dry run's process {'had ended by' if ended else 'was waited for at'} the first "
+                f"check, {time.perf_counter() - self.t0:.1f}s after it began; its cells: "
+                + ", ".join(f"{k} {v['seconds']:.1f}s" for k, v in self._out.items()))
+        return self._out
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def dryrun_decode_check(dry, kv, B, param_bytes, cache_bytes):
+    """Phase 10: the dry run's argument bytes of a decode step, params as
+    quantized and cache, against the engine's resident tensors (exact)."""
+    t = time.perf_counter()
+    cell = dry.result()[f"{kv}/B={B}"]
+    parts = cell["parts"]
+    want = param_bytes + cache_bytes
+    got = parts["params"] + parts["cache"]
+    log(f"  [dryrun] decode B = {B}, {kv} cache over {INT8_MAX_SEQ} rows, bcq q = {Q}, 1 x 1 mesh: arguments "
+        f"(params + cache) predicted {got} B (params {parts['params']}, cache {parts['cache']}; batch "
+        f"{parts['batch']}), resident {want} B (params {param_bytes}, cache {cache_bytes}): equal {got == want}")
+    dry.waited_s += time.perf_counter() - t
+    if got != want or parts["params"] != param_bytes:
+        raise SystemExit(f"chip_smoke: [dryrun] decode B = {B} {kv}: predicted {got} B, resident {want} B")
+
+
+def dryrun_train_check(dry, resident, peak):
+    """Phase 17: the dry run's argument bytes of the train step (params,
+    AdamW state, batch) against the card's tensors (exact), and its
+    predicted peak (arguments + temporaries) against ``peak``, the measured
+    ``max_memory_allocated`` above the memory allocated before the run
+    (within ``DRYRUN_PEAK_TOL``)."""
+    t = time.perf_counter()
+    cell = dry.result()["train"]
+    parts = cell["parts"]
+    args = sum(parts.values())
+    predicted = args + cell["temp"]
+    ratio = predicted / peak
+    equal = parts == resident
+    log(f"  [dryrun] train {TRAIN}, full width and depth, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat, accum 1, "
+        f"1 x 1 mesh: arguments predicted {args} B {parts}, resident {sum(resident.values())} B {resident}: equal "
+        f"{equal}; peak predicted {predicted / 1e9:.3f} GB (arguments {args / 1e9:.3f} + temporaries "
+        f"{cell['temp'] / 1e9:.3f}), measured {peak / 1e9:.3f} GB: ratio {ratio:.4f} (bound 1 +- {DRYRUN_PEAK_TOL})")
+    dry.waited_s += time.perf_counter() - t
+    if not equal or abs(ratio - 1) > DRYRUN_PEAK_TOL:
+        raise SystemExit(f"chip_smoke: [dryrun] train: arguments {parts} vs {resident}, peak ratio {ratio:.4f}")
+    return dict(arguments=parts, resident=resident, predicted_peak=predicted, measured_peak=peak, ratio=ratio)
+
+
 def rel_l2(a, b):
     return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
 
-def int8_steps(bcq_engine):
+def int8_steps(bcq_engine, dry):
     """The decode step's device time with the bf16 and the int8 cache at
     B = 64 and 4, ``max_seq`` 2048, as graph replays, median of 7; the
     caches' resident bytes and each capture's pool (the engine keeps one
-    width's cache and graphs: the B = 4 ones replace the B = 64 ones)."""
+    width's cache and graphs: the B = 4 ones replace the B = 64 ones); the
+    dry run's argument bytes of each step against the resident ones
+    (:func:`dryrun_decode_check`)."""
     from repro_torch.infer import Engine
+    from repro_torch.quant import quantized_bytes
     from repro_torch.utils import tree_leaves
 
     out = {}
@@ -2881,6 +3011,7 @@ def int8_steps(bcq_engine):
             ms = _median_event_ms(graph.graph.replay, 1, 7)
             cache_bytes = sum(leaf.nbytes for leaf in tree_leaves(graph.cache))
             out[(kv, B)] = dict(step_ms=ms, cache_bytes=cache_bytes, pool_bytes=POOL_BYTES[graph])
+            dryrun_decode_check(dry, kv, B, quantized_bytes(engine.params), cache_bytes)
         log(f"  [int8] {kv} cache, max_seq {INT8_MAX_SEQ}: " + "; ".join(
             f"B = {B}: step {out[(kv, B)]['step_ms']:.3f} ms, cache {out[(kv, B)]['cache_bytes'] / 1e9:.3f} GB, "
             f"pool {out[(kv, B)]['pool_bytes'] / 1e9:.3f} GB" for B in INT8_BATCHES)
@@ -2986,7 +3117,7 @@ def int8_admissions(eng8):
                 long_chunked_s=t_chunked)
 
 
-def phase_graphs(engines, prompts):
+def phase_graphs(engines, prompts, dry):
     """Phase 10 (module docstring) → summary."""
     from repro_torch.kernels import flash_attention
 
@@ -2995,7 +3126,7 @@ def phase_graphs(engines, prompts):
         out["paths"][fmt] = graph_path(engine, prompts, fmt)
     out["paths"]["bcq on lutgemm"] = graph_path(engines["bcq"], prompts, "bcq on lutgemm", "lutgemm")
     out["continuous"] = graph_serving(engines["bcq"])
-    out["int8_steps"] = int8_steps(engines["bcq"])
+    out["int8_steps"] = int8_steps(engines["bcq"], dry)
     out["int8"], eng8 = int8_exactness(engines["bcq"], prompts)
     copies = flash_attention.copies
     out["int8"].update(int8_admissions(eng8))
@@ -5252,10 +5383,12 @@ def train_cli(argv, log_fn):
             signal.signal(sig, handler)
 
 
-def train_full_width():
+def train_full_width(dry=None):
     """llama3.2-3b at full width and depth, bf16, ``TRAIN_STEPS`` steps of
-    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens through the CLI → (cfg, params,
-    summary)."""
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens through the CLI, held to the dry
+    run's arguments and peak (:func:`dryrun_train_check`) when given one
+    (``tools/train_logits_probe.py`` gives none) → (cfg, params, summary)."""
+    from repro_torch.data import MarkovCorpus, batch_iterator
     from repro_torch.quant import quantized_bytes
     from repro_torch.utils import tree_leaves
 
@@ -5310,6 +5443,13 @@ def train_full_width():
         f"gradients, moments and activations); stragglers {stragglers}")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"chip_smoke: [train] the loss did not fall, or is not finite: {losses}")
+    if dry is not None:  # the step's arguments as the card holds them: params, AdamW state, a batch of the CLI's
+        batch = next(batch_iterator(MarkovCorpus(cfg.vocab, seed=0), batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+        nbytes = lambda leaves: sum(t.numel() * t.element_size() for t in leaves)  # noqa: E731
+        resident = {"params": nbytes(tree_leaves(params)),
+                    "opt": nbytes([opt.step, *tree_leaves(opt.m), *tree_leaves(opt.v)]),
+                    "batch": nbytes([torch.from_numpy(v).to(DEVICE) for v in batch.values()])}
+        summary["dryrun"] = dryrun_train_check(dry, resident, peak)
     del opt
     return cfg, params, summary
 
@@ -5460,12 +5600,12 @@ def train_checkpoints():
     return dict(stopped_at=stopped, restored_bitwise=same, resumed_steps=ran, final=final)
 
 
-def phase_train(gen, records):
+def phase_train(gen, records, dry):
     """Phase 17 (module docstring) → (summary, K1/K2 and K8 launches of the
     trained model's main path)."""
     walls, summary = {}, {}
     t = time.perf_counter()
-    cfg, params, summary["train"] = train_full_width()
+    cfg, params, summary["train"] = train_full_width(dry)
     walls["train"] = time.perf_counter() - t
     t = time.perf_counter()
     counts, summary["serve"] = train_serve(cfg, params, records, gen)
@@ -5584,14 +5724,17 @@ def phase_wall(walls):
 
 
 def main() -> int:
-    tp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))  # phase 16's weights file
+    tp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))  # phase 16's weights file, the dry run's JSON
+    procs = []
     try:
-        return _main(tp_dir)
+        return _main(tp_dir, procs)
     finally:
+        for proc in procs:
+            proc.stop()
         shutil.rmtree(tp_dir, ignore_errors=True)
 
 
-def _main(tp_dir) -> int:
+def _main(tp_dir, procs) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU",
               file=sys.stderr)
@@ -5654,7 +5797,10 @@ def _main(tp_dir) -> int:
     prompt_tiles = prompt_tiles_check(gen)
 
     phase_wall(walls)
-    log("[5/17] main path, one run per format")
+    log("[5/17] main path, one run per format; meanwhile, in a process of its own, the dry run of phases 10 and "
+        "17's steps")
+    dry = DryRun(tp_dir)
+    procs.append(dry)
     inspect_captures()
     counts, cfg, summaries, engines, prompts = phase_main_path(prepared)
     del prepared
@@ -5696,7 +5842,7 @@ def _main(tp_dir) -> int:
 
     phase_wall(walls)
     log("[10/17] captured decode and the int8 cache")
-    summaries["graphs"] = phase_graphs(engines, prompts)
+    summaries["graphs"] = phase_graphs(engines, prompts, dry)
 
     phase_wall(walls)
     log("[11/17] serving session and observability")
@@ -5749,14 +5895,14 @@ def _main(tp_dir) -> int:
     phase_wall(walls)
     log(f"[17/17] training: {TRAIN} at full width trained {TRAIN_STEPS} steps, checkpointed and resumed, quantized "
         "and served")
-    summaries["train"], train_launches = phase_train(gen, records + draft_records)
+    summaries["train"], train_launches = phase_train(gen, records + draft_records, dry)
     for entry in line["kernels"]:
         if entry["name"] in ("bcq_mm", "bcq_mm_fused", "flash_attention"):
             entry["train_launches"] = train_launches[entry["name"]]
     phase_wall(walls)
     log(card)
     log(f"phase walls, s, in the order run (1, 2, 4, 3, 5, ..., 17): {walls['each']}; phases "
-        f"{sum(walls['each']):.1f}s")
+        f"{sum(walls['each']):.1f}s; the dry run's checks took {dry.waited_s:.2f}s of phases 10 and 17")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

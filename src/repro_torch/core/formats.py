@@ -116,6 +116,25 @@ class QuantFormat(abc.ABC):
     def scales_shape(self, q: int, groups: int, o: int) -> Tuple[int, ...]:
         """Shape of the per-(group, column) parameter planes."""
 
+    def struct(
+        self, lead: Tuple[int, ...], k: int, o: int, q: int, g: int, scale_dtype
+    ) -> QuantizedTensor:
+        """A container of meta tensors: the shapes and dtypes :meth:`quantize`
+        gives a ``(*lead, k, o)`` weight, with no data (the dry run's structs,
+        ``quant/quantize.py::quantized_structs``). A format whose storage
+        does not follow ``q`` (ternary's two planes) says so in
+        :meth:`planes`."""
+        return QuantizedTensor(
+            packed=torch.empty((*lead, self.planes(q), k // 8, o), dtype=torch.uint8, device="meta"),
+            scales=torch.empty(
+                (*lead, *self.scales_shape(q, k // g, o)), dtype=scale_dtype, device="meta"
+            ),
+            g=g,
+            k=k,
+            o=o,
+            fmt=self.name,
+        )
+
     def truncate(self, qt: QuantizedTensor, q_new: int) -> QuantizedTensor:
         raise ValueError(
             f"format {self.name!r} does not support nested truncation "

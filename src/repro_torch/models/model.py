@@ -94,10 +94,15 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, btype: str, repeat: int, 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (same shapes, dtypes and scales as the reference's ``init_params``; the
-    values differ, since the generators differ)."""
+    values differ, since the generators differ). On ``device="meta"`` the
+    leaves hold shapes and dtypes only, the dry run's structs
+    (``launch/dryrun.py``): no generator is drawn, since torch has none for
+    the meta device."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     stages = tuple(
         {f"b{bi}": init_block(gen, cfg, bt, repeat, dev) for bi, bt in enumerate(pattern)}
         for pattern, repeat in cfg.stages

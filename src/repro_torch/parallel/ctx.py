@@ -15,7 +15,10 @@ are GSPMD layout hints (``with_sharding_constraint`` on a traced value),
 and its ``compat.py`` shims JAX versions.
 
 Every collective issued is counted (:func:`collective_counts`): a forward
-of an L-layer model issues L + L all-reduces and one all-gather, 2L + 1.
+of an L-layer model issues L + L all-reduces and one all-gather, 2L + 1;
+:func:`collective_bytes` adds up each one's result buffer (an all-reduce's
+buffer, an all-gather's gathered tensor), the sizes the dry run's rules
+predict (``launch/dryrun.py::collectives_of``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.distributed as dist
 
 _REGIONS: List = []  # the meshes of the active TP regions, innermost last
 _COUNTS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+_BYTES: Dict[str, int] = dict(_COUNTS)
 
 
 def tp_mesh():
@@ -51,9 +55,15 @@ def collective_counts() -> Dict[str, int]:
     return dict(_COUNTS)
 
 
+def collective_bytes() -> Dict[str, int]:
+    """The result bytes of the collectives issued since the last reset, by kind."""
+    return dict(_BYTES)
+
+
 def reset_collective_counts() -> None:
     for key in _COUNTS:
         _COUNTS[key] = 0
+        _BYTES[key] = 0
 
 
 def psum_partial(x: torch.Tensor) -> torch.Tensor:
@@ -65,6 +75,7 @@ def psum_partial(x: torch.Tensor) -> torch.Tensor:
         return x
     x = x.contiguous()
     _COUNTS["all_reduce"] += 1
+    _BYTES["all_reduce"] += x.nbytes
     dist.all_reduce(x)
     return x
 
@@ -78,6 +89,7 @@ def all_gather_cols(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     _COUNTS["all_gather"] += 1
+    _BYTES["all_gather"] += x.nbytes * mesh.size
     dist.all_gather(parts, x)
     return torch.cat(parts, dim=-1)
 
@@ -87,5 +99,6 @@ def agree(mesh, value: float) -> float:
     as the serve loop's clock, that every rank must take alike)."""
     t = torch.tensor([value], dtype=torch.float64, device=mesh.device)
     _COUNTS["broadcast"] += 1
+    _BYTES["broadcast"] += t.nbytes
     dist.broadcast(t, src=0)
     return float(t.item())

@@ -4,7 +4,9 @@ from repro_torch.quant.quantize import (
     QuantPolicy,
     quantize_params,
     quantized_bytes,
+    quantized_structs,
     truncate_params,
 )
 
-__all__ = ["QuantPolicy", "quantize_params", "quantized_bytes", "truncate_params"]
+__all__ = ["QuantPolicy", "quantize_params", "quantized_bytes", "quantized_structs",
+           "truncate_params"]

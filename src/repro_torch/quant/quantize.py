@@ -128,6 +128,25 @@ def quantize_params(params, policy: QuantPolicy, *, device="cuda"):
     return tree_map_with_path(visit, params)
 
 
+def quantized_structs(param_structs, policy: QuantPolicy):
+    """:func:`quantize_params`' tree surgery on meta leaves (the dry run's
+    structs): every eligible leaf becomes its format's ``struct``, meta
+    planes of the shapes and dtypes quantizing it would give; no data, no
+    compute."""
+
+    def visit(path, leaf):
+        qgf = policy.resolve_fmt(path)
+        if not _eligible(leaf, qgf):
+            return leaf
+        *lead, k, o = leaf.shape
+        q, g, fmt = qgf
+        return get_format(fmt).struct(
+            tuple(lead), k, o, q, _effective_g(k, g), getattr(torch, policy.scale_dtype)
+        )
+
+    return tree_map_with_path(visit, param_structs)
+
+
 def truncate_params(params, q_draft: int):
     """Truncate every QuantizedTensor leaf to its nested ``q_draft``-bit view;
     every other leaf is returned as is (shared by reference)."""

@@ -65,6 +65,24 @@ def in_prompt_rows() -> bool:
     return _PROMPT_ROWS
 
 
+_ROW_TILES = False  # set by row_tiles()
+
+
+@contextlib.contextmanager
+def row_tiles():
+    """Within this scope :func:`matmul_rows` cuts every product into the
+    GPU's fixed row tiles whatever device its tensors lie on: the dry run
+    (``launch/dryrun.py``) traces the card's route on meta tensors, since
+    a CPU-only build cannot make CUDA tensors, not even fake ones.
+    Not thread-safe (one module-level setting, like :func:`prompt_rows`)."""
+    global _ROW_TILES
+    prev, _ROW_TILES = _ROW_TILES, True
+    try:
+        yield
+    finally:
+        _ROW_TILES = prev
+
+
 def stream_capturing() -> bool:
     """Whether the current CUDA stream is capturing a graph: never before
     CUDA is initialized (nor in a CPU-only build, whose ``torch.cuda``
@@ -115,14 +133,15 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for B rows than for one.
 
     - On the CPU each leading batch row is its own product.
-    - On the GPU a call whose rows are one token each (:func:`token_rows`)
-      runs in tiles of ``ROW_TILE`` rows (:func:`matmul_row_tiles`), any
-      other call, a prompt's, in tiles of ``PROMPT_TILE`` rows: a prompt
-      row then gets the same bits whether the prompt is prefilled whole or
-      in chunks, or after a cached prefix."""
+    - On the GPU (and on any device inside :func:`row_tiles`) a call
+      whose rows are one token each (:func:`token_rows`) runs in tiles of
+      ``ROW_TILE`` rows (:func:`matmul_row_tiles`), any other call, a
+      prompt's, in tiles of ``PROMPT_TILE`` rows: a prompt row then gets
+      the same bits whether the prompt is prefilled whole or in chunks, or
+      after a cached prefix."""
     if x.dim() < 2 or x.shape[0] == 0:
         return torch.matmul(x, w)
-    if not x.is_cuda:
+    if not (x.is_cuda or _ROW_TILES):
         if x.shape[0] == 1:
             return torch.matmul(x, w)
         return torch.cat([torch.matmul(r[None], w) for r in x])

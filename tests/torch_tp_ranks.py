@@ -193,3 +193,23 @@ def hanging_rank(rank, n):
 
     while rank == 0:
         time.sleep(1)
+
+
+def collective_sizes(rank, n, batch, seq):
+    """One prefill forward and one decode step of ``config()`` (random
+    weights from seed 0) in each of ``n`` TP ranks → the collectives each
+    issued, by kind: counts and result bytes (``parallel/ctx.py``)."""
+    from repro_torch.models import init_params
+    from repro_torch.parallel import collective_bytes
+
+    eng = Engine(config(), init_params(config(), seed=0, device="cpu"), max_seq=MAX_SEQ, device="cpu",
+                 mesh=make_tp_mesh(n))
+    out = {}
+    cache = eng._make_cache(batch)
+    reset_collective_counts()
+    _, cache = eng.prefill(torch.zeros((batch, seq), dtype=torch.long), cache)
+    out["prefill"] = (collective_counts(), collective_bytes())
+    reset_collective_counts()
+    eng.decode(torch.zeros((batch, 1), dtype=torch.long), cache, seq)
+    out["decode"] = (collective_counts(), collective_bytes())
+    return out
